@@ -1,0 +1,77 @@
+"""Parameters and rules across the package boundary, as numpy.
+
+The JAX package's classifier parameters are a nested dict whose leaves are
+arrays; the port keeps the same nesting, names and layouts with torch
+tensors.  The caller converts the JAX leaves to numpy first (for example
+``jax.tree_util.tree_map(np.asarray, params)``), so this module needs
+neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import symbolic
+from repro_torch.core.chimera_attention import ChimeraAttentionConfig
+from repro_torch.core.feature_maps import FeatureMapConfig
+from repro_torch.train.classifier import ClassifierConfig
+
+
+def arch_from_reference(ref) -> ArchConfig:
+    """The port's ArchConfig from the JAX package's (read by attribute, so
+    no import of the JAX package is needed)."""
+    ch, fm = ref.chimera, ref.chimera.feature_map
+    if not (ch.use_local and ch.use_stream) or ch.expand_kv:
+        raise NotImplementedError("the port runs Chimera with local + stream, no expand_kv")
+    return ArchConfig(
+        name=ref.name, family=ref.family, n_layers=ref.n_layers, d_model=ref.d_model,
+        n_heads=ref.n_heads, n_kv_heads=ref.n_kv_heads, d_ff=ref.d_ff,
+        vocab_size=ref.vocab_size, d_head=ref.d_head,
+        vocab_pad_multiple=ref.vocab_pad_multiple, qk_norm=ref.qk_norm,
+        qkv_bias=ref.qkv_bias, rope_theta=ref.rope_theta,
+        block_pattern=tuple(ref.block_pattern), use_chimera=ref.use_chimera,
+        chimera=ChimeraAttentionConfig(
+            feature_map=FeatureMapConfig(
+                kind=fm.kind, m=fm.m, input_scale=fm.input_scale, orthogonal=fm.orthogonal
+            ),
+            chunk_size=ch.chunk_size, n_global=ch.n_global, sig_bits=ch.sig_bits,
+            match_hamming=ch.match_hamming, gamma=ch.gamma,
+        ),
+        norm_type=ref.norm_type, dtype=ref.dtype,
+    )
+
+
+def classifier_config_from_reference(ref) -> ClassifierConfig:
+    return ClassifierConfig(
+        arch=arch_from_reference(ref.arch), n_classes=ref.n_classes,
+        marker_base=ref.marker_base, sig_words=ref.sig_words, lambda_h=ref.lambda_h,
+    )
+
+
+def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """Nested dict of numpy arrays (the JAX classifier pytree) -> the same
+    nesting of float32 tensors.  Every leaf is converted; a leaf that is not
+    an array raises, so nothing is silently dropped."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (np.ndarray, np.generic)):
+        a = np.asarray(tree)
+        if a.dtype.kind != "f":
+            raise TypeError(f"params_from_jax: parameter leaf of dtype {a.dtype}")
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+    raise TypeError(f"params_from_jax: unexpected leaf {type(tree).__name__}")
+
+
+def rules_from_numpy(values, masks, weights, hard, device="cpu") -> symbolic.RuleSet:
+    """A JAX ``RuleSet``'s arrays (uint32 words, float weights, bool hard
+    flags) -> the port's RuleSet with int32 bit-pattern words."""
+    return symbolic.RuleSet(
+        values=symbolic.uint32_to_int32(values),
+        masks=symbolic.uint32_to_int32(masks),
+        weights=torch.from_numpy(np.array(weights, np.float32)),
+        hard=torch.from_numpy(np.array(hard, bool)),
+    ).to(device)

@@ -1,0 +1,174 @@
+"""Chimera attention, bounded-state decode (port of
+``repro.core.chimera_attention`` lines 53-131 and 246-422).
+
+Per decode step and (flow, kv-head), three partials in the shared
+exp-kernel space are summed and normalized (Eqs. 6, 9-10, 14):
+
+* **local** — exact exp-kernel attention over the SRAM ring (length L);
+* **stream** — φ_qᵀS and φ_qᵀZ against the compressed history;
+* **global** — the static global set G, gated by the TCAM-style match.
+
+The ring write, the local and stream readouts, the merge and the
+fold-on-full run in one call of :func:`repro_torch.kernels.decode_step.ops
+.decode_step` (the Hopper kernel on a CUDA tensor), which also adds the
+global partials.  Unlike the JAX package, which leaves ``n_global > 0`` on
+its jnp branch, the paper's configuration goes through the kernel.
+
+The state is updated **in place**: S, Z and the ring tensors of the
+:class:`ChimeraState` passed in are overwritten, and its ``count`` is
+replaced by the new fill levels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.core import key_selection as ks
+from repro_torch.core.feature_maps import (
+    FeatureMapConfig,
+    _normalize,
+    apply_feature_map,
+    init_feature_map,
+)
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChimeraAttentionConfig:
+    feature_map: FeatureMapConfig = FeatureMapConfig(kind="exp_prf", m=64)
+    chunk_size: int = 128  # L: the SRAM window / Partition size
+    n_global: int = 32  # |G| static TCAM-indexed tokens (0 disables)
+    sig_bits: int = 32
+    match_hamming: int = 12
+    gamma: float = 1e-6
+
+
+def init_chimera_attention(
+    cfg: ChimeraAttentionConfig, n_kv_heads: int, d_head: int, d_v: int,
+    g: torch.Generator, device="cpu",
+) -> Params:
+    params: Params = {"fm": init_feature_map(cfg.feature_map, d_head, g, device)}
+    if cfg.n_global > 0:
+        params["sig_proj"] = ks.init_signature_projection(g, d_head, cfg.sig_bits, device)
+        params["k_global"] = (
+            torch.randn((n_kv_heads, cfg.n_global, d_head), generator=g) / math.sqrt(d_head)
+        ).to(device)
+        params["v_global"] = (
+            torch.randn((n_kv_heads, cfg.n_global, d_v), generator=g) / math.sqrt(d_v)
+        ).to(device)
+    return params
+
+
+def _global_partials(
+    cfg: ChimeraAttentionConfig,
+    params: Params,
+    qh: torch.Tensor,  # (B, Hkv, Gq, T, d) normalized queries
+    phi_q: torch.Tensor,  # (B, Hkv, Gq, T, m)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Static-global contribution with TCAM ternary gating (Eq. 14)."""
+    kg = _normalize(params["k_global"], cfg.feature_map.input_scale)  # (Hkv,G,d)
+    vg = params["v_global"]
+    phi_kg = apply_feature_map(cfg.feature_map, params["fm"], kg)
+    sig_q = ks.make_signature(qh, params["sig_proj"])  # (B,Hkv,Gq,T,W)
+    sig_k = ks.make_signature(kg, params["sig_proj"])  # (Hkv,G,W)
+    match = ks.ternary_match_mask(sig_q, sig_k[None, :, None], cfg.match_hamming)
+    scores = torch.einsum("bhgtm,hcm->bhgtc", phi_q, phi_kg) * match
+    num = torch.einsum("bhgtc,hcd->bhgtd", scores, vg)
+    den = torch.sum(scores, dim=-1)
+    return num, den
+
+
+@dataclasses.dataclass
+class ChimeraState:
+    """Per-request bounded decode state."""
+
+    S: torch.Tensor  # (B, Hkv, m, d_v)
+    Z: torch.Tensor  # (B, Hkv, m)
+    k_buf: torch.Tensor  # (B, Hkv, L, d) normalized keys in the SRAM ring
+    v_buf: torch.Tensor  # (B, Hkv, L, d_v)
+    count: torch.Tensor  # (B,) int32 — fill level of the ring buffer
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        return (self.S, self.Z, self.k_buf, self.v_buf, self.count)
+
+
+def init_decode_state(
+    cfg: ChimeraAttentionConfig, batch: int, n_kv_heads: int, d_head: int, d_v: int,
+    dtype=torch.float32, device="cpu", lead: Tuple[int, ...] = (),
+) -> ChimeraState:
+    """Zero state; ``lead`` prepends axes (the model's stacked layer axis)."""
+    m = cfg.feature_map.feature_dim(d_head)
+    L = cfg.chunk_size
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
+
+    return ChimeraState(
+        S=z(batch, n_kv_heads, m, d_v),
+        Z=z(batch, n_kv_heads, m),
+        k_buf=z(batch, n_kv_heads, L, d_head),
+        v_buf=z(batch, n_kv_heads, L, d_v),
+        count=z(batch, dt=torch.int32),
+    )
+
+
+def chimera_decode_step(
+    cfg: ChimeraAttentionConfig,
+    params: Params,
+    q_t: torch.Tensor,  # (B, H, d)
+    k_t: torch.Tensor,  # (B, Hkv, d)
+    v_t: torch.Tensor,  # (B, Hkv, d_v)
+    state: ChimeraState,
+) -> torch.Tensor:
+    """One decode step; returns out (B, H, d_v) and updates ``state`` in place."""
+    from repro_torch.kernels.decode_step.ops import decode_step
+
+    B, H, d = q_t.shape
+    n_kv = k_t.shape[1]
+    Gq = H // n_kv
+    d_v = v_t.shape[-1]
+    L = cfg.chunk_size
+    scale = cfg.feature_map.input_scale
+
+    qh = _normalize(q_t.reshape(B, n_kv, Gq, d), scale)
+    kh = _normalize(k_t, scale)
+    phi_q = apply_feature_map(cfg.feature_map, params["fm"], qh)  # (B,Hkv,Gq,m)
+    m = phi_q.shape[-1]
+    # φ of the ring with the arriving key at its slot (the fold reads it)
+    c = state.count
+    slot = (torch.arange(L, device=c.device)[None, :] == c[:, None])[:, None, :, None]
+    phi_buf = apply_feature_map(
+        cfg.feature_map, params["fm"], torch.where(slot, kh[:, :, None, :], state.k_buf)
+    )
+
+    gnum = gden = None
+    if cfg.n_global > 0:
+        gnum, gden = _global_partials(
+            cfg, params, qh[:, :, :, None, :], phi_q[:, :, :, None, :]
+        )
+        gnum = gnum[:, :, :, 0].reshape(B * n_kv, Gq, d_v).contiguous()
+        gden = gden[:, :, :, 0].reshape(B * n_kv, Gq).contiguous()
+
+    BH = B * n_kv
+    out, state.count = decode_step(
+        qh.reshape(BH, Gq, d),
+        kh.reshape(BH, d),
+        v_t.reshape(BH, d_v),
+        phi_q.reshape(BH, Gq, m),
+        phi_buf.reshape(BH, L, m),
+        state.k_buf.view(BH, L, d),
+        state.v_buf.view(BH, L, d_v),
+        state.S.view(BH, m, d_v),
+        state.Z.view(BH, m),
+        c,
+        chunk_size=L,
+        gamma=cfg.gamma,
+        gnum=gnum,
+        gden=gden,
+    )
+    return out.reshape(B, H, d_v)

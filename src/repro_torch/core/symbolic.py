@@ -1,0 +1,68 @@
+"""Symbolic execution path: ternary rules over packed signatures (paper §3.5).
+
+Port of ``repro.core.symbolic`` lines 32-80.  A hard TCAM hit is
+(sig & mask) == (value & mask) on every word.
+
+Packed signatures are **int32 bit patterns** here, where the JAX package
+uses uint32: torch on the CPU implements neither ``uint32 << k`` nor a
+uint32 sum.  The bits are the same; ``tensor.numpy().view(np.uint32)``
+gives the JAX words back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RuleSet:
+    """M ternary rules over W-word packed signatures."""
+
+    values: torch.Tensor  # (M, W) int32 bit patterns — target bits
+    masks: torch.Tensor  # (M, W) int32 bit patterns — 1 = care bit
+    weights: torch.Tensor  # (M,) float32 — soft-symbolic weights (HL-MRF W_q)
+    hard: torch.Tensor  # (M,) bool — hard-veto rules (TCAM tier)
+
+    def to(self, device) -> "RuleSet":
+        return RuleSet(*(t.to(device) for t in dataclasses.astuple(self)))
+
+
+def words_to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2³²) -> the same 32 bits as int32."""
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def uint32_to_int32(a) -> torch.Tensor:
+    """numpy uint32 words (as the JAX package keeps them) -> int32 tensor."""
+    return torch.from_numpy(np.array(a, np.uint32).view(np.int32))
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., n_bits in {0,1}) -> (..., ceil(n_bits/32)) packed int32 words."""
+    n = bits.shape[-1]
+    pad = (-n) % 32
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros(bits.shape[:-1] + (pad,))], dim=-1)
+    words = bits.reshape(bits.shape[:-1] + ((n + pad) // 32, 32)).long()
+    shifts = torch.arange(32, device=bits.device)
+    return words_to_int32(torch.sum(words << shifts, dim=-1))
+
+
+def ternary_match(sig: torch.Tensor, rules: RuleSet) -> torch.Tensor:
+    """TCAM lookup: (..., W) signature vs (M, W) rules -> (..., M) bool hits."""
+    masked_sig = sig[..., None, :] & rules.masks  # (..., M, W)
+    masked_val = rules.values & rules.masks
+    return torch.all(masked_sig == masked_val, dim=-1)
+
+
+def hard_hit(hits: torch.Tensor, rules: RuleSet) -> torch.Tensor:
+    """𝕀_sym: any hard rule fired.  (..., M) -> (...)."""
+    return torch.any(hits & rules.hard, dim=-1)
+
+
+def soft_score(hits: torch.Tensor, rules: RuleSet) -> torch.Tensor:
+    """s_sym = Σ_q W_q · hit_q — the compiled-table gather at line rate."""
+    return torch.sum(hits.to(torch.float32) * rules.weights, dim=-1)

@@ -1,0 +1,316 @@
+"""Flow-level traffic scenarios for the FlowEngine (numpy only).
+
+A copy of the parts of ``repro.data.pipeline`` that the serving path needs
+(``_rng``, ``_traffic_tables``, ``flow_shard``, ``arrival_rounds``,
+``SCENARIO_KINDS`` and ``FlowScenario``), so the port runs where JAX is not
+installed.  Same seeds, same draw order: both packages emit the same
+packets, which the port's tests check.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+
+
+def _rng(seed: int, *stream: int) -> np.random.Generator:
+    return np.random.default_rng(np.array([seed, *stream], dtype=np.uint64))
+
+
+def _traffic_tables(
+    seed: int, n_classes: int, vocab_size: int, hard_mode: bool
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Class-conditional token tables shared by PacketStream and FlowScenario:
+    (handshake (C,8), kernel (C,64,8), signature (C,4), anomaly_sig (4,)).
+    Draw order is load-bearing — it fixes the seeded streams."""
+    g = _rng(seed, 0xF10)
+    C = n_classes
+    handshake = g.integers(256, vocab_size, size=(C, 8))
+    kernel = g.integers(0, 256, size=(C, 64, 8))
+    signature = g.integers(256, vocab_size, size=(C, 4))
+    if hard_mode:
+        # shared handshake: the class is not readable from the prefix
+        handshake = np.broadcast_to(handshake[:1], (C, 8)).copy()
+    anomaly_sig = g.integers(256, vocab_size, size=(4,))
+    return handshake, kernel, signature, anomaly_sig
+
+
+def flow_shard(fids, num_shards: int) -> np.ndarray:
+    """Deterministic flow → shard owner: ``splitmix64(fid) % num_shards``.
+
+    A fixed 64-bit mix rather than Python ``hash`` so routing is stable
+    across processes, batch sizes and batch resizes — a flow's owner
+    depends only on its ID and the shard count, never on arrival order.
+    The JAX package's sharded engine routes with it, and
+    :class:`FlowScenario` sharded generation filters with it, so both
+    agree on ownership.  Returns an int64 array of shard
+    indices in ``[0, num_shards)``."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    z = np.atleast_1d(np.asarray(fids)).astype(np.uint64)
+    z = z + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    return (z % np.uint64(num_shards)).astype(np.int64)
+
+
+def arrival_rounds(keys) -> "list[list[int]]":
+    """Partition arrival-ordered items into rounds where every key appears at
+    most once, preserving per-key order (round r holds each key's r-th
+    occurrence).  Used by FlowScenario generation and the FlowEngine ingest
+    path so same-flow packets are always processed sequentially."""
+    rounds: list = []
+    seen: Dict = {}
+    for i, k in enumerate(keys):
+        r = seen.get(k, 0)
+        seen[k] = r + 1
+        if r == len(rounds):
+            rounds.append([])
+        rounds[r].append(i)
+    return rounds
+
+
+# --------------------------------------------------------------------------
+# Flow-level traffic scenarios (FlowEngine workload)
+# --------------------------------------------------------------------------
+
+# per-kind arrival shapes: steady protocol mixture, scan floods of one-packet
+# flows, periodic DDoS-style bursts of fresh flow IDs, short-lived churn, and
+# rule-violating flows carrying the anomaly signature
+SCENARIO_KINDS: Dict[str, Dict[str, float]] = {
+    "protocol-mix": dict(new_flows=16, mean_pkts=8, burst_every=0, burst_size=0,
+                         anomaly_rate=0.0),
+    "port-scan": dict(new_flows=128, mean_pkts=1, burst_every=0, burst_size=0,
+                      anomaly_rate=0.0),
+    "burst": dict(new_flows=8, mean_pkts=6, burst_every=4, burst_size=384,
+                  anomaly_rate=0.0),
+    "heavy-churn": dict(new_flows=64, mean_pkts=2, burst_every=0, burst_size=0,
+                        anomaly_rate=0.0),
+    "rule-violating": dict(new_flows=16, mean_pkts=8, burst_every=0,
+                           burst_size=0, anomaly_rate=0.5),
+    # campaign-library kinds: slowloris holds many
+    # long-lived connections open at a trickle (each flow's packets spread
+    # thin across the uniformly-sampled emission lanes); low-and-slow is a
+    # handful of very long flows — the exfiltration shape that hides a
+    # signature burst inside an otherwise unremarkable stream
+    "slowloris": dict(new_flows=48, mean_pkts=32, burst_every=0, burst_size=0,
+                      anomaly_rate=0.0),
+    "low-and-slow": dict(new_flows=4, mean_pkts=48, burst_every=0,
+                         burst_size=0, anomaly_rate=0.0),
+}
+_MIX_CYCLE = (
+    "protocol-mix", "port-scan", "burst", "heavy-churn", "rule-violating",
+)
+
+
+@dataclasses.dataclass
+class FlowScenario:
+    """Interleaved packet-arrival stream over a churning population of flows.
+
+    Unlike a whole-flow (B, T) batch generator, this
+    generator emits *packets*: each ``next_batch`` returns up to
+    ``packets_per_batch`` arrivals ``(flow_ids, tokens, labels, anomalous)``
+    drawn from the currently-active flow set, with new flows spawning and
+    finished flows retiring per the scenario ``kind`` (see
+    :data:`SCENARIO_KINDS`; ``"mix"`` cycles through all of them).  Flows
+    continue the same class-conditional token chains as PacketStream —
+    handshake prefix, per-class kernel, periodic signature markers — and
+    rule-violating flows inject the 4-token anomaly signature, so the same
+    :func:`repro_torch.train.classifier.default_rules` hard rules fire on them.
+    """
+
+    kind: str = "protocol-mix"
+    n_classes: int = 8
+    vocab_size: int = 512
+    pkt_len: int = 16
+    packets_per_batch: int = 256
+    seed: int = 0
+    hard_mode: bool = False
+    max_flow_pkts: int = 64  # hard cap on flow length (keeps state bounded)
+    # cap on concurrently-active flows: burst kinds spawn faster than the
+    # packets_per_batch-bounded emission path retires, so without a ceiling
+    # the host-side flow dict grows for the generator's lifetime
+    max_active: int = 8192
+    # shard-aware generation: every shard runs the FULL generator (same
+    # seed, same flow population, same chain states — the RNG draw order
+    # never depends on the shard) and emits only the packets whose
+    # flow_shard owner is shard_id.  The union of the num_shards streams is
+    # exactly the num_shards=1 stream, packet for packet, so sharded and
+    # single-device runs replay identical traffic.
+    shard_id: int = 0
+    num_shards: int = 1
+    # drift-phase knobs (all default to the stationary behaviour):
+    # fid_base offsets every spawned flow ID (DriftScenario gives each phase
+    # a disjoint ID space); label_probs replaces the uniform class draw;
+    # anomaly_rate overrides the kind's knob; sig_rotation > 0 swaps the
+    # anomaly signature for a freshly drawn one (the adversarial surge — the
+    # rules compiled against rotation 0 no longer match)
+    fid_base: int = 0
+    label_probs: Optional[Tuple[float, ...]] = None
+    anomaly_rate: Optional[float] = None
+    sig_rotation: int = 0
+    step: int = 0
+
+    def __post_init__(self):
+        if self.kind != "mix" and self.kind not in SCENARIO_KINDS:
+            raise ValueError(
+                f"unknown scenario kind {self.kind!r}; "
+                f"expected 'mix' or one of {sorted(SCENARIO_KINDS)}"
+            )
+        if not 0 <= self.shard_id < self.num_shards:
+            raise ValueError(
+                f"shard_id {self.shard_id} outside [0, {self.num_shards})"
+            )
+        if self.label_probs is not None:
+            p = np.asarray(self.label_probs, np.float64)
+            if p.shape != (self.n_classes,) or (p < 0).any() or not np.isclose(p.sum(), 1.0):
+                raise ValueError(
+                    f"label_probs must be {self.n_classes} non-negative "
+                    f"values summing to 1, got {self.label_probs}"
+                )
+            self._label_p = p / p.sum()
+        self._handshake, self._kernel, self._signature, self._anomaly_sig = (
+            _traffic_tables(self.seed, self.n_classes, self.vocab_size, self.hard_mode)
+        )
+        if self.sig_rotation:
+            # a fresh signature from its own stream: rotation never perturbs
+            # the base tables, so rotation-0 streams are byte-identical to
+            # the pre-rotation generator
+            g = _rng(self.seed, 0xA51, self.sig_rotation)
+            self._anomaly_sig = g.integers(256, self.vocab_size, size=(4,))
+        self._next_fid = self.fid_base
+        # fid -> [label, chain_state, tok_pos, pkts_left, anomalous, anom_at]
+        self._active: Dict[int, list] = {}
+        self.flows_spawned = 0
+        self.flows_retired = 0
+
+    # ------------------------------------------------------------------
+    @property
+    def anomaly_signature(self) -> np.ndarray:
+        return self._anomaly_sig
+
+    @property
+    def active_flows(self) -> int:
+        return len(self._active)
+
+    def _knobs(self) -> Dict[str, float]:
+        kind = self.kind
+        if kind == "mix":
+            kind = _MIX_CYCLE[self.step % len(_MIX_CYCLE)]
+        return SCENARIO_KINDS[kind]
+
+    def _spawn(self, g: np.random.Generator, n: int, anomaly_rate: float,
+               mean_pkts: float) -> None:
+        n = min(n, self.max_active - len(self._active))
+        for _ in range(n):
+            fid = self._next_fid
+            self._next_fid += 1
+            if self.label_probs is None:
+                label = int(g.integers(0, self.n_classes))
+            else:
+                label = int(g.choice(self.n_classes, p=self._label_p))
+            state = int(g.integers(0, 64))
+            left = int(min(g.geometric(1.0 / max(mean_pkts, 1.0)), self.max_flow_pkts))
+            anom = bool(g.random() < anomaly_rate)
+            anom_at = 0
+            if anom:
+                # guarantee the signature burst lands inside the flow body
+                # without exceeding the max_flow_pkts hard cap; a cap too
+                # tight to carry the 4-token burst downgrades to benign
+                left = min(max(left, -(-24 // self.pkt_len)), self.max_flow_pkts)
+                if left * self.pkt_len >= 13:
+                    anom_at = int(g.integers(8, left * self.pkt_len - 4))
+                else:
+                    anom = False
+            self._active[fid] = [label, state, 0, left, anom, anom_at]
+            self.flows_spawned += 1
+
+    def _gen_tokens(self, g, labels, state, pos, anom, anom_at) -> Tuple[np.ndarray, np.ndarray]:
+        """Continue R flows by one packet each (vectorized over flows)."""
+        R, T = labels.shape[0], self.pkt_len
+        toks = np.empty((R, T), np.int32)
+        choice = g.integers(0, 8, size=(R, T))
+        for t in range(T):
+            a = pos + t  # absolute token position per flow
+            hs = self._handshake[labels, np.minimum(a, 7)]
+            sig = self._signature[labels, a % 4]
+            body = self._kernel[labels, state % 64, choice[:, t]]
+            tok = np.where(a < 8, hs, np.where(a % 17 == 0, sig, body))
+            inject = anom & (a >= anom_at) & (a < anom_at + 4)
+            tok = np.where(inject, self._anomaly_sig[np.clip(a - anom_at, 0, 3)], tok)
+            state = np.where(a >= 8, (state * 5 + tok) % 64, state)
+            toks[:, t] = tok
+        return toks, state
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        g = _rng(self.seed, 0xF70, self.step)
+        knobs = self._knobs()
+        n_new = int(knobs["new_flows"])
+        if knobs["burst_every"] and self.step % int(knobs["burst_every"]) == 0:
+            n_new += int(knobs["burst_size"])  # DDoS-style flood of fresh IDs
+        if not self._active and n_new == 0:
+            n_new = 1
+        ar = (
+            float(knobs["anomaly_rate"])
+            if self.anomaly_rate is None
+            else float(self.anomaly_rate)
+        )
+        self._spawn(g, n_new, ar, float(knobs["mean_pkts"]))
+
+        # sample arrival lanes with replacement: the same flow may send
+        # several packets inside one batch (true interleaving)
+        ids = np.fromiter(self._active, dtype=np.int64, count=len(self._active))
+        lanes = ids[g.integers(0, len(ids), size=self.packets_per_batch)]
+        scheduled: Dict[int, int] = {}
+        emit: list = []
+        for fid in lanes.tolist():
+            if scheduled.get(fid, 0) < self._active[fid][3]:
+                scheduled[fid] = scheduled.get(fid, 0) + 1
+                emit.append(fid)
+        P = len(emit)
+        tokens = np.empty((P, self.pkt_len), np.int32)
+        labels = np.empty((P,), np.int32)
+        anomalous = np.zeros((P,), bool)
+        first = np.zeros((P,), bool)
+        for round_lanes in arrival_rounds(emit):
+            sub = [emit[i] for i in round_lanes]
+            st = np.array([self._active[f] for f in sub], dtype=np.int64)
+            lab, state, pos = st[:, 0], st[:, 1], st[:, 2]
+            toks, state = self._gen_tokens(
+                g, lab, state, pos, st[:, 4].astype(bool), st[:, 5]
+            )
+            for j, f in enumerate(sub):
+                rec = self._active[f]
+                rec[1] = int(state[j])
+                rec[2] = int(pos[j]) + self.pkt_len
+                rec[3] -= 1
+                idx = round_lanes[j]
+                tokens[idx] = toks[j]
+                labels[idx] = rec[0]
+                anomalous[idx] = rec[4]
+                first[idx] = pos[j] == 0
+        for fid in [f for f, rec in self._active.items() if rec[3] <= 0]:
+            del self._active[fid]
+            self.flows_retired += 1
+        self.step += 1
+        fids = np.asarray(emit, np.int64)
+        batch = {
+            "flow_ids": fids,
+            "tokens": tokens,
+            "labels": labels,
+            "anomalous": anomalous,
+            "first_packet": first,
+        }
+        if self.num_shards > 1:
+            # filter AFTER every state update so the generator evolves
+            # identically for all (shard_id, num_shards) settings
+            keep = flow_shard(fids, self.num_shards) == self.shard_id
+            batch = {k: v[keep] for k, v in batch.items()}
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()

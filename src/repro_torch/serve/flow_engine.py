@@ -1,0 +1,418 @@
+"""Flow-table streaming inference runtime (port of ``repro.serve.flow_engine``).
+
+A flow-keyed table maps flow IDs to bounded per-flow Chimera state — the
+Eq. 11/13 decode state plus the streaming classifier aggregates (running
+sum of hidden states, cumulative packed marker signature, sticky TCAM veto
+bit).  ``ingest(flow_ids, tokens)`` resolves slots on the host, splits the
+batch into arrival rounds (same-flow packets serialized, distinct flows
+vectorized) and runs one flow step per round of ``lanes`` packets:
+
+1. gather the touched rows (lazily zeroing freshly allocated slots),
+2. decode each packet token through :func:`repro_torch.models.model
+   .decode_hidden_step` (the ``decode_step`` kernel per layer and token),
+3. OR the packet's marker signature into the row,
+4. score with :func:`repro_torch.train.classifier.streaming_scores` (the
+   ``flow_score`` kernel): heads, TCAM match, sticky veto, Eq. 15 fusion,
+5. scatter the rows back.
+
+A hard TCAM hit marks the flow vetoed for its lifetime and pins trust to
+1.0.  State is bounded per flow by construction and table-wide by the
+byte budget, with LRU and idle eviction keeping the resident set inside
+``capacity``.
+
+Ported: the per-round path, eviction, ``reset``, ``flow_scores`` and the
+state accounting.  Not yet: fused ingest, ``swap_tables``, int-emulation,
+the compile/deploy surface and the sharded engines.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import hardware_model
+from repro_torch.core import symbolic
+from repro_torch.core.chimera_attention import ChimeraState
+from repro_torch.core.hardware_model import DEFAULT_DATAPLANE
+from repro_torch.data.pipeline import arrival_rounds
+from repro_torch.models import model as M
+from repro_torch.train import classifier as C
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowEngineConfig:
+    capacity: int = 4096  # max resident flows (table entries)
+    lanes: int = 256  # batch width per arrival round (padded, fixed)
+    state_budget_bytes: int = 0  # 0 → DataplaneSpec shared-SRAM default
+    idle_timeout: int = 0  # ticks without traffic before eviction (0 = off)
+
+
+@dataclasses.dataclass
+class FlowStats:
+    packets: int = 0
+    tokens: int = 0
+    ticks: int = 0
+    rounds: int = 0
+    flows_created: int = 0
+    flows_evicted_lru: int = 0
+    flows_evicted_idle: int = 0
+
+    @property
+    def flows_evicted(self) -> int:
+        return self.flows_evicted_lru + self.flows_evicted_idle
+
+    @property
+    def eviction_rate(self) -> float:
+        """Evictions per engine tick — the flow-churn pressure metric."""
+        return self.flows_evicted / max(self.ticks, 1)
+
+
+def _state_leaves(caches) -> List[torch.Tensor]:
+    return [t for st in caches.values() for t in st.leaves()]
+
+
+def make_flow_step(ccfg: C.ClassifierConfig, n_slots: int, *, score_fn=None):
+    """Build the flow-table update step over ``n_slots`` table rows.
+
+    ``step(params, rules, caches, positions, sig, hidden_sum, vetoed, idx,
+    tokens, fresh) -> outputs`` updates the table tensors in place.
+    ``score_fn(params, rules, pooled, sig, sticky) -> (outputs, new_sticky)``
+    replaces the score stage; ``None`` keeps :func:`repro_torch.train
+    .classifier.streaming_scores`.
+    """
+    arch = ccfg.arch
+    if score_fn is None:
+        def score_fn(params, rules, pooled, sig, sticky):
+            return C.streaming_scores(ccfg, params, rules, pooled, sig, sticky)
+
+    def take(c, idx, fresh):
+        # gather the touched rows; zero lanes holding newly-allocated flows
+        # (slot reuse after eviction must look like a fresh table entry)
+        f = fresh.reshape((1, -1) + (1,) * (c.ndim - 2))
+        return torch.where(f, torch.zeros((), dtype=c.dtype, device=c.device), c[:, idx])
+
+    def step(params, rules, caches, positions, sig, hidden_sum, vetoed, idx, tokens, fresh):
+        cs = {
+            name: ChimeraState(*(take(t, idx, fresh) for t in st.leaves()))
+            for name, st in caches.items()
+        }
+        pos = torch.where(fresh, 0, positions[idx])
+        sg = torch.where(fresh[:, None], 0, sig[idx])
+        hs = torch.where(fresh[:, None], 0.0, hidden_sum[idx])
+        vt = torch.where(fresh, False, vetoed[idx])
+
+        for t in range(tokens.shape[1]):
+            h = M.decode_hidden_step(arch, params["backbone"], tokens[:, t], pos, cs)
+            pos = pos + 1
+            hs = hs + h.float()
+        sg = sg | C.packet_signature(ccfg, tokens)
+        pooled = hs / torch.clamp(pos, min=1)[:, None].float()
+        out, vt = score_fn(params, rules, pooled, sg, vt)
+        out["sig"] = sg  # cumulative signature after this packet
+
+        for big, small in zip(_state_leaves(caches), _state_leaves(cs)):
+            big[:, idx] = small
+        positions[idx] = pos
+        sig[idx] = sg
+        hidden_sum[idx] = hs
+        vetoed[idx] = vt
+        return out
+
+    return step
+
+
+class FlowTableDirectory:
+    """Host-side slot allocator for one flow table: fid → slot map, free
+    list, LRU timestamps.  Owns no device state."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.slot_of: Dict[int, int] = {}
+        self.fid_of: Dict[int, int] = {}
+        self.free: List[int] = list(range(capacity - 1, -1, -1))
+        self.last_seen = np.full((capacity,), np.iinfo(np.int64).max, np.int64)
+
+    @property
+    def resident(self) -> int:
+        return len(self.slot_of)
+
+    def touch(self, fid: int, tick: int) -> bool:
+        """Refresh a resident flow's LRU stamp; False if not resident."""
+        slot = self.slot_of.get(fid)
+        if slot is None:
+            return False
+        self.last_seen[slot] = tick
+        return True
+
+    def slot_for(self, fid: int, tick: int) -> Tuple[int, bool, bool]:
+        """Resolve ``fid`` to a table slot, allocating (free list, else LRU
+        victim) when absent.  Returns ``(slot, fresh, lru_evicted)``."""
+        slot = self.slot_of.get(fid)
+        if slot is not None:
+            self.last_seen[slot] = tick
+            return slot, False, False
+        evicted = False
+        if self.free:
+            slot = self.free.pop()
+        else:
+            slot = int(np.argmin(self.last_seen))  # LRU victim
+            del self.slot_of[self.fid_of[slot]]
+            evicted = True
+        self.slot_of[fid] = slot
+        self.fid_of[slot] = fid
+        self.last_seen[slot] = tick
+        return slot, True, evicted
+
+    def evict(self, fid: int) -> bool:
+        slot = self.slot_of.pop(fid, None)
+        if slot is None:
+            return False
+        del self.fid_of[slot]
+        self.last_seen[slot] = np.iinfo(np.int64).max
+        self.free.append(slot)
+        return True
+
+    def idle_victims(self, horizon: int) -> List[int]:
+        """Flows whose last packet predates ``horizon`` (exclusive)."""
+        return [f for f, s in self.slot_of.items() if self.last_seen[s] < horizon]
+
+    def reset(self) -> None:
+        self.slot_of.clear()
+        self.fid_of.clear()
+        self.free = list(range(self.capacity - 1, -1, -1))
+        self.last_seen[:] = np.iinfo(np.int64).max
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class FlowEngine:
+    """Streaming per-flow classification over a bounded flow table.
+
+    ``device=None`` means ``"cuda"``; without a GPU the constructor raises.
+    """
+
+    def __init__(
+        self,
+        ccfg: C.ClassifierConfig,
+        params,
+        rules: symbolic.RuleSet,
+        fcfg: FlowEngineConfig = FlowEngineConfig(),
+        device=None,
+    ):
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FlowEngine: CUDA is not available; pass device='cpu' to run "
+                "the plain PyTorch versions of the kernels"
+            )
+        self.device = device
+        self.ccfg = ccfg
+        self.fcfg = fcfg
+        self.stats = FlowStats()
+        arch = ccfg.arch
+
+        # capacity real slots + one scratch slot that absorbs padding lanes
+        self._n_slots = fcfg.capacity + 1
+        W, d = ccfg.sig_words, arch.d_model
+        self._shapes = {
+            "positions": ((self._n_slots,), torch.int32),
+            "sig": ((self._n_slots, W), torch.int32),
+            "hidden_sum": ((self._n_slots, d), torch.float32),
+            "vetoed": ((self._n_slots,), torch.bool),
+        }
+
+        # Eq. 11 budget check before anything is allocated; it covers
+        # everything the table holds (capacity entries + the scratch lane)
+        budget = fcfg.state_budget_bytes or DEFAULT_DATAPLANE.sram_total_bits // 8
+        self.state_budget_bytes = budget
+        hardware_model.check_flow_table_budget(
+            self._n_slots, self.per_flow_state_bytes(), budget
+        )
+
+        self.params = _to_device(params, device)
+        self.rules = rules.to(device)
+        self.caches = M.init_caches(arch, self._n_slots, device=device)
+        for name, (shape, dtype) in self._shapes.items():
+            setattr(self, name, torch.zeros(shape, dtype=dtype, device=device))
+
+        self.table = FlowTableDirectory(fcfg.capacity)
+        self._tick = 0
+        self._step = make_flow_step(ccfg, self._n_slots)
+
+    # ------------------------------------------------------------------
+    # state accounting
+    # ------------------------------------------------------------------
+    def per_flow_state_bytes(self) -> int:
+        """Bytes of one flow-table entry: Chimera decode state (S, Z, ring
+        buffers, fill count) + classifier aggregates (signature words,
+        pooled-feature accumulator, counters, veto bit) + the host LRU stamp."""
+        meta = M.init_caches(self.ccfg.arch, self._n_slots, device="meta")
+        cache_bytes = sum(
+            t.numel() * t.element_size() // self._n_slots for t in _state_leaves(meta)
+        )
+        aux = sum(
+            int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+            for shape, dtype in self._shapes.values()
+        ) // self._n_slots
+        return cache_bytes + aux + 8
+
+    def resident_state_bytes(self) -> int:
+        """Total allocated flow-table bytes (capacity + the scratch lane)."""
+        return hardware_model.flow_table_bytes(self._n_slots, self.per_flow_state_bytes())
+
+    @property
+    def resident_flows(self) -> int:
+        return self.table.resident
+
+    def flow_ids(self) -> List[int]:
+        return list(self.table.slot_of)
+
+    # ------------------------------------------------------------------
+    # flow-table bookkeeping (host side)
+    # ------------------------------------------------------------------
+    def _slot_for(self, fid: int) -> Tuple[int, bool]:
+        slot, fresh, evicted = self.table.slot_for(fid, self._tick)
+        if evicted:
+            self.stats.flows_evicted_lru += 1
+        if fresh:
+            self.stats.flows_created += 1
+        return slot, fresh
+
+    def reset(self) -> None:
+        """Clear the flow table.  Device state is not rewritten: reused slots
+        are lazily zeroed by the per-lane ``fresh`` flag."""
+        self.table.reset()
+        self._tick = 0
+        self.stats = FlowStats()
+
+    def evict(self, fid: int) -> bool:
+        """Drop a flow's table entry (state is lazily zeroed on slot reuse)."""
+        return self.table.evict(fid)
+
+    def evict_idle(self) -> int:
+        """Evict flows idle for more than ``idle_timeout`` ticks."""
+        if not self.fcfg.idle_timeout:
+            return 0
+        stale = self.table.idle_victims(self._tick - self.fcfg.idle_timeout)
+        for fid in stale:
+            self.table.evict(fid)
+            self.stats.flows_evicted_idle += 1
+        return len(stale)
+
+    # ------------------------------------------------------------------
+    # ingest
+    # ------------------------------------------------------------------
+    def ingest(self, flow_ids: np.ndarray, tokens: np.ndarray) -> Dict[str, np.ndarray]:
+        """Stream one batch of packet arrivals through the flow table.
+
+        ``flow_ids`` (P,) int — flow keys in arrival order (repeats allowed);
+        ``tokens`` (P, pkt_len) int.  Returns per-packet numpy outputs aligned
+        with the input order: ``trust``, ``vetoed``, ``pred``, ``s_nn``,
+        ``s_sym`` and ``sig`` (uint32 words) after each flow's packet.
+        """
+        flow_ids = np.asarray(flow_ids)
+        tokens = np.asarray(tokens, np.int32)
+        P, _ = tokens.shape
+        assert flow_ids.shape == (P,), (flow_ids.shape, P)
+        slots, fresh = self._resolve_slots(flow_ids)
+        return self._ingest_rounds(flow_ids, tokens, slots, fresh)
+
+    def _resolve_slots(self, flow_ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Host bookkeeping for one batch: tick, LRU touch, idle sweep, slot
+        assignment."""
+        self._tick += 1
+        self.stats.ticks += 1
+        # touch every already-resident flow in this batch BEFORE the idle
+        # sweep and any allocation, so eviction victims come from flows with
+        # no packets pending here
+        for fid in set(flow_ids.tolist()):
+            self.table.touch(fid, self._tick)
+        self.evict_idle()
+
+        P = len(flow_ids)
+        slots = np.empty((P,), np.int32)
+        fresh = np.zeros((P,), bool)
+        for i, fid in enumerate(flow_ids.tolist()):
+            slots[i], fresh[i] = self._slot_for(fid)
+        return slots, fresh
+
+    def _ingest_rounds(
+        self, flow_ids: np.ndarray, tokens: np.ndarray,
+        slots: np.ndarray, fresh: np.ndarray,
+    ) -> Dict[str, np.ndarray]:
+        """One flow step per arrival round, every round padded to ``lanes``."""
+        P, pkt_len = tokens.shape
+        out_trust = np.empty((P,), np.float32)
+        out_veto = np.empty((P,), bool)
+        out_pred = np.empty((P,), np.int32)
+        out_s_nn = np.empty((P,), np.float32)
+        out_s_sym = np.empty((P,), np.float32)
+        out_sig = np.zeros((P, self.ccfg.sig_words), np.uint32)
+
+        lanes = self.fcfg.lanes
+        scratch = self.fcfg.capacity
+        dev = self.device
+        for round_lanes in arrival_rounds(slots.tolist()):
+            for c0 in range(0, len(round_lanes), lanes):
+                chunk = round_lanes[c0 : c0 + lanes]
+                idx = np.full((lanes,), scratch, np.int64)
+                tok = np.zeros((lanes, pkt_len), np.int64)
+                fr = np.zeros((lanes,), bool)
+                n = len(chunk)
+                idx[:n] = slots[chunk]
+                tok[:n] = tokens[chunk]
+                fr[:n] = fresh[chunk]
+                out = self._step(
+                    self.params, self.rules, self.caches, self.positions,
+                    self.sig, self.hidden_sum, self.vetoed,
+                    torch.from_numpy(idx).to(dev), torch.from_numpy(tok).to(dev),
+                    torch.from_numpy(fr).to(dev),
+                )
+                self.stats.rounds += 1
+                lanes_idx = np.asarray(chunk, np.intp)
+                floats = torch.stack([out["trust"], out["s_nn"], out["s_sym"]]).cpu().numpy()
+                out_trust[lanes_idx] = floats[0, :n]
+                out_s_nn[lanes_idx] = floats[1, :n]
+                out_s_sym[lanes_idx] = floats[2, :n]
+                out_veto[lanes_idx] = out["hard_hit"].cpu().numpy()[:n]
+                out_pred[lanes_idx] = torch.argmax(out["class_logits"], -1).cpu().numpy()[:n]
+                out_sig[lanes_idx] = out["sig"].cpu().numpy().view(np.uint32)[:n]
+        self.stats.packets += P
+        self.stats.tokens += P * pkt_len
+        return {
+            "flow_ids": flow_ids,
+            "trust": out_trust,
+            "vetoed": out_veto,
+            "pred": out_pred,
+            "s_nn": out_s_nn,
+            "s_sym": out_s_sym,
+            "sig": out_sig,
+        }
+
+    # ------------------------------------------------------------------
+    # per-flow snapshot
+    # ------------------------------------------------------------------
+    def flow_scores(self, fid: int) -> Dict[str, float]:
+        """Current scores for a resident flow (control-plane read path)."""
+        slot = self.table.slot_of[fid]
+        pos = self.positions[slot]
+        pooled = self.hidden_sum[slot] / torch.clamp(pos, min=1).float()
+        out, _ = C.streaming_scores(
+            self.ccfg, self.params, self.rules,
+            pooled[None], self.sig[slot][None], self.vetoed[slot][None],
+        )
+        return {
+            "trust": float(out["trust"][0]),
+            "vetoed": bool(out["hard_hit"][0]),
+            "pred": int(torch.argmax(out["class_logits"][0])),
+            "s_nn": float(out["s_nn"][0]),
+            "s_sym": float(out["s_sym"][0]),
+            "tokens": int(pos),
+        }
