@@ -8,19 +8,26 @@ Phases, each printing its own lines:
 1. device    — requires CUDA; prints the card's name and power limit.
 2. build     — builds the port's CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels   — holds each kernel against its plain PyTorch version on the
-               card at the paper configuration's shapes and times both.
-4. engine    — the main path: a ``FlowEngine`` at the paper's full width
+               card at the paper configuration's shapes and times both;
+               checks the gradients of the chimera_attention Function.
+4. engine    — the serving path: a ``FlowEngine`` at the paper's full width
                (chimera-dataplane: 4 layers, d 256, m 256, L 64, n_global
                64; capacity 4096, lanes 256) with random weights from a
-               seed ingests protocol-mix and rule-violating batches.  The
-               kernels' launch counters are zeroed just before and read
-               just after.
-5. reference — the same model on a small table, on the card and on the CPU
-               (plain versions), must agree.
+               seed ingests protocol-mix and rule-violating batches.
+5. train     — the training path at the same width: the classifier
+               objective (``train_classifier``, batch 256 x 256 tokens) and
+               the LM objective (``make_train_step``, batch 8 x 128), then
+               one profiled classifier step (forward against backward) and
+               one profiled LM step.
+6. reference — the engine on a small table, and 3 classifier training steps
+               of a small model, on the card and on the CPU (plain
+               versions): they must agree.
 
-Then a JSON line with every kernel's numbers, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
-It imports nothing of JAX and nothing of the JAX package.
+Phases 4 and 5 are the main paths: the kernels' launch counters are zeroed
+just before each and read just after, and each fails if one of its kernels
+never launched.  Then a JSON line with every kernel's numbers, and as the
+last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+without it.  It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -39,12 +46,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12  # float32 outside the tensor cores: both kernels use CUDA cores
+FP32_FLOPS = 67e12  # float32 outside the tensor cores: the kernels use CUDA cores
 
 SEED = 0
 PKT_LEN = 16
 LANES = 256
 CAPACITY = 4096
+TRAIN_BATCH, TRAIN_SEQ = 256, 256  # the classifier objective's batch
 # kernel vs plain version on the same inputs: fp32 with another summation
 # order (warp shuffles vs BLAS), so |a - b| <= ATOL + RTOL * |b|
 RTOL, ATOL = 1e-4, 1e-5
@@ -101,8 +109,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3):
     return device_ms, call_ms
 
 
-def compare(name: str, got, want) -> float:
-    """Max abs error; fails beyond ATOL + RTOL * |want| (exact for non-floats)."""
+def compare(name: str, got, want, atol: float = ATOL, rtol: float = RTOL) -> float:
+    """Max abs error; fails beyond atol + rtol * |want| (exact for non-floats)."""
     import torch
 
     got, want = got.detach().cpu(), want.detach().cpu()
@@ -115,7 +123,7 @@ def compare(name: str, got, want) -> float:
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite values")
     err = (got - want).abs()
-    bad = err > ATOL + RTOL * want.abs()
+    bad = err > atol + rtol * want.abs()
     if bad.any():
         fail(f"{name}: {int(bad.sum())} entries beyond tolerance, max abs err {float(err.max()):.3e}")
     return float(err.max())
@@ -318,17 +326,132 @@ def check_score(M, timed):
     return rec
 
 
+# chimera_attention partials are sums of up to T terms of size ~1 (|num|
+# and den reach a few hundred at T 256), so fp32 in another summation order
+# differs by up to ~T * 6e-8 * |terms|: atol 1e-4, rtol 1e-4
+ATTN_ATOL = 1e-4
+
+
+def chimera_inputs(B, Hkv, Gq, T, m, seed, requires_grad=False):
+    """Normalized q, k, random v and their exp_prf features from the paper's
+    feature map (public layout (B, Hkv, Gq, T, .)), on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+    from repro_torch.core.feature_maps import _normalize, apply_feature_map, init_feature_map
+
+    fm = dataclasses.replace(ARCH.chimera.feature_map, m=m)
+    d = dv = ARCH.head_dim
+    g = torch.Generator().manual_seed(seed)
+    fm_params = init_feature_map(fm, d, g, "cuda")
+    q = _normalize(torch.randn((B, Hkv, Gq, T, d), generator=g).to("cuda"), fm.input_scale)
+    k = _normalize(torch.randn((B, Hkv, T, d), generator=g).to("cuda"), fm.input_scale)
+    v = torch.randn((B, Hkv, T, dv), generator=g).to("cuda")
+    xs = [q, k, v, apply_feature_map(fm, fm_params, q), apply_feature_map(fm, fm_params, k)]
+    return [x.detach().requires_grad_(requires_grad) for x in xs]
+
+
+def chimera_cost(B, Hkv, Gq, T, d, dv, m, L):
+    """Bytes and flops of the partials: causal pairs inside each chunk, the
+    stream readout of chunks 1.. and the fold of chunks ..n-2 (chunk 0 reads
+    a zero state and the last fold is never read)."""
+    BH, n = B * Hkv, T // L
+    reads = BH * (Gq * T * d + T * d + T * dv + (Gq + 1) * (n - 1) * L * m)
+    writes = BH * Gq * T * (dv + 1)
+    pairs = L * (L + 1) // 2
+    flops = BH * (Gq * n * pairs * (2 * d + 2 * dv + 2)
+                  + Gq * (n - 1) * L * (2 * m * dv + 2 * m)
+                  + (n - 1) * (2 * L * m * dv + L * m))
+    return 4 * (reads + writes), flops
+
+
+def check_chimera(timed):
+    """The kernel against its plain version at the train phase's shapes."""
+    import torch
+    from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+    from repro_torch.kernels.chimera_attention import ops
+
+    B, Hkv, Gq, T = TRAIN_BATCH, ARCH.n_kv_heads, ARCH.n_heads // ARCH.n_kv_heads, TRAIN_SEQ
+    L, m, d = ARCH.chimera.chunk_size, ARCH.chimera.feature_map.m, ARCH.head_dim
+    q, k, v, pq, pk = chimera_inputs(B, Hkv, Gq, T, m, SEED + 5)
+    BH = B * Hkv
+    flat = [q.reshape(BH, Gq, T, d), k.reshape(BH, T, d), v.reshape(BH, T, d),
+            pq.reshape(BH, Gq, T, m), pk.reshape(BH, T, m)]
+    with torch.no_grad():
+        num_k, den_k = ops.chimera_attention_bh(*flat, chunk_size=L)
+        num_p, den_p = ops.chimera_attention_partials_plain(q, k, v, pq, pk, L)
+    torch.cuda.synchronize()
+    err = max(compare("chimera_attention num", num_k, num_p.reshape(BH, Gq, T, d), atol=ATTN_ATOL),
+              compare("chimera_attention den", den_k, den_p.reshape(BH, Gq, T), atol=ATTN_ATOL))
+    rec = {"max_abs_err": err}
+    log("kernels", f"chimera_attention BH={BH} Gq={Gq} T={T} d={d} m={m} L={L}: max abs err "
+                   f"{err:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|; |den| up to "
+                   f"{float(den_p.max()):.1f})")
+    for use_local, use_stream in ((True, False), (False, True)):
+        with torch.no_grad():
+            a = ops.chimera_attention_bh(*flat, chunk_size=L, use_local=use_local,
+                                         use_stream=use_stream)
+            b = ops.chimera_attention_partials_plain(q, k, v, pq, pk, L, use_local, use_stream)
+        for name, x, y in zip(("num", "den"), a, b):
+            compare(f"chimera_attention {name} local={use_local} stream={use_stream}",
+                    x, y.reshape(x.shape), atol=ATTN_ATOL)
+    if timed:
+        with torch.no_grad():
+            ms, call_ms = cuda_ms(lambda: ops.chimera_attention_bh(*flat, chunk_size=L), iters=20)
+            plain_ms, plain_call_ms = cuda_ms(
+                lambda: ops.chimera_attention_partials_plain(q, k, v, pq, pk, L), iters=5)
+        nbytes, flops = chimera_cost(B, Hkv, Gq, T, d, d, m, L)
+        bound_ms, bound_by = bound(nbytes, flops)
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, flops=flops, call_ms=call_ms, plain_call_ms=plain_call_ms)
+        log("kernels", f"chimera_attention device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                       f"ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
+                       f"per call from Python: kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms")
+    return rec
+
+
+def check_chimera_grads():
+    """The autograd Function (kernel forward, plain backward) against
+    autograd through the plain version, at a small shape with Gq 2."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops
+
+    L, T, m = 64, 128, 64
+    xs = chimera_inputs(2, 2, 2, T, m, SEED + 6, requires_grad=True)
+    g = torch.Generator().manual_seed(SEED + 7)
+    w_num = torch.randn(xs[0].shape[:-1] + (xs[2].shape[-1],), generator=g).to("cuda")
+    w_den = torch.randn(xs[0].shape[:-1], generator=g).to("cuda")
+    before = ops.launches
+    outs = []
+    for fn in (ops.chimera_attention_partials, ops.chimera_attention_partials_plain):
+        num, den = fn(*xs, L)
+        loss = (num * w_num).sum() + (den * w_den).sum()
+        outs.append((num, den, torch.autograd.grad(loss, xs)))
+    if ops.launches == before:
+        fail("chimera_attention gradient check: the Function did not launch the kernel")
+    err = max(compare("chimera_attention fwd num", outs[0][0], outs[1][0], atol=ATTN_ATOL),
+              compare("chimera_attention fwd den", outs[0][1], outs[1][1], atol=ATTN_ATOL))
+    gerr = max(compare(f"chimera_attention grad {n}", a, b, atol=ATTN_ATOL)
+               for n, a, b in zip(("q", "k", "v", "phi_q", "phi_k"), outs[0][2], outs[1][2]))
+    log("kernels", f"chimera_attention Function (B 2, Hkv 2, Gq 2, T {T}, m {m}): forward max "
+                   f"abs err {err:.3e}, gradients of q, k, v, phi_q, phi_k max abs err {gerr:.3e} "
+                   f"against autograd through the plain version")
+
+
 def phase_kernels():
     recs = {}
     check_decode(with_global=False, timed=False)
     recs["decode_step"] = check_decode(with_global=True, timed=True)
     recs["flow_score"] = check_score(M=1, timed=True)
     check_score(M=300, timed=False)
+    recs["chimera_attention"] = check_chimera(timed=True)
+    check_chimera_grads()
     return recs
 
 
 # --------------------------------------------------------------------------
-# 4. engine (the main path)
+# 4. engine (the serving path)
 # --------------------------------------------------------------------------
 
 def paper_classifier(n_global=None):
@@ -422,7 +545,7 @@ def phase_engine(recs):
         per_batch = n / n_batches * recs[name]["ms"]
         log("engine", f"{name}: {per_batch:.3f} ms of kernel device time per batch "
                       f"(launches per batch x phase 3's CUDA-event device ms per launch)")
-    report_profile(prof, prof_wall)
+    report_profile(prof, prof_wall, "one protocol-mix batch")
     report_ops_per_token(engine)
     log("engine", f"resident_state_bytes {engine.resident_state_bytes()}, "
                   f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
@@ -463,8 +586,8 @@ def report_ops_per_token(engine):
                   + ", ".join(f"{k} {n}" for k, n in c.ops.most_common(6)))
 
 
-def report_profile(p, wall):
-    """Device time by kernel for one profiled batch, and the device's busy share."""
+def report_profile(p, wall, what):
+    """Device time by kernel for one profiled run, and the device's busy share."""
     rows = []
     for ev in p.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
@@ -479,14 +602,154 @@ def report_profile(p, wall):
         return
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    log("profile", f"one protocol-mix batch: wall {wall * 1e3:.1f} ms, kernel time "
+    log("profile", f"{what}: wall {wall * 1e3:.1f} ms, kernel time "
                    f"{busy_us / 1e3:.1f} ms, device busy share {busy_us / 1e3 / (wall * 1e3):.3f}")
     for dev_us, key, count in rows[:12]:
         log("profile", f"{dev_us / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
 
 
 # --------------------------------------------------------------------------
-# 5. reference: the card against the plain versions on the CPU
+# 5. train (the training path)
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_WARMUP, EVAL_BATCHES = 20, 2, 2
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 128, 5  # launch/train.py's --batch and --seq
+
+
+def packet_stream(seed, batch=TRAIN_BATCH, seq=TRAIN_SEQ, step=0):
+    from repro_torch.data.pipeline import PacketStream
+
+    return PacketStream(n_classes=8, vocab_size=512, batch_size=batch, seq_len=seq,
+                        anomaly_rate=0.1, seed=seed, step=step)
+
+
+def check_losses(name, losses):
+    import torch
+
+    losses = losses.detach().cpu()
+    if not torch.isfinite(losses).all():
+        fail(f"{name}: non-finite loss {losses.tolist()}")
+    return [float(x) for x in losses]
+
+
+def phase_train(recs):
+    import torch
+    from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.flow_ingest import ops as sops
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train import classifier as C
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    ccfg, params = paper_classifier()
+    s = packet_stream(SEED + 50)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        s.next_batch()
+    data_ms = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counters zeroed just before, read just after
+    dops.launches = sops.launches = cops.launches = 0
+    # (a) the classifier objective (benchmarks/common.py's loop)
+    C.train_classifier(ccfg, packet_stream(SEED + 100), params, steps=TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, rules, losses = C.train_classifier(ccfg, packet_stream(SEED), params,
+                                                steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cls_launches = cops.launches
+    losses = check_losses("train classifier", losses)
+    # held-out batches of the same traffic, far past the training steps
+    ev = C.eval_classifier(ccfg, trained, rules, packet_stream(SEED, step=1000),
+                           batches=EVAL_BATCHES)
+    # (b) the LM objective (launch/train.py's defaults: batch 8, seq 128)
+    lm_params, lm_opt = make_train_state(ARCH, torch.Generator().manual_seed(SEED), device="cuda")
+    step = make_train_step(ARCH, AdamWConfig(lr=3e-4, total_steps=100))
+    ts = TokenStream(vocab_size=ARCH.vocab_size, batch_size=LM_BATCH, seq_len=LM_SEQ + 1,
+                     seed=SEED)
+    lm_losses = []
+    for i in range(LM_STEPS + 1):
+        b = C.batch_to_device(ts.next_batch(), "cuda")
+        if i == 1:  # step 0 is the warm-up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        lm_params, lm_opt, met = step(lm_params, lm_opt, b)
+        lm_losses.append(met["loss"])
+    torch.cuda.synchronize()
+    lm_wall = time.perf_counter() - t1
+    lm_losses = check_losses("train LM", torch.stack(lm_losses))
+    launches = {"decode_step": dops.launches, "flow_score": sops.launches,
+                "chimera_attention": cops.launches}
+    if launches["chimera_attention"] == 0:
+        fail(f"train: chimera_attention was never launched on the training path: {launches}")
+
+    n_layers = ARCH.n_layers
+    ms = wall / TRAIN_STEPS * 1e3
+    log("train", f"classifier objective, paper width, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+                 f"{TRAIN_STEPS} steps in {wall:.3f} s after {TRAIN_WARMUP} warm-up steps: "
+                 f"{ms:.2f} ms/step, {TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3):.0f} tokens/s "
+                 f"(host data {data_ms:.2f} ms per batch, inside the loop)")
+    log("train", f"classifier loss first {losses[0]:.5f} last {losses[-1]:.5f}; held-out "
+                 f"macro-F1 {ev['f1']:.4f} (precision {ev['pr']:.4f}, recall {ev['rc']:.4f}, "
+                 f"{EVAL_BATCHES} batches)")
+    log("train", f"LM objective (make_train_step), batch {LM_BATCH} x {LM_SEQ}: "
+                 f"{lm_wall / LM_STEPS * 1e3:.2f} ms/step over {LM_STEPS} steps after 1 warm-up, "
+                 f"{LM_BATCH * LM_SEQ * LM_STEPS / lm_wall:.0f} tokens/s; loss first "
+                 f"{lm_losses[0]:.5f} last {lm_losses[-1]:.5f}")
+    per_step = cls_launches / (TRAIN_WARMUP + TRAIN_STEPS)
+    log("train", f"launches in the training run: {launches}; chimera_attention {per_step:.1f} "
+                 f"per classifier step ({n_layers} layers), so "
+                 f"{per_step * recs['chimera_attention']['ms']:.3f} ms of kernel device time per "
+                 f"step (phase 3's ms per launch)")
+    log("train", f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+    profile_train_step(ccfg, trained, rules)
+    b = C.batch_to_device(ts.next_batch(), "cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        step(lm_params, lm_opt, b)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    report_profile(prof, prof_wall, "one LM step (forward, backward, AdamW)")
+    return {"launches": launches, "ms_per_step": ms}
+
+
+def profile_train_step(ccfg, params, rules):
+    """One classifier step under the profiler, forward and backward (with
+    the AdamW update) in two profiler runs, so each has its own breakdown."""
+    import torch
+    from repro_torch.optim.optimizer import AdamWConfig, adamw_update, init_optimizer, tree_flatten
+    from repro_torch.train import classifier as C
+
+    batch = C.batch_to_device(packet_stream(SEED + 2).next_batch(), "cuda")
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
+    opt = init_optimizer(params, ocfg)
+    leaves, unflatten = tree_flatten(params)
+    xs = [p.detach().requires_grad_(True) for p in leaves]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as pf:
+        t0 = time.perf_counter()
+        loss, _ = C.classifier_loss(ccfg, unflatten(xs), rules, batch)
+        torch.cuda.synchronize()
+        fwd_wall = time.perf_counter() - t0
+    with torch.profiler.profile(activities=acts) as pb:
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(xs, grads)]
+        adamw_update(ocfg, params, unflatten(grads), opt)
+        torch.cuda.synchronize()
+        bwd_wall = time.perf_counter() - t0
+    report_profile(pf, fwd_wall, "one classifier step, forward")
+    report_profile(pb, bwd_wall, "one classifier step, backward + AdamW")
+
+
+# --------------------------------------------------------------------------
+# 6. reference: the card against the plain versions on the CPU
 # --------------------------------------------------------------------------
 
 # card vs CPU, fp32 on both sides with other summation orders, through 4
@@ -538,6 +801,75 @@ def phase_reference(n_global):
                      + f" (tolerance {tol:g}); stats {gpu.stats}")
 
 
+# card vs CPU training, 3 AdamW steps of a small model: fp32 on both sides
+# with other summation orders, so losses agree within REF_LOSS_RTOL.  Step 1
+# of Adam moves a parameter by lr * g / |g|, so an entry whose gradient is
+# within rounding of 0 can move by up to 2 * lr per step in opposite
+# directions on the two sides: every entry must stay within 2 * sum(lr),
+# and all but REF_PARAM_SHARE of them within REF_PARAM_ATOL.
+REF_LOSS_RTOL = 1e-4
+REF_PARAM_ATOL, REF_PARAM_SHARE = 1e-5, 1e-3
+REF_STEPS, REF_LR = 3, 3e-3
+
+
+def small_classifier(device):
+    """A 2-layer model of the paper's family at shapes the kernel takes
+    (d_head 64, m 64, L 32), with a static-global set."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+    from repro_torch.train import classifier as C
+
+    ch = ARCH.chimera
+    arch = dataclasses.replace(
+        ARCH, n_layers=2, d_model=128, n_heads=2, n_kv_heads=2, d_head=64, d_ff=256,
+        vocab_size=512,
+        chimera=dataclasses.replace(ch, feature_map=dataclasses.replace(ch.feature_map, m=64),
+                                    chunk_size=32, n_global=16, sig_bits=32, match_hamming=12),
+    )
+    ccfg = C.ClassifierConfig(arch=arch, n_classes=8, marker_base=256, sig_words=8)
+    return ccfg, C.init_classifier(ccfg, torch.Generator().manual_seed(SEED + 3), device)
+
+
+def phase_reference_train():
+    import torch
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.optim.optimizer import AdamWConfig, schedule, tree_flatten, tree_map
+    from repro_torch.train import classifier as C
+
+    ccfg, params = small_classifier("cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = cops.launches
+        p = tree_map(lambda t: t.to(dev), params)
+        out, _, losses = C.train_classifier(ccfg, packet_stream(SEED + 2, batch=16, seq=128), p,
+                                            steps=REF_STEPS, lr=REF_LR)
+        if (cops.launches > before) != (dev == "cuda"):
+            fail(f"reference train: chimera_attention launches on {dev}: {cops.launches - before}")
+        runs[dev] = (check_losses(f"reference train {dev}", losses),
+                     [t.detach().cpu() for t in tree_flatten(out)[0]])
+    (lg, pg), (lc, pc) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    if loss_err > REF_LOSS_RTOL:
+        fail(f"reference train: losses differ by {loss_err:.3e} (relative) > {REF_LOSS_RTOL:g}: "
+             f"{lg} vs {lc}")
+    ocfg = AdamWConfig(lr=REF_LR, warmup_steps=3, total_steps=REF_STEPS)
+    lr_sum = sum(float(schedule(ocfg, torch.tensor(i))) for i in range(1, REF_STEPS + 1))
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pg, pc)])
+    share = float((diffs > REF_PARAM_ATOL).float().mean())
+    if float(diffs.max()) > 2 * lr_sum or share > REF_PARAM_SHARE:
+        fail(f"reference train: params differ: max {float(diffs.max()):.3e} (limit "
+             f"{2 * lr_sum:.3e}), share beyond {REF_PARAM_ATOL:g} {share:.3e} "
+             f"(limit {REF_PARAM_SHARE:g})")
+    log("reference", f"train: {REF_STEPS} classifier steps of a small model (2 layers, d 128, "
+                     f"d_head 64, m 64, L 32, n_global 16; batch 16 x 128), card (kernel) vs CPU "
+                     f"(plain): losses {lg} vs {lc}, max relative diff {loss_err:.3e} (tolerance "
+                     f"{REF_LOSS_RTOL:g}); {diffs.numel()} parameters, max abs diff "
+                     f"{float(diffs.max()):.3e} (limit {2 * lr_sum:.3e}), share beyond "
+                     f"{REF_PARAM_ATOL:g}: {share:.3e} (limit {REF_PARAM_SHARE:g})")
+
+
 # --------------------------------------------------------------------------
 
 def main():
@@ -548,8 +880,10 @@ def main():
     phase_build()
     recs = phase_kernels()
     launches = phase_engine(recs)["launches"]
+    launches["chimera_attention"] = phase_train(recs)["launches"]["chimera_attention"]
     phase_reference(n_global=0)
     phase_reference(n_global=64)
+    phase_reference_train()
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernel_lines(recs, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -563,6 +897,8 @@ def kernel_lines(recs, launches):
                         "src/repro/kernels/decode_step/kernel.py:93"),
         "flow_score": ("src/repro_torch/csrc/flow_score.cu",
                        "src/repro/kernels/flow_ingest/kernel.py:53"),
+        "chimera_attention": ("src/repro_torch/csrc/chimera_attention.cu",
+                              "src/repro/kernels/chimera_attention/kernel.py:104"),
     }
     lines = []
     for name, (source, replaces) in info.items():

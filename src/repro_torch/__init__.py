@@ -13,3 +13,15 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """The device an entry point runs on: ``None`` means ``"cuda"``, and a
+    CUDA request without a GPU raises (there is no silent CPU fallback)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels"
+        )
+    return device

@@ -1,8 +1,8 @@
 """Parameters and rules across the package boundary, as numpy.
 
-The JAX package's classifier parameters are a nested dict whose leaves are
-arrays; the port keeps the same nesting, names and layouts with torch
-tensors.  The caller converts the JAX leaves to numpy first (for example
+The JAX package's model and classifier parameters are nested dicts whose
+leaves are arrays; the port keeps the same nesting, names and layouts with
+torch tensors.  The caller converts the JAX leaves to numpy first (for example
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module needs
 neither jax nor the JAX package.
 """
@@ -14,6 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import symbolic
 from repro_torch.core.chimera_attention import ChimeraAttentionConfig
@@ -41,7 +42,7 @@ def arch_from_reference(ref) -> ArchConfig:
             chunk_size=ch.chunk_size, n_global=ch.n_global, sig_bits=ch.sig_bits,
             match_hamming=ch.match_hamming, gamma=ch.gamma,
         ),
-        norm_type=ref.norm_type, dtype=ref.dtype,
+        norm_type=ref.norm_type, tie_embeddings=ref.tie_embeddings, dtype=ref.dtype,
     )
 
 
@@ -52,23 +53,31 @@ def classifier_config_from_reference(ref) -> ClassifierConfig:
     )
 
 
-def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """Nested dict of numpy arrays (the JAX classifier pytree) -> the same
-    nesting of float32 tensors.  Every leaf is converted; a leaf that is not
-    an array raises, so nothing is silently dropped."""
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
-    if isinstance(tree, (np.ndarray, np.generic)):
-        a = np.asarray(tree)
-        if a.dtype.kind != "f":
-            raise TypeError(f"params_from_jax: parameter leaf of dtype {a.dtype}")
-        return torch.from_numpy(np.array(a, np.float32)).to(device)
-    raise TypeError(f"params_from_jax: unexpected leaf {type(tree).__name__}")
+def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """Nested dict of numpy arrays (a JAX model or classifier pytree) -> the
+    same nesting of float32 tensors on ``device`` (``None`` means
+    ``"cuda"``; without a GPU it raises).  Every leaf is converted; a leaf
+    that is not an array raises, so nothing is silently dropped."""
+    device = resolve_device(device, "params_from_jax")
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (np.ndarray, np.generic)):
+            a = np.asarray(t)
+            if a.dtype.kind != "f":
+                raise TypeError(f"params_from_jax: parameter leaf of dtype {a.dtype}")
+            return torch.from_numpy(np.array(a, np.float32)).to(device)
+        raise TypeError(f"params_from_jax: unexpected leaf {type(t).__name__}")
+
+    return conv(tree)
 
 
-def rules_from_numpy(values, masks, weights, hard, device="cpu") -> symbolic.RuleSet:
+def rules_from_numpy(values, masks, weights, hard, device=None) -> symbolic.RuleSet:
     """A JAX ``RuleSet``'s arrays (uint32 words, float weights, bool hard
-    flags) -> the port's RuleSet with int32 bit-pattern words."""
+    flags) -> the port's RuleSet with int32 bit-pattern words, on ``device``
+    (``None`` means ``"cuda"``; without a GPU it raises)."""
+    device = resolve_device(device, "rules_from_numpy")
     return symbolic.RuleSet(
         values=symbolic.uint32_to_int32(values),
         masks=symbolic.uint32_to_int32(masks),

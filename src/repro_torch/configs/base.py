@@ -1,5 +1,5 @@
 """Architecture configuration: the fields of ``repro.configs.base.ArchConfig``
-that the dense Chimera decode path reads, with the same names and defaults.
+that the dense Chimera decode and training paths read, with the same names and defaults.
 
 Families other than a dense Chimera stack (MoE, SSM, MLA, enc-dec) are not
 ported yet, so their fields are absent here.
@@ -43,6 +43,7 @@ class ArchConfig:
     )
 
     norm_type: str = "rmsnorm"
+    tie_embeddings: bool = False
     dtype: str = "float32"
 
     @property

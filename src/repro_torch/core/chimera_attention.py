@@ -1,20 +1,27 @@
-"""Chimera attention, bounded-state decode (port of
-``repro.core.chimera_attention`` lines 53-131 and 246-422).
+"""Chimera attention (port of ``repro.core.chimera_attention``: the config
+:53, ``_group_queries`` :99, ``_global_partials`` :106, the train/prefill
+``chimera_attention`` :134 and the bounded-state decode :246-422).
 
-Per decode step and (flow, kv-head), three partials in the shared
-exp-kernel space are summed and normalized (Eqs. 6, 9-10, 14):
+Per query and (flow, kv-head), three partials in the shared exp-kernel
+space are summed and normalized (Eqs. 6, 9-10, 14):
 
-* **local** — exact exp-kernel attention over the SRAM ring (length L);
+* **local** — exact exp-kernel attention inside the current chunk of L
+  tokens (the SRAM window, or ring in decode);
 * **stream** — φ_qᵀS and φ_qᵀZ against the compressed history;
 * **global** — the static global set G, gated by the TCAM-style match.
 
-The ring write, the local and stream readouts, the merge and the
-fold-on-full run in one call of :func:`repro_torch.kernels.decode_step.ops
-.decode_step` (the Hopper kernel on a CUDA tensor), which also adds the
-global partials.  Unlike the JAX package, which leaves ``n_global > 0`` on
-its jnp branch, the paper's configuration goes through the kernel.
+Train/prefill (:func:`chimera_attention`) computes the local and stream
+partials of whole chunked sequences with
+:func:`repro_torch.kernels.chimera_attention.ops.chimera_attention_partials`
+(the Hopper kernel on a CUDA tensor, differentiable through its plain
+formulation), as the JAX package's ``use_pallas`` branch does.
 
-The state is updated **in place**: S, Z and the ring tensors of the
+Decode (:func:`chimera_decode_step`) runs the ring write, the local and
+stream readouts, the merge and the fold-on-full in one call of
+:func:`repro_torch.kernels.decode_step.ops.decode_step`, which also adds
+the global partials.  Unlike the JAX package, which leaves ``n_global > 0``
+on its jnp branch, the paper's configuration goes through the kernel.  The
+decode state is updated **in place**: S, Z and the ring tensors of the
 :class:`ChimeraState` passed in are overwritten, and its ``count`` is
 replaced by the new fill levels.
 """
@@ -34,6 +41,7 @@ from repro_torch.core.feature_maps import (
     apply_feature_map,
     init_feature_map,
 )
+from repro_torch.kernels.chimera_attention.ops import chimera_attention_partials
 
 Params = Dict[str, Any]
 
@@ -81,6 +89,41 @@ def _global_partials(
     num = torch.einsum("bhgtc,hcd->bhgtd", scores, vg)
     den = torch.sum(scores, dim=-1)
     return num, den
+
+
+def _group_queries(q: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
+    """(B, H, T, d) -> (B, Hkv, G, T, d) without materializing repeats."""
+    B, H, T, d = q.shape
+    return q.reshape(B, n_kv_heads, H // n_kv_heads, T, d)
+
+
+def chimera_attention(
+    cfg: ChimeraAttentionConfig,
+    params: Params,
+    q: torch.Tensor,  # (B, H, T, d)
+    k: torch.Tensor,  # (B, Hkv, T, d)
+    v: torch.Tensor,  # (B, Hkv, T, d_v)
+) -> torch.Tensor:
+    """Train/prefill path: chunked Chimera attention, causal.  Returns
+    (B, H, T, d_v)."""
+    B, H, T, d = q.shape
+    n_kv = k.shape[1]
+    d_v = v.shape[-1]
+    L = cfg.chunk_size
+    if T % L != 0:
+        raise ValueError(f"T={T} must be divisible by chunk_size={L}")
+    scale = cfg.feature_map.input_scale
+    qh = _normalize(_group_queries(q, n_kv), scale)  # (B,Hkv,Gq,T,d)
+    kh = _normalize(k, scale)  # (B,Hkv,T,d)
+    phi_q = apply_feature_map(cfg.feature_map, params["fm"], qh)
+    phi_k = apply_feature_map(cfg.feature_map, params["fm"], kh)
+    num, den = chimera_attention_partials(qh, kh, v, phi_q, phi_k, chunk_size=L)
+    if cfg.n_global > 0:
+        gnum, gden = _global_partials(cfg, params, qh, phi_q)
+        num = num + gnum
+        den = den + gden
+    out = num / (den[..., None] + cfg.gamma)
+    return out.reshape(B, H, T, d_v)
 
 
 @dataclasses.dataclass

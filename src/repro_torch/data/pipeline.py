@@ -1,10 +1,11 @@
-"""Flow-level traffic scenarios for the FlowEngine (numpy only).
+"""Traffic and token streams (numpy only).
 
-A copy of the parts of ``repro.data.pipeline`` that the serving path needs
+A copy of the parts of ``repro.data.pipeline`` that the port needs
 (``_rng``, ``_traffic_tables``, ``flow_shard``, ``arrival_rounds``,
-``SCENARIO_KINDS`` and ``FlowScenario``), so the port runs where JAX is not
-installed.  Same seeds, same draw order: both packages emit the same
-packets, which the port's tests check.
+``TokenStream``, ``PacketStream``, ``SCENARIO_KINDS`` and
+``FlowScenario``), so the port runs where JAX is not installed.  Same
+seeds, same draw order: both packages emit the same batches, which the
+port's tests check.
 """
 
 from __future__ import annotations
@@ -71,6 +72,139 @@ def arrival_rounds(keys) -> "list[list[int]]":
             rounds.append([])
         rounds[r].append(i)
     return rounds
+
+
+# --------------------------------------------------------------------------
+# Training streams
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TokenStream:
+    vocab_size: int
+    batch_size: int  # per-shard batch
+    seq_len: int
+    seed: int = 0
+    shard_id: int = 0
+    num_shards: int = 1
+    step: int = 0  # resumable state
+
+    def __post_init__(self):
+        g = _rng(self.seed, 0xBEEF)
+        k = min(64, self.vocab_size)
+        # sparse Markov structure over a k-token "active set" per context hash
+        self._active = g.integers(0, self.vocab_size, size=(256, k))
+
+    def state(self) -> Dict[str, int]:
+        return {"step": self.step, "shard_id": self.shard_id, "num_shards": self.num_shards}
+
+    def restore(self, state: Dict[str, int]) -> None:
+        self.step = int(state["step"])
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        g = _rng(self.seed, self.shard_id, self.step)
+        B, T = self.batch_size, self.seq_len
+        k = self._active.shape[1]
+        ctx = g.integers(0, 256, size=(B,))
+        toks = np.empty((B, T), np.int32)
+        choices = g.integers(0, k, size=(B, T))
+        noise = g.random((B, T)) < 0.05
+        rand_tok = g.integers(0, self.vocab_size, size=(B, T))
+        for t in range(T):
+            row = self._active[ctx, choices[:, t]]
+            toks[:, t] = np.where(noise[:, t], rand_tok[:, t], row)
+            ctx = (ctx * 31 + toks[:, t]) % 256
+        self.step += 1
+        return {
+            "tokens": toks[:, :-1].copy(),
+            "labels": toks[:, 1:].copy(),
+        }
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
+
+
+@dataclasses.dataclass
+class PacketStream:
+    """Class-conditional packet-token flows (paper §4 traffic proxy).
+
+    Tokens 0..255 are byte-values; 256..511 are field markers.  Each class
+    has a handshake prefix, a characteristic transition kernel and periodic
+    signature tokens.  ``anomaly_rate`` flows carry rule-violating signature
+    bursts (used for the AE detection study and hard-veto tests).
+    """
+
+    n_classes: int = 8
+    vocab_size: int = 512
+    batch_size: int = 32
+    seq_len: int = 128
+    seed: int = 0
+    shard_id: int = 0
+    num_shards: int = 1
+    anomaly_rate: float = 0.0
+    drift: float = 0.0  # distribution drift per 1000 steps (Table 5 study)
+    # hard mode: handshake and signature markers shared across classes and
+    # per-class transition structure built as permutations of one base chain
+    # (identical token marginals — a bag-of-tokens model is at chance; only
+    # sequence structure separates classes) + body noise.  Keeps the
+    # benchmark classification task from saturating so ablation deltas show.
+    hard_mode: bool = False
+    noise: float = 0.0
+    marker_noise: float = 0.0  # random marker tokens (blurs novelty signals)
+    step: int = 0
+
+    def __post_init__(self):
+        # hard mode keeps per-class chains and periodic signatures (learnable
+        # but not trivially, so method deltas stay visible pre-saturation)
+        self._handshake, self._kernel, self._signature, self._anomaly_sig = (
+            _traffic_tables(self.seed, self.n_classes, self.vocab_size, self.hard_mode)
+        )
+
+    def state(self) -> Dict[str, int]:
+        return {"step": self.step}
+
+    def restore(self, state: Dict[str, int]) -> None:
+        self.step = int(state["step"])
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        g = _rng(self.seed, self.shard_id, self.step, 7)
+        B, T, C = self.batch_size, self.seq_len, self.n_classes
+        labels = g.integers(0, C, size=(B,))
+        toks = np.empty((B, T), np.int32)
+        # drift: the chain state offsets rotate slowly over steps (Table 5)
+        drift_off = int(self.drift * self.step / 1000.0 * 64)
+        hs = self._handshake[labels]
+        toks[:, :8] = hs
+        state = g.integers(0, 64, size=(B,))
+        choice = g.integers(0, 8, size=(B, T))
+        for t in range(8, T):
+            emit_sig = (t % 17) == 0
+            sig = self._signature[labels, t % 4]
+            body = self._kernel[labels, (state + drift_off) % 64, choice[:, t]]
+            toks[:, t] = np.where(emit_sig, sig, body)
+            state = (state * 5 + toks[:, t]) % 64
+        if self.noise > 0:
+            noisy = g.random((B, T)) < self.noise
+            rand = g.integers(0, 256, size=(B, T))
+            toks[:, 8:] = np.where(noisy[:, 8:], rand[:, 8:], toks[:, 8:])
+        if self.marker_noise > 0:
+            mn = g.random((B, T)) < self.marker_noise
+            randm = g.integers(256, self.vocab_size, size=(B, T))
+            toks[:, 8:] = np.where(mn[:, 8:], randm[:, 8:], toks[:, 8:])
+        anomalous = g.random((B,)) < self.anomaly_rate
+        if anomalous.any():
+            pos = g.integers(16, T - 4)
+            toks[anomalous, pos : pos + 4] = self._anomaly_sig
+        self.step += 1
+        return {
+            "tokens": toks,
+            "labels": labels.astype(np.int32),
+            "anomalous": anomalous,
+        }
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,188 @@
+"""Chunked Chimera attention partials: the CUDA kernel's wrapper, its plain
+version and the autograd Function around them.
+
+Replaces ``repro/kernels/chimera_attention/kernel.py::chimera_attention_pallas``
+with ``csrc/chimera_attention.cu`` (training and prefill).  Token i attends
+exactly (exp kernel) to the tokens j <= i of its own chunk and through the
+feature map, φ(q)ᵀφ(k), to every token of earlier chunks; the unnormalized
+``(num, den)`` partials are returned so that the caller can add the
+static-global term before dividing.
+
+* :func:`chimera_attention_partials_plain` — the port of
+  ``repro/kernels/chimera_attention/ref.py``, with dense (T, T) masks.
+* :func:`chimera_attention_bh` — the kernel's wrapper on the flattened
+  (batch × kv-head) layout: it launches the kernel for CUDA tensors and runs
+  the plain version for CPU tensors; any other device raises.  ``launches``
+  counts kernel launches (never plain calls).
+* :func:`chimera_attention_partials` — the port of the JAX ``custom_vjp``
+  (``repro/kernels/chimera_attention/ops.py``): the forward takes the
+  wrapper's route, the backward recomputes the plain formulation and
+  differentiates it, as ``_bwd`` does with ``jax.vjp`` of the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0
+
+# what csrc/chimera_attention.cu is instantiated for (see its contract)
+KERNEL_CHUNKS = (16, 32, 64, 128)
+_DV_SLICE, _M_TILE, _SMEM_LIMIT = 32, 64, 227 * 1024
+
+
+def chimera_attention_partials_plain(
+    q: torch.Tensor,  # (B, Hkv, Gq, T, d) normalized queries
+    k: torch.Tensor,  # (B, Hkv, T, d) normalized keys
+    v: torch.Tensor,  # (B, Hkv, T, dv)
+    phi_q: torch.Tensor,  # (B, Hkv, Gq, T, m)
+    phi_k: torch.Tensor,  # (B, Hkv, T, m)
+    chunk_size: int,
+    use_local: bool = True,
+    use_stream: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch partials: ``(num (B,Hkv,Gq,T,dv), den (B,Hkv,Gq,T))``."""
+    B, Hkv, Gq, T, d = q.shape
+    idx = torch.arange(T, device=q.device)
+    same_chunk = (idx[:, None] // chunk_size) == (idx[None, :] // chunk_size)
+    causal = idx[:, None] >= idx[None, :]
+    num = q.new_zeros((B, Hkv, Gq, T, v.shape[-1]))
+    den = q.new_zeros((B, Hkv, Gq, T))
+    if use_local:
+        mask = (same_chunk & causal).to(q.dtype)
+        s = torch.exp(torch.einsum("bhgid,bhjd->bhgij", q, k) / math.sqrt(d)) * mask
+        num = num + torch.einsum("bhgij,bhjd->bhgid", s, v)
+        den = den + torch.sum(s, dim=-1)
+    if use_stream:
+        mask = ((~same_chunk) & causal).to(q.dtype)
+        s = torch.einsum("bhgim,bhjm->bhgij", phi_q, phi_k) * mask
+        num = num + torch.einsum("bhgij,bhjd->bhgid", s, v)
+        den = den + torch.sum(s, dim=-1)
+    return num, den
+
+
+def _check(q, k, v, phi_q, phi_k, L):
+    BH, Gq, T, d = q.shape
+    dv, m = v.shape[-1], phi_q.shape[-1]
+    want = {
+        "q": (q, (BH, Gq, T, d)), "k": (k, (BH, T, d)), "v": (v, (BH, T, dv)),
+        "phi_q": (phi_q, (BH, Gq, T, m)), "phi_k": (phi_k, (BH, T, m)),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"chimera_attention: {name} has shape {tuple(t.shape)}, want {shape}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"chimera_attention: {name} must be float32, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"chimera_attention: {name} on {t.device}, q on {q.device}")
+    if T % L:
+        raise ValueError(f"chimera_attention: T={T} must be divisible by chunk_size={L}")
+    return BH, Gq, T, d, dv, m
+
+
+def kernel_smem_bytes(L: int, d: int, m: int) -> int:
+    """Shared memory of one block of csrc/chimera_attention.cu."""
+    return 4 * (m * (_DV_SLICE + 1) + 2 * L * (d + 1) + L * _DV_SLICE + L * (L + 1)
+                + L * (_M_TILE + 1))
+
+
+def chimera_attention_bh(
+    q: torch.Tensor,  # (BH, Gq, T, d) normalized queries, BH = B * Hkv
+    k: torch.Tensor,  # (BH, T, d)
+    v: torch.Tensor,  # (BH, T, dv)
+    phi_q: torch.Tensor,  # (BH, Gq, T, m)
+    phi_k: torch.Tensor,  # (BH, T, m)
+    *,
+    chunk_size: int,
+    use_local: bool = True,
+    use_stream: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(num (BH,Gq,T,dv), den (BH,Gq,T))``."""
+    global launches
+    L = chunk_size
+    BH, Gq, T, d, dv, m = _check(q, k, v, phi_q, phi_k, L)
+    if q.device.type == "cpu":
+        num, den = chimera_attention_partials_plain(
+            q[:, None], k[:, None], v[:, None], phi_q[:, None], phi_k[:, None],
+            L, use_local, use_stream,
+        )
+        return num[:, 0], den[:, 0]
+    if q.device.type != "cuda":
+        raise RuntimeError(f"chimera_attention: no kernel for device {q.device}")
+    for t in (q, k, v, phi_q, phi_k):
+        if not t.is_contiguous():
+            raise ValueError("chimera_attention: the kernel takes contiguous tensors only")
+    if L not in KERNEL_CHUNKS or dv % _DV_SLICE or m % _M_TILE:
+        raise ValueError(
+            f"chimera_attention: the kernel needs chunk_size in {KERNEL_CHUNKS}, dv a "
+            f"multiple of {_DV_SLICE} and m a multiple of {_M_TILE}; got {L}, {dv}, {m}"
+        )
+    if kernel_smem_bytes(L, d, m) > _SMEM_LIMIT:
+        raise ValueError(f"chimera_attention: L={L}, d={d}, m={m} need "
+                         f"{kernel_smem_bytes(L, d, m)} B of shared memory per block")
+    lib = _build.load_library()
+    num = torch.empty((BH, Gq, T, dv), dtype=torch.float32, device=q.device)
+    den = torch.empty((BH, Gq, T), dtype=torch.float32, device=q.device)
+    err = lib.chimera_attention_launch(
+        *map(_build.ptr, (q, k, v, phi_q, phi_k, num, den)),
+        BH, Gq, T, d, dv, m, L, 1.0 / math.sqrt(d), int(bool(use_local)),
+        int(bool(use_stream)), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "chimera_attention")
+    launches += 1
+    return num, den
+
+
+class _Partials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, phi_q, phi_k, chunk_size, use_local, use_stream):
+        B, Hkv, Gq, T, d = q.shape
+        BH = B * Hkv
+        num, den = chimera_attention_bh(
+            q.reshape(BH, Gq, T, d).contiguous(),
+            k.reshape(BH, T, d).contiguous(),
+            v.reshape(BH, T, v.shape[-1]).contiguous(),
+            phi_q.reshape(BH, Gq, T, phi_q.shape[-1]).contiguous(),
+            phi_k.reshape(BH, T, phi_k.shape[-1]).contiguous(),
+            chunk_size=chunk_size, use_local=use_local, use_stream=use_stream,
+        )
+        ctx.save_for_backward(q, k, v, phi_q, phi_k)
+        ctx.cfg = (chunk_size, use_local, use_stream)
+        return num.reshape(B, Hkv, Gq, T, -1), den.reshape(B, Hkv, Gq, T)
+
+    @staticmethod
+    def backward(ctx, g_num, g_den):
+        saved = ctx.saved_tensors
+        need = [i for i in range(5) if ctx.needs_input_grad[i]]
+        grads = [None] * 8
+        if not need:
+            return tuple(grads)
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(i in need) for i, x in enumerate(saved)]
+            num, den = chimera_attention_partials_plain(*xs, *ctx.cfg)
+            got = torch.autograd.grad(
+                (num, den), [xs[i] for i in need], (g_num, g_den), allow_unused=True
+            )
+        for i, g in zip(need, got):
+            grads[i] = g
+        return tuple(grads)
+
+
+def chimera_attention_partials(
+    q: torch.Tensor,  # (B, Hkv, Gq, T, d) normalized
+    k: torch.Tensor,  # (B, Hkv, T, d) normalized
+    v: torch.Tensor,  # (B, Hkv, T, dv)
+    phi_q: torch.Tensor,  # (B, Hkv, Gq, T, m)
+    phi_k: torch.Tensor,  # (B, Hkv, T, m)
+    chunk_size: int = 128,
+    use_local: bool = True,
+    use_stream: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(num (B,Hkv,Gq,T,dv), den (B,Hkv,Gq,T))`` partials;
+    differentiable through the plain formulation."""
+    return _Partials.apply(q, k, v, phi_q, phi_k, chunk_size, use_local, use_stream)

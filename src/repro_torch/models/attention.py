@@ -1,5 +1,6 @@
-"""Attention layer with the Chimera transform, decode only (port of
+"""Attention layer with the Chimera transform (port of
 ``repro.models.attention``: ``init_attention`` :165, ``_project_qkv`` :193,
+the causal Chimera branch of ``attention_layer`` :207,
 ``init_attention_cache`` :234 and the Chimera branch of
 ``attention_decode`` :249).  Softmax, SWA and MLA are not ported."""
 
@@ -49,6 +50,23 @@ def _project_qkv(cfg: ArchConfig, params: Params, x: torch.Tensor, positions: to
     q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
+
+
+def attention_layer(
+    cfg: ArchConfig,
+    params: Params,
+    x: torch.Tensor,  # (B, T, d)
+    positions: torch.Tensor,  # (B, T)
+    causal: bool = True,
+) -> torch.Tensor:
+    _require_chimera(cfg)
+    if not causal:
+        raise NotImplementedError("only causal Chimera attention is ported")
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    o = chimera.chimera_attention(cfg.chimera, params["chimera"], q, k, v)
+    o = o.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.head_dim)
+    return dense(params["wo"], o)
 
 
 def init_attention_cache(

@@ -33,6 +33,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import hardware_model
 from repro_torch.core import symbolic
 from repro_torch.core.chimera_attention import ChimeraState
@@ -206,13 +207,7 @@ class FlowEngine:
         fcfg: FlowEngineConfig = FlowEngineConfig(),
         device=None,
     ):
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "FlowEngine: CUDA is not available; pass device='cpu' to run "
-                "the plain PyTorch versions of the kernels"
-            )
-        self.device = device
+        self.device = device = resolve_device(device, "FlowEngine")
         self.ccfg = ccfg
         self.fcfg = fcfg
         self.stats = FlowStats()

@@ -57,9 +57,9 @@ def _pair(tiny_classifier_cfg, n_global, backend, capacity=10, lanes=8, idle_tim
         capacity=capacity, lanes=lanes, idle_timeout=idle_timeout, backend=backend))
     teng = TFE.FlowEngine(
         bridge.classifier_config_from_reference(ccfg),
-        bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params)),
+        bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params), device="cpu"),
         bridge.rules_from_numpy(*(np.asarray(a) for a in
-                                  (rules.values, rules.masks, rules.weights, rules.hard))),
+                                  (rules.values, rules.masks, rules.weights, rules.hard)), device="cpu"),
         TFE.FlowEngineConfig(capacity=capacity, lanes=lanes, idle_timeout=idle_timeout),
         device="cpu",
     )

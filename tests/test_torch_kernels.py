@@ -168,7 +168,8 @@ def test_flow_score_plain_matches_jax(tiny_classifier_cfg, M):
     want_ref, _ = JC.streaming_scores(tiny_classifier_cfg, *args)
 
     out, new_sticky = sops.flow_score(
-        bridge.params_from_jax(params), bridge.rules_from_numpy(*rule_arrays),
+        bridge.params_from_jax(params, device="cpu"),
+        bridge.rules_from_numpy(*rule_arrays, device="cpu"),
         _t(pooled), bridge.symbolic.uint32_to_int32(sig), _t(sticky),
     )
     assert out["hard_hit"].any() and not out["hard_hit"].all()

@@ -117,7 +117,7 @@ def test_pack_bits_packet_signature_and_default_rules_match_jax(tiny_classifier_
     )
     anom = np.array([300, 319, 400, 511])
     jr = JC.default_rules(tiny_classifier_cfg, jnp.asarray(anom))
-    tr = TC.default_rules(ccfg_t, anom)
+    tr = TC.default_rules(ccfg_t, anom, device="cpu")
     np.testing.assert_array_equal(tr.values.numpy().view(np.uint32), np.asarray(jr.values))
     np.testing.assert_array_equal(tr.masks.numpy().view(np.uint32), np.asarray(jr.masks))
     np.testing.assert_array_equal(tr.weights.numpy(), np.asarray(jr.weights))
@@ -136,7 +136,7 @@ def test_chimera_decode_step_matches_jax(tiny_arch, n_global):
     cfg_t = bridge.arch_from_reference(dataclasses.replace(tiny_arch, chimera=cfg_j)).chimera
     B, H, Hkv, d = 3, 2, 2, 16
     params = JCA.init_chimera_attention(cfg_j, Hkv, d, d, jax.random.PRNGKey(4))
-    tparams = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    tparams = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params), device="cpu")
     st_j = JCA.init_decode_state(cfg_j, B, Hkv, d, d)
     st_t = TCA.init_decode_state(cfg_t, B, Hkv, d, d)
     rng = np.random.default_rng(n_global)
@@ -168,7 +168,7 @@ def test_chimera_decode_step_matches_jax(tiny_arch, n_global):
 @pytest.fixture(scope="module")
 def classifier_pair(tiny_classifier_cfg):
     params, _ = JC.init_classifier(tiny_classifier_cfg, jax.random.PRNGKey(0))
-    tparams = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    tparams = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params), device="cpu")
     return tiny_classifier_cfg, params, tparams
 
 
@@ -177,7 +177,7 @@ def test_decode_hidden_step_matches_jax_per_token(classifier_pair):
     arch_t = bridge.arch_from_reference(ccfg.arch)
     B = 4
     caches_j = JM.init_caches(ccfg.arch, B, 0, dtype=jnp.float32)
-    caches_t = TM.init_caches(arch_t, B)
+    caches_t = TM.init_caches(arch_t, B, device="cpu")
     rng = np.random.default_rng(1)
     L = ccfg.arch.chimera.chunk_size
     step_j = jax.jit(JM.decode_hidden_step, static_argnums=0)

@@ -89,13 +89,14 @@ def no_gpu():
 @pytest.fixture(scope="module")
 def tiny_pair(tiny_classifier_cfg):
     params, _ = JC.init_classifier(tiny_classifier_cfg, jax.random.PRNGKey(0))
-    return params, bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    return params, bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                                          device="cpu")
 
 
 def test_engine_without_device_raises_on_a_host_without_gpu(no_gpu, tiny_classifier_cfg,
                                                             tiny_pair):
     ccfg = bridge.classifier_config_from_reference(tiny_classifier_cfg)
-    rules = TC.default_rules(ccfg, [300, 301, 302, 303])
+    rules = TC.default_rules(ccfg, [300, 301, 302, 303], device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FlowEngine(ccfg, tiny_pair[1], rules, FlowEngineConfig(capacity=4, lanes=2))
     FlowEngine(ccfg, tiny_pair[1], rules, FlowEngineConfig(capacity=4, lanes=2), device="cpu")
@@ -165,18 +166,18 @@ def test_bridge_round_trips_every_leaf(tiny_classifier_cfg, tiny_pair):
         np.testing.assert_array_equal(leaf.numpy(), want[path], err_msg=str(path))
     # the port's own initializer builds exactly this layout
     own = TC.init_classifier(bridge.classifier_config_from_reference(tiny_classifier_cfg),
-                             torch.Generator().manual_seed(0))
+                             torch.Generator().manual_seed(0), device="cpu")
     assert {p: tuple(t.shape) for p, t in _leaves(own)} == {
         p: tuple(t.shape) for p, t in got.items()
     }
     with pytest.raises(TypeError):
-        bridge.params_from_jax({"w": [1.0, 2.0]})
+        bridge.params_from_jax({"w": [1.0, 2.0]}, device="cpu")
 
 
 def test_bridge_rules_round_trip(tiny_classifier_cfg):
     jr = JC.default_rules(tiny_classifier_cfg, jax.numpy.asarray([300, 400, 511, 287]))
     arrays = [np.asarray(a) for a in (jr.values, jr.masks, jr.weights, jr.hard)]
-    tr = bridge.rules_from_numpy(*arrays)
+    tr = bridge.rules_from_numpy(*arrays, device="cpu")
     np.testing.assert_array_equal(tr.values.numpy().view(np.uint32), arrays[0])
     np.testing.assert_array_equal(tr.masks.numpy().view(np.uint32), arrays[1])
     assert tr.values.dtype == torch.int32 and tr.hard.dtype == torch.bool
