@@ -8,7 +8,7 @@ Phases, each printing its own lines:
 1. device    — requires CUDA; prints the card's name and power limit.
 2. build     — builds the port's CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels   — holds each kernel against its plain PyTorch version on the
-               card at the paper configuration's shapes and times both;
+               card at its main path's shapes and times both;
                checks the gradients of the chimera_attention Function.
 4. engine    — the serving path: a ``FlowEngine`` at the paper's full width
                (chimera-dataplane: 4 layers, d 256, m 256, L 64, n_global
@@ -19,13 +19,19 @@ Phases, each printing its own lines:
                the LM objective (``make_train_step``, batch 8 x 128), then
                one profiled classifier step (forward against backward) and
                one profiled LM step.
-6. reference — the engine on a small table, and 3 classifier training steps
-               of a small model, on the card and on the CPU (plain
-               versions): they must agree.
+6. serve     — the LM serving path: ``ServeEngine`` on Mixtral-8x7B's
+               softmax variant (sliding-window attention, MoE) at full width,
+               2 of its 32 layers, random weights from a seed: a prefill of
+               4 x 8192 tokens through the window_attention kernel, then 16
+               new tokens per slot over the ring KV cache; one profiled
+               prefill.
+7. reference — the engine on a small table, 3 classifier training steps of
+               a small model, and serving of a small softmax-SWA MoE model,
+               on the card and on the CPU (plain versions): they must agree.
 
-Phases 4 and 5 are the main paths: the kernels' launch counters are zeroed
-just before each and read just after, and each fails if one of its kernels
-never launched.  Then a JSON line with every kernel's numbers, and as the
+Phases 4, 5 and 6 are the main paths: the kernels' launch counters are
+zeroed just before each and read just after, and each fails if one of its
+kernels never launched.  Then a JSON line with every kernel's numbers, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 without it.  It imports nothing of JAX and nothing of the JAX package.
 """
@@ -53,6 +59,9 @@ PKT_LEN = 16
 LANES = 256
 CAPACITY = 4096
 TRAIN_BATCH, TRAIN_SEQ = 256, 256  # the classifier objective's batch
+# the serve phase: Mixtral-8x7B (softmax SWA + MoE) at full width, 2 of 32 layers
+SERVE_LAYERS, SERVE_SLOTS, SERVE_T, SERVE_NEW = 2, 4, 8192, 16
+SERVE_MAX_LEN = SERVE_T + 64  # the prompt, 1 more token and the new ones fit
 # kernel vs plain version on the same inputs: fp32 with another summation
 # order (warp shuffles vs BLAS), so |a - b| <= ATOL + RTOL * |b|
 RTOL, ATOL = 1e-4, 1e-5
@@ -439,6 +448,119 @@ def check_chimera_grads():
                    f"against autograd through the plain version")
 
 
+# window_attention outputs are convex combinations of rows of v (|v| ~ 1):
+# fp32 against the plain version's cuBLAS products differs by ~1e-6, held to
+# ATOL + RTOL * |ref|.  bf16: the kernel rounds its fp32 result once, so it is
+# held to the plain version on the fp32 inputs rounded to bf16, within two
+# bf16 ulps near 1 (atol = rtol = 8e-3).
+WIN_BF16_TOL = 8e-3
+# query heads per slice of the plain version at the prefill shape: it forms
+# (BH, T, T) fp32 scores, 2.1 GB per slice at T 8192, 34 GB for all 128
+WIN_PLAIN_HEADS = 8
+
+
+def window_inputs(B, H, Hkv, T, d, dv, seed, dtype=None):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    dtype = dtype or torch.float32
+    return [torch.randn(shape, generator=g).to("cuda", dtype)
+            for shape in ((B, H, T, d), (B, Hkv, T, d), (B, Hkv, T, dv))]
+
+
+def window_cost(B, H, Hkv, T, W, d, dv):
+    """Bytes and flops of the windowed attention in fp32: each of q, k, v
+    (per kv-head, as the kernel takes them) read once and o written once;
+    QK^T and PV over the in-band pairs only (min(i + 1, W) keys for row i)."""
+    n1 = min(T, W)
+    pairs = n1 * (n1 + 1) // 2 + (T - n1) * W
+    nbytes = 4 * (B * H * T * (d + dv) + B * Hkv * T * (d + dv))
+    return nbytes, B * H * pairs * (2 * d + 2 * dv)
+
+
+def check_window(timed):
+    """The kernel against its plain version at the serve phase's prefill shape
+    (the plain version run over slices of WIN_PLAIN_HEADS query heads), and at
+    ragged shapes; timed at the prefill shape."""
+    import torch
+    from repro_torch.configs.mixtral_8x7b import CONFIG as MIX
+    from repro_torch.kernels.window_attention import ops
+
+    B, H, Hkv, d, W, T = (SERVE_SLOTS, MIX.n_heads, MIX.n_kv_heads, MIX.head_dim,
+                          MIX.sliding_window, SERVE_T)
+    G = H // Hkv
+    q, k, v = window_inputs(B, H, Hkv, T, d, d, SEED + 20)
+    slices = [(b, h0) for b in range(B) for h0 in range(0, H, WIN_PLAIN_HEADS)]
+
+    def plain(b, h0):
+        kv = slice(h0 // G, (h0 + WIN_PLAIN_HEADS) // G)
+        return ops.sliding_window_attention_plain(
+            q[b:b + 1, h0:h0 + WIN_PLAIN_HEADS], k[b:b + 1, kv], v[b:b + 1, kv], W)
+
+    with torch.no_grad():
+        out = ops.sliding_window_attention(q, k, v, W)
+        err = max(compare(f"window_attention b {b} heads {h0}..{h0 + WIN_PLAIN_HEADS - 1}",
+                          out[b:b + 1, h0:h0 + WIN_PLAIN_HEADS], plain(b, h0))
+                  for b, h0 in slices)
+    rec = {"max_abs_err": err}
+    log("kernels", f"window_attention B {B} x H {H} (Hkv {Hkv}) T {T} W {W} d {d}: max abs err "
+                   f"{err:.3e} (tolerance {ATOL:g} + {RTOL:g}*|ref|) against the plain version "
+                   f"over {len(slices)} slices of {WIN_PLAIN_HEADS} heads")
+    ragged = [(200, 48, torch.float32, 4, 1), (200, 300, torch.float32, 4, 1),
+              (77, 13, torch.float32, 2, 2), (200, 48, torch.bfloat16, 4, 1)]
+    for i, (Tr, Wr, dt, Hr, Hkvr) in enumerate(ragged):
+        for dr in (64, 128):
+            xs = window_inputs(2, Hr, Hkvr, Tr, dr, dr, SEED + 21 + i, dt)
+            with torch.no_grad():
+                got = ops.sliding_window_attention(*xs, Wr)
+                want = ops.sliding_window_attention_plain(*(x.float() for x in xs), Wr)
+            name = f"window_attention T {Tr} W {Wr} d {dr} {dt}"
+            if dt == torch.bfloat16:
+                if got.dtype != torch.bfloat16:
+                    fail(f"{name}: output dtype {got.dtype}")
+                e = compare(name, got.float(), want.to(dt).float(), atol=WIN_BF16_TOL,
+                            rtol=WIN_BF16_TOL)
+                tol = f"{WIN_BF16_TOL:g} + {WIN_BF16_TOL:g}*|ref|"
+            else:
+                e = compare(name, got, want)
+                tol = f"{ATOL:g} + {RTOL:g}*|ref|"
+            log("kernels", f"{name}, B 2 x H {Hr} (Hkv {Hkvr}): max abs err {e:.3e} "
+                           f"(tolerance {tol})")
+    if timed:
+        with torch.no_grad():
+            ms, call_ms = cuda_ms(lambda: ops.sliding_window_attention(q, k, v, W), iters=2)
+            plain_ms, _ = cuda_ms(lambda: [plain(b, h0) for b, h0 in slices], iters=1)
+            # the yardstick: one PyTorch call on the same function, K and V
+            # repeated to the query heads, the band as a boolean mask
+            idx = torch.arange(T, device="cuda")
+            band = ((idx[:, None] - idx[None, :]) >= 0) & ((idx[:, None] - idx[None, :]) < W)
+            ke, ve = (x.repeat_interleave(G, dim=1) for x in (k, v))
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            def sdpa():  # the memory-efficient backend: the math one forms (BH, T, T)
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q, ke, ve, attn_mask=band)
+
+            lib_err = float((sdpa() - out).abs().max())
+            library_ms, _ = cuda_ms(sdpa, iters=1)
+        del ke, ve
+        nbytes, flops = window_cost(B, H, Hkv, T, W, d, d)
+        bound_ms, bound_by = bound(nbytes, flops)
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, bytes=nbytes, flops=flops, call_ms=call_ms)
+        log("kernels", f"window_attention device time at B {B} x H {H} (Hkv {Hkv}) T {T} W {W} "
+                       f"d {d}: kernel {ms:.4f} ms (per call from Python {call_ms:.4f} ms), bound "
+                       f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
+                       f"scaled_dot_product_attention with a band mask {library_ms:.4f} ms "
+                       f"(max abs diff to the kernel {lib_err:.3e}); plain version {plain_ms:.4f} "
+                       f"ms over its {len(slices)} slices of {WIN_PLAIN_HEADS} heads (it forms "
+                       f"(BH, T, T) fp32 scores)")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels():
     recs = {}
     check_decode(with_global=False, timed=False)
@@ -447,6 +569,7 @@ def phase_kernels():
     check_score(M=300, timed=False)
     recs["chimera_attention"] = check_chimera(timed=True)
     check_chimera_grads()
+    recs["window_attention"] = check_window(timed=True)
     return recs
 
 
@@ -572,7 +695,7 @@ def report_ops_per_token(engine):
 
     lanes = engine.fcfg.lanes
     dev = engine.device
-    caches = M.init_caches(engine.ccfg.arch, lanes, device=dev)
+    caches = M.init_caches(engine.ccfg.arch, lanes, dtype=torch.float32, device=dev)
     tok = torch.zeros((lanes,), dtype=torch.long, device=dev)
     pos = torch.zeros((lanes,), dtype=torch.int32, device=dev)
     with Count() as c:
@@ -749,7 +872,126 @@ def profile_train_step(ccfg, params, rules):
 
 
 # --------------------------------------------------------------------------
-# 6. reference: the card against the plain versions on the CPU
+# 6. serve (the LM serving path: Mixtral-8x7B, softmax SWA + MoE)
+# --------------------------------------------------------------------------
+
+def mixtral_softmax(n_layers, **replace):
+    """Mixtral-8x7B's softmax variant (``launch/dryrun.py --no-chimera``),
+    cut to ``n_layers`` of its 32 layers, optionally narrowed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("mixtral-8x7b"), use_chimera=False,
+                               n_layers=n_layers, **replace)
+
+
+def phase_serve(recs):
+    """``ServeEngine`` at Mixtral's full width, 2 of 32 layers (all 32 in
+    fp32 would be 187 GB): prefill_batch of 4 prompts of T + 1 tokens (a
+    T = 8192 prefill through the window kernel, T > W), then 16 new tokens
+    per slot through decode_step over the ring KV cache."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.flow_ingest import ops as sops
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_flatten
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = mixtral_softmax(SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])
+    log("serve", f"{cfg.name} softmax SWA + MoE, {cfg.n_layers} of 32 layers at full width (d "
+                 f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv-heads, head_dim "
+                 f"{cfg.head_dim}, {cfg.moe_experts} experts top-{cfg.moe_top_k} d_ff "
+                 f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}, capacity "
+                 f"factor {cfg.capacity_factor}, dtype {cfg.dtype}): {nbytes // 4} fp32 "
+                 f"parameters ({nbytes} B) drawn on the card in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                         device="cuda")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_T + 1))
+    reqs = [Request(rid=i, prompt=p.tolist(), max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    # warm-up at the main path's shapes (cuBLAS picks its kernels on a first
+    # call), with the prefill's logits checked: finite, of the padded vocab
+    tokens = torch.from_numpy(prompts[:, :SERVE_T]).to("cuda")
+    tok = torch.zeros((SERVE_SLOTS,), dtype=torch.long, device="cuda")
+    pos = torch.full((SERVE_SLOTS,), SERVE_T, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, caches = M.prefill_with_caches(cfg, params, tokens, max_len=SERVE_MAX_LEN)
+        M.decode_step(cfg, params, tok, pos, caches)
+    if tuple(logits.shape) != (SERVE_SLOTS, cfg.padded_vocab) or not torch.isfinite(logits).all():
+        fail(f"serve: prefill logits of shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    del logits, caches
+
+    # the main path: counters zeroed just before, read just after
+    wops.launches = cops.launches = dops.launches = sops.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill_batch(reqs)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.run_until_done()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {"window_attention": wops.launches, "chimera_attention": cops.launches,
+                "decode_step": dops.launches, "flow_score": sops.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    want = cfg.n_layers * 1  # one launch per layer and prefill
+    if launches["window_attention"] != want:
+        fail(f"serve: window_attention launched {launches['window_attention']} times, want "
+             f"{want} (layers x prefills): {launches}")
+    for r in reqs:
+        if not r.done or len(r.generated) != SERVE_NEW:
+            fail(f"serve: request {r.rid} generated {len(r.generated)} of {SERVE_NEW} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.generated):
+            fail(f"serve: request {r.rid} emitted an id outside the vocabulary")
+    ticks, emitted = engine.stats.ticks, engine.stats.tokens_emitted
+    if emitted != SERVE_SLOTS * SERVE_NEW:
+        fail(f"serve: {emitted} tokens emitted, want {SERVE_SLOTS * SERVE_NEW}")
+    n_prefill = SERVE_SLOTS * SERVE_T
+    log("serve", f"prefill_batch {SERVE_SLOTS} x {SERVE_T} tokens: {prefill_s * 1e3:.1f} ms, "
+                 f"{n_prefill / prefill_s:.0f} tokens/s")
+    log("serve", f"decode: {ticks} ticks ({SERVE_SLOTS} slots, the prompts' last tokens then "
+                 f"{SERVE_NEW} new each) in {decode_s * 1e3:.1f} ms: {decode_s / ticks * 1e3:.2f} "
+                 f"ms per tick, {emitted / decode_s:.1f} tokens/s")
+    log("serve", f"launches in the main-path run: {launches} (window_attention = {cfg.n_layers} "
+                 f"layers x 1 prefill): {want * recs['window_attention']['ms']:.1f} ms of "
+                 f"window_attention device time per prefill (phase 3's ms per launch)")
+    log("serve", f"max_memory_allocated {peak} B during serving (parameters {nbytes} B)")
+    log("serve", "greedy generations (first 8 ids): "
+                 + "; ".join(f"{r.rid}: {r.generated[:8]}" for r in reqs))
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        M.prefill_with_caches(cfg, params, tokens, max_len=SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    report_profile(prof, prof_wall, f"one prefill of {SERVE_SLOTS} x {SERVE_T} tokens")
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        M.decode_step(cfg, params, tok, pos, engine.caches)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    report_profile(prof, prof_wall, f"one decode_step of {SERVE_SLOTS} slots (no engine "
+                                    "bookkeeping)")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": prefill_s, "decode_s": decode_s}
+
+
+# --------------------------------------------------------------------------
+# 7. reference: the card against the plain versions on the CPU
 # --------------------------------------------------------------------------
 
 # card vs CPU, fp32 on both sides with other summation orders, through 4
@@ -870,6 +1112,59 @@ def phase_reference_train():
                      f"{REF_PARAM_ATOL:g}: {share:.3e} (limit {REF_PARAM_SHARE:g})")
 
 
+# card vs CPU serving of a small softmax-SWA MoE model (fp32 on both sides,
+# drop-free capacity): greedy generations identical, and the next-token
+# logits after the prompts within REF_LOGIT_TOL (abs, + the same relative)
+# of each other: O(1) logits through 2 layers in other summation orders.
+REF_LOGIT_TOL = 1e-4
+REF_SERVE_PROMPTS, REF_SERVE_NEW, REF_SERVE_MAX_LEN = (150, 130, 170), 8, 256
+
+
+def phase_reference_serve():
+    import torch
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    # 2 layers, d 256, head_dim 64 (a width the kernel takes), window 48 below
+    # the prompts (ring wrap), 4 experts top-2 with capacity factor 4 (no drops)
+    cfg = mixtral_softmax(2, d_model=256, n_heads=4, n_kv_heads=2, d_head=64, d_ff=512,
+                          vocab_size=512, vocab_pad_multiple=32, sliding_window=48,
+                          moe_experts=4, moe_d_ff=256, capacity_factor=4.0, dtype="float32")
+    params = M.init_model(cfg, torch.Generator().manual_seed(SEED + 40), device="cpu")
+    rng = np.random.default_rng(SEED + 41)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in REF_SERVE_PROMPTS]
+    common = min(REF_SERVE_PROMPTS)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = wops.launches
+        p = tree_map(lambda t: t.to(dev), params)
+        engine = ServeEngine(cfg, p, batch_slots=4, max_len=REF_SERVE_MAX_LEN, device=dev)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=REF_SERVE_NEW)
+                for i, pr in enumerate(prompts)]
+        engine.prefill_batch(reqs)
+        engine.run_until_done()
+        with torch.no_grad():
+            logits, _ = M.prefill_with_caches(
+                cfg, p, torch.tensor([pr[:common] for pr in prompts], device=dev),
+                max_len=REF_SERVE_MAX_LEN)
+        if (wops.launches > before) != (dev == "cuda"):
+            fail(f"reference serve: window_attention launches on {dev}: "
+                 f"{wops.launches - before}")
+        runs[dev] = ([r.generated for r in reqs], logits.cpu())
+    (gen_g, lg), (gen_c, lc) = runs["cuda"], runs["cpu"]
+    if gen_g != gen_c:
+        fail(f"reference serve: greedy generations differ: card {gen_g} vs CPU {gen_c}")
+    err = compare("reference serve logits", lg, lc, atol=REF_LOGIT_TOL, rtol=REF_LOGIT_TOL)
+    log("reference", f"serve: a small softmax-SWA MoE model (2 layers, d 256, head_dim 64, "
+                     f"window 48, 4 experts top-2, capacity factor 4), prompts of "
+                     f"{list(REF_SERVE_PROMPTS)} tokens, prefill_batch then {REF_SERVE_NEW} "
+                     f"greedy tokens each: card (kernel) and CPU (plain) generations identical "
+                     f"{gen_g}; next-token logits after {common} tokens max abs diff {err:.3e} "
+                     f"(tolerance {REF_LOGIT_TOL:g} + {REF_LOGIT_TOL:g}*|ref|)")
+
+
 # --------------------------------------------------------------------------
 
 def main():
@@ -881,9 +1176,11 @@ def main():
     recs = phase_kernels()
     launches = phase_engine(recs)["launches"]
     launches["chimera_attention"] = phase_train(recs)["launches"]["chimera_attention"]
+    launches["window_attention"] = phase_serve(recs)["launches"]["window_attention"]
     phase_reference(n_global=0)
     phase_reference(n_global=64)
     phase_reference_train()
+    phase_reference_serve()
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernel_lines(recs, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -899,6 +1196,8 @@ def kernel_lines(recs, launches):
                        "src/repro/kernels/flow_ingest/kernel.py:53"),
         "chimera_attention": ("src/repro_torch/csrc/chimera_attention.cu",
                               "src/repro/kernels/chimera_attention/kernel.py:104"),
+        "window_attention": ("src/repro_torch/csrc/window_attention.cu",
+                             "src/repro/kernels/window_attention/kernel.py:89"),
     }
     lines = []
     for name, (source, replaces) in info.items():
@@ -907,7 +1206,7 @@ def kernel_lines(recs, launches):
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
         })
     return lines
 

@@ -5,8 +5,11 @@ The package mirrors the JAX package's module names (``core``, ``models``,
 counterpart.  It imports ``torch`` and numpy only — never ``jax`` and
 nothing of ``repro`` — and keeps its own copy of what it needs.
 
-Everything runs in float32, as the paper's configuration does; TF32 is
-switched off explicitly for matrix products and convolutions.
+Parameters are float32, as the JAX package draws them; the residual
+stream runs in ``ArchConfig.dtype`` (float32 in the paper's configuration,
+bfloat16 by default), and products of bfloat16 activations with float32
+weights are float32, as jnp's type promotion makes them.  TF32 is switched
+off explicitly for matrix products and convolutions.
 """
 
 import torch

@@ -24,16 +24,23 @@ from repro_torch.train.classifier import ClassifierConfig
 
 def arch_from_reference(ref) -> ArchConfig:
     """The port's ArchConfig from the JAX package's (read by attribute, so
-    no import of the JAX package is needed)."""
+    no import of the JAX package is needed).  ``swa_backend`` is dropped:
+    the device of the tensors chooses the kernel or its plain version."""
     ch, fm = ref.chimera, ref.chimera.feature_map
-    if not (ch.use_local and ch.use_stream) or ch.expand_kv:
+    if ref.use_chimera and (not (ch.use_local and ch.use_stream) or ch.expand_kv):
         raise NotImplementedError("the port runs Chimera with local + stream, no expand_kv")
+    if ref.encoder_layers:
+        raise NotImplementedError("the encoder-decoder path is not ported")
     return ArchConfig(
         name=ref.name, family=ref.family, n_layers=ref.n_layers, d_model=ref.d_model,
         n_heads=ref.n_heads, n_kv_heads=ref.n_kv_heads, d_ff=ref.d_ff,
         vocab_size=ref.vocab_size, d_head=ref.d_head,
-        vocab_pad_multiple=ref.vocab_pad_multiple, qk_norm=ref.qk_norm,
-        qkv_bias=ref.qkv_bias, rope_theta=ref.rope_theta,
+        vocab_pad_multiple=ref.vocab_pad_multiple, attention_kind=ref.attention_kind,
+        qk_norm=ref.qk_norm, qkv_bias=ref.qkv_bias, sliding_window=ref.sliding_window,
+        rope_theta=ref.rope_theta, moe_experts=ref.moe_experts, moe_top_k=ref.moe_top_k,
+        moe_every=ref.moe_every, moe_shared_experts=ref.moe_shared_experts,
+        moe_d_ff=ref.moe_d_ff, moe_first_dense=ref.moe_first_dense,
+        capacity_factor=ref.capacity_factor,
         block_pattern=tuple(ref.block_pattern), use_chimera=ref.use_chimera,
         chimera=ChimeraAttentionConfig(
             feature_map=FeatureMapConfig(
@@ -56,8 +63,9 @@ def classifier_config_from_reference(ref) -> ClassifierConfig:
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays (a JAX model or classifier pytree) -> the
     same nesting of float32 tensors on ``device`` (``None`` means
-    ``"cuda"``; without a GPU it raises).  Every leaf is converted; a leaf
-    that is not an array raises, so nothing is silently dropped."""
+    ``"cuda"``; without a GPU it raises).  Every leaf is converted, the MoE
+    tree's stacked expert tensors and its 0-d ``_moe`` marker included; a
+    leaf that is not an array raises, so nothing is silently dropped."""
     device = resolve_device(device, "params_from_jax")
 
     def conv(t):

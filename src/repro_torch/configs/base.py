@@ -1,8 +1,11 @@
 """Architecture configuration: the fields of ``repro.configs.base.ArchConfig``
-that the dense Chimera decode and training paths read, with the same names and defaults.
+that the ported paths read, with the same names and defaults: the dense
+Chimera stack (decode and training) and the softmax sliding-window (SWA)
+MoE stack of Mixtral (serving).
 
-Families other than a dense Chimera stack (MoE, SSM, MLA, enc-dec) are not
-ported yet, so their fields are absent here.
+SSM, MLA and enc-dec are not ported yet, so their fields are absent here,
+and so is ``swa_backend``: the device of the tensors chooses between a
+kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from repro_torch.core.feature_maps import FeatureMapConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # only "dense" is ported
+    family: str  # "dense" or "moe" are ported
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,9 +31,20 @@ class ArchConfig:
     vocab_pad_multiple: int = 256
 
     # attention
+    attention_kind: str = "gqa"  # gqa | swa (mla is not ported)
     qk_norm: bool = False
     qkv_bias: bool = False
+    sliding_window: int = 0  # swa only
     rope_theta: float = 1e4
+
+    # MoE
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_every: int = 1  # MoE MLP every k-th layer (1 = all layers)
+    moe_shared_experts: int = 0
+    moe_d_ff: int = 0  # expert hidden dim (0 → d_ff)
+    moe_first_dense: int = 0  # first N layers use dense MLP
+    capacity_factor: float = 1.25
 
     block_pattern: Tuple[str, ...] = ("attn",)
 
@@ -44,7 +58,7 @@ class ArchConfig:
 
     norm_type: str = "rmsnorm"
     tie_embeddings: bool = False
-    dtype: str = "float32"
+    dtype: str = "bfloat16"
 
     @property
     def head_dim(self) -> int:
@@ -67,3 +81,10 @@ class ArchConfig:
     @property
     def n_groups(self) -> int:
         return self.n_layers // len(self.block_pattern)
+
+    def layer_is_moe(self, layer_idx: int) -> bool:
+        if self.moe_experts == 0:
+            return False
+        if layer_idx < self.moe_first_dense:
+            return False
+        return (layer_idx - self.moe_first_dense) % self.moe_every == 0

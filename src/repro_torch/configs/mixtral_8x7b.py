@@ -1,0 +1,23 @@
+"""Mixtral-8x7B [arXiv:2401.04088] — 8 experts top-2, sliding-window
+attention (4096).  Same values as ``repro.configs.mixtral_8x7b.CONFIG``;
+the port serves its softmax variant (``use_chimera=False``), where the
+banded SWA path runs through the ``window_attention`` kernel."""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mixtral-8x7b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab_size=32000,
+    attention_kind="swa",
+    sliding_window=4096,
+    moe_experts=8,
+    moe_top_k=2,
+    moe_d_ff=14336,
+    rope_theta=1e6,
+)

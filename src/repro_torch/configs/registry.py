@@ -1,0 +1,59 @@
+"""Registry of the configurations the port has (port of
+``repro.configs.registry``: ``get_config`` and ``smoke_config`` :49-89).
+
+``smoke_config``'s reductions are the JAX package's; its MLA, enc-dec and
+Mamba branches are left out with those families.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import chimera_dataplane, mixtral_8x7b
+from repro_torch.configs.base import ArchConfig
+
+ARCHS = {
+    "mixtral-8x7b": mixtral_8x7b.CONFIG,
+    "chimera-dataplane": chimera_dataplane.CONFIG,
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; the port has {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def smoke_config(name: str) -> ArchConfig:
+    """Reduced same-family config for CPU smoke tests."""
+    cfg = get_config(name)
+    pattern = cfg.block_pattern
+    n_layers = max(len(pattern), 2 if len(pattern) == 1 else len(pattern))
+    replace = dict(
+        n_layers=n_layers if n_layers % len(pattern) == 0 else len(pattern),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads < cfg.n_heads else 4,
+        d_head=16,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        vocab_pad_multiple=32,
+        dtype="float32",
+        chimera=dataclasses.replace(
+            cfg.chimera,
+            feature_map=dataclasses.replace(cfg.chimera.feature_map, m=16),
+            chunk_size=16,
+            n_global=8,
+            sig_bits=16,
+            match_hamming=8,
+        ),
+    )
+    if cfg.moe_experts:
+        # capacity_factor = E makes the capacity drop-free so smoke tests can
+        # assert decode == teacher-forced forward exactly
+        replace.update(
+            moe_experts=4, moe_top_k=2, moe_d_ff=64,
+            moe_shared_experts=min(cfg.moe_shared_experts, 1),
+            capacity_factor=4.0,
+        )
+    return dataclasses.replace(cfg, **replace)

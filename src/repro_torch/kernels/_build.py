@@ -37,6 +37,7 @@ SIGNATURES = {
     "decode_step_launch": [_P] * 14 + [_I] * 7 + [_F, _P],
     "flow_score_launch": [_P] * 18 + [_I] * 6 + [_P],
     "chimera_attention_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
+    "window_attention_launch": [_P] * 4 + [_I] * 7 + [_F] + [_I] + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

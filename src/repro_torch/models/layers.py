@@ -2,6 +2,12 @@
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts: a dense layer is ``{"w": (d_in, d_out)[, "b": (d_out,)]}``.
+Parameters are float32, as JAX draws them; activations may be bfloat16
+(``ArchConfig.dtype``), and a product of the two is float32, as jnp's
+type promotion makes it.
+
+Random weights are drawn from a ``torch.Generator`` on that generator's
+device (a CUDA generator draws on the card) and then moved to ``device``.
 """
 
 from __future__ import annotations
@@ -14,19 +20,34 @@ import torch
 Params = Dict[str, torch.Tensor]
 
 
+def normal(g: torch.Generator, shape, scale: float, device="cpu") -> torch.Tensor:
+    """``scale`` times standard normals drawn on ``g``'s device, on ``device``."""
+    return (torch.randn(shape, generator=g, device=g.device) * scale).to(device)
+
+
 def init_dense(
     g: torch.Generator, d_in: int, d_out: int, bias: bool = False,
     scale: Optional[float] = None, device="cpu",
 ) -> Params:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    p = {"w": (torch.randn((d_in, d_out), generator=g) * scale).to(device)}
+    p = {"w": normal(g, (d_in, d_out), scale, device)}
     if bias:
         p["b"] = torch.zeros((d_out,), device=device)
     return p
 
 
+def promote(*xs: torch.Tensor):
+    """The operands in their common type (jnp promotion: bf16 with f32 is f32);
+    torch's matmul and einsum refuse mixed types."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return [x.to(dt) for x in xs]
+
+
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ params["w"]
+    x, w = promote(x, params["w"])
+    y = x @ w
     if "b" in params:
         y = y + params["b"]
     return y
@@ -45,7 +66,7 @@ def apply_norm(params: Params, x: torch.Tensor, kind: str = "rmsnorm", eps: floa
 
 
 def init_embedding(g: torch.Generator, vocab: int, d: int, device="cpu") -> Params:
-    return {"table": (torch.randn((vocab, d), generator=g) * 0.02).to(device)}
+    return {"table": normal(g, (vocab, d), 0.02, device)}
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,18 @@
-"""Model assembly for the dense Chimera stack (port of
-``repro.models.model``: ``_block_forward`` :89, ``_group_forward`` :176,
-``init_model`` :188, ``_scan_groups`` :205, ``forward`` :221, ``_head``
-:241, ``loss_fn`` :264, ``init_caches`` :300, ``_block_decode`` :309 and
-``decode_hidden_step`` :335).
+"""Model assembly (port of ``repro.models.model``: ``_init_block`` :60,
+``_block_forward`` :89, ``_group_forward`` :176, ``init_model`` :188,
+``_scan_groups`` :205, ``forward`` :221, ``_head`` :241, ``loss_fn`` :264,
+``init_caches`` :300, ``_block_decode`` :309, ``decode_hidden_step`` :335,
+``decode_step`` :363, ``_block_prefill`` :500 and ``prefill_with_caches``
+:526).
 
 The parameter layout is the JAX package's: per-group block parameters are
 stacked on a leading "layers" axis under ``params["blocks"]["b<j>"]``, and
 the caches likewise.  The JAX ``scan`` over groups becomes a Python loop
-over that axis; the caches are updated in place.  Only the dense Chimera
-stack (pattern ``("attn",)``, SwiGLU MLP) is ported.
+over that axis; the caches are updated in place.  Two stacks are ported,
+both of attention blocks only: the Chimera stack (dense or MoE MLP) and the
+softmax sliding-window stack (Mixtral: SWA attention, MoE MLP).  The
+residual stream is in ``cfg.dtype``: the embedding is cast to it, and every
+block's output is cast back to it before the residual add, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.chimera_attention import ChimeraState
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_norm,
     dense,
@@ -35,16 +40,29 @@ from repro_torch.models.layers import (
 Params = Dict[str, Any]
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if any(kind != "attn" for kind in cfg.pattern) or cfg.family != "dense":
-        raise NotImplementedError("only the dense Chimera stack is ported")
+def _require_ported(cfg: ArchConfig) -> None:
+    """The stacks the port has: attention blocks only (no Mamba / xLSTM, no
+    encoder), Chimera attention or softmax sliding-window attention, dense
+    or MoE MLPs."""
+    if any(kind != "attn" for kind in cfg.pattern) or cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: only stacks of attention blocks (family dense or moe) are ported")
+    attn.require_ported(cfg)
 
 
-def _init_block(cfg: ArchConfig, g: torch.Generator, device) -> Params:
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
+def _init_block(cfg: ArchConfig, pos_in_pattern: int, g: torch.Generator, device) -> Params:
     p = {"ln1": init_norm(cfg.d_model, device), "attn": attn.init_attention(cfg, g, device)}
-    if cfg.d_ff:
+    if cfg.d_ff or cfg.moe_experts:
         p["ln2"] = init_norm(cfg.d_model, device)
-        p["mlp"] = init_mlp(g, cfg.d_model, cfg.d_ff, device)
+        if cfg.layer_is_moe(pos_in_pattern):
+            p["mlp"] = moe_mod.init_moe(cfg, g, device)
+            p["_moe"] = torch.zeros((), device=device)  # structural marker
+        else:
+            p["mlp"] = init_mlp(g, cfg.d_model, cfg.d_ff, device)
     return p
 
 
@@ -64,13 +82,14 @@ def index_params(tree: Params, i: int) -> Params:
 
 
 def init_model(cfg: ArchConfig, g: torch.Generator, device=None) -> Params:
-    """Random weights with the JAX package's layout.  ``device=None`` means
+    """Random weights with the JAX package's layout, drawn from ``g`` on its
+    own device (a CUDA generator draws on the card).  ``device=None`` means
     ``"cuda"``; without a GPU it raises."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = resolve_device(device, "init_model")
     p: Params = {"embed": init_embedding(g, cfg.padded_vocab, cfg.d_model, device)}
     groups = [
-        {f"b{j}": _init_block(cfg, g, device) for j in range(len(cfg.pattern))}
+        {f"b{j}": _init_block(cfg, j, g, device) for j in range(len(cfg.pattern))}
         for _ in range(cfg.n_groups)
     ]
     p["blocks"] = stack_params(groups)
@@ -80,39 +99,56 @@ def init_model(cfg: ArchConfig, g: torch.Generator, device=None) -> Params:
     return p
 
 
+def _mlp_out(cfg: ArchConfig, bp: Params, h):
+    """The block's MLP: ``(y, aux)``, MoE or SwiGLU."""
+    if "_moe" in bp:
+        return moe_mod.moe_layer(cfg, bp["mlp"], h)
+    return mlp(bp["mlp"], h), None
+
+
 def _block_forward(cfg: ArchConfig, bp: Params, x, positions, causal: bool = True):
+    """Returns ``(x, aux)``: aux is the MoE balance loss (0 without MoE)."""
+    aux = torch.zeros((), device=x.device)
     h = apply_norm(bp["ln1"], x, cfg.norm_type)
-    x = x + attn.attention_layer(cfg, bp["attn"], h, positions, causal=causal)
+    y = attn.attention_layer(cfg, bp["attn"], h, positions, causal=causal)
+    x = x + y.to(x.dtype)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
-        x = x + mlp(bp["mlp"], h)
-    return x
+        y, a = _mlp_out(cfg, bp, h)
+        if a is not None:
+            aux = aux + a
+        x = x + y.to(x.dtype)
+    return x, aux
 
 
 def _group_forward(cfg: ArchConfig, gp: Params, x, positions, causal: bool = True):
+    aux = torch.zeros((), device=x.device)
     for j in range(len(cfg.pattern)):
-        x = _block_forward(cfg, gp[f"b{j}"], x, positions, causal)
-    return x
+        x, a = _block_forward(cfg, gp[f"b{j}"], x, positions, causal)
+        aux = aux + a
+    return x, aux
 
 
 def _scan_groups(cfg: ArchConfig, stacked: Params, x, positions, causal: bool = True):
     """The JAX scan over groups as a loop over the stacked layer axis.
-    Returns ``(x, aux)``; the dense stack has no auxiliary loss."""
+    Returns ``(x, aux)``."""
+    aux = torch.zeros((), device=x.device)
     for gi in range(cfg.n_groups):
-        x = _group_forward(cfg, index_params(stacked, gi), x, positions, causal)
-    return x, torch.zeros((), device=x.device)
+        x, a = _group_forward(cfg, index_params(stacked, gi), x, positions, causal)
+        aux = aux + a
+    return x, aux
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
     """batch: {"tokens": (B,T) int[, "positions"]}.  Returns
     (logits (B,T,V_padded), aux_loss)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(T, device=tokens.device).expand(B, T)
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens).to(_dtype(cfg))
     x, aux = _scan_groups(cfg, params["blocks"], x, positions)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     return _head(cfg, params, x), aux
@@ -120,7 +156,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
 
 def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
+        return x @ params["embed"]["table"].T.to(x.dtype)
     return dense(params["head"], x)
 
 
@@ -128,6 +164,7 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
     """Next-token cross-entropy with the 1e-4 z-loss.  Returns
     (total, {"nll", "aux", "zloss"})."""
     logits, aux = forward(cfg, params, batch)
+    logits = logits.float()
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
@@ -141,23 +178,37 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
     return total, {"nll": loss, "aux": aux, "zloss": zloss}
 
 
-def init_caches(cfg: ArchConfig, batch: int, dtype=torch.float32, device=None):
-    """Zero decode caches.  ``device=None`` means ``"cuda"``; without a GPU
-    it raises."""
-    _require_dense(cfg)
+def init_caches(cfg: ArchConfig, batch: int, max_len: int = 0, dtype=None, device=None):
+    """Zero decode caches, stacked on the layer axis: Chimera states, or ring
+    KV caches of ``min(max_len, window)`` tokens for softmax SWA.  ``dtype``
+    defaults to ``cfg.dtype``.  ``device=None`` means ``"cuda"``; without a
+    GPU it raises."""
+    _require_ported(cfg)
     device = resolve_device(device, "init_caches")
+    dtype = dtype or _dtype(cfg)
     return {
-        f"b{j}": attn.init_attention_cache(cfg, batch, dtype, device, lead=(cfg.n_groups,))
+        f"b{j}": attn.init_attention_cache(cfg, batch, max_len, dtype, device,
+                                           lead=(cfg.n_groups,))
         for j in range(len(cfg.pattern))
     }
 
 
-def _block_decode(cfg: ArchConfig, bp: Params, x_t, position, cache: ChimeraState):
+def _layer_cache(c, gi: int):
+    """Layer ``gi`` of a stacked block cache, as views that decode updates in
+    place (a Chimera state's ``count`` is replaced: write it back after)."""
+    if isinstance(c, ChimeraState):
+        return ChimeraState(*(t[gi] for t in c.leaves()))
+    return {k: t[gi] for k, t in c.items()}
+
+
+def _block_decode(cfg: ArchConfig, bp: Params, x_t, position, cache):
     h = apply_norm(bp["ln1"], x_t, cfg.norm_type)
-    x_t = x_t + attn.attention_decode(cfg, bp["attn"], h, position, cache)
+    y = attn.attention_decode(cfg, bp["attn"], h, position, cache)
+    x_t = x_t + y.to(x_t.dtype)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x_t, cfg.norm_type)
-        x_t = x_t + mlp(bp["mlp"], h)
+        y, _ = _mlp_out(cfg, bp, h)
+        x_t = x_t + y.to(x_t.dtype)
     return x_t
 
 
@@ -169,13 +220,55 @@ def decode_hidden_step(
     caches,  # from init_caches, updated in place
 ) -> torch.Tensor:
     """One streaming step to the final-norm hidden state: (B,) -> (B, d)."""
-    x = embed(params["embed"], token[:, None])
+    x = embed(params["embed"], token[:, None]).to(_dtype(cfg))
     for gi in range(cfg.n_groups):
         for j in range(len(cfg.pattern)):
             c = caches[f"b{j}"]
-            layer = ChimeraState(c.S[gi], c.Z[gi], c.k_buf[gi], c.v_buf[gi], c.count[gi])
+            layer = _layer_cache(c, gi)
             bp = index_params(params["blocks"][f"b{j}"], gi)
             x = _block_decode(cfg, bp, x, position, layer)
-            c.count[gi] = layer.count
+            if isinstance(c, ChimeraState):
+                c.count[gi] = layer.count
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     return x[:, 0]
+
+
+def decode_step(cfg: ArchConfig, params: Params, token, position, caches) -> torch.Tensor:
+    """One non-iterative serve step: (B,) token -> (B, V_padded) logits; the
+    caches are updated in place."""
+    x = decode_hidden_step(cfg, params, token, position, caches)
+    return _head(cfg, params, x[:, None])[:, 0]
+
+
+def _block_prefill(cfg: ArchConfig, bp: Params, x, positions, max_len: int):
+    h = apply_norm(bp["ln1"], x, cfg.norm_type)
+    y, cache = attn.attention_prefill(cfg, bp["attn"], h, positions, max_len)
+    x = x + y.to(x.dtype)
+    if "ln2" in bp:
+        h = apply_norm(bp["ln2"], x, cfg.norm_type)
+        y, _ = _mlp_out(cfg, bp, h)
+        x = x + y.to(x.dtype)
+    return x, cache
+
+
+def prefill_with_caches(cfg: ArchConfig, params: Params, tokens: torch.Tensor, max_len: int):
+    """tokens (B, T) -> (next-token logits (B, V_padded), decode caches).
+
+    One forward over the prompt builds every layer's decode cache, with the
+    continuation semantics of feeding the prompt through ``decode_step``
+    token by token (up to MoE capacity drops, which prefill can have and
+    one-token decode cannot)."""
+    _require_ported(cfg)
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    x = embed(params["embed"], tokens).to(_dtype(cfg))
+    per_group = []
+    for gi in range(cfg.n_groups):
+        gp = index_params(params["blocks"], gi)
+        caches = {}
+        for j in range(len(cfg.pattern)):
+            x, caches[f"b{j}"] = _block_prefill(cfg, gp[f"b{j}"], x, positions, max_len)
+        per_group.append(caches)
+    x = apply_norm(params["final_norm"], x, cfg.norm_type)
+    logits = _head(cfg, params, x[:, -1:])[:, 0]
+    return logits, stack_params(per_group)

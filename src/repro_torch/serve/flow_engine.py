@@ -233,7 +233,9 @@ class FlowEngine:
 
         self.params = _to_device(params, device)
         self.rules = rules.to(device)
-        self.caches = M.init_caches(arch, self._n_slots, device=device)
+        # fp32 Chimera state whatever the residual stream's dtype, as the
+        # reference engine keeps it (the decode_step kernel takes fp32 only)
+        self.caches = M.init_caches(arch, self._n_slots, dtype=torch.float32, device=device)
         for name, (shape, dtype) in self._shapes.items():
             setattr(self, name, torch.zeros(shape, dtype=dtype, device=device))
 
@@ -248,7 +250,7 @@ class FlowEngine:
         """Bytes of one flow-table entry: Chimera decode state (S, Z, ring
         buffers, fill count) + classifier aggregates (signature words,
         pooled-feature accumulator, counters, veto bit) + the host LRU stamp."""
-        meta = M.init_caches(self.ccfg.arch, self._n_slots, device="meta")
+        meta = M.init_caches(self.ccfg.arch, self._n_slots, dtype=torch.float32, device="meta")
         cache_bytes = sum(
             t.numel() * t.element_size() // self._n_slots for t in _state_leaves(meta)
         )

@@ -144,6 +144,21 @@ def test_idle_eviction_and_reset_match_jax_engine(tiny_classifier_cfg, monkeypat
     _replay(jeng, teng, sc, monkeypatch, batches=2)
 
 
+def test_bfloat16_arch_keeps_fp32_flow_state_as_jax_engine(tiny_classifier_cfg):
+    # the engine's Chimera state stays fp32 whatever the residual stream's
+    # dtype (the reference passes dtype=float32), and the Eq. 11 budget counts it so
+    _, fp32_eng, _ = _pair(tiny_classifier_cfg, 8, "xla")
+    bf16 = dataclasses.replace(tiny_classifier_cfg,
+                               arch=dataclasses.replace(tiny_classifier_cfg.arch, dtype="bfloat16"))
+    jeng, teng, _ = _pair(bf16, 8, "xla")
+    assert teng.ccfg.arch.dtype == "bfloat16"
+    floats = [t for t in TFE._state_leaves(teng.caches) if t.dtype.is_floating_point]
+    assert floats and all(t.dtype == torch.float32 for t in floats)
+    jfloats = [a for a in jax.tree_util.tree_leaves(jeng.caches) if jnp.issubdtype(a.dtype, jnp.floating)]
+    assert jfloats and all(a.dtype == jnp.float32 for a in jfloats)
+    assert teng.per_flow_state_bytes() == jeng.per_flow_state_bytes() == fp32_eng.per_flow_state_bytes()
+
+
 def test_state_accounting_and_budget_match_jax_engine(tiny_classifier_cfg):
     jeng, teng, _ = _pair(tiny_classifier_cfg, 8, "xla")
     assert teng.per_flow_state_bytes() == jeng.per_flow_state_bytes()
