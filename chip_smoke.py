@@ -6,10 +6,15 @@
 Phases, each printing its own lines:
 
 1. device    — requires CUDA; prints the card's name and power limit.
-2. build     — builds the port's CUDA kernels from ``src/repro_torch/csrc``.
+2. build     — builds the port's CUDA kernels from ``src/repro_torch/csrc``
+               and prints each kernel's registers, static shared memory and
+               spills as ``nvcc -Xptxas -v`` reports them.
 3. kernels   — holds each kernel against its plain PyTorch version on the
-               card at its main path's shapes and times both;
-               checks the gradients of the chimera_attention Function.
+               card at its main path's shapes (decode_step under three fill
+               patterns: no flow folding, the spread the kernels line
+               reports, every flow folding) and at the edge shapes of its
+               contract, and times both; checks the gradients of the
+               chimera_attention Function.
 4. engine    — the serving path: a ``FlowEngine`` at the paper's full width
                (chimera-dataplane: 4 layers, d 256, m 256, L 64, n_global
                64; capacity 4096, lanes 256) with random weights from a
@@ -34,6 +39,10 @@ zeroed just before each and read just after, and each fails if one of its
 kernels never launched.  Then a JSON line with every kernel's numbers, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 without it.  It imports nothing of JAX and nothing of the JAX package.
+
+``compare_builds(dir)`` times decode_step and chimera_attention from this
+tree against the same kernels built from another tree's ``csrc`` in
+``dir``, in turns on one card (this, other, other, this).
 """
 
 from __future__ import annotations
@@ -52,7 +61,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12  # float32 outside the tensor cores: the kernels use CUDA cores
+FP32_FLOPS = 67e12  # float32 outside the tensor cores (decode_step, flow_score, window_attention)
+TF32_FLOPS = 495e12  # TF32 on the tensor cores (chimera_attention)
+# chimera_attention runs each fp32 product as three TF32 products (split fp32)
+TF32_PASSES = 3
 
 SEED = 0
 PKT_LEN = 16
@@ -169,14 +181,54 @@ def phase_build():
     _build.load_library(verbose=True)
     log("build", f"library {_build.library_path().name} ready in "
                  f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds} s)")
+    for src, text in sorted(_build.build_logs.items()):
+        for fn, use in ptxas_usage(text):
+            log("build", f"{src} {fn}: {use}")
+
+
+def ptxas_usage(text):
+    """``(kernel, "R registers, S B smem, spill stores/loads")`` from nvcc's
+    ``-Xptxas -v`` output, one per compiled kernel."""
+    import re
+
+    out, fn, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:  # the kernel's name and integer template arguments, from the mangled name
+            fn = m.group(1)
+            names = []  # (length, name, template arguments): the shortest is the kernel's
+            for num in re.finditer(r"(?=(\d+))", fn):  # every digit run and its tails
+                rest, n = fn[num.start() + len(num.group(1)):], int(num.group(1))
+                if rest[:n].endswith("_kernel"):
+                    names.append((n, rest[:n], rest[n:]))
+            if names:
+                _, name, targs = min(names)
+                args = (["bf16"] if "nv_bfloat16" in targs else ["f32"] if targs.startswith("If")
+                        else []) + re.findall(r"Li(\d+)E", targs)
+                fn = name + (f"<{', '.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spills {m.group(1)} B stored / {m.group(2)} B loaded"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((fn, f"{m.group(1)} registers, {smem.group(1) if smem else 0} B static "
+                            f"smem, {spill}"))
+            fn, spill = None, ""
+    return out
 
 
 # --------------------------------------------------------------------------
 # 3. kernels
 # --------------------------------------------------------------------------
 
-def decode_inputs(B, heads, Gq, d, dv, m, L, with_global, seed):
-    """Random decode-step inputs; fill levels spread over 0..L-1 so folds happen."""
+# fill levels of the decode step's flows: none folds (all 0), the spread
+# over 0..L-1 that the main-path figure uses (1 flow in L folds), all fold
+DECODE_FILLS = ("none", "spread", "all")
+
+
+def decode_inputs(B, heads, Gq, d, dv, m, L, with_global, seed, fill="spread"):
+    """Random decode-step inputs at one of the ``DECODE_FILLS`` patterns."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -193,7 +245,9 @@ def decode_inputs(B, heads, Gq, d, dv, m, L, with_global, seed):
         "v_t": r(BH, dv), "phi_q": pos(BH, Gq, m), "phi_buf": pos(BH, L, m),
         "k_buf": r(BH, L, d, scale=2 / math.sqrt(d)), "v_buf": r(BH, L, dv),
         "S": r(BH, m, dv, scale=0.1), "Z": pos(BH, m) * L,
-        "count": (torch.arange(B, dtype=torch.int32) % L).to("cuda"),
+        "count": {"none": torch.zeros(B, dtype=torch.int32),
+                  "spread": torch.arange(B, dtype=torch.int32) % L,
+                  "all": torch.full((B,), L - 1, dtype=torch.int32)}[fill].to("cuda"),
     }
     if with_global:
         x["gnum"] = r(BH, Gq, dv, scale=0.1)
@@ -220,20 +274,26 @@ def decode_cost(x, L):
     return nbytes, int(flops.sum())
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound(nbytes, flops, flops_per_s=FP32_FLOPS):
+    """The least time (ms) for ``nbytes`` of HBM traffic and ``flops`` at the
+    peak rate of the arithmetic the kernel uses, and which of the two binds."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_decode(with_global, timed):
+def check_decode(with_global, timed, fill="spread", B=LANES, Gq=None, dv=None):
+    """The kernel against its plain version on every output (out, S, Z, the
+    ring, the new fill levels); by default at the engine's shape (the
+    paper's config, 256 lanes x 4 kv-heads), each argument overriding it."""
     import torch
     from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
     from repro_torch.kernels.decode_step import ops
 
-    L, m = ARCH.chimera.chunk_size, ARCH.chimera.feature_map.m
-    d = dv = ARCH.head_dim
-    x = decode_inputs(LANES, ARCH.n_kv_heads, ARCH.n_heads // ARCH.n_kv_heads,
-                      d, dv, m, L, with_global, SEED + int(with_global))
+    L, m, d = ARCH.chimera.chunk_size, ARCH.chimera.feature_map.m, ARCH.head_dim
+    dv = dv or d
+    Gq = Gq or ARCH.n_heads // ARCH.n_kv_heads
+    x = decode_inputs(B, ARCH.n_kv_heads, Gq, d, dv, m, L, with_global,
+                      SEED + int(with_global), fill)
     kw = dict(chunk_size=L, gamma=ARCH.chimera.gamma)
 
     def run(fn, t):
@@ -253,18 +313,22 @@ def check_decode(with_global, timed):
     )
     n_fold = int(((x["count"] + 1) >= L).sum()) * ARCH.n_kv_heads
     rec = {"max_abs_err": err}
-    log("kernels", f"decode_step BH={out_k.shape[0]} globals={with_global} folds={n_fold}: "
-                   f"max abs err {err:.3e} (tolerance {ATOL:g} + {RTOL:g}*|ref|)")
+    log("kernels", f"decode_step BH={out_k.shape[0]} Gq={Gq} d={d} dv={dv} m={m} L={L} "
+                   f"globals={with_global} fill={fill} folds={n_fold}: max abs err {err:.3e} "
+                   f"(tolerance {ATOL:g} + {RTOL:g}*|ref|) on out, S, Z, the ring and count")
     if timed:
+        # count is not updated in place, so every timed call does the same
+        # work (the same rows fold; S and Z grow, the cleared ring is reread)
         ms, call_ms = cuda_ms(lambda: run(ops.decode_step, ka), iters=50)
         plain_ms, plain_call_ms = cuda_ms(lambda: run(ops.decode_step_plain, pa), iters=20)
         nbytes, flops = decode_cost(x, L)
         bound_ms, bound_by = bound(nbytes, flops)
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes=nbytes, flops=flops, call_ms=call_ms, plain_call_ms=plain_call_ms)
-        log("kernels", f"decode_step device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                       f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
-                       f"per call from Python: kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms")
+        log("kernels", f"decode_step fill={fill} device time: kernel {ms:.4f} ms, plain "
+                       f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, "
+                       f"{flops} flop); per call from Python: kernel {call_ms:.4f} ms, plain "
+                       f"{plain_call_ms:.4f} ms")
     return rec
 
 
@@ -410,14 +474,144 @@ def check_chimera(timed):
             ms, call_ms = cuda_ms(lambda: ops.chimera_attention_bh(*flat, chunk_size=L), iters=20)
             plain_ms, plain_call_ms = cuda_ms(
                 lambda: ops.chimera_attention_partials_plain(q, k, v, pq, pk, L), iters=5)
+            parts = {mode: cuda_ms(lambda mode=mode: ops.chimera_attention_bh(
+                *flat, chunk_size=L, use_local=mode[0], use_stream=mode[1]), iters=20)[0]
+                for mode in ((True, False), (False, True))}
+        log("kernels", f"chimera_attention device time by part: local only "
+                       f"{parts[True, False]:.4f} ms, stream only {parts[False, True]:.4f} ms")
         nbytes, flops = chimera_cost(B, Hkv, Gq, T, d, d, m, L)
-        bound_ms, bound_by = bound(nbytes, flops)
+        bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+        fp32_ms = flops / FP32_FLOPS * 1e3
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes=nbytes, flops=flops, call_ms=call_ms, plain_call_ms=plain_call_ms)
         log("kernels", f"chimera_attention device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                       f"ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
-                       f"per call from Python: kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms")
+                       f"ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B; {flops} flop, "
+                       f"x{TF32_PASSES} in TF32 on the tensor cores: "
+                       f"{TF32_PASSES * flops / TF32_FLOPS * 1e3:.4f} ms; on the fp32 CUDA cores "
+                       f"they would take {fp32_ms:.4f} ms); per call from Python: kernel "
+                       f"{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms")
     return rec
+
+
+CHIMERA_EDGE_CHUNKS = (16, 32, 64, 128)
+CHIMERA_MODES = ((True, True), (True, False), (False, True), (False, False))
+
+
+def check_chimera_edge(L, T, use_local, use_stream):
+    """The kernel against its plain version at one edge shape of its
+    contract (B 2 x Hkv 2, Gq 2, m 64); returns the max abs error."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops
+
+    q, k, v, pq, pk = chimera_inputs(2, 2, 2, T, 64, SEED + 8 + L + T)
+    flat = [x.flatten(0, 1) for x in (q, k, v, pq, pk)]
+    with torch.no_grad():
+        a = ops.chimera_attention_bh(*flat, chunk_size=L, use_local=use_local,
+                                     use_stream=use_stream)
+        b = ops.chimera_attention_partials_plain(q, k, v, pq, pk, L, use_local, use_stream)
+    return max(compare(f"chimera_attention {name} L={L} T={T} Gq=2 local={use_local} "
+                       f"stream={use_stream}", x, y.reshape(x.shape), atol=ATTN_ATOL)
+               for name, x, y in zip(("num", "den"), a, b))
+
+
+def check_chimera_edges():
+    """Every chunk size, a single chunk (T = L) and four, every
+    (use_local, use_stream) pair."""
+    worst = max(check_chimera_edge(L, T, *mode) for L in CHIMERA_EDGE_CHUNKS
+                for T in (L, 4 * L) for mode in CHIMERA_MODES)
+    log("kernels", f"chimera_attention edge shapes (L 16-128, T = L and 4L, Gq 2, m 64, every "
+                   f"local/stream pair): max abs err {worst:.3e} (tolerance {ATTN_ATOL:g} + "
+                   f"{RTOL:g}*|ref|)")
+
+
+def check_decode_edges():
+    """The kernel against its plain version at the edge shapes of its
+    contract: every fill pattern, Gq 1 and 2, dv 32, 64 and 128, with and
+    without the static globals (64 lanes x 4 kv-heads)."""
+    for fill in DECODE_FILLS:
+        for Gq in (1, 2):
+            for dv in (32, 64, 128):
+                for with_global in (False, True):
+                    check_decode(with_global, timed=False, fill=fill, B=64, Gq=Gq, dv=dv)
+
+
+def build_other_library(csrc_dir):
+    """Another tree's kernel sources (``csrc_dir/*.cu``), built with this
+    tree's flags into ``build/`` beside it and loaded with this tree's C
+    signatures: for timing two versions of a kernel in one process."""
+    import ctypes
+    import hashlib
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    srcs = sorted(Path(csrc_dir).glob("*.cu"))
+    if not srcs:
+        fail(f"no CUDA sources in {csrc_dir}")
+    key = hashlib.sha256(b"".join(x.read_bytes() for x in srcs)).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"other_{key}"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    procs = [(x, subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", str(x), "-o",
+                                   str(out / (x.stem + ".o"))],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for x in srcs]
+    for x, pr in procs:
+        text, _ = pr.communicate()
+        if pr.returncode:
+            fail(f"nvcc failed for {x}:\n{text}")
+    lib_path = out / "lib.so"
+    res = subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", "-o", str(lib_path),
+                          *(str(out / (x.stem + ".o")) for x in srcs)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode:
+        fail(f"link failed:\n{res.stdout}")
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _build.SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def compare_builds(other_csrc, label="other"):
+    """decode_step (the engine's shape, each fill pattern, with globals) and
+    chimera_attention (the train phase's shape) from this tree and from
+    ``other_csrc``, timed in turns on one card: this, other, other, this.
+    Prints each version's two times and returns ``{kernel: {version: [ms, ms]}}``."""
+    import torch
+    from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+
+    libs = {"this": _build.load_library(), label: build_other_library(other_csrc)}
+    L, m, d = ARCH.chimera.chunk_size, ARCH.chimera.feature_map.m, ARCH.head_dim
+    Gq, heads = ARCH.n_heads // ARCH.n_kv_heads, ARCH.n_kv_heads
+    cases = {}
+    for fill in DECODE_FILLS:
+        x = decode_inputs(LANES, heads, Gq, d, d, m, L, True, SEED + 1, fill)
+        args = [x[k] for k in ("q", "k_t", "v_t", "phi_q", "phi_buf", "k_buf", "v_buf", "S",
+                               "Z", "count")]
+        cases[f"decode_step fill={fill}"] = (
+            lambda a=args, x=x: dops.decode_step(*a, chunk_size=L, gamma=ARCH.chimera.gamma,
+                                                 gnum=x["gnum"], gden=x["gden"]), 50)
+    q, k, v, pq, pk = chimera_inputs(TRAIN_BATCH, heads, Gq, TRAIN_SEQ, m, SEED + 5)
+    flat = [q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1), pq.flatten(0, 1),
+            pk.flatten(0, 1)]
+    cases["chimera_attention"] = (lambda: cops.chimera_attention_bh(*flat, chunk_size=L), 20)
+    times = {name: {ver: [] for ver in libs} for name in cases}
+    try:
+        for ver in ("this", label, label, "this"):
+            _build._lib = libs[ver]
+            for name, (fn, iters) in cases.items():
+                with torch.no_grad():
+                    times[name][ver].append(cuda_ms(fn, iters=iters)[0])
+    finally:
+        _build._lib = libs["this"]
+    for name, t in times.items():
+        log("compare", f"{name}: " + "; ".join(
+            f"{ver} {', '.join(f'{x:.4f}' for x in ts)} ms" for ver, ts in t.items()))
+    return times
 
 
 def check_chimera_grads():
@@ -561,13 +755,28 @@ def check_window(timed):
     return rec
 
 
+def check_decode_fills():
+    """decode_step at the engine's shape under each fill pattern, without
+    and with the static globals; the globals' run is timed."""
+    recs = {}
+    for fill in DECODE_FILLS:
+        check_decode(with_global=False, timed=False, fill=fill)
+        recs[fill] = check_decode(with_global=True, timed=True, fill=fill)
+    log("kernels", "decode_step by fill pattern (kernel / bound ms): " + ", ".join(
+        f"{f} {r['ms']:.4f} / {r['bound_ms']:.4f}" for f, r in recs.items()))
+    return recs
+
+
 def phase_kernels():
     recs = {}
-    check_decode(with_global=False, timed=False)
-    recs["decode_step"] = check_decode(with_global=True, timed=True)
+    fills = check_decode_fills()
+    recs["decode_step"] = dict(fills["spread"], fills={
+        f: {k: r[k] for k in ("ms", "bound_ms", "bytes", "flops")} for f, r in fills.items()})
+    check_decode_edges()
     recs["flow_score"] = check_score(M=1, timed=True)
     check_score(M=300, timed=False)
     recs["chimera_attention"] = check_chimera(timed=True)
+    check_chimera_edges()
     check_chimera_grads()
     recs["window_attention"] = check_window(timed=True)
     return recs

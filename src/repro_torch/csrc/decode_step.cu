@@ -14,20 +14,40 @@
 // fill levels go to count_out (count_in is read by every head of a flow, so
 // it cannot be overwritten while other heads' blocks may still read it).
 //
-// Bound on this card: bytes.  A plain step reads S (m*dv floats), Z, phi_q,
-// q and the valid ring rows, and does ~2*m*dv flops on them: far below the
-// fp32 rate's break-even intensity.  The design keeps every input read once
-// per block: the valid ring values are staged in shared memory for the
-// local readout and the fold, S is read with consecutive threads on
-// consecutive columns, and phi_buf is read only by the blocks that fold.
+// Bound on this card: bytes.  A plain step reads S (m*dv floats, 74 % of the
+// bytes at the paper's shape), Z, phi_q, q and the valid ring rows; a fold
+// also reads phi_buf and writes S.  At BH 1024, d = dv 64, m 256, L 64 with
+// one flow in 64 folding that is 90 MB, 0.027 ms at 3.35 TB/s.
 //
-// Contract (all float32, contiguous; BH = flows * heads):
+// Design.  The warps of a block split in two halves that run at once and
+// meet at one barrier:
+//   * warps 0-3 stream S and Z against phi_q with 16-byte loads, eight in
+//     flight per thread, from the block's first instruction (they do not
+//     wait for the fill level);
+//   * warps 4-7 read the fill level, stage the valid ring rows (16-byte
+//     loads, all issued at once), compute the local scores with four lanes
+//     per slot (every slot at once) and the local numerator.
+// A folding block then computes S += phi_buf^T v_ring with all 256 threads,
+// each holding a 4 x 4 tile of S in registers, phi_buf streamed through two
+// shared-memory tiles with cp.async so that the next tile loads while the
+// current one is folded.  The fold is 1M FMAs per row at the paper's shape;
+// a first design did it as 64 dependent chains per thread with operands
+// loaded from device memory, and its 16 folding blocks set the kernel's time
+// (0.167 ms against 0.036 ms when no flow folds, measured on an H100).
+// Here a step with one flow in 64 folding takes about 0.050 ms and one with
+// none 0.028 ms: the folding blocks still end last (each does its fold on
+// one SM after its readout; splitting a row over a cluster of two blocks,
+// or prefetching phi_buf to L2, measured slower).
+// fp32 throughout on CUDA cores, so the engine's decisions match the CPU's.
+//
+// Contract (all float32, contiguous, 16-byte aligned; BH = flows * heads):
 //   q (BH,Gq,d) k_t (BH,d) v_t (BH,dv) phi_q (BH,Gq,m) phi_buf (BH,L,m)
 //   k_buf (BH,L,d) v_buf (BH,L,dv) S (BH,m,dv) Z (BH,m)
 //   count_in, count_out (BH/heads,) int32, 0 <= count < L
 //   gnum (BH,Gq,dv) and gden (BH,Gq), or both null
 //   out (BH,Gq,dv)
-// Requires 256 % dv == 0.
+// Takes dv in {32, 64, 128}, d and m multiples of 4, and the shared memory
+// below within what a block may use; anything else is cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,116 +55,254 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kHalf = kThreads / 2;  // threads of each half
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x); acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z); acc.w = fmaf(a, b.w, acc.w);
 }
+__device__ __forceinline__ void add4(float4& a, float4 b) { a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w; }
 
-__global__ void __launch_bounds__(kThreads) decode_step_kernel(
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Shared-memory layout, in floats.  The fold's phi tiles reuse the space of
+// the staged keys, the query and the partials, which are dead by then.
+struct Layout {
+  int vs, ks, qs, sc, red_s, red_l, den_s, den_l, ftile, total;
+  __host__ __device__ Layout(int Gq, int d, int dv, int L, int m) {
+    const int rgh = kHalf / (dv / 4);       // row groups of a half
+    const int mt = 4 * (kThreads / (dv / 4));  // rows of S per fold tile
+    vs = 0;                                 // (L, dv) ring values
+    ks = vs + L * dv;                       // (L, d + 4) ring keys
+    qs = ks + L * (d + 4);                  // (Gq, d)
+    sc = qs + Gq * d;                       // (Gq, L) local scores
+    red_s = sc + ((Gq * L + 3) & ~3);       // (Gq, rgh, dv) stream partials
+    red_l = red_s + Gq * rgh * dv;          // (Gq, rgh, dv) local partials
+    den_s = red_l + Gq * rgh * dv;          // (Gq, rgh)
+    den_l = den_s + Gq * rgh;               // (Gq, rgh)
+    const int end = den_l + Gq * rgh;
+    ftile = ks;                             // (2, L, mt) phi_buf tiles, on a fold
+    const int fend = ftile + 2 * L * (mt < m ? mt : m);
+    total = end > fend ? end : fend;
+  }
+};
+
+template <int DV>
+__global__ void __launch_bounds__(kThreads, 4) decode_step_kernel(
     const float* __restrict__ q, const float* __restrict__ k_t,
     const float* __restrict__ v_t, const float* __restrict__ phi_q,
     const float* __restrict__ phi_buf, float* __restrict__ k_buf,
     float* __restrict__ v_buf, float* __restrict__ S, float* __restrict__ Z,
     const int32_t* __restrict__ count_in, int32_t* __restrict__ count_out,
     const float* __restrict__ gnum, const float* __restrict__ gden,
-    float* __restrict__ out, int heads, int Gq, int d, int dv, int m, int L,
-    float gamma) {
-  extern __shared__ float smem[];
-  float* vs = smem;              // (L, dv) ring values, arriving token at slot c
-  float* sc = vs + L * dv;       // (L,) local scores of one query
-  float* red = sc + L;           // (kThreads,) partial numerators
-  float* den_s = red + kThreads; // (1,) denominator of one query
+    float* __restrict__ out, int heads, int Gq, int d, int m, int L, float gamma) {
+  constexpr int CG = DV / 4;          // float4 column groups of a row of S
+  constexpr int RGH = kHalf / CG;     // row groups of a half
+  constexpr int RG = kThreads / CG;   // row groups of the block (the fold)
+  constexpr int MT = 4 * RG;          // rows of S per fold tile
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int c_sh;  // the fill level, read by the local half
+  const Layout lay(Gq, d, DV, L, m);
+  float* vs = smem + lay.vs;
+  float* ks = smem + lay.ks;
+  float* qs = smem + lay.qs;
+  float* sc = smem + lay.sc;
+  float* red_s = smem + lay.red_s;
+  float* red_l = smem + lay.red_l;
+  float* den_s = smem + lay.den_s;
+  float* den_l = smem + lay.den_l;
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
   const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5, nwarps = blockDim.x >> 5;
-  const int parts = blockDim.x / dv;
-  const int e = t % dv, part = t / dv;
+  const int dp = d + 4;
+  const float* Sb = S + (size_t)bh * m * DV;
+  const float* Zb = Z + (size_t)bh * m;
 
-  int c = count_in[b];
-  c = c < 0 ? 0 : (c >= L ? L - 1 : c);  // memory safety only; callers keep 0 <= c < L
-  const bool full = c + 1 >= L;
-  const float inv_sqrt_d = rsqrtf((float)d);
-
-  const float* kt = k_t + (size_t)bh * d;
-  const float* vt = v_t + (size_t)bh * dv;
-  float* kb = k_buf + (size_t)bh * L * d;
-  float* vb = v_buf + (size_t)bh * L * dv;
-  float* Sb = S + (size_t)bh * m * dv;
-  float* Zb = Z + (size_t)bh * m;
-
-  // 1. the valid ring values, with the arriving token written at slot c
-  for (int idx = t; idx < (c + 1) * dv; idx += blockDim.x) {
-    const int j = idx / dv;
-    vs[idx] = (j == c) ? vt[idx - j * dv] : vb[idx];
+  if (t < kHalf) {
+    // stream readout: thread (cg, rg) sums rows rg, rg + RGH, ... of phi_q S
+    const int cg = t % CG, rg = t / CG;
+    for (int g = 0; g < Gq; ++g) {
+      const float* pq = phi_q + ((size_t)bh * Gq + g) * m;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      float dn = 0.f;
+#pragma unroll 8
+      for (int i = rg; i < m; i += RGH) {
+        const float p = __ldg(pq + i);
+        fma4(acc, p, ld4(Sb + (size_t)i * DV + 4 * cg));
+        dn = fmaf(p, __ldg(Zb + i), dn);
+      }
+      st4(red_s + (g * RGH + rg) * DV + 4 * cg, acc);
+      if (cg == 0) den_s[g * RGH + rg] = dn;
+    }
+  } else {
+    // local layer: stage the valid ring rows (the arriving token at slot c)
+    const int u = t - kHalf;
+    int c = count_in[b];
+    c = c < 0 ? 0 : (c >= L ? L - 1 : c);  // memory safety only; callers keep 0 <= c < L
+    if (u == 0) c_sh = c;
+    const float* kb = k_buf + (size_t)bh * L * d;
+    const float* vb = v_buf + (size_t)bh * L * DV;
+    const float* kt = k_t + (size_t)bh * d;
+    const float* vt = v_t + (size_t)bh * DV;
+    const int d4 = d / 4;
+    for (int x = u; x < (c + 1) * d4; x += kHalf) {
+      const int j = x / d4, e = 4 * (x - j * d4);
+      st4(ks + j * dp + e, ld4(j == c ? kt + e : kb + (size_t)j * d + e));
+    }
+    for (int x = u; x < (c + 1) * CG; x += kHalf) {
+      const int j = x / CG, e = 4 * (x - j * CG);
+      st4(vs + j * DV + e, ld4(j == c ? vt + e : vb + (size_t)j * DV + e));
+    }
+    for (int x = u; x < Gq * d4; x += kHalf) st4(qs + 4 * x, ld4(q + (size_t)bh * Gq * d + 4 * x));
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kHalf) : "memory");
+    // scores exp(q.k_j / sqrt(d)): four lanes per slot, 32 slots at once
+    const float inv_sqrt_d = rsqrtf((float)d);
+    const int quad = u & 3;
+    for (int g = 0; g < Gq; ++g) {
+      for (int j0 = 0; j0 <= c; j0 += kHalf / 4) {
+        const int j = j0 + u / 4;
+        float acc = 0.f;
+        if (j <= c)
+          for (int e = 4 * quad; e < d; e += 16) {
+            const float4 a = ld4(qs + g * d + e), kk = ld4(ks + j * dp + e);
+            acc = fmaf(a.x, kk.x, fmaf(a.y, kk.y, fmaf(a.z, kk.z, fmaf(a.w, kk.w, acc))));
+          }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        if (j <= c && quad == 0) sc[g * L + j] = expf(acc * inv_sqrt_d);
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kHalf) : "memory");
+    // local numerator: thread (cg, rg) sums slots rg, rg + RGH, ...
+    const int cg = u % CG, rg = u / CG;
+    for (int g = 0; g < Gq; ++g) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      float dn = 0.f;
+      for (int j = rg; j <= c; j += RGH) {
+        const float s = sc[g * L + j];
+        fma4(acc, s, ld4(vs + j * DV + 4 * cg));
+        dn += s;
+      }
+      st4(red_l + (g * RGH + rg) * DV + 4 * cg, acc);
+      if (cg == 0) den_l[g * RGH + rg] = dn;
+    }
   }
   __syncthreads();
+  const int c = c_sh;
+  const bool full = c + 1 >= L;
 
-  for (int g = 0; g < Gq; ++g) {
-    const float* qg = q + ((size_t)bh * Gq + g) * d;
-    const float* pq = phi_q + ((size_t)bh * Gq + g) * m;
-
-    // 2. local scores exp(q.k_j / sqrt(d)), one warp per ring slot
-    for (int j = warp; j <= c; j += nwarps) {
-      const float* kj = (j == c) ? kt : kb + (size_t)j * d;
-      float acc = 0.f;
-      for (int x = lane; x < d; x += 32) acc += qg[x] * kj[x];
-      acc = warp_sum(acc);
-      if (lane == 0) sc[j] = expf(acc * inv_sqrt_d);
+  // merge the partials (+ static globals) and normalize
+  for (int x = t; x < Gq * CG; x += kThreads) {
+    const int g = x / CG, e = 4 * (x - g * CG);
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+    float den = 0.f;
+    for (int r = 0; r < RGH; ++r) {
+      add4(num, ld4(red_l + (g * RGH + r) * DV + e));
+      add4(num, ld4(red_s + (g * RGH + r) * DV + e));
+      den += den_l[g * RGH + r] + den_s[g * RGH + r];
     }
-    __syncthreads();
-
-    // 3. numerator column e: local slots and stream rows split over parts
-    float acc = 0.f;
-    for (int j = part; j <= c; j += parts) acc += sc[j] * vs[j * dv + e];
-    for (int i = part; i < m; i += parts) acc += pq[i] * Sb[(size_t)i * dv + e];
-    red[t] = acc;
-    if (warp == 0) {
-      float dn = 0.f;
-      for (int j = lane; j <= c; j += 32) dn += sc[j];
-      for (int i = lane; i < m; i += 32) dn += pq[i] * Zb[i];
-      dn = warp_sum(dn);
-      if (lane == 0) den_s[0] = dn;
+    if (gnum != nullptr) {
+      add4(num, ld4(gnum + ((size_t)bh * Gq + g) * DV + e));
+      den += gden[(size_t)bh * Gq + g];
     }
-    __syncthreads();
-
-    // 4. merge the partials (+ static globals) and normalize
-    if (t < dv) {
-      float num = 0.f;
-      for (int p = 0; p < parts; ++p) num += red[p * dv + t];
-      float den = den_s[0];
-      if (gnum != nullptr) {
-        num += gnum[((size_t)bh * Gq + g) * dv + t];
-        den += gden[(size_t)bh * Gq + g];
-      }
-      out[((size_t)bh * Gq + g) * dv + t] = num / (den + gamma);
-    }
-    __syncthreads();  // sc, red and den_s are reused; S and the ring are read no more
+    const float inv = 1.f / (den + gamma);
+    st4(out + ((size_t)bh * Gq + g) * DV + e,
+        make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv));
   }
 
-  if (full) {
-    // 5. fold the full ring into (S, Z) and clear it
-    const float* pb = phi_buf + (size_t)bh * L * m;
-    for (int i = part; i < m; i += parts) {
-      float acc = 0.f;
-      for (int j = 0; j < L; ++j) acc += pb[(size_t)j * m + i] * vs[j * dv + e];
-      Sb[(size_t)i * dv + e] += acc;
-    }
-    for (int i = t; i < m; i += blockDim.x) {
-      float z = 0.f;
-      for (int j = 0; j < L; ++j) z += pb[(size_t)j * m + i];
-      Zb[i] += z;
-    }
-    for (int idx = t; idx < L * d; idx += blockDim.x) kb[idx] = 0.f;
-    for (int idx = t; idx < L * dv; idx += blockDim.x) vb[idx] = 0.f;
+  float* kw = k_buf + (size_t)bh * L * d;
+  float* vw = v_buf + (size_t)bh * L * DV;
+  if (!full) {
+    for (int x = t; x < d / 4; x += kThreads) st4(kw + (size_t)c * d + 4 * x, ld4(k_t + (size_t)bh * d + 4 * x));
+    for (int x = t; x < CG; x += kThreads) st4(vw + (size_t)c * DV + 4 * x, ld4(v_t + (size_t)bh * DV + 4 * x));
   } else {
-    for (int x = t; x < d; x += blockDim.x) kb[(size_t)c * d + x] = kt[x];
-    for (int x = t; x < dv; x += blockDim.x) vb[(size_t)c * dv + x] = vt[x];
+    // fold: thread (cg, rg) owns rows 4 rg .. 4 rg + 3 of each MT-row tile of
+    // S and columns 4 cg .. 4 cg + 3; phi_buf[:, tile] is double-buffered
+    __syncthreads();  // the partials are read; their space takes the tiles
+    const float* pb = phi_buf + (size_t)bh * L * m;
+    float* Sw = S + (size_t)bh * m * DV;
+    float* Zw = Z + (size_t)bh * m;
+    float* ft = smem + lay.ftile;
+    const int mt = MT < m ? MT : m;  // tile width, in rows of S
+    const int ntile = (m + MT - 1) / MT;
+    const int cg = t % CG, rg = t / CG;
+    auto load_tile = [&](int tile, int buf) {
+      const int r0 = tile * MT, w = (m - r0 < MT ? m - r0 : MT) / 4;
+      float* dst = ft + buf * L * mt;
+      for (int x = t; x < L * w; x += kThreads) {
+        const int j = x / w, e = 4 * (x - j * w);
+        cp_async16(dst + j * mt + e, pb + (size_t)j * m + r0 + e);
+      }
+      cp_async_commit();
+    };
+    load_tile(0, 0);
+    for (int tile = 0; tile < ntile; ++tile) {
+      if (tile + 1 < ntile) {
+        load_tile(tile + 1, (tile + 1) & 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* f = ft + (tile & 1) * L * mt;
+      const int r = tile * MT + 4 * rg;  // first row of this thread's tile
+      if (r < m) {
+        float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0, a2 = a0, a3 = a0, z = a0;
+#pragma unroll 4
+        for (int j = 0; j < L; ++j) {
+          const float4 p = ld4(f + j * mt + 4 * rg);
+          const float4 v = ld4(vs + j * DV + 4 * cg);
+          fma4(a0, p.x, v); fma4(a1, p.y, v); fma4(a2, p.z, v); fma4(a3, p.w, v);
+          add4(z, p);
+        }
+        // the sums, then the state, as the plain version adds them
+        float* s = Sw + (size_t)r * DV + 4 * cg;
+        float4 o = ld4(s);           add4(o, a0); st4(s, o);
+        o = ld4(s + DV);             add4(o, a1); st4(s + DV, o);
+        o = ld4(s + 2 * DV);         add4(o, a2); st4(s + 2 * DV, o);
+        o = ld4(s + 3 * DV);         add4(o, a3); st4(s + 3 * DV, o);
+        if (cg == 0) {
+          float4 zo = ld4(Zw + r);
+          add4(zo, z);
+          st4(Zw + r, zo);
+        }
+      }
+      __syncthreads();  // the tile's buffer is refilled next
+    }
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int x = t; x < L * d / 4; x += kThreads) st4(kw + 4 * x, zero);
+    for (int x = t; x < L * CG; x += kThreads) st4(vw + 4 * x, zero);
   }
   if (t == 0 && bh % heads == 0) count_out[b] = full ? 0 : c + 1;
 }
+
+template <int DV>
+int launch(const float* q, const float* k_t, const float* v_t, const float* phi_q,
+           const float* phi_buf, float* k_buf, float* v_buf, float* S, float* Z,
+           const int32_t* count_in, int32_t* count_out, const float* gnum,
+           const float* gden, float* out, int BH, int heads, int Gq, int d, int m,
+           int L, float gamma, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)Layout(Gq, d, DV, L, m).total;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_step_kernel<DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_step_kernel<DV><<<BH, kThreads, smem, stream>>>(
+      q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out,
+      gnum, gden, out, heads, Gq, d, m, L, gamma);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -154,15 +312,17 @@ extern "C" int decode_step_launch(
     const int32_t* count_in, int32_t* count_out, const float* gnum,
     const float* gden, float* out, int BH, int heads, int Gq, int d, int dv,
     int m, int L, float gamma, void* stream) {
-  if (dv <= 0 || kThreads % dv != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)L * dv + L + kThreads + 1);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (BH <= 0 || heads <= 0 || BH % heads || Gq <= 0 || d <= 0 || d % 4 || m <= 0 ||
+      m % 4 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, gnum, gden, out};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dv) {
+    case 32: return launch<32>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma, s);
+    case 64: return launch<64>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma, s);
+    case 128: return launch<128>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  decode_step_kernel<<<BH, kThreads, smem, (cudaStream_t)stream>>>(
-      q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out,
-      gnum, gden, out, heads, Gq, d, dv, m, L, gamma);
-  return (int)cudaGetLastError();
 }

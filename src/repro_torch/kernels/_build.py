@@ -42,6 +42,7 @@ SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build, if it built
+build_logs: dict = {}  # source name -> nvcc's output (with -Xptxas -v), if this process built
 
 
 def find_nvcc() -> str:
@@ -95,6 +96,7 @@ def build(verbose: bool = False) -> Path:
         failed = []
         for src, obj, p in procs:
             log, _ = p.communicate()
+            build_logs[src.name] = log
             if verbose or p.returncode:
                 print(f"[nvcc {src.name}]\n{log}", flush=True)
             if p.returncode:
@@ -125,7 +127,15 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
     return _lib
 
 
+CUDA_ERROR_INVALID_VALUE = 1
+
+
 def check(err: int, name: str) -> None:
+    """Raise for a launcher's nonzero return: cudaErrorInvalidValue is a shape,
+    layout or alignment the kernel does not take (see its source's contract)."""
+    if err == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"{name}: the kernel does not take these shapes (cudaErrorInvalidValue; "
+                         f"see its source's contract)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

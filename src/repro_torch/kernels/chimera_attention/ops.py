@@ -31,10 +31,6 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-# what csrc/chimera_attention.cu is instantiated for (see its contract)
-KERNEL_CHUNKS = (16, 32, 64, 128)
-_DV_SLICE, _M_TILE, _SMEM_LIMIT = 32, 64, 227 * 1024
-
 
 def chimera_attention_partials_plain(
     q: torch.Tensor,  # (B, Hkv, Gq, T, d) normalized queries
@@ -85,12 +81,6 @@ def _check(q, k, v, phi_q, phi_k, L):
     return BH, Gq, T, d, dv, m
 
 
-def kernel_smem_bytes(L: int, d: int, m: int) -> int:
-    """Shared memory of one block of csrc/chimera_attention.cu."""
-    return 4 * (m * (_DV_SLICE + 1) + 2 * L * (d + 1) + L * _DV_SLICE + L * (L + 1)
-                + L * (_M_TILE + 1))
-
-
 def chimera_attention_bh(
     q: torch.Tensor,  # (BH, Gq, T, d) normalized queries, BH = B * Hkv
     k: torch.Tensor,  # (BH, T, d)
@@ -117,14 +107,6 @@ def chimera_attention_bh(
     for t in (q, k, v, phi_q, phi_k):
         if not t.is_contiguous():
             raise ValueError("chimera_attention: the kernel takes contiguous tensors only")
-    if L not in KERNEL_CHUNKS or dv % _DV_SLICE or m % _M_TILE:
-        raise ValueError(
-            f"chimera_attention: the kernel needs chunk_size in {KERNEL_CHUNKS}, dv a "
-            f"multiple of {_DV_SLICE} and m a multiple of {_M_TILE}; got {L}, {dv}, {m}"
-        )
-    if kernel_smem_bytes(L, d, m) > _SMEM_LIMIT:
-        raise ValueError(f"chimera_attention: L={L}, d={d}, m={m} need "
-                         f"{kernel_smem_bytes(L, d, m)} B of shared memory per block")
     lib = _build.load_library()
     num = torch.empty((BH, Gq, T, dv), dtype=torch.float32, device=q.device)
     den = torch.empty((BH, Gq, T), dtype=torch.float32, device=q.device)

@@ -119,8 +119,6 @@ def decode_step(
     for t in ins:
         if not t.is_contiguous():
             raise ValueError("decode_step: the kernel takes contiguous tensors only")
-    if 256 % dv:
-        raise ValueError(f"decode_step: the kernel needs dv dividing 256, got {dv}")
     lib = _build.load_library()
     out = torch.empty((BH, Gq, dv), dtype=torch.float32, device=q.device)
     new_count = torch.empty_like(count)

@@ -211,6 +211,18 @@ def test_decode_step_kernel_matches_plain_on_card(cuda, with_global):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["none", "spread", "all"])
+@pytest.mark.parametrize("Gq", [1, 2])
+@pytest.mark.parametrize("dv", [32, 64, 128])
+@pytest.mark.parametrize("with_global", [False, True])
+def test_decode_step_kernel_edge_shapes_on_card(cuda, fill, Gq, dv, with_global):
+    """out, S, Z, the ring and count against the plain version (64 lanes x 4
+    kv-heads, d 64, m 256, L 64): no fold, one flow in 64 folding, all."""
+    chip_smoke = _chip_smoke()
+    chip_smoke.check_decode(with_global, timed=False, fill=fill, B=64, Gq=Gq, dv=dv)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 300])
 def test_flow_score_kernel_matches_plain_on_card(cuda, M):
     chip_smoke = _chip_smoke()

@@ -451,6 +451,73 @@ def test_entry_point_without_device_raises_on_a_host_without_gpu(no_gpu, ccfg, n
 
 
 # --------------------------------------------------------------------------
+# the kernel's arithmetic: split fp32 (3xTF32) on the tensor cores
+# --------------------------------------------------------------------------
+
+def _tf32(x):
+    """x rounded to TF32 by dropping the low 13 of fp32's 23 mantissa bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a, b, passes):
+    """a @ b as the tensor cores form it from TF32 operands with fp32 sums:
+    one pass (a_hi b_hi), or split fp32 (a_lo b_hi + a_hi b_lo + a_hi b_hi).
+    A product of two TF32 values is exact in fp32, so fp32 matmuls of the
+    rounded operands emulate it."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _partials_tf32(q, k, v, pq, pk, L, passes):
+    """The kernel's chunked partials (BH layout, Gq 1) with every product in
+    emulated TF32; den rides through the products as a column of ones (the
+    kernel sums den on the fp32 cores, which is no less accurate)."""
+    BH, T, d = q.shape
+    dv = v.shape[-1]
+    va = torch.cat([v, torch.ones(BH, T, 1)], dim=-1)
+    state = torch.zeros(BH, pq.shape[-1], dv + 1)  # (S | Z)
+    idx = torch.arange(L)
+    causal = (idx[:, None] >= idx[None, :]).float()
+    out = []
+    for c in range(T // L):
+        sl = slice(c * L, (c + 1) * L)
+        p = torch.exp(_tf32_mm(q[:, sl], k[:, sl].transpose(1, 2), passes) * (1 / d ** 0.5))
+        acc = _tf32_mm(p * causal, va[:, sl], passes)
+        if c > 0:
+            acc = acc + _tf32_mm(pq[:, sl], state, passes)
+        if c + 1 < T // L:
+            state = state + _tf32_mm(pk[:, sl].transpose(1, 2), va[:, sl], passes)
+        out.append(acc)
+    out = torch.cat(out, dim=1)
+    return out[..., :dv], out[..., dv]
+
+
+def test_split_fp32_keeps_the_kernel_tolerance_and_one_tf32_pass_does_not():
+    """Why csrc/chimera_attention.cu runs 3xTF32: at BH 8, T 256, m 256, d 64,
+    L 64, split fp32 stays within the tolerance the card's kernel is held to
+    (chip_smoke's ATTN_ATOL 1e-4 + RTOL 1e-4 * |ref|) of the fp32 plain
+    version; a single TF32 pass does not."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    atol, rtol = chip_smoke.ATTN_ATOL, chip_smoke.RTOL
+    xs = [_t(x) for x in _partials_inputs(seed=11, B=4, Hkv=2, T=256, d=64, dv=64, m=256)]
+    num_ref, den_ref = (x.flatten(0, 2) for x in cops.chimera_attention_partials_plain(*xs, 64))
+    flat = [x.flatten(0, 1) if i in (1, 2, 4) else x.flatten(0, 2) for i, x in enumerate(xs)]
+    beyond = {}
+    for passes in (3, 1):
+        num, den = _partials_tf32(*flat, 64, passes)
+        beyond[passes] = sum(int(((got - want).abs() > atol + rtol * want.abs()).sum())
+                             for got, want in ((num, num_ref), (den, den_ref)))
+    assert beyond[3] == 0, f"split fp32: {beyond[3]} entries beyond the tolerance"
+    assert beyond[1] > 0, "one TF32 pass stayed within the tolerance"
+
+
+# --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
 
@@ -469,3 +536,17 @@ def test_chimera_attention_kernel_matches_plain_on_card(cuda):
 
     chip_smoke.check_chimera(timed=False)
     chip_smoke.check_chimera_grads()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [16, 32, 64, 128])
+@pytest.mark.parametrize("use_local,use_stream", [(True, True), (True, False), (False, True),
+                                                  (False, False)])
+def test_chimera_attention_kernel_edge_shapes_on_card(cuda, L, use_local, use_stream):
+    """Gq 2, one chunk (T = L) and four, against the plain version."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    for T in (L, 4 * L):
+        chip_smoke.check_chimera_edge(L, T, use_local, use_stream)
