@@ -40,9 +40,9 @@ kernels never launched.  Then a JSON line with every kernel's numbers, and as th
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 without it.  It imports nothing of JAX and nothing of the JAX package.
 
-``compare_builds(dir)`` times decode_step and chimera_attention from this
-tree against the same kernels built from another tree's ``csrc`` in
-``dir``, in turns on one card (this, other, other, this).
+``compare_builds({label: dir})`` times every kernel at its main path's
+shape from this tree against the same kernels built from other trees'
+``csrc`` directories, in turns on one card (this, other, other, this).
 """
 
 from __future__ import annotations
@@ -61,9 +61,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12  # float32 outside the tensor cores (decode_step, flow_score, window_attention)
-TF32_FLOPS = 495e12  # TF32 on the tensor cores (chimera_attention)
-# chimera_attention runs each fp32 product as three TF32 products (split fp32)
+FP32_FLOPS = 67e12  # float32 outside the tensor cores (decode_step, flow_score)
+TF32_FLOPS = 495e12  # TF32 on the tensor cores (chimera_attention, window_attention)
+# chimera_attention and window_attention run each fp32 product as three
+# TF32 products (split fp32)
 TF32_PASSES = 3
 
 SEED = 0
@@ -332,13 +333,13 @@ def check_decode(with_global, timed, fill="spread", B=LANES, Gq=None, dv=None):
     return rec
 
 
-def score_inputs(B, M, seed):
+def score_inputs(B, M, seed, K=8, W=8):
     import torch
     from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
     from repro_torch.core.symbolic import RuleSet, words_to_int32
 
     g = torch.Generator().manual_seed(seed)
-    d, K, W = ARCH.d_model, 8, 8
+    d = ARCH.d_model
     sig = words_to_int32(torch.randint(0, 2**32, (B, W), generator=g))
     # rules: some copy lane signatures under random masks so that both hard
     # and soft hits occur; the rest are random
@@ -370,11 +371,14 @@ def score_cost(params, rules, pooled, sig):
     return nbytes, flops
 
 
-def check_score(M, timed):
+def check_score(M, timed, K=8, W=8):
+    """The kernel against its plain version at the engine's 256 lanes with M
+    rules; K classes and W signature words other than 8 take its generic
+    path."""
     import torch
     from repro_torch.kernels.flow_ingest import ops
 
-    params, rules, pooled, sig, sticky = score_inputs(LANES, M, SEED + M)
+    params, rules, pooled, sig, sticky = score_inputs(LANES, M, SEED + M, K, W)
     out_k, st_k = ops.flow_score(params, rules, pooled, sig, sticky)
     out_p, st_p = ops.flow_score_plain(params, rules, pooled, sig, sticky)
     torch.cuda.synchronize()
@@ -382,21 +386,38 @@ def check_score(M, timed):
     compare("flow_score sticky", st_k, st_p)
     hard_hits = int(out_p["hard_hit"].sum())
     rec = {"max_abs_err": err}
-    log("kernels", f"flow_score B={LANES} M={M} hard={hard_hits}: max abs err {err:.3e} "
-                   f"(tolerance {ATOL:g} + {RTOL:g}*|ref|)")
+    log("kernels", f"flow_score B={LANES} M={M} K={K} W={W} hard={hard_hits}: max abs err "
+                   f"{err:.3e} (tolerance {ATOL:g} + {RTOL:g}*|ref|)")
     if timed:
         ms, call_ms = cuda_ms(lambda: ops.flow_score(params, rules, pooled, sig, sticky),
                               iters=200)
         plain_ms, plain_call_ms = cuda_ms(
             lambda: ops.flow_score_plain(params, rules, pooled, sig, sticky), iters=50)
+        floor_ms = launch_floor_ms(LANES)
         nbytes, flops = score_cost(params, rules, pooled, sig)
         bound_ms, bound_by = bound(nbytes, flops)
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   bytes=nbytes, flops=flops, call_ms=call_ms, plain_call_ms=plain_call_ms)
-        log("kernels", f"flow_score device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                   floor_ms=floor_ms, bytes=nbytes, flops=flops, call_ms=call_ms,
+                   plain_call_ms=plain_call_ms)
+        log("kernels", f"flow_score device time: kernel {ms:.5f} ms, launch floor (an empty "
+                       f"kernel on the same grid) {floor_ms:.5f} ms, plain {plain_ms:.4f} ms, "
                        f"bound {bound_ms:.5f} ms by {bound_by} ({nbytes} B, {flops} flop); "
                        f"per call from Python: kernel {call_ms:.4f} ms, plain {plain_call_ms:.4f} ms")
     return rec
+
+
+def launch_floor_ms(B):
+    """Device time of an empty kernel on flow_score's grid for B lanes,
+    timed as the kernels are (``cuda_ms``, 200 launches in a graph)."""
+    import torch
+    from repro_torch.kernels import _build
+
+    lib = _build.load_library()
+
+    def empty():
+        _build.check(lib.empty_launch(B, torch.cuda.current_stream().cuda_stream), "empty")
+
+    return cuda_ms(empty, iters=200)[0]
 
 
 # chimera_attention partials are sums of up to T terms of size ~1 (|num|
@@ -540,7 +561,6 @@ def build_other_library(csrc_dir):
     tree's flags into ``build/`` beside it and loaded with this tree's C
     signatures: for timing two versions of a kernel in one process."""
     import ctypes
-    import hashlib
     from pathlib import Path
 
     from repro_torch.kernels import _build
@@ -548,8 +568,7 @@ def build_other_library(csrc_dir):
     srcs = sorted(Path(csrc_dir).glob("*.cu"))
     if not srcs:
         fail(f"no CUDA sources in {csrc_dir}")
-    key = hashlib.sha256(b"".join(x.read_bytes() for x in srcs)).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"other_{key}"
+    out = _build.BUILD_DIR / f"other_{_build.source_hash(Path(csrc_dir))}"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     procs = [(x, subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", str(x), "-o",
@@ -568,23 +587,32 @@ def build_other_library(csrc_dir):
         fail(f"link failed:\n{res.stdout}")
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _build.SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
+        if hasattr(lib, name):  # an older tree may lack a measurement aid
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def compare_builds(other_csrc, label="other"):
-    """decode_step (the engine's shape, each fill pattern, with globals) and
-    chimera_attention (the train phase's shape) from this tree and from
-    ``other_csrc``, timed in turns on one card: this, other, other, this.
-    Prints each version's two times and returns ``{kernel: {version: [ms, ms]}}``."""
+def compare_builds(others, rounds=1):
+    """decode_step (the engine's shape, each fill pattern, with globals),
+    flow_score (the engine's 256 lanes, one rule), chimera_attention (the
+    train phase's shape) and window_attention (the serve phase's prefill)
+    from this tree and from the trees of ``others`` (``{label: csrc
+    directory}``), timed in turns on one card: each round runs this, the
+    others, then the others and this again in reverse (this, other, other,
+    this for one).  Prints each version's times and returns ``{kernel:
+    {version: [ms, ...]}}``."""
     import torch
     from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+    from repro_torch.configs.mixtral_8x7b import CONFIG as MIX
     from repro_torch.kernels import _build
     from repro_torch.kernels.chimera_attention import ops as cops
     from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.flow_ingest import ops as sops
+    from repro_torch.kernels.window_attention import ops as wops
 
-    libs = {"this": _build.load_library(), label: build_other_library(other_csrc)}
+    libs = {"this": _build.load_library()}
+    libs.update({label: build_other_library(d) for label, d in others.items()})
     L, m, d = ARCH.chimera.chunk_size, ARCH.chimera.feature_map.m, ARCH.head_dim
     Gq, heads = ARCH.n_heads // ARCH.n_kv_heads, ARCH.n_kv_heads
     cases = {}
@@ -599,9 +627,15 @@ def compare_builds(other_csrc, label="other"):
     flat = [q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1), pq.flatten(0, 1),
             pk.flatten(0, 1)]
     cases["chimera_attention"] = (lambda: cops.chimera_attention_bh(*flat, chunk_size=L), 20)
+    sargs = score_inputs(LANES, 1, SEED + 1)
+    cases["flow_score M=1"] = (lambda: sops.flow_score(*sargs), 200)
+    wq, wk, wv = window_inputs(SERVE_SLOTS, MIX.n_heads, MIX.n_kv_heads, SERVE_T, MIX.head_dim,
+                               MIX.head_dim, SEED + 20)
+    cases["window_attention"] = (
+        lambda: wops.sliding_window_attention(wq, wk, wv, MIX.sliding_window), 2)
     times = {name: {ver: [] for ver in libs} for name in cases}
     try:
-        for ver in ("this", label, label, "this"):
+        for ver in (list(libs) + list(libs)[::-1]) * rounds:
             _build._lib = libs[ver]
             for name, (fn, iters) in cases.items():
                 with torch.no_grad():
@@ -610,7 +644,7 @@ def compare_builds(other_csrc, label="other"):
         _build._lib = libs["this"]
     for name, t in times.items():
         log("compare", f"{name}: " + "; ".join(
-            f"{ver} {', '.join(f'{x:.4f}' for x in ts)} ms" for ver, ts in t.items()))
+            f"{ver} {', '.join(f'{x:.5f}' for x in ts)} ms" for ver, ts in t.items()))
     return times
 
 
@@ -672,6 +706,41 @@ def window_cost(B, H, Hkv, T, W, d, dv):
     return nbytes, B * H * pairs * (2 * d + 2 * dv)
 
 
+# (T, W, dtype, H, Hkv) of the edge shapes, each at d = dv = 64 and 128
+# (B 2): ragged T, W below a tile, W > T, a tile boundary (T 128, W 64), W a
+# multiple of the tile with T not, and 1, 2 and 4 kv-heads
+WINDOW_EDGES = (
+    (200, 48, "float32", 4, 1), (200, 300, "float32", 4, 1), (77, 13, "float32", 2, 2),
+    (200, 48, "bfloat16", 4, 1), (200, 48, "float32", 8, 4), (128, 64, "float32", 4, 2),
+    (200, 128, "float32", 4, 2), (200, 128, "bfloat16", 8, 4),
+)
+
+
+def check_window_edge(T, W, dtype, H, Hkv, d, seed):
+    """The kernel against its plain version at one edge shape (B 2, d = dv);
+    fp32 within ATOL + RTOL * |ref|, bf16 within WIN_BF16_TOL of the plain
+    version's fp32 result rounded to bf16.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.window_attention import ops
+
+    dt = getattr(torch, dtype)
+    xs = window_inputs(2, H, Hkv, T, d, d, seed, dt)
+    with torch.no_grad():
+        got = ops.sliding_window_attention(*xs, W)
+        want = ops.sliding_window_attention_plain(*(x.float() for x in xs), W)
+    name = f"window_attention T {T} W {W} d {d} {dt}"
+    if dt == torch.bfloat16:
+        if got.dtype != torch.bfloat16:
+            fail(f"{name}: output dtype {got.dtype}")
+        e = compare(name, got.float(), want.to(dt).float(), atol=WIN_BF16_TOL, rtol=WIN_BF16_TOL)
+        tol = f"{WIN_BF16_TOL:g} + {WIN_BF16_TOL:g}*|ref|"
+    else:
+        e = compare(name, got, want)
+        tol = f"{ATOL:g} + {RTOL:g}*|ref|"
+    log("kernels", f"{name}, B 2 x H {H} (Hkv {Hkv}): max abs err {e:.3e} (tolerance {tol})")
+    return e
+
+
 def check_window(timed):
     """The kernel against its plain version at the serve phase's prefill shape
     (the plain version run over slices of WIN_PLAIN_HEADS query heads), and at
@@ -700,26 +769,9 @@ def check_window(timed):
     log("kernels", f"window_attention B {B} x H {H} (Hkv {Hkv}) T {T} W {W} d {d}: max abs err "
                    f"{err:.3e} (tolerance {ATOL:g} + {RTOL:g}*|ref|) against the plain version "
                    f"over {len(slices)} slices of {WIN_PLAIN_HEADS} heads")
-    ragged = [(200, 48, torch.float32, 4, 1), (200, 300, torch.float32, 4, 1),
-              (77, 13, torch.float32, 2, 2), (200, 48, torch.bfloat16, 4, 1)]
-    for i, (Tr, Wr, dt, Hr, Hkvr) in enumerate(ragged):
+    for i, edge in enumerate(WINDOW_EDGES):
         for dr in (64, 128):
-            xs = window_inputs(2, Hr, Hkvr, Tr, dr, dr, SEED + 21 + i, dt)
-            with torch.no_grad():
-                got = ops.sliding_window_attention(*xs, Wr)
-                want = ops.sliding_window_attention_plain(*(x.float() for x in xs), Wr)
-            name = f"window_attention T {Tr} W {Wr} d {dr} {dt}"
-            if dt == torch.bfloat16:
-                if got.dtype != torch.bfloat16:
-                    fail(f"{name}: output dtype {got.dtype}")
-                e = compare(name, got.float(), want.to(dt).float(), atol=WIN_BF16_TOL,
-                            rtol=WIN_BF16_TOL)
-                tol = f"{WIN_BF16_TOL:g} + {WIN_BF16_TOL:g}*|ref|"
-            else:
-                e = compare(name, got, want)
-                tol = f"{ATOL:g} + {RTOL:g}*|ref|"
-            log("kernels", f"{name}, B 2 x H {Hr} (Hkv {Hkvr}): max abs err {e:.3e} "
-                           f"(tolerance {tol})")
+            check_window_edge(*edge, dr, SEED + 21 + i)
     if timed:
         with torch.no_grad():
             ms, call_ms = cuda_ms(lambda: ops.sliding_window_attention(q, k, v, W), iters=2)
@@ -740,12 +792,15 @@ def check_window(timed):
             library_ms, _ = cuda_ms(sdpa, iters=1)
         del ke, ve
         nbytes, flops = window_cost(B, H, Hkv, T, W, d, d)
-        bound_ms, bound_by = bound(nbytes, flops)
+        bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+        fp32_ms = flops / FP32_FLOPS * 1e3
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms, bytes=nbytes, flops=flops, call_ms=call_ms)
         log("kernels", f"window_attention device time at B {B} x H {H} (Hkv {Hkv}) T {T} W {W} "
                        f"d {d}: kernel {ms:.4f} ms (per call from Python {call_ms:.4f} ms), bound "
-                       f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} flop); "
+                       f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B; {flops} flop, "
+                       f"x{TF32_PASSES} in TF32 on the tensor cores; on the fp32 CUDA cores "
+                       f"they would take {fp32_ms:.4f} ms); "
                        f"scaled_dot_product_attention with a band mask {library_ms:.4f} ms "
                        f"(max abs diff to the kernel {lib_err:.3e}); plain version {plain_ms:.4f} "
                        f"ms over its {len(slices)} slices of {WIN_PLAIN_HEADS} heads (it forms "
@@ -775,6 +830,7 @@ def phase_kernels():
     check_decode_edges()
     recs["flow_score"] = check_score(M=1, timed=True)
     check_score(M=300, timed=False)
+    check_score(M=40, timed=False, K=5, W=3)
     recs["chimera_attention"] = check_chimera(timed=True)
     check_chimera_edges()
     check_chimera_grads()

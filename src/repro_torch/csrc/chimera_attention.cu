@@ -22,10 +22,10 @@
 // Design.  One block of 8 warps owns a row and all of dv, and walks the
 // chunks with S and Z in shared memory.  The four products of a chunk (q k^T,
 // P v, phi_q S, phi_k^T v) run on the tensor cores as mma.sync.m16n8k8 in
-// split fp32 (3xTF32): each operand is split as a = a_hi + a_lo, both TF32,
-// and a_lo b_hi + a_hi b_lo + a_hi b_hi is summed in fp32, which keeps the
-// error well inside the 1e-4 tolerance (one TF32 pass keeps about three
-// digits and does not).  That is 46 GFLOP of TF32 work, 0.09 ms at 495
+// split fp32 (3xTF32, split_fp32.cuh): each operand is split as a = a_hi +
+// a_lo, both TF32, and a_lo b_hi + a_hi b_lo + a_hi b_hi is summed in fp32,
+// which keeps the error well inside the 1e-4 tolerance (one TF32 pass keeps
+// about three digits and does not).  That is 46 GFLOP of TF32 work, 0.09 ms at 495
 // TFLOP/s, so bytes bound the kernel; den (the row sums of P, phi_q Z) and Z
 // are summed on the fp32 cores from the same operands.
 //   * The scores' accumulator tile is the A operand of P v as it stands:
@@ -65,15 +65,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_fp32.cuh"
+
 namespace {
+
+using namespace split_fp32;
+using split_fp32::mma3_n;  // overloaded below for operands in shared memory
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 3;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // ---- mbarriers and asynchronous copies --------------------------------------
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -110,56 +111,7 @@ __device__ __forceinline__ void load_tile(float* dst, int sstride, const float* 
                : "memory");
 }
 
-// ---- split-fp32 tensor-core products ---------------------------------------
-struct Split {
-  uint32_t hi, lo;
-};
-// x = hi + lo, hi the TF32 value of x's top 11 significant bits (its low
-// 13 mantissa bits cleared) and lo = x - hi, exact in fp32.  The tensor
-// cores read lo's top 11 bits, so a product keeps about 21 bits of each
-// operand, and chip_smoke.py holds the partials within their tolerance at
-// the main path's and the edge shapes.  Two instructions; rounding hi to
-// nearest (Veltkamp's split, or cvt.rna.tf32.f32) costs four and measured
-// slower on an H100.
-__device__ __forceinline__ Split split(float x) {
-  const uint32_t hi = __float_as_uint(x) & 0xFFFFE000u;
-  return {hi, __float_as_uint(x - __uint_as_float(hi))};
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[j] += a b_j in split fp32 for the n-tiles j < n (of N): the small
-// products first, each pass over all n-tiles so that consecutive mma.sync
-// are independent.  a is 16 x 8 (a0 (g, t), a1 (g+8, t), a2 (g, t+4),
-// a3 (g+8, t+4)); b_j is 8 x 8 with b0 (t, g) = b[8j], b1 (t+4, g) =
-// b[8j + koff]; c is 16 x 8 (c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
-// c3 (g+8, 2t+1)); g = lane / 4, t = lane % 4.
-template <int N>
-__device__ __forceinline__ void mma3_n(float (*c)[4], const uint32_t ahi[4], const uint32_t alo[4],
-                                       const float (*bv)[2], int n = N) {
-  uint32_t bh[N][2], bl[N][2];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (j < n) {
-      const Split s0 = split(bv[j][0]), s1 = split(bv[j][1]);
-      bh[j][0] = s0.hi; bh[j][1] = s1.hi; bl[j][0] = s0.lo; bl[j][1] = s1.lo;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (j < n) mma(c[j], alo, bh[j][0], bh[j][1]);
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (j < n) mma(c[j], ahi, bl[j][0], bl[j][1]);
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (j < n) mma(c[j], ahi, bh[j][0], bh[j][1]);
-}
+// ---- operands of the split-fp32 products (split_fp32.cuh) -------------------
 // mma3_n with b_j's fragment read from shared memory: (b[8j], b[8j + koff])
 template <int N>
 __device__ __forceinline__ void mma3_n(float (*c)[4], const uint32_t ahi[4], const uint32_t alo[4],
@@ -194,15 +146,6 @@ struct Operands {
       }
   }
 };
-
-__device__ __forceinline__ void split4(const float a[4], uint32_t hi[4], uint32_t lo[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const Split s = split(a[i]);
-    hi[i] = s.hi;
-    lo[i] = s.lo;
-  }
-}
 
 // ---- layout ----------------------------------------------------------------
 template <int L>

@@ -5,237 +5,333 @@
 // (pallas_call at :111, body _kernel at :35).  Row i of a (batch x head)
 // attends to the keys j with 0 <= i - j < W, with scale 1/sqrt(d), an
 // online softmax (running max, sum and accumulator) in fp32, and the output
-// in the inputs' type: the function of window_attention/ref.py.
-//
-// Design.  The TPU grid walks (row, q block, kv block) with the kv axis
-// sequential and the running softmax in VMEM scratch, and clamps and masks
-// the kv block index at the left edge (kernel.py:9-16) because a BlockSpec
-// cannot start anywhere.  Here one block of 256 threads owns 64 query rows
-// of one (batch x head) row and walks, in a loop, only the 64-key tiles
-// that meet its band [i0 - W + 1, i0 + 64), so nothing carries across
-// blocks and the loop simply starts at the first tile in the band.  The
-// ragged right edge (T not a multiple of 64) and the band are masked in the
-// kernel, so any T and any W >= 1 work.  K and V are read per kv-head
-// (kv-head = head / (H / Hkv)) instead of the reference's jnp.repeat to the
-// query-head count (models/attention.py:116-118): the same function, with
-// a quarter of the K/V bytes at Mixtral's 32 heads over 8 kv-heads.
-//
-// Per tile: K is staged transposed and V as it is in shared memory (fp32;
-// bf16 inputs are converted on the way in), each thread computes a 4 x 4
-// block of the 64 x 64 scores from float4 loads of the transposed Q and K
-// tiles, the row max and sum are reduced over the 16 threads of a row with
-// warp shuffles, P is written transposed over the K tile, and each thread
-// adds P V into its 4 rows x (dv / 16) columns, kept in registers.  Shared
-// memory: 4 * (68 d + 68 max(d, 64) + 64 dv) bytes, 102,400 B at d = dv =
-// 128, so two blocks fit on an SM.  Products run on CUDA cores in fp32
-// (TF32 stays off, as the package sets it).
+// in the inputs' type: the function of window_attention/ref.py.  K and V
+// are read per kv-head (kv-head = head / (H / Hkv)) instead of the
+// reference's jnp.repeat to the query-head count (models/attention.py:
+// 116-118): the same function, with a quarter of the K/V bytes at
+// Mixtral's 32 heads over 8 kv-heads.
 //
 // Bound on an H100 at the serve path's prefill (B 4 x H 32, T 8192, W
 // 4096, d = dv = 128, fp32): 1.65 TFLOP for QK^T and PV over the 25.2 M
-// in-band pairs of each head, ~24.6 ms at 67 TFLOP/s fp32, against ~1.3 GB
-// of q, k, v and o (~0.4 ms): operations bound it.  The inner loops issue
-// two 16-byte shared-memory loads per 16 FMAs (QK^T) and three per 32
-// (PV); tensor cores (wgmma with a split-fp32 or bf16 scheme), TMA and a
-// pipelined tile ring are later work.
+// in-band pairs of each head.  On the fp32 CUDA cores that is 24.6 ms at
+// 67 TFLOP/s, which a first design (every product on CUDA cores out of
+// shared memory) reached at 35 % (70.5 ms).  Here both products run on the
+// tensor cores in split fp32 (3xTF32, split_fp32.cuh): 4.95 TFLOP of TF32
+// work, 10.0 ms at 495 TFLOP/s, against ~1.3 GB of q, k, v and o (~0.4 ms):
+// operations bound it.  One TF32 pass is beyond the fp32 tolerance the
+// kernel is held to; the split is within it.
 //
-// Contract (q, k, v, o contiguous, all float32 or all bfloat16):
+// Design.  One block of 8 warps owns 128 query rows of one (batch x head)
+// and walks, in a loop, only the 64-key tiles that meet its band [i0 - W +
+// 1, i0 + 128); warp w owns rows i0 + 16 w .. + 15 and skips the tiles
+// outside its own band.  Blocks are ordered longest first (row blocks from
+// the end of the sequence, whose bands are full), and within a row block
+// the query heads that share a kv-head are neighbours, so their K and V
+// tiles are read from device memory about once and then from L2.
+//   * Staging: Q once, then K and V tiles in a two-stage ring filled by
+//     16-byte cp.async (rows beyond T zero-filled), so tile t + 1 loads
+//     while tile t is in the products.  Row strides of d + 16 bytes keep
+//     every fragment load free of bank conflicts.  bf16 inputs are staged
+//     as they are and widened to fp32 as fragments are read; they take the
+//     same split path (their low halves are zero).
+//   * S = Q K^T: m16n8k8 mma.sync, 16 rows x 64 keys per warp, operands
+//     read from shared memory one k-step ahead of their products and split
+//     as they are read.
+//   * Online softmax on the fp32 cores, in the log2 domain (scale * log2 e
+//     folded into one FMA before exp2).  The band is evaluated only on the
+//     tiles that cross it (the first tile of a band, the diagonal and the
+//     ragged right edge); a row whose tile is fully masked keeps the -1e30
+//     guard, so exp2(m - m_new) never sees -inf - -inf.  Row sums stay per
+//     lane until the end.
+//   * O += P V: the scores' accumulator tile is the A operand as it stands,
+//     with the keys of the k-step permuted (A column t -> key 2t, t + 4 ->
+//     key 2t + 1; V's rows read the same way), so P never leaves registers.
+//     Each tile's products go to a fresh accumulator (half of dv at a time)
+//     that is added to O with fp32 adds: the tensor cores truncate when they
+//     sum, and PV sums over up to W keys.
+// What holds it back (seen on an H100 by removing one part at a time): at
+// 25.2 ms the kernel is 2.5x its bound.  With one TF32 pass instead of
+// three it takes 12.7 ms, so each pass costs ~6.2 ms of mma.sync issue;
+// without the split instructions (every warp splits every K and V element
+// it reads) 21.6-22.4 ms; without the block barrier per tile 24.7-25.4 ms.
+// The rest is the softmax, fragment loads and flushes, which the two warps
+// that share a scheduler do not hide behind the products.  Splitting K and
+// V once per block into shared memory needs
+// hi and lo copies that, beside Q and a ring, do not fit the 227 KB; so
+// does wgmma, which wants both in shared memory and V transposed.  Paired
+// (8-byte) fragment loads, two query heads of a kv-head per block, skipping
+// the masked 8-key blocks of edge tiles, a rolled QK^T loop, skipping O's
+// rescale when no row's max moved, and extra fp32 flushes inside QK^T were
+// each measured and were no faster.
+//
+// Contract (q, k, v, o contiguous and 16-byte aligned, all float32 or all
+// bfloat16):
 //   q (B*H, T, d), k (B*Hkv, T, d), v (B*Hkv, T, dv) -> o (B*H, T, dv)
-// Requires H % Hkv == 0, W >= 1, dv in {64, 128, 256}, B*H <= 65535 and the
-// shared memory above within the 227 KB a block may use.
+// Takes H % Hkv == 0, W >= 1, any T, d and dv in {64, 128}; anything else
+// (dv 256 among them: its O accumulator alone would take 128 registers a
+// thread) is cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_fp32.cuh"
+
 namespace {
 
-constexpr int kBq = 64;        // query rows per block
-constexpr int kBk = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16: thread (ty, tx) owns rows 4ty.. and keys 4tx..
-constexpr int kLd = 68;        // row stride of the transposed tiles (float4-aligned, 4-way stores)
+using namespace split_fp32;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBq = 16 * kWarps;  // query rows per block
+constexpr int kBk = 64;           // keys per tile
+constexpr int kStages = 2;        // K/V ring
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// reductions over the 16 threads of one row (lanes that differ in bits 0-3)
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
 }
 
-size_t smem_bytes(int d, int dv) {
-  return sizeof(float) * ((size_t)kLd * d + (size_t)kLd * (d > kBk ? d : kBk) + (size_t)kBk * dv);
-}
+// Shared-memory layout in elements of T: Q (kBq rows), then the K and V
+// rings; row strides of 16 bytes more than a row.
+template <typename T, int D, int DV>
+struct Layout {
+  static constexpr int kPad = 16 / sizeof(T);
+  static constexpr int SQ = D + kPad;  // Q and K rows
+  static constexpr int SV = DV + kPad;
+  static constexpr int K = kBq * SQ;
+  static constexpr int V = K + kStages * kBk * SQ;
+  static constexpr int total = V + kStages * kBk * SV;
+  static constexpr size_t bytes = sizeof(T) * (size_t)total;
+};
 
-template <typename T, int NH>
-__global__ void __launch_bounds__(kThreads) window_attention_kernel(
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int Hkv, int n, int d, int window, float scale) {
-  constexpr int DV = 64 * NH;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;            // (d, kLd) this block's queries, transposed
-  float* kt = qt + kLd * d;    // (d, kLd) one key tile, transposed; then P^T (kBk, kLd)
-  float* vs = kt + kLd * (d > kBk ? d : kBk);  // (kBk, DV) one value tile
+    T* __restrict__ o, int BH, int H, int Hkv, int n, int window, float sc) {
+  using Lay = Layout<T, D, DV>;
+  constexpr int SQ = Lay::SQ, SV = Lay::SV;
+  constexpr int NT = DV / 8;  // n-tiles of O
+  constexpr int NH = NT / 8;  // halves of dv, one fresh accumulator each
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int i0 = blockIdx.x * kBq;
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int nrb = (n + kBq - 1) / kBq;
+  const int rb = nrb - 1 - (int)(blockIdx.x / BH);  // the longest row blocks first
+  const int bh = (int)(blockIdx.x % BH);             // kv-head sharers side by side
+  const int i0 = rb * kBq;
   const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const T* qb = q + (size_t)bh * n * d;
-  const T* kb = k + (size_t)kvh * n * d;
+  const T* qb = q + (size_t)bh * n * D;
+  const T* kb = k + (size_t)kvh * n * D;
   const T* vb = v + (size_t)kvh * n * DV;
 
-  for (int x = t; x < kBq * d; x += kThreads) {
-    const int r = x / d, e = x - r * d;
-    const int i = i0 + r;
-    qt[e * kLd + r] = i < n ? to_f(qb[(size_t)i * d + e]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][4 * NH];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    m[u] = kNeg;
-    l[u] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NH; ++c) acc[u][c] = 0.f;
-  }
-
+  // rows row0 .. row0 + ROWS - 1 of src (COLS elements each) into dst,
+  // 16 bytes per cp.async, zeros beyond row n - 1
+  auto load_rows = [&](T* dst, int sstride, const T* src, int cols, int row0, int rows) {
+    constexpr int E = 16 / sizeof(T);
+    const int c16 = cols / E;
+    for (int x = tid; x < rows * c16; x += kThreads) {
+      const int r = x / c16, e = (x - r * c16) * E;
+      const int row = row0 + r;
+      const bool ok = row < n;
+      cp_async16(dst + r * sstride + e, src + (size_t)(ok ? row : 0) * cols + e, ok ? 16 : 0);
+    }
+  };
   const int j_first = max(0, i0 - window + 1);  // first key any row of the block sees
   const int j_end = min(i0 + kBq, n);           // one past the last
-  for (int j0 = j_first - j_first % kBk; j0 < j_end; j0 += kBk) {
-    __syncthreads();  // the previous tile's readers of kt (as P^T) and vs are done
-    for (int x = t; x < kBk * d; x += kThreads) {
-      const int c = x / d, e = x - c * d;
-      const int j = j0 + c;
-      kt[e * kLd + c] = j < n ? to_f(kb[(size_t)j * d + e]) : 0.f;
-    }
-    for (int x = t; x < kBk * DV; x += kThreads) {
-      const int c = x / DV;
-      const int j = j0 + c;
-      vs[x] = j < n ? to_f(vb[(size_t)j * DV + (x - c * DV)]) : 0.f;
-    }
-    __syncthreads();
+  const int jt0 = j_first / kBk, jt1 = (j_end + kBk - 1) / kBk;
+  auto issue = [&](int jt) {
+    const int st = jt % kStages;
+    load_rows(smem + Lay::K + st * kBk * SQ, SQ, kb, D, jt * kBk, kBk);
+    load_rows(smem + Lay::V + st * kBk * SV, SV, vb, DV, jt * kBk, kBk);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  load_rows(smem, SQ, qb, D, i0, kBq);  // Q joins the first tile's group
+  issue(jt0);
 
-    float s[4][4];
+  const int r0 = i0 + 16 * warp;  // this warp's first row
+  const int ra = r0 + g8, rbw = ra + 8;  // this lane's two rows
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float acc[NT][4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) s[u][w] = 0.f;
-    for (int e = 0; e < d; ++e) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + e * kLd + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(kt + e * kLd + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int w = 0; w < 4; ++w) s[u][w] = fmaf(av[u], bv[w], s[u][w]);
-    }
-    __syncthreads();  // every thread is done with kt: it takes P^T next
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-    // online softmax over this tile; masked entries get probability 0
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = i0 + ty * 4 + u;
-      float mx = kNeg;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const int j = j0 + tx * 4 + w;
-        const bool in_band = j <= i && i - j < window && j < n;
-        s[u][w] = in_band ? s[u][w] * scale : kNeg;
-        mx = fmaxf(mx, s[u][w]);
-      }
-      const float mn = fmaxf(m[u], max16(mx));
-      const float alpha = expf(m[u] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const float p = s[u][w] == kNeg ? 0.f : expf(s[u][w] - mn);
-        s[u][w] = p;
-        sum += p;
-      }
-      l[u] = l[u] * alpha + sum16(sum);
-      m[u] = mn;
-#pragma unroll
-      for (int c = 0; c < 4 * NH; ++c) acc[u][c] *= alpha;
-    }
-    float* pt = kt;
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) pt[(tx * 4 + w) * kLd + ty * 4 + u] = s[u][w];
-    __syncthreads();
+  for (int jt = jt0; jt < jt1; ++jt) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // tile jt has landed for every thread; tile jt - 1 is retired
+    if (jt + 1 < jt1) issue(jt + 1);
+    const int j0 = jt * kBk;
+    // warp-uniform: this warp's rows exist and meet the tile inside the band
+    if (r0 >= n || j0 > r0 + 15 || r0 - (j0 + kBk - 1) >= window) continue;
+    const bool full = j0 + kBk - 1 <= r0 && r0 + 15 - j0 < window;
+    const T* Ks = smem + Lay::K + (jt % kStages) * kBk * SQ;
+    const T* Vs = smem + Lay::V + (jt % kStages) * kBk * SV;
 
-    for (int c = 0; c < kBk; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(pt + c * kLd + ty * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+    // ---- S = Q K^T (16 rows x 64 keys), 3xTF32 ----
+    float s[8][4];
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const float4 b = *reinterpret_cast<const float4*>(vs + c * DV + h * 64 + tx * 4);
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    {
+      const T* qa = smem + (16 * warp + g8) * SQ + t4;
+      const T* kr = Ks + g8 * SQ + t4;
+      float a[2][4], b[2][8][2];
+      auto load = [&](int u, int x) {
+        a[u][0] = to_f(qa[x]);
+        a[u][1] = to_f(qa[x + 8 * SQ]);
+        a[u][2] = to_f(qa[x + 4]);
+        a[u][3] = to_f(qa[x + 8 * SQ + 4]);
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
+        for (int j = 0; j < 8; ++j) {
+          b[u][j][0] = to_f(kr[8 * j * SQ + x]);
+          b[u][j][1] = to_f(kr[8 * j * SQ + x + 4]);
+        }
+      };
+      load(0, 0);
 #pragma unroll
-          for (int w = 0; w < 4; ++w) acc[u][h * 4 + w] = fmaf(av[u], bv[w], acc[u][h * 4 + w]);
+      for (int x = 0; x < D; x += 8) {
+        const int u = (x / 8) & 1;
+        if (x + 8 < D) load(u ^ 1, x + 8);
+        uint32_t ahi[4], alo[4];
+        split4(a[u], ahi, alo);
+        mma3_n<8>(s, ahi, alo, b[u]);
       }
+    }
+
+    // ---- online softmax (log2 domain); masked entries get probability 0 ----
+    float mx[2] = {kNeg, kNeg};
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? ra : rbw, jj = j0 + 8 * j + 2 * t4 + (e & 1);
+          if (!(jj <= i && i - jj < window)) s[j][e] = kNeg;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a fully masked row keeps m at (about) -1e30: alpha is 0 or 1, never NaN
+      const float mn = fmaxf(m[r], mx[r] * sc);
+      alpha[r] = exp2f(m[r] - mn);
+      m[r] = mn;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[j][e], sc, -m[e >> 1]));
+        s[j][e] = (full || s[j][e] != kNeg) ? p : 0.f;
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // ---- O += P V, 3xTF32, one half of dv per fresh accumulator ----
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) {
+      float tacc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) tacc[j][0] = tacc[j][1] = tacc[j][2] = tacc[j][3] = 0.f;
+      const T* vr = Vs + 2 * t4 * SV + 64 * hf + g8;
+      float b[2][8][2];
+      auto load = [&](int u, int kk) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          b[u][j][0] = to_f(vr[8 * kk * SV + 8 * j]);
+          b[u][j][1] = to_f(vr[8 * kk * SV + SV + 8 * j]);
+        }
+      };
+      load(0, 0);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int u = kk & 1;
+        if (kk + 1 < 8) load(u ^ 1, kk + 1);
+        // P's k-step kk as the A operand, keys permuted: column t -> key 2t, t + 4 -> 2t + 1
+        const float pa[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+        uint32_t ahi[4], alo[4];
+        split4(pa, ahi, alo);
+        mma3_n<8>(tacc, ahi, alo, b[u]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[8 * hf + j][e] += tacc[j][e];
     }
   }
 
+  // ---- O / l, in q's type ----
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = i0 + ty * 4 + u;
-    if (i >= n) continue;
-    const float den = fmaxf(l[u], 1e-30f);
-    T* ob = o + ((size_t)bh * n + i) * DV + tx * 4;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  T* ob = o + (size_t)bh * n * DV + 2 * t4;
 #pragma unroll
-    for (int h = 0; h < NH; ++h)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) ob[h * 64 + w] = from_f<T>(acc[u][h * 4 + w] / den);
+  for (int j = 0; j < NT; ++j) {
+    if (ra < n) store2(ob + (size_t)ra * DV + 8 * j, acc[j][0] * inv0, acc[j][1] * inv0);
+    if (rbw < n) store2(ob + (size_t)rbw * DV + 8 * j, acc[j][2] * inv1, acc[j][3] * inv1);
   }
 }
 
-template <typename T, int NH>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int H, int Hkv,
-           int n, int d, int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, 64 * NH);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<T, NH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((n + kBq - 1) / kBq, BH);
-  window_attention_kernel<T, NH><<<grid, kThreads, smem, stream>>>(
+template <typename T, int D, int DV>
+int launch(const void* q, const void* k, const void* v, void* o, int BH, int H, int Hkv, int n,
+           int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Layout<T, D, DV>::bytes;
+  static_assert(smem <= 227 * 1024, "shared memory beyond what a block may use");
+  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<T, D, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)((n + kBq - 1) / kBq) * BH;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  window_attention_kernel<T, D, DV><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hkv, n, d, window, scale);
+      static_cast<T*>(o), BH, H, Hkv, n, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dv(const void* q, const void* k, const void* v, void* o, int BH, int H, int Hkv,
-              int n, int d, int dv, int window, float scale, cudaStream_t s) {
-  switch (dv) {
-    case 64: return launch<T, 1>(q, k, v, o, BH, H, Hkv, n, d, window, scale, s);
-    case 128: return launch<T, 2>(q, k, v, o, BH, H, Hkv, n, d, window, scale, s);
-    case 256: return launch<T, 4>(q, k, v, o, BH, H, Hkv, n, d, window, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_dims(const void* q, const void* k, const void* v, void* o, int BH, int H, int Hkv,
+                int n, int d, int dv, int window, float scale, cudaStream_t s) {
+  if (d == 64 && dv == 64) return launch<T, 64, 64>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+  if (d == 64 && dv == 128) return launch<T, 64, 128>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+  if (d == 128 && dv == 64) return launch<T, 128, 64>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+  if (d == 128 && dv == 128)
+    return launch<T, 128, 128>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -243,11 +339,13 @@ int launch_dv(const void* q, const void* k, const void* v, void* o, int BH, int 
 extern "C" int window_attention_launch(const void* q, const void* k, const void* v, void* o,
                                        int BH, int H, int Hkv, int n, int d, int dv,
                                        int window, float scale, int bf16, void* stream) {
-  if (BH <= 0 || BH > 65535 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || n <= 0 ||
-      d <= 0 || window <= 0 || smem_bytes(d, dv) > 227 * 1024)
+  if (BH <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || n <= 0 || window <= 0)
     return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if ((uintptr_t)p & 15) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return launch_dv<__nv_bfloat16>(q, k, v, o, BH, H, Hkv, n, d, dv, window, scale, s);
-  return launch_dv<float>(q, k, v, o, BH, H, Hkv, n, d, dv, window, scale, s);
+    return launch_dims<__nv_bfloat16>(q, k, v, o, BH, H, Hkv, n, d, dv, window, scale, s);
+  return launch_dims<float>(q, k, v, o, BH, H, Hkv, n, d, dv, window, scale, s);
 }

@@ -38,6 +38,7 @@ SIGNATURES = {
     "flow_score_launch": [_P] * 18 + [_I] * 6 + [_P],
     "chimera_attention_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
     "window_attention_launch": [_P] * 4 + [_I] * 7 + [_F] + [_I] + [_P],
+    "empty_launch": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -64,9 +65,10 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -14,7 +14,9 @@ the output is in q's dtype.
   their kv-heads (``Hkv`` dividing ``H``); the kernel reads kv-head
   ``h // (H / Hkv)`` for query head h, where the reference repeats K and V to
   ``H`` heads first.  It launches the kernel for CUDA tensors, for any T and
-  W, and runs the plain version for CPU tensors; any other device raises.
+  W and head widths d, dv in {64, 128} (split fp32 on the tensor cores; the
+  launcher refuses other widths, and the wrapper raises ``ValueError``), and
+  runs the plain version for CPU tensors; any other device raises.
   ``launches`` counts kernel launches (never plain calls).
 
 Forward only: the JAX ``custom_vjp`` backward (``ops.py:27-46``) comes with
@@ -100,7 +102,7 @@ def sliding_window_attention(
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError("window_attention: the kernel takes contiguous tensors only")
-    # the launcher checks the rest of its contract (dv, shared memory, grid)
+    # the launcher checks the rest of its contract (d, dv, alignment, grid)
     # and returns cudaErrorInvalidValue for a shape it does not take
     lib = _build.load_library()
     o = torch.empty((B, H, T, dv), dtype=q.dtype, device=q.device)

@@ -227,3 +227,11 @@ def test_decode_step_kernel_edge_shapes_on_card(cuda, fill, Gq, dv, with_global)
 def test_flow_score_kernel_matches_plain_on_card(cuda, M):
     chip_smoke = _chip_smoke()
     chip_smoke.check_score(M, timed=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,W", [(5, 3), (12, 8), (8, 5)])
+def test_flow_score_kernel_generic_shapes_on_card(cuda, K, W):
+    """Class and signature widths off the kernel's K = 8, W = 8 fast path."""
+    chip_smoke = _chip_smoke()
+    chip_smoke.check_score(40, timed=False, K=K, W=W)

@@ -116,6 +116,20 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())
 
 
+def test_kernel_library_hash_covers_sources_and_headers(tmp_path):
+    """An edit to a header the sources include names another library, so
+    a stale build is never loaded."""
+    assert (_build.CSRC / "split_fp32.cuh").exists()
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build.source_hash(tmp_path)
+    assert _build.source_hash(tmp_path) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.source_hash(tmp_path) != first
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build.source_hash(tmp_path) not in (first,)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     """Only CPU tensors take the plain version; others launch or raise."""
     meta = torch.device("meta")

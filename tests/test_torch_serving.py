@@ -133,6 +133,64 @@ def test_window_wrapper_refuses_other_devices_and_bad_inputs():
     assert wops.launches == 0
 
 
+def _tf32(x):
+    """x rounded to TF32 by dropping the low 13 of fp32's 23 mantissa bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a, b, passes):
+    """a @ b as the tensor cores form it from TF32 operands with fp32 sums:
+    one pass (a_hi b_hi), or split fp32 (a_lo b_hi + a_hi b_lo + a_hi b_hi).
+    A product of two TF32 values is exact in fp32, so fp32 matmuls of the
+    rounded operands emulate it."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _window_tf32(q, k, v, window, passes, tile=64):
+    """csrc/window_attention.cu's arithmetic (BH layout): per 64-key tile
+    S = Q K^T in emulated TF32, an online softmax in fp32 in the log2 domain
+    with the -1e30 guard, and P V in emulated TF32 into a fresh accumulator
+    that is added to O with fp32 adds."""
+    BH, T, d = q.shape
+    neg = -1e30
+    sc = (1 / d ** 0.5) * 1.4426950408889634
+    i = torch.arange(T)[:, None]
+    m = torch.full((BH, T, 1), neg)
+    l = torch.zeros(BH, T, 1)
+    acc = torch.zeros(BH, T, v.shape[-1])
+    for j0 in range(0, T, tile):
+        j = torch.arange(j0, min(j0 + tile, T))[None, :]
+        band = (j <= i) & (i - j < window)
+        s = torch.where(band, _tf32_mm(q, k[:, j0:j0 + tile].transpose(1, 2), passes), neg)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True) * sc)
+        alpha = torch.exp2(m - mn)
+        p = torch.where(band, torch.exp2(s * sc - mn), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_mm(p, v[:, j0:j0 + tile], passes)
+        m = mn
+    return acc / l
+
+
+def test_window_split_fp32_keeps_the_kernel_tolerance_and_one_tf32_pass_does_not():
+    """Why csrc/window_attention.cu runs 3xTF32: at BH 2, T 1024, W 512,
+    d 128, N(0, 1) inputs, split fp32 stays within the tolerance the card's
+    kernel is held to (chip_smoke's ATOL 1e-5 + RTOL 1e-4 * |ref|) of the fp32
+    plain version; a single TF32 pass on both products does not."""
+    rng = np.random.default_rng(15)
+    q, k, v = (_t(rng.standard_normal((2, 1024, 128)).astype(np.float32)) for _ in range(3))
+    ref = wops.window_attention_plain(q, k, v, 512)
+    beyond = {}
+    for passes in (3, 1):
+        got = _window_tf32(q, k, v, 512, passes)
+        beyond[passes] = int(((got - ref).abs() > ATOL + RTOL * ref.abs()).sum())
+    assert beyond[3] == 0, f"split fp32: {beyond[3]} entries beyond the tolerance"
+    assert beyond[1] > 0, "one TF32 pass stayed within the tolerance"
+
+
 # --------------------------------------------------------------------------
 # MoE
 # --------------------------------------------------------------------------
@@ -478,3 +536,25 @@ def test_window_attention_kernel_matches_plain_on_card(cuda):
     kv = torch.zeros((1, 1, 8, 64), device=cuda)
     with pytest.raises(NotImplementedError, match="forward only"):
         wops.sliding_window_attention(q, kv, kv, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("T,W,dtype,H,Hkv", [
+    (200, 48, "float32", 4, 1),     # ragged T, W below a tile
+    (200, 300, "float32", 4, 1),    # W > T
+    (77, 13, "float32", 2, 2),
+    (200, 48, "bfloat16", 4, 1),
+    (200, 48, "float32", 8, 4),     # 4 kv-heads
+    (128, 64, "float32", 4, 2),     # a tile boundary
+    (200, 128, "float32", 4, 2),    # W a multiple of the 64-key tile, T not
+    (200, 128, "bfloat16", 8, 4),
+])
+def test_window_attention_kernel_edge_shapes_on_card(cuda, T, W, dtype, H, Hkv, d):
+    """The tensor-core kernel against the plain version: fp32 within ATOL +
+    RTOL * |ref|, bf16 within 8e-3 (chip_smoke.check_window_edge)."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    chip_smoke.check_window_edge(T, W, dtype, H, Hkv, d, seed=T + W + d)
