@@ -282,7 +282,8 @@ def bound(nbytes, flops, flops_per_s=FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_decode(with_global, timed, fill="spread", B=LANES, Gq=None, dv=None):
+def check_decode(with_global, timed, fill="spread", B=LANES, Gq=None, dv=None, d=None, m=None,
+                 L=None):
     """The kernel against its plain version on every output (out, S, Z, the
     ring, the new fill levels); by default at the engine's shape (the
     paper's config, 256 lanes x 4 kv-heads), each argument overriding it."""
@@ -290,7 +291,9 @@ def check_decode(with_global, timed, fill="spread", B=LANES, Gq=None, dv=None):
     from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
     from repro_torch.kernels.decode_step import ops
 
-    L, m, d = ARCH.chimera.chunk_size, ARCH.chimera.feature_map.m, ARCH.head_dim
+    L = L or ARCH.chimera.chunk_size
+    m = m or ARCH.chimera.feature_map.m
+    d = d or ARCH.head_dim
     dv = dv or d
     Gq = Gq or ARCH.n_heads // ARCH.n_kv_heads
     x = decode_inputs(B, ARCH.n_kv_heads, Gq, d, dv, m, L, with_global,
@@ -426,9 +429,10 @@ def launch_floor_ms(B):
 ATTN_ATOL = 1e-4
 
 
-def chimera_inputs(B, Hkv, Gq, T, m, seed, requires_grad=False):
+def chimera_inputs(B, Hkv, Gq, T, m, seed, requires_grad=False, d=None):
     """Normalized q, k, random v and their exp_prf features from the paper's
-    feature map (public layout (B, Hkv, Gq, T, .)), on the card."""
+    feature map (public layout (B, Hkv, Gq, T, .)), on the card; d = dv is
+    the paper's head width unless given."""
     import dataclasses
 
     import torch
@@ -436,7 +440,7 @@ def chimera_inputs(B, Hkv, Gq, T, m, seed, requires_grad=False):
     from repro_torch.core.feature_maps import _normalize, apply_feature_map, init_feature_map
 
     fm = dataclasses.replace(ARCH.chimera.feature_map, m=m)
-    d = dv = ARCH.head_dim
+    d = dv = d or ARCH.head_dim
     g = torch.Generator().manual_seed(seed)
     fm_params = init_feature_map(fm, d, g, "cuda")
     q = _normalize(torch.randn((B, Hkv, Gq, T, d), generator=g).to("cuda"), fm.input_scale)
@@ -518,42 +522,58 @@ CHIMERA_EDGE_CHUNKS = (16, 32, 64, 128)
 CHIMERA_MODES = ((True, True), (True, False), (False, True), (False, False))
 
 
-def check_chimera_edge(L, T, use_local, use_stream):
+# (L, m, d = dv) off the paper's phi tile: the smoke configs' widths (L 16,
+# m 16, d 16) and the 16-column tile at every chunk size
+CHIMERA_SMOKE_EDGES = ((16, 16, 16), (16, 32, 16), (32, 32, 32), (64, 32, 16), (128, 16, 16),
+                       (64, 16, 64))
+
+
+def check_chimera_edge(L, T, use_local, use_stream, m=64, d=None):
     """The kernel against its plain version at one edge shape of its
-    contract (B 2 x Hkv 2, Gq 2, m 64); returns the max abs error."""
+    contract (B 2 x Hkv 2, Gq 2, m 64 and the paper's d unless given);
+    returns the max abs error."""
     import torch
     from repro_torch.kernels.chimera_attention import ops
 
-    q, k, v, pq, pk = chimera_inputs(2, 2, 2, T, 64, SEED + 8 + L + T)
+    q, k, v, pq, pk = chimera_inputs(2, 2, 2, T, m, SEED + 8 + L + T + m, d=d)
     flat = [x.flatten(0, 1) for x in (q, k, v, pq, pk)]
     with torch.no_grad():
         a = ops.chimera_attention_bh(*flat, chunk_size=L, use_local=use_local,
                                      use_stream=use_stream)
         b = ops.chimera_attention_partials_plain(q, k, v, pq, pk, L, use_local, use_stream)
-    return max(compare(f"chimera_attention {name} L={L} T={T} Gq=2 local={use_local} "
-                       f"stream={use_stream}", x, y.reshape(x.shape), atol=ATTN_ATOL)
+    return max(compare(f"chimera_attention {name} L={L} T={T} m={m} d={q.shape[-1]} Gq=2 "
+                       f"local={use_local} stream={use_stream}", x, y.reshape(x.shape),
+                       atol=ATTN_ATOL)
                for name, x, y in zip(("num", "den"), a, b))
 
 
 def check_chimera_edges():
     """Every chunk size, a single chunk (T = L) and four, every
-    (use_local, use_stream) pair."""
+    (use_local, use_stream) pair; then the same at CHIMERA_SMOKE_EDGES."""
     worst = max(check_chimera_edge(L, T, *mode) for L in CHIMERA_EDGE_CHUNKS
                 for T in (L, 4 * L) for mode in CHIMERA_MODES)
     log("kernels", f"chimera_attention edge shapes (L 16-128, T = L and 4L, Gq 2, m 64, every "
                    f"local/stream pair): max abs err {worst:.3e} (tolerance {ATTN_ATOL:g} + "
                    f"{RTOL:g}*|ref|)")
+    worst = max(check_chimera_edge(L, T, *mode, m=m, d=d) for L, m, d in CHIMERA_SMOKE_EDGES
+                for T in (L, 4 * L) for mode in CHIMERA_MODES)
+    log("kernels", f"chimera_attention off the paper's phi tile ((L, m, d = dv) in "
+                   f"{list(CHIMERA_SMOKE_EDGES)}, T = L and 4L, every local/stream pair): max abs "
+                   f"err {worst:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|)")
 
 
 def check_decode_edges():
     """The kernel against its plain version at the edge shapes of its
-    contract: every fill pattern, Gq 1 and 2, dv 32, 64 and 128, with and
-    without the static globals (64 lanes x 4 kv-heads)."""
+    contract: every fill pattern, Gq 1 and 2, dv 16, 32, 64 and 128, with and
+    without the static globals (64 lanes x 4 kv-heads), and at the smoke
+    configs' widths (d = dv 16, m 16, L 16)."""
     for fill in DECODE_FILLS:
         for Gq in (1, 2):
-            for dv in (32, 64, 128):
-                for with_global in (False, True):
+            for with_global in (False, True):
+                for dv in (16, 32, 64, 128):
                     check_decode(with_global, timed=False, fill=fill, B=64, Gq=Gq, dv=dv)
+                check_decode(with_global, timed=False, fill=fill, B=64, Gq=Gq, dv=16, d=16,
+                             m=16, L=16)
 
 
 def build_other_library(csrc_dir):
@@ -706,9 +726,11 @@ def window_cost(B, H, Hkv, T, W, d, dv):
     return nbytes, B * H * pairs * (2 * d + 2 * dv)
 
 
-# (T, W, dtype, H, Hkv) of the edge shapes, each at d = dv = 64 and 128
-# (B 2): ragged T, W below a tile, W > T, a tile boundary (T 128, W 64), W a
-# multiple of the tile with T not, and 1, 2 and 4 kv-heads
+# (T, W, dtype, H, Hkv) of the edge shapes, each at d = dv = 64 and 128 and
+# at the smoke configs' 16 and 32 (B 2): ragged T, W below a tile, W > T, a
+# tile boundary (T 128, W 64), W a multiple of the tile with T not, and 1,
+# 2 and 4 kv-heads
+WINDOW_SMOKE_DIMS = (16, 32)
 WINDOW_EDGES = (
     (200, 48, "float32", 4, 1), (200, 300, "float32", 4, 1), (77, 13, "float32", 2, 2),
     (200, 48, "bfloat16", 4, 1), (200, 48, "float32", 8, 4), (128, 64, "float32", 4, 2),
@@ -770,7 +792,7 @@ def check_window(timed):
                    f"{err:.3e} (tolerance {ATOL:g} + {RTOL:g}*|ref|) against the plain version "
                    f"over {len(slices)} slices of {WIN_PLAIN_HEADS} heads")
     for i, edge in enumerate(WINDOW_EDGES):
-        for dr in (64, 128):
+        for dr in (64, 128) + WINDOW_SMOKE_DIMS:
             check_window_edge(*edge, dr, SEED + 21 + i)
     if timed:
         with torch.no_grad():
@@ -859,123 +881,294 @@ def paper_classifier(n_global=None):
     return ccfg, params
 
 
+ENGINE_BATCHES = 3  # timed protocol-mix batches per engine
+
+
+class OpCount:
+    """Counts PyTorch operator calls (each a dispatch on the host; the
+    non-view ones launch device work) while it is entered."""
+
+    VIEWS = ("view", "_unsafe_view", "unsqueeze", "permute", "select", "slice", "transpose",
+             "expand", "squeeze", "t", "reshape", "alias")
+
+    def __enter__(self):
+        import collections
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        ops = self.ops = collections.Counter()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                ops[func.__name__.split(".")[0]] += 1
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+    @property
+    def total(self):
+        return sum(self.ops.values())
+
+    @property
+    def views(self):
+        return sum(n for k, n in self.ops.items() if k in self.VIEWS)
+
+
 def phase_engine(recs):
+    """The serving path, two engines from one set of weights on the same
+    traffic: the per-round engine (the figures of earlier runs) and the fused engine
+    (a CUDA graph per chunk width) behind ``AsyncIngestPipeline``.  Each
+    runs a warm-up batch (whose host operator calls are counted),
+    ENGINE_BATCHES timed protocol-mix batches, 2 rule-violating batches and
+    one profiled batch, with the kernels' launch counters zeroed just
+    before and read just after; the two must count the same launches."""
     import torch
     from repro_torch.data.pipeline import FlowScenario
     from repro_torch.kernels.decode_step import ops as dops
     from repro_torch.kernels.flow_ingest import ops as sops
     from repro_torch.serve.flow_engine import FlowEngine, FlowEngineConfig
+    from repro_torch.serve.ingest_pipeline import AsyncIngestPipeline
     from repro_torch.train import classifier as C
 
     ccfg, params = paper_classifier()
-    batches, packets = 3, 256
+    packets = 256
     mix = FlowScenario(kind="protocol-mix", pkt_len=PKT_LEN, packets_per_batch=packets, seed=SEED)
     bad = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=packets,
                        seed=SEED, fid_base=1 << 32)
     rules = C.default_rules(ccfg, bad.anomaly_signature)
-    torch.cuda.reset_peak_memory_stats()
-    budget = torch.cuda.mem_get_info()[0]  # the table may hold what the card holds
-    fcfg = FlowEngineConfig(capacity=CAPACITY, lanes=LANES, state_budget_bytes=budget)
-    t0 = time.perf_counter()
-    engine = FlowEngine(ccfg, params, rules, fcfg, device="cuda")
-    log("engine", f"paper-config FlowEngine on cuda: capacity {CAPACITY}, lanes {LANES}, "
-                  f"{engine.per_flow_state_bytes()} B/flow, resident_state_bytes "
-                  f"{engine.resident_state_bytes()}, built in {time.perf_counter() - t0:.2f} s")
+    warm = mix.next_batch()
+    timed = [mix.next_batch() for _ in range(ENGINE_BATCHES)]
+    bads = [bad.next_batch() for _ in range(2)]
+    profiled = mix.next_batch()
+    n_batches = 1 + ENGINE_BATCHES + 2 + 1
 
-    def ingest(b):
-        out = engine.ingest(b["flow_ids"], b["tokens"])
-        P = len(b["flow_ids"])
+    def check(out, P, what):
         for k in ("trust", "s_nn", "s_sym"):
-            if out[k].shape != (P,) or not np.isfinite(out[k]).all():
-                fail(f"engine: {k} not finite of shape ({P},)")
+            if out[k].shape != (P,):
+                fail(f"engine {what}: {k} of shape {out[k].shape}, not ({P},)")
+            bad = np.flatnonzero(~np.isfinite(out[k]))
+            if len(bad):
+                fail(f"engine {what}: {k} not finite at {len(bad)} packets, "
+                     f"e.g. {bad[:8].tolist()}: {out[k][bad[:8]].tolist()}")
         if not (out["trust"][out["vetoed"]] == 1.0).all():
-            fail("engine: a vetoed packet has trust != 1.0")
+            fail(f"engine {what}: a vetoed packet has trust != 1.0")
         return out
 
-    # the main path: counters zeroed just before, read just after
-    dops.launches = sops.launches = 0
-    ingest(mix.next_batch())  # warm-up
-    torch.cuda.synchronize()
-    n_pkts = 0
-    rounds0 = engine.stats.rounds
-    t0 = time.perf_counter()
-    for _ in range(batches):
-        b = mix.next_batch()
-        ingest(b)
-        n_pkts += len(b["flow_ids"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rounds = engine.stats.rounds - rounds0
-    vetoed = sum(int(ingest(bad.next_batch())["vetoed"].sum()) for _ in range(2))
-    b = mix.next_batch()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t1 = time.perf_counter()
-        ingest(b)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    launches = {"decode_step": dops.launches, "flow_score": sops.launches}
-    n_batches = 1 + batches + 2 + 1
+    results = {}
+    for label in ("per-round", "fused"):
+        fused = label == "fused"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        budget = torch.cuda.mem_get_info()[0]  # the table may hold what the card holds
+        fcfg = FlowEngineConfig(capacity=CAPACITY, lanes=LANES, state_budget_bytes=budget,
+                                fused=fused)
+        t0 = time.perf_counter()
+        engine = FlowEngine(ccfg, params, rules, fcfg, device="cuda")
+        log("engine", f"{label}: paper-config FlowEngine on cuda: capacity {CAPACITY}, lanes "
+                      f"{LANES}, {engine.per_flow_state_bytes()} B/flow, resident_state_bytes "
+                      f"{engine.resident_state_bytes()}, built in {time.perf_counter() - t0:.2f} s")
+        layouts = []
+        if fused:
+            t0 = time.perf_counter()
+            n_widths = engine.warm_fused(PKT_LEN)
+            graphs = engine.fused_graphs()
+            log("engine", f"fused: {len(graphs)} graph captures (widths "
+                          f"{sorted(w for w, _ in graphs)}) in {time.perf_counter() - t0:.2f} s, "
+                          f"capture times " + ", ".join(
+                              f"w {w} {g.capture_s:.2f} s" for (w, _), g in sorted(graphs.items()))
+                          + f"; decode_step / flow_score launches held per graph: "
+                          f"{next(iter(graphs.values())).launches}")
+            if len(graphs) != n_widths:
+                fail(f"engine: warm_fused made {n_widths} widths ready but captured {len(graphs)}")
+            pipe = AsyncIngestPipeline(engine)
+            real = engine._dispatch_fused
 
-    if vetoed == 0:
-        fail("engine: no packet of the rule-violating batches was vetoed")
-    if min(launches.values()) == 0:
-        fail(f"engine: a kernel was never launched on the main path: {launches}")
-    pps = n_pkts / wall
-    log("engine", f"{n_pkts} protocol-mix packets in {batches} batches, {rounds} arrival "
-                  f"rounds, {wall:.3f} s: {pps:.1f} packets/s, "
-                  f"{rounds / wall:.2f} rounds/s; rule-violating vetoes {vetoed}")
-    log("engine", f"launches in the main-path run ({n_batches} batches, "
-                  f"{engine.stats.rounds} rounds): {launches}; per batch "
-                  + ", ".join(f"{k} {v / n_batches:.1f}" for k, v in launches.items())
-                  + f"; per round decode_step {launches['decode_step'] / engine.stats.rounds:.1f}")
-    for name, n in launches.items():
-        per_batch = n / n_batches * recs[name]["ms"]
-        log("engine", f"{name}: {per_batch:.3f} ms of kernel device time per batch "
-                      f"(launches per batch x phase 3's CUDA-event device ms per launch)")
-    report_profile(prof, prof_wall, "one protocol-mix batch")
-    report_ops_per_token(engine)
-    log("engine", f"resident_state_bytes {engine.resident_state_bytes()}, "
-                  f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
-    return {"pps": pps, "launches": launches}
+            def dispatch(*a, _real=real, **k):  # records each batch's widths and chunks
+                pending = _real(*a, **k)
+                layouts.append([(w, len(ch)) for _, w, ch in pending.layout])
+                return pending
+
+            engine._dispatch_fused = dispatch
+
+            def ingest(b, what):
+                return check(pipe.ingest(b["flow_ids"], b["tokens"]), len(b["flow_ids"]), what)
+
+            def ingest_many(bs):
+                for b in bs:
+                    pipe.submit(b["flow_ids"], b["tokens"])
+                return [check(o, len(b["flow_ids"]), f"{label} timed {i}")
+                        for i, (o, b) in enumerate(zip(pipe.drain(), bs))]
+        else:
+            def ingest(b, what):
+                return check(engine.ingest(b["flow_ids"], b["tokens"]), len(b["flow_ids"]), what)
+
+            def ingest_many(bs):
+                return [ingest(b, f"{label} timed {i}") for i, b in enumerate(bs)]
+
+        # the main path: counters zeroed just before, read just after
+        dops.launches = sops.launches = 0
+        with OpCount() as ops:
+            rounds0 = engine.stats.rounds
+            ingest(warm, f"{label} warm-up")
+            warm_rounds = engine.stats.rounds - rounds0
+        torch.cuda.synchronize()
+        replays0 = engine._graphs.replays if fused else 0
+        rounds0 = engine.stats.rounds
+        t0 = time.perf_counter()
+        ingest_many(timed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = engine.stats.rounds - rounds0
+        replays = (engine._graphs.replays - replays0) if fused else 0
+        vetoed = sum(int(ingest(b, f"{label} rule-violating")["vetoed"].sum()) for b in bads)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            ingest(profiled, f"{label} profiled")
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t1
+        launches = {"decode_step": dops.launches, "flow_score": sops.launches}
+        if vetoed == 0:
+            fail(f"engine {label}: no packet of the rule-violating batches was vetoed")
+        if min(launches.values()) == 0:
+            fail(f"engine {label}: a kernel was never launched on the main path: {launches}")
+        n_pkts = sum(len(b["flow_ids"]) for b in timed)
+        pps = n_pkts / wall
+        log("engine", f"{label}: {n_pkts} protocol-mix packets in {ENGINE_BATCHES} batches, "
+                      f"{rounds} arrival rounds, {wall:.3f} s: {pps:.1f} packets/s, "
+                      f"{rounds / wall:.2f} rounds/s; rule-violating vetoes {vetoed}")
+        log("engine", f"{label}: launches in the main-path run ({n_batches} batches, "
+                      f"{engine.stats.rounds} rounds): {launches}; per batch "
+                      + ", ".join(f"{k} {v / n_batches:.1f}" for k, v in launches.items())
+                      + f"; per round decode_step {launches['decode_step'] / engine.stats.rounds:.1f}")
+        log("engine", f"{label}: host operator calls for the warm-up batch ({warm_rounds} "
+                      f"rounds): {ops.total} ({ops.views} views), {ops.total / warm_rounds:.1f} "
+                      f"per round; top: " + ", ".join(f"{k} {n}" for k, n in
+                                                      ops.ops.most_common(5)))
+        if not fused:  # the fused engine's chunks are 8-32 wide: see the profiler's line below
+            for name, n in launches.items():
+                per_batch = n / n_batches * recs[name]["ms"]
+                log("engine", f"{label}: {name}: {per_batch:.3f} ms of kernel device time per "
+                              f"batch (launches per batch x phase 3's CUDA-event device ms per "
+                              f"launch)")
+        busy, by_kernel = report_profile(prof, prof_wall, f"{label}: one protocol-mix batch")
+        for name in launches:  # the port's kernels, as the profiler saw them in this batch
+            hits = [(ms, n) for key, (ms, n) in by_kernel.items() if f"{name}_kernel" in key]
+            if hits:
+                ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+                log("engine", f"{label}: {name} in the profiled batch: {n} launches, {ms:.3f} ms, "
+                              f"{ms / n:.5f} ms per launch")
+        if fused:
+            log("engine", f"fused: graph replays per batch {replays / ENGINE_BATCHES:.1f} "
+                          f"(timed batches); widths x chunks per batch: " + "; ".join(
+                              " ".join(f"{w}x{n}" for w, n in lay) for lay in layouts[:n_batches]))
+            report_fused_device_time(engine, layouts[1 : 1 + ENGINE_BATCHES], wall, layouts[-1],
+                                     prof_wall, busy)
+        else:
+            report_ops_per_token(engine)
+        log("engine", f"{label}: resident_state_bytes {engine.resident_state_bytes()}, "
+                      f"max_memory_allocated {torch.cuda.max_memory_allocated()}, memory_reserved "
+                      f"{torch.cuda.memory_reserved()} (the graph pool included)")
+        results[label] = {"pps": pps, "launches": launches}
+        del engine, ingest, ingest_many  # the next engine's peak memory is its own
+    if results["fused"]["launches"] != results["per-round"]["launches"]:
+        fail(f"engine: fused launches {results['fused']['launches']} differ from the per-round "
+             f"engine's {results['per-round']['launches']} on the same traffic")
+    log("engine", f"fused vs per-round on the same traffic: launches equal "
+                  f"({results['fused']['launches']}); packets/s {results['fused']['pps']:.1f} vs "
+                  f"{results['per-round']['pps']:.1f} "
+                  f"({results['fused']['pps'] / results['per-round']['pps']:.2f}x)")
+    return {"launches": {k: sum(r["launches"][k] for r in results.values())
+                         for k in ("decode_step", "flow_score")}}
+
+
+def report_fused_device_time(engine, timed_layouts, timed_wall, layout, wall, busy):
+    """Device time of the fused engine's graphs, by CUDA events: one replay
+    of the flow step's graph at each width the batches used, and the
+    phi-of-the-ring work the step holds (``apply_feature_map`` on the ring
+    with the arriving key, once per token and layer), captured alone at the
+    same shapes.  Summed over the chunks of the timed batches (against their
+    wall time: the busy share without the profiler) and of the profiled
+    batch (beside the profiler's kernel time), with the ring's phi share."""
+    import torch
+    from repro_torch.core.feature_maps import _normalize, apply_feature_map
+    from repro_torch.models.model import index_params
+
+    arch = engine.ccfg.arch
+    ch = arch.chimera
+    L, d, Hkv = ch.chunk_size, arch.head_dim, arch.n_kv_heads
+    fm_params = index_params(engine.params["backbone"]["blocks"]["b0"]["attn"]["chimera"]["fm"], 0)
+    per_chunk = arch.n_layers * PKT_LEN  # phi of the ring: once per token and layer
+    g = torch.Generator().manual_seed(SEED + 60)
+    step_ms, phi_ms = {}, {}
+    for w in sorted({w for lay in timed_layouts + [layout] for w, _ in lay}):
+        graph = engine._graphs.capture(w, PKT_LEN)
+        graph.inp.zero_()
+        graph.inp[:, 0] = engine.fcfg.capacity  # scratch lanes: replays touch the scratch row
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(2):
+            graph.graph.replay()
+        start.record()
+        for _ in range(5):
+            graph.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms[w] = start.elapsed_time(end) / 5
+        kh = _normalize(torch.randn((w, Hkv, d), generator=g).to("cuda"), ch.feature_map.input_scale)
+        k_buf = torch.randn((w, Hkv, L, d), generator=g).to("cuda")
+        count = torch.randint(0, L, (w,), generator=g, dtype=torch.int32).to("cuda")
+
+        def phi():
+            slot = (torch.arange(L, device="cuda")[None, :] == count[:, None])[:, None, :, None]
+            return apply_feature_map(ch.feature_map, fm_params,
+                                     torch.where(slot, kh[:, :, None, :], k_buf))
+
+        phi_ms[w] = cuda_ms(phi, iters=per_chunk)[0] * per_chunk
+    chunks = [(w, n) for w, n in layout]
+    step_total = sum(n * step_ms[w] for w, n in chunks)
+    phi_total = sum(n * phi_ms[w] for w, n in chunks)
+    timed_step = sum(n * step_ms[w] for lay in timed_layouts for w, n in lay)
+    timed_phi = sum(n * phi_ms[w] for lay in timed_layouts for w, n in lay)
+    log("engine", "fused: device time per graph replay (CUDA events): " + ", ".join(
+        f"w {w} {step_ms[w]:.3f} ms (phi of the ring {phi_ms[w]:.3f} ms, "
+        f"{phi_ms[w] / step_ms[w]:.3f})" for w in sorted(step_ms)))
+    log("engine", f"fused: profiled batch {' '.join(f'{w}x{n}' for w, n in chunks)}: graph "
+                  f"replays {step_total:.1f} ms of device time by CUDA events (busy share "
+                  f"{step_total / (wall * 1e3):.3f} of its {wall * 1e3:.1f} ms wall; the "
+                  f"profiler's {'not measured' if busy is None else f'{busy:.1f} ms'}), of "
+                  f"which phi of the ring {phi_total:.1f} ms ({phi_total / step_total:.3f})")
+    log("engine", f"fused: the {len(timed_layouts)} timed batches: graph replays "
+                  f"{timed_step:.1f} ms of device time by CUDA events over {timed_wall * 1e3:.1f} "
+                  f"ms wall, busy share {timed_step / (timed_wall * 1e3):.3f}; phi of the ring "
+                  f"{timed_phi:.1f} ms ({timed_phi / timed_step:.3f})")
 
 
 def report_ops_per_token(engine):
-    """PyTorch operator calls (each a dispatch on the host; the non-view ones
-    launch device work) for one decode token through every layer."""
-    import collections
-
+    """PyTorch operator calls for one decode token through every layer."""
     import torch
     from repro_torch.models import model as M
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = collections.Counter()
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops[func.__name__.split(".")[0]] += 1
-            return func(*args, **(kwargs or {}))
 
     lanes = engine.fcfg.lanes
     dev = engine.device
     caches = M.init_caches(engine.ccfg.arch, lanes, dtype=torch.float32, device=dev)
     tok = torch.zeros((lanes,), dtype=torch.long, device=dev)
     pos = torch.zeros((lanes,), dtype=torch.int32, device=dev)
-    with Count() as c:
+    with OpCount() as c:
         M.decode_hidden_step(engine.ccfg.arch, engine.params["backbone"], tok, pos, caches)
-    views = sum(n for k, n in c.ops.items()
-                if k in ("view", "_unsafe_view", "unsqueeze", "permute", "select", "slice",
-                         "transpose", "expand", "squeeze", "t", "reshape", "alias"))
-    total = sum(c.ops.values())
     log("engine", f"PyTorch operator calls per decode token ({engine.ccfg.arch.n_layers} "
-                  f"layers): {total}, of which {views} views; top: "
+                  f"layers): {c.total}, of which {c.views} views; top: "
                   + ", ".join(f"{k} {n}" for k, n in c.ops.most_common(6)))
 
 
 def report_profile(p, wall, what):
-    """Device time by kernel for one profiled run, and the device's busy share."""
+    """Device time by kernel for one profiled run, and the device's busy
+    share; returns ``(kernel ms, {kernel name: (ms, count)})``, or ``(None,
+    {})`` where none was reported."""
     rows = []
     for ev in p.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
@@ -986,14 +1179,15 @@ def report_profile(p, wall, what):
         if dev_us:
             rows.append((dev_us, ev.key, ev.count))
     if not rows:
-        log("profile", "device time: not measured (the profiler reported none)")
-        return
+        log("profile", f"{what}: device time not measured (the profiler reported none)")
+        return None, {}
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     log("profile", f"{what}: wall {wall * 1e3:.1f} ms, kernel time "
                    f"{busy_us / 1e3:.1f} ms, device busy share {busy_us / 1e3 / (wall * 1e3):.3f}")
     for dev_us, key, count in rows[:12]:
         log("profile", f"{dev_us / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
+    return busy_us / 1e3, {key: (dev_us / 1e3, count) for dev_us, key, count in rows}
 
 
 # --------------------------------------------------------------------------
@@ -1269,43 +1463,125 @@ def phase_serve(recs):
 REFERENCE_TOL = {0: 2e-4, 64: 1e-2}
 
 
+REF_PRED_MARGIN = 1e-4  # pred is held wherever the top-2 logit margin exceeds it
+FLOATS = ("trust", "s_nn", "s_sym")
+
+
+def hold_outputs(what, got, want, tol, margins=None):
+    """Decisions identical (veto bits, signatures, trust 1.0 on every veto),
+    pred wherever the top-2 margins, where given, exceed REF_PRED_MARGIN, the
+    floats within ``tol``; returns the floats' max abs differences."""
+    for k in ("vetoed", "sig"):
+        if not (got[k] == want[k]).all():
+            fail(f"{what}: {k} differs")
+    if not (got["trust"][got["vetoed"]] == 1.0).all():
+        fail(f"{what}: a vetoed packet has trust != 1.0")
+    if margins is not None and not (got["pred"] == want["pred"])[margins > REF_PRED_MARGIN].all():
+        fail(f"{what}: pred differs where the top-2 margin exceeds {REF_PRED_MARGIN:g}")
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in FLOATS}
+    for k, e in errs.items():
+        if e > tol:
+            fail(f"{what}: {k} differs by {e:.3e} > {tol:g}")
+    return errs
+
+
 def phase_reference(n_global):
-    from repro_torch.data.pipeline import FlowScenario
-    from repro_torch.serve.flow_engine import FlowEngine, FlowEngineConfig
+    """The engine on a small table (capacity 24, lanes 16, idle_timeout 2),
+    3 rule-violating batches through five engines: per-round on the card
+    and on the CPU, fused on the card (graphs) and on the CPU (eager), and
+    fused on the card run eagerly (the same step without graphs).  Held: the
+    card's per-round engine to the CPU's, the card's fused engine to the
+    card's per-round engine and to the CPU's fused engine, and its graph
+    replays to the eager step (expected bit-identical)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import FlowScenario, arrival_rounds
+    from repro_torch.kernels.flow_ingest import fused as fmod
+    from repro_torch.serve.flow_engine import FlowEngine, FlowEngineConfig, make_fused_ingest
     from repro_torch.train import classifier as C
 
     ccfg, params = paper_classifier(n_global)
     sc = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=48, seed=SEED + 1)
+    batches = [sc.next_batch() for _ in range(3)]
     rules = C.default_rules(ccfg, sc.anomaly_signature)
     fcfg = FlowEngineConfig(capacity=24, lanes=16, state_budget_bytes=1 << 40, idle_timeout=2)
-    gpu = FlowEngine(ccfg, params, rules, fcfg, device="cuda")
-    cpu = FlowEngine(ccfg, params, rules, fcfg, device="cpu")
+    ffcfg = dataclasses.replace(fcfg, fused=True)
+    eng = {
+        "card": FlowEngine(ccfg, params, rules, fcfg, device="cuda"),
+        "cpu": FlowEngine(ccfg, params, rules, fcfg, device="cpu"),
+        "card fused": FlowEngine(ccfg, params, rules, ffcfg, device="cuda"),
+        "cpu fused": FlowEngine(ccfg, params, rules, ffcfg, device="cpu"),
+        "card fused eager": FlowEngine(ccfg, params, rules, ffcfg, device="cuda"),
+    }
+    # the twin runs the fused step eagerly on the card: only to hold the
+    # graphs against it (the engine itself never does)
+    twin = eng["card fused eager"]
+    twin._graphs = None
+    twin._fused_eager = make_fused_ingest(ccfg, twin._n_slots, score_fn=fmod.make_score_fn(ccfg))
+    # the per-round card engine's class logits, per packet, for the margin rule
+    rec = {"logits": [], "slots": None}
+    real_scores, real_rounds = C.streaming_scores, eng["card"]._ingest_rounds
+
+    def scores(*a, **k):
+        out, sticky = real_scores(*a, **k)
+        rec["logits"].append(out["class_logits"].detach().cpu().numpy())
+        return out, sticky
+
+    def rounds(flow_ids, tokens, slots, fresh):
+        rec["logits"], rec["slots"] = [], slots.copy()
+        return real_rounds(flow_ids, tokens, slots, fresh)
+
+    def margins(lanes):
+        logits = np.empty((len(rec["slots"]), ccfg.n_classes), np.float32)
+        chunks = [r[c0:c0 + lanes] for r in arrival_rounds(rec["slots"].tolist())
+                  for c0 in range(0, len(r), lanes)]
+        for chunk, lg in zip(chunks, rec["logits"]):
+            logits[chunk] = lg[: len(chunk)]
+        top2 = np.sort(logits, axis=-1)[:, -2:]
+        return top2[:, 1] - top2[:, 0]
+
     tol = REFERENCE_TOL[n_global]
-    worst = {k: 0.0 for k in ("trust", "s_nn", "s_sym")}
+    pairs = (("card", "cpu"), ("card fused", "card"), ("card fused", "cpu fused"),
+             ("card fused", "card fused eager"))
+    worst = {p: {k: 0.0 for k in FLOATS} for p in pairs}
+    bit_equal = True  # graph replays against the eager step
     vetoed = 0
-    for _ in range(3):
-        b = sc.next_batch()
-        og = gpu.ingest(b["flow_ids"], b["tokens"])
-        oc = cpu.ingest(b["flow_ids"], b["tokens"])
-        for k in ("vetoed", "sig"):
-            if not (og[k] == oc[k]).all():
-                fail(f"reference: {k} differs between the card and the CPU")
-        for k in worst:
-            e = float(np.abs(og[k] - oc[k]).max())
-            worst[k] = max(worst[k], e)
-            if e > tol:
-                fail(f"reference n_global={n_global}: {k} differs by {e:.3e} > {tol:g}")
-        if not (og["trust"][og["vetoed"]] == 1.0).all():
-            fail("reference: a vetoed packet has trust != 1.0")
-        vetoed += int(og["vetoed"].sum())
-    if gpu.stats != cpu.stats:
-        fail(f"reference: stats differ {gpu.stats} vs {cpu.stats}")
-    if gpu.table.slot_of != cpu.table.slot_of:
-        fail("reference: the slot assignments differ")
-    log("reference", f"n_global={n_global}: card vs CPU plain versions, 3 rule-violating "
-                     f"batches: decisions identical ({vetoed} vetoes), max diffs "
-                     + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-                     + f" (tolerance {tol:g}); stats {gpu.stats}")
+    eng["card"]._ingest_rounds = rounds
+    C.streaming_scores = scores
+    try:
+        for b in batches:
+            outs = {name: e.ingest(b["flow_ids"], b["tokens"]) for name, e in eng.items()
+                    if name == "card"}
+            mg = margins(fcfg.lanes)
+            outs.update({name: e.ingest(b["flow_ids"], b["tokens"]) for name, e in eng.items()
+                         if name != "card"})
+            for got, want in pairs:
+                errs = hold_outputs(f"reference n_global={n_global}: {got} vs {want}",
+                                    outs[got], outs[want], tol, mg)
+                worst[got, want] = {k: max(worst[got, want][k], errs[k]) for k in FLOATS}
+            g, e = outs["card fused"], outs["card fused eager"]
+            bit_equal &= all((g[k] == e[k]).all() for k in ("pred",) + FLOATS)
+            vetoed += int(outs["card"]["vetoed"].sum())
+    finally:
+        C.streaming_scores = real_scores
+    for name, e in eng.items():
+        if e.stats != eng["cpu"].stats:
+            fail(f"reference: {name} stats {e.stats} differ from the CPU's {eng['cpu'].stats}")
+        if e.table.slot_of != eng["cpu"].table.slot_of:
+            fail(f"reference: {name} slot assignments differ from the CPU's")
+    g, e = eng["card fused"], twin
+    cap = fcfg.capacity
+    for name in ("positions", "sig", "hidden_sum", "vetoed"):
+        bit_equal &= bool((getattr(g, name)[:cap] == getattr(e, name)[:cap]).all())
+    log("reference", f"n_global={n_global}: 3 rule-violating batches, decisions identical "
+                     f"across all five engines ({vetoed} vetoes; pred wherever the top-2 margin "
+                     f"exceeds {REF_PRED_MARGIN:g}), stats and slots identical; max diffs "
+                     + "; ".join(f"{a} vs {b}: " + ", ".join(f"{k} {v:.3e}" for k, v in w.items())
+                                 for (a, b), w in worst.items())
+                     + f" (tolerance {tol:g}); graph replays vs the eager step on the card: "
+                     + ("bit-identical (outputs and table)" if bit_equal else
+                        "not bit-identical, held to the tolerance above")
+                     + f"; stats {eng['card'].stats}")
 
 
 # card vs CPU training, 3 AdamW steps of a small model: fp32 on both sides
@@ -1430,6 +1706,118 @@ def phase_reference_serve():
                      f"(tolerance {REF_LOGIT_TOL:g} + {REF_LOGIT_TOL:g}*|ref|)")
 
 
+def phase_smoke_configs():
+    """The smoke configs on the card against the same calls on the CPU, at
+    the widths the kernels' contracts were widened for (d_head 16, m 16,
+    L 16): ``smoke_config("chimera-dataplane")`` through ``FlowEngine.ingest``
+    (per-round and fused) and ``loss_fn`` with its backward; the softmax
+    variant of ``smoke_config("mixtral-8x7b")`` through
+    ``ServeEngine.prefill_batch`` and 4 greedy decode ticks, and ``loss_fn``
+    forward (the window_attention kernel is forward only).  The Chimera
+    smoke's vocabulary is widened to 512 so that FlowScenario's marker
+    tokens (256..511) embed, as the test suite's tiny model does; no kernel
+    width changes with it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import FlowScenario
+    from repro_torch.kernels.flow_ingest import fused as fmod
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_flatten, tree_map
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.flow_engine import FlowEngine, FlowEngineConfig
+    from repro_torch.train import classifier as C
+    from repro_torch.train.train_step import value_and_grad
+
+    before = {name: mod.launches for name, mod in fmod.COUNTED.items()}
+    rng = np.random.default_rng(SEED + 53)
+
+    # chimera-dataplane: the flow engine, per-round and fused
+    arch = dataclasses.replace(smoke_config("chimera-dataplane"), vocab_size=512)
+    ccfg = C.ClassifierConfig(arch=arch, n_classes=8, marker_base=256, sig_words=8)
+    params = C.init_classifier(ccfg, torch.Generator().manual_seed(SEED + 50), device="cpu")
+    sc = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=48,
+                      seed=SEED + 51)
+    batches = [sc.next_batch() for _ in range(3)]
+    fcfg = dict(capacity=24, lanes=16, state_budget_bytes=1 << 40, idle_timeout=2)
+    tol = REFERENCE_TOL[64]  # a static-global tier (n_global 8)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        rules = C.default_rules(ccfg, sc.anomaly_signature, device=dev)
+        for fused in (False, True):
+            e = FlowEngine(ccfg, p, rules, FlowEngineConfig(fused=fused, **fcfg), device=dev)
+            runs[dev, fused] = ([e.ingest(b["flow_ids"], b["tokens"]) for b in batches], e)
+    worst = {k: 0.0 for k in FLOATS}
+    for (dev, fused), (outs, e) in runs.items():
+        want_outs, want = runs["cpu", False]
+        if e.stats != want.stats or e.table.slot_of != want.table.slot_of:
+            fail(f"smoke chimera-dataplane {dev} fused={fused}: stats or slots differ")
+        for got_b, want_b in zip(outs, want_outs):
+            errs = hold_outputs(f"smoke chimera-dataplane {dev} fused={fused} vs cpu per-round",
+                                got_b, want_b, tol)
+            worst = {k: max(worst[k], errs[k]) for k in FLOATS}
+    vetoes = sum(int(o["vetoed"].sum()) for o in runs["cuda", True][0])
+    log("smoke", f"chimera-dataplane smoke (d_head 16, m 16, L 16, n_global 8): FlowEngine "
+                 f"per-round and fused (graphs at widths "
+                 f"{sorted(w for w, _ in runs['cuda', True][1].fused_graphs())}) on the card vs "
+                 f"the CPU, 3 rule-violating batches: veto bits and signatures identical "
+                 f"({vetoes} vetoes), max "
+                 f"diffs " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                 + f" (tolerance {tol:g})")
+
+    # chimera-dataplane: loss_fn and its gradients
+    toks = rng.integers(0, arch.vocab_size, (2, 65))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        bp = tree_map(lambda t: t.to(dev), params["backbone"])
+        (loss, _), grads = value_and_grad(lambda q: M.loss_fn(arch, q, batch), bp)
+        got[dev] = (float(loss), [g.cpu() for g in tree_flatten(grads)[0]])
+    lerr = abs(got["cuda"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    if lerr > REF_LOSS_RTOL:
+        fail(f"smoke chimera-dataplane loss_fn: {got['cuda'][0]} vs {got['cpu'][0]}")
+    gerr = max(compare("smoke chimera-dataplane gradient", a, b, atol=ATTN_ATOL)
+               for a, b in zip(got["cuda"][1], got["cpu"][1]))
+    log("smoke", f"chimera-dataplane smoke loss_fn (batch 2 x 64): card {got['cuda'][0]:.6f} vs "
+                 f"CPU {got['cpu'][0]:.6f} (relative {lerr:.3e}, tolerance {REF_LOSS_RTOL:g}); "
+                 f"{len(got['cpu'][1])} gradients, max abs diff {gerr:.3e} (tolerance "
+                 f"{ATTN_ATOL:g} + {RTOL:g}*|ref|)")
+
+    # mixtral-8x7b, softmax variant: prefill, decode, loss_fn forward
+    cfg = dataclasses.replace(smoke_config("mixtral-8x7b"), use_chimera=False)
+    mparams = M.init_model(cfg, torch.Generator().manual_seed(SEED + 52), device="cpu")
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 33, 47)]
+    toks = rng.integers(0, cfg.vocab_size, (2, 65))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), mparams)
+        engine = ServeEngine(cfg, p, batch_slots=4, max_len=128, device=dev)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=4) for i, pr in enumerate(prompts)]
+        engine.prefill_batch(reqs)
+        engine.run_until_done()
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        with torch.no_grad():
+            loss, _ = M.loss_fn(cfg, p, batch)
+        got[dev] = ([r.generated for r in reqs], float(loss))
+    if got["cuda"][0] != got["cpu"][0]:
+        fail(f"smoke mixtral-8x7b: greedy generations differ: {got['cuda'][0]} vs {got['cpu'][0]}")
+    lerr = abs(got["cuda"][1] - got["cpu"][1]) / abs(got["cpu"][1])
+    if lerr > REF_LOSS_RTOL:
+        fail(f"smoke mixtral-8x7b loss_fn: {got['cuda'][1]} vs {got['cpu'][1]}")
+    log("smoke", f"mixtral-8x7b smoke, softmax variant (d_head 16): prefill_batch of "
+                 f"{[len(p) for p in prompts]} tokens + 4 greedy tokens, card and CPU "
+                 f"generations identical {got['cuda'][0]}; loss_fn (batch 2 x 64) {got['cuda'][1]:.6f} "
+                 f"vs {got['cpu'][1]:.6f} (relative {lerr:.3e}, tolerance {REF_LOSS_RTOL:g})")
+    launched = {name: mod.launches - before[name] for name, mod in fmod.COUNTED.items()}
+    if min(launched.values()) <= 0:
+        fail(f"smoke: a kernel did not launch at the smoke widths: {launched}")
+    log("smoke", f"kernel launches at the smoke widths: {launched}")
+
+
 # --------------------------------------------------------------------------
 
 def main():
@@ -1437,15 +1825,23 @@ def main():
     card = phase_device()
     import torch
 
-    phase_build()
-    recs = phase_kernels()
-    launches = phase_engine(recs)["launches"]
-    launches["chimera_attention"] = phase_train(recs)["launches"]["chimera_attention"]
-    launches["window_attention"] = phase_serve(recs)["launches"]["window_attention"]
-    phase_reference(n_global=0)
-    phase_reference(n_global=64)
-    phase_reference_train()
-    phase_reference_serve()
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log("time", f"{name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    recs = timed("kernels", phase_kernels)
+    launches = timed("engine", phase_engine, recs)["launches"]
+    launches["chimera_attention"] = timed("train", phase_train, recs)["launches"][
+        "chimera_attention"]
+    launches["window_attention"] = timed("serve", phase_serve, recs)["launches"]["window_attention"]
+    timed("reference n_global=0", phase_reference, 0)
+    timed("reference n_global=64", phase_reference, 64)
+    timed("reference train", phase_reference_train)
+    timed("reference serve", phase_reference_serve)
+    timed("smoke configs", phase_smoke_configs)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernel_lines(recs, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,10 +57,13 @@
 // Contract (all float32, contiguous, 16-byte aligned; BH = batch * kv-heads):
 //   q (BH,Gq,T,d) k (BH,T,d) v (BH,T,dv) phi_q (BH,Gq,T,m) phi_k (BH,T,m)
 //   num (BH,Gq,T,dv) den (BH,Gq,T), written in full
-// Takes L in {16, 32, 64, 128}, T % L == 0, dv in {32, 64, 128}, d % 8 == 0,
-// m a multiple of the phi tile (64, or 32 for L 128), and the shared memory
-// of the layout below within the 227 KB a block may use; anything else is
-// cudaErrorInvalidValue.  use_local, use_stream and any Gq are kept.
+// Takes L in {16, 32, 64, 128}, T % L == 0, dv in {16, 32, 64, 128},
+// d % 8 == 0, m % 16 == 0, and the shared memory of the layout below within
+// the 227 KB a block may use; anything else is cudaErrorInvalidValue.
+// use_local, use_stream and any Gq are kept.  The phi tile is 64 columns
+// (32 at L 128) where m is a multiple of it, the paper's shapes among them;
+// any other m (16 and 32 in the smoke configs) takes 16-column tiles, where
+// fewer k-steps than warps share a tile's readout and the rest add zeros.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,6 +154,7 @@ struct Operands {
 template <int L>
 struct Tile {
   static constexpr int MT = L == 128 ? 32 : 64;  // phi columns per ring tile
+  static constexpr int kGeneric = 16;            // the tile for any other m % 16 == 0
 };
 
 // Shared-memory layout, in floats (every region a multiple of 4 floats).
@@ -174,14 +178,13 @@ struct Layout {
   }
 };
 
-template <int L, int DV>
+template <int L, int DV, int MT>
 __global__ void __launch_bounds__(kThreads, 1) chimera_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ phi_q,
     const float* __restrict__ phi_k, float* __restrict__ num,
     float* __restrict__ den, int Gq, int T, int d, int m, float scale,
     int use_local, int use_stream, int stages, int vbufs) {
-  constexpr int MT = Tile<L>::MT;
   constexpr int RT = L / 16;          // row tiles of a chunk
   constexpr int KS = kWarps / RT;     // warps sharing a row tile
   constexpr int NT = DV / 8;          // n-tiles of num
@@ -371,7 +374,11 @@ __global__ void __launch_bounds__(kThreads, 1) chimera_attention_kernel(
           if (++cslot == stages) cslot = 0, cphase ^= 1;
           const float* F = smem + lay.ring + slot * L * SF + (16 * rt + g8) * SF + t4;
           clear();
-          constexpr int NI = MT / 8 / KS;  // k-steps of this warp in a tile
+          constexpr int NKS = MT / 8;                // k-steps of a tile
+          constexpr int NI = (NKS + KS - 1) / KS;    // k-steps of a warp, at most
+          // this warp's k-steps h, h + KS, ... < NKS: all NI of them when KS
+          // divides NKS (every 64- and 32-column tile), else fewer
+          const int ni = NKS % KS == 0 ? NI : (NKS - h + KS - 1) / KS;
           Operands<NT> op[2];
           float z[2][2];
           auto load_k = [&](int u, int i) {
@@ -380,17 +387,19 @@ __global__ void __launch_bounds__(kThreads, 1) chimera_attention_kernel(
             z[u][0] = Z_s[mt * MT + 8 * kk + t4];
             z[u][1] = Z_s[mt * MT + 8 * kk + t4 + 4];
           };
-          load_k(0, 0);
+          if (ni > 0) load_k(0, 0);
 #pragma unroll
           for (int i = 0; i < NI; ++i) {
-            if (i + 1 < NI) load_k((i + 1) & 1, i + 1);
-            const Operands<NT>& o = op[i & 1];
-            const float* zz = z[i & 1];
-            dn[0] = fmaf(o.a[0], zz[0], fmaf(o.a[2], zz[1], dn[0]));
-            dn[1] = fmaf(o.a[1], zz[0], fmaf(o.a[3], zz[1], dn[1]));
-            uint32_t ahi[4], alo[4];
-            split4(o.a, ahi, alo);
-            mma3_n<NT>(tacc, ahi, alo, o.b);
+            if (i < ni) {
+              if (i + 1 < ni) load_k((i + 1) & 1, i + 1);
+              const Operands<NT>& o = op[i & 1];
+              const float* zz = z[i & 1];
+              dn[0] = fmaf(o.a[0], zz[0], fmaf(o.a[2], zz[1], dn[0]));
+              dn[1] = fmaf(o.a[1], zz[0], fmaf(o.a[3], zz[1], dn[1]));
+              uint32_t ahi[4], alo[4];
+              split4(o.a, ahi, alo);
+              mma3_n<NT>(tacc, ahi, alo, o.b);
+            }
           }
           flush();
           __syncthreads();  // the slot is refilled next
@@ -517,11 +526,10 @@ __global__ void __launch_bounds__(kThreads, 1) chimera_attention_kernel(
   }
 }
 
-template <int L, int DV>
+template <int L, int DV, int MT>
 int launch(const float* q, const float* k, const float* v, const float* phi_q,
            const float* phi_k, float* num, float* den, int BH, int Gq, int T, int d,
            int m, float scale, int use_local, int use_stream, cudaStream_t stream) {
-  constexpr int MT = Tile<L>::MT;
   if (m % MT) return (int)cudaErrorInvalidValue;
   // the deepest staging that fits: 3 phi tiles and 2 v buffers, then fewer
   const int plans[3][2] = {{3, 2}, {2, 2}, {2, 1}};
@@ -529,9 +537,9 @@ int launch(const float* q, const float* k, const float* v, const float* phi_q,
     const size_t smem = sizeof(float) * (size_t)Layout(L, d, DV, m, MT, plan[0], plan[1]).total;
     if (smem > 227 * 1024) continue;
     cudaError_t err = cudaFuncSetAttribute(
-        chimera_attention_kernel<L, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        chimera_attention_kernel<L, DV, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    chimera_attention_kernel<L, DV><<<BH, kThreads, smem, stream>>>(
+    chimera_attention_kernel<L, DV, MT><<<BH, kThreads, smem, stream>>>(
         q, k, v, phi_q, phi_k, num, den, Gq, T, d, m, scale, use_local, use_stream, plan[0],
         plan[1]);
     return (int)cudaGetLastError();
@@ -539,14 +547,27 @@ int launch(const float* q, const float* k, const float* v, const float* phi_q,
   return (int)cudaErrorInvalidValue;
 }
 
+// the paper's phi tile where m is a multiple of it, else the 16-column one
+template <int L, int DV>
+int launch_m(const float* q, const float* k, const float* v, const float* phi_q,
+             const float* phi_k, float* num, float* den, int BH, int Gq, int T, int d,
+             int m, float scale, int use_local, int use_stream, cudaStream_t s) {
+  if (m % Tile<L>::MT == 0)
+    return launch<L, DV, Tile<L>::MT>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m, scale,
+                                      use_local, use_stream, s);
+  return launch<L, DV, Tile<L>::kGeneric>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m,
+                                          scale, use_local, use_stream, s);
+}
+
 template <int L>
 int launch_dv(const float* q, const float* k, const float* v, const float* phi_q,
               const float* phi_k, float* num, float* den, int BH, int Gq, int T, int d,
               int dv, int m, float scale, int use_local, int use_stream, cudaStream_t s) {
   switch (dv) {
-    case 32: return launch<L, 32>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m, scale, use_local, use_stream, s);
-    case 64: return launch<L, 64>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m, scale, use_local, use_stream, s);
-    case 128: return launch<L, 128>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m, scale, use_local, use_stream, s);
+    case 16: return launch_m<L, 16>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m, scale, use_local, use_stream, s);
+    case 32: return launch_m<L, 32>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m, scale, use_local, use_stream, s);
+    case 64: return launch_m<L, 64>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m, scale, use_local, use_stream, s);
+    case 128: return launch_m<L, 128>(q, k, v, phi_q, phi_k, num, den, BH, Gq, T, d, m, scale, use_local, use_stream, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

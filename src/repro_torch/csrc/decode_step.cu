@@ -46,8 +46,12 @@
 //   count_in, count_out (BH/heads,) int32, 0 <= count < L
 //   gnum (BH,Gq,dv) and gden (BH,Gq), or both null
 //   out (BH,Gq,dv)
-// Takes dv in {32, 64, 128}, d and m multiples of 4, and the shared memory
-// below within what a block may use; anything else is cudaErrorInvalidValue.
+// Takes dv in {16, 32, 64, 128}, d and m multiples of 4, and the shared
+// memory below within what a block may use; anything else is
+// cudaErrorInvalidValue.  At dv 16 a row of S is four float4 column groups,
+// so the stream half sums 32 row groups and a fold tile is 256 rows of S;
+// at m 16 and d 16 (the smoke configs) the tile holds all of S, 16 of the
+// fold's threads own its rows and one score quad covers a key.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -320,6 +324,7 @@ extern "C" int decode_step_launch(
     if (!aligned16(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (dv) {
+    case 16: return launch<16>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma, s);
     case 32: return launch<32>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma, s);
     case 64: return launch<64>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma, s);
     case 128: return launch<128>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma, s);

@@ -67,9 +67,11 @@
 // Contract (q, k, v, o contiguous and 16-byte aligned, all float32 or all
 // bfloat16):
 //   q (B*H, T, d), k (B*Hkv, T, d), v (B*Hkv, T, dv) -> o (B*H, T, dv)
-// Takes H % Hkv == 0, W >= 1, any T, d and dv in {64, 128}; anything else
-// (dv 256 among them: its O accumulator alone would take 128 registers a
-// thread) is cudaErrorInvalidValue.
+// Takes H % Hkv == 0, W >= 1, any T, and (d, dv) with d and dv in {64, 128},
+// or d = dv in {16, 32} (the smoke configs' head widths: QK^T runs two or
+// four k-steps, and PV one fresh accumulator of 2 or 4 n-tiles); anything
+// else (dv 256 among them: its O accumulator alone would take 128 registers
+// a thread) is cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,8 +126,9 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
     T* __restrict__ o, int BH, int H, int Hkv, int n, int window, float sc) {
   using Lay = Layout<T, D, DV>;
   constexpr int SQ = Lay::SQ, SV = Lay::SV;
-  constexpr int NT = DV / 8;  // n-tiles of O
-  constexpr int NH = NT / 8;  // halves of dv, one fresh accumulator each
+  constexpr int NT = DV / 8;                 // n-tiles of O
+  constexpr int NTH = NT < 8 ? NT : 8;       // n-tiles of a fresh accumulator
+  constexpr int NH = NT / NTH;               // halves of dv (one below 64), one each
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
@@ -262,14 +265,14 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
     // ---- O += P V, 3xTF32, one half of dv per fresh accumulator ----
 #pragma unroll
     for (int hf = 0; hf < NH; ++hf) {
-      float tacc[8][4];
+      float tacc[NTH][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) tacc[j][0] = tacc[j][1] = tacc[j][2] = tacc[j][3] = 0.f;
-      const T* vr = Vs + 2 * t4 * SV + 64 * hf + g8;
-      float b[2][8][2];
+      for (int j = 0; j < NTH; ++j) tacc[j][0] = tacc[j][1] = tacc[j][2] = tacc[j][3] = 0.f;
+      const T* vr = Vs + 2 * t4 * SV + 8 * NTH * hf + g8;
+      float b[2][NTH][2];
       auto load = [&](int u, int kk) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NTH; ++j) {
           b[u][j][0] = to_f(vr[8 * kk * SV + 8 * j]);
           b[u][j][1] = to_f(vr[8 * kk * SV + SV + 8 * j]);
         }
@@ -283,12 +286,12 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
         const float pa[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
         uint32_t ahi[4], alo[4];
         split4(pa, ahi, alo);
-        mma3_n<8>(tacc, ahi, alo, b[u]);
+        mma3_n<NTH>(tacc, ahi, alo, b[u]);
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NTH; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[8 * hf + j][e] += tacc[j][e];
+        for (int e = 0; e < 4; ++e) acc[NTH * hf + j][e] += tacc[j][e];
     }
   }
 
@@ -331,6 +334,8 @@ int launch_dims(const void* q, const void* k, const void* v, void* o, int BH, in
   if (d == 128 && dv == 64) return launch<T, 128, 64>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
   if (d == 128 && dv == 128)
     return launch<T, 128, 128>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+  if (d == 16 && dv == 16) return launch<T, 16, 16>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+  if (d == 32 && dv == 32) return launch<T, 32, 32>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,13 +23,52 @@ static-global term before dividing.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 launches = 0
+
+# the launcher's contract (csrc/chimera_attention.cu)
+L_TAKEN = (16, 32, 64, 128)
+DV_TAKEN = (16, 32, 64, 128)
+SMEM_LIMIT = 227 * 1024
+_WARPS = 8
+
+
+def phi_tile(L: int, m: int) -> int:
+    """Columns of the kernel's phi tiles: 64 (32 at L 128) where m is a
+    multiple of that, else 16."""
+    fast = 32 if L == 128 else 64
+    return fast if m % fast == 0 else 16
+
+
+def _smem_bytes(d: int, dv: int, m: int, L: int, stages: int, vbufs: int) -> int:
+    """The kernel's shared memory (its ``Layout``) at one staging plan, in bytes."""
+    ks = _WARPS // (L // 16)
+    ss, sq, sv, sf = dv + 8, d + 4, dv + 4, phi_tile(L, m) + 4
+    ring = m * ss + m + 2 * L * sq + vbufs * L * sv
+    return 4 * (ring + stages * L * sf + (ks - 1) * L * ss)
+
+
+def contract(*, d: int, dv: int, m: int, L: int) -> Optional[str]:
+    """``None`` if the kernel takes these widths, else what it refuses: the
+    launcher's checks on the widths, mirrored so that a shape outside them
+    raises here rather than as a CUDA error code."""
+    if L not in L_TAKEN:
+        return f"chunk size L {L} not in {L_TAKEN}"
+    if dv not in DV_TAKEN:
+        return f"dv {dv} not in {DV_TAKEN}"
+    if d <= 0 or d % 8:
+        return f"d {d} is not a positive multiple of 8"
+    if m <= 0 or m % 16:
+        return f"m {m} is not a positive multiple of 16"
+    smem = _smem_bytes(d, dv, m, L, stages=2, vbufs=1)  # the shallowest plan
+    if smem > SMEM_LIMIT:
+        return f"{smem} B of shared memory at d {d}, dv {dv}, m {m}, L {L} > {SMEM_LIMIT}"
+    return None
 
 
 def chimera_attention_partials_plain(
@@ -104,6 +143,9 @@ def chimera_attention_bh(
         return num[:, 0], den[:, 0]
     if q.device.type != "cuda":
         raise RuntimeError(f"chimera_attention: no kernel for device {q.device}")
+    refused = contract(d=d, dv=dv, m=m, L=L)
+    if refused:
+        raise ValueError(f"chimera_attention: outside the kernel's contract: {refused}")
     for t in (q, k, v, phi_q, phi_k):
         if not t.is_contiguous():
             raise ValueError("chimera_attention: the kernel takes contiguous tensors only")

@@ -21,6 +21,38 @@ from repro_torch.kernels import _build
 
 launches = 0
 
+# the launcher's contract (csrc/decode_step.cu): value widths it is built
+# for, and the shared memory a block may use
+DV_TAKEN = (16, 32, 64, 128)
+SMEM_LIMIT = 227 * 1024
+_THREADS = 256
+
+
+def _smem_bytes(Gq: int, d: int, dv: int, m: int, L: int) -> int:
+    """The kernel's shared memory (its ``Layout``), in bytes."""
+    half = _THREADS // 2
+    rgh = half // (dv // 4)
+    mt = 4 * (_THREADS // (dv // 4))
+    sc = L * dv + L * (d + 4) + Gq * d
+    red_s = sc + ((Gq * L + 3) & ~3)
+    end = red_s + 2 * Gq * rgh * dv + 2 * Gq * rgh
+    fend = L * dv + 2 * L * min(mt, m)
+    return 4 * max(end, fend)
+
+
+def contract(*, Gq: int, d: int, dv: int, m: int, L: int) -> Optional[str]:
+    """``None`` if the kernel takes these widths, else what it refuses: the
+    launcher's checks on the widths, mirrored so that a shape outside them
+    raises here rather than as a CUDA error code."""
+    if dv not in DV_TAKEN:
+        return f"dv {dv} not in {DV_TAKEN}"
+    if min(Gq, d, m, L) <= 0 or d % 4 or m % 4:
+        return f"Gq {Gq}, d {d}, m {m}, L {L}: all positive, d and m multiples of 4"
+    smem = _smem_bytes(Gq, d, dv, m, L)
+    if smem > SMEM_LIMIT:
+        return f"{smem} B of shared memory at Gq {Gq}, d {d}, dv {dv}, m {m}, L {L} > {SMEM_LIMIT}"
+    return None
+
 
 def decode_step_plain(
     q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count, *,
@@ -114,6 +146,9 @@ def decode_step(
         )
     if q.device.type != "cuda":
         raise RuntimeError(f"decode_step: no kernel for device {q.device}")
+    refused = contract(Gq=Gq, d=d, dv=dv, m=m, L=L)
+    if refused:
+        raise ValueError(f"decode_step: outside the kernel's contract: {refused}")
     ins = [q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count]
     ins += [t for t in (gnum, gden) if t is not None]
     for t in ins:

@@ -15,7 +15,7 @@ trust}, new_sticky)``.  Signatures are int32 bit patterns.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +24,16 @@ from repro_torch.core import symbolic
 from repro_torch.kernels import _build
 
 launches = 0
+
+
+def contract(*, d: int, K: int, W: int, M: int) -> Optional[str]:
+    """``None`` if the kernel takes these widths, else what it refuses.  It
+    takes any: K = 8, W = 8, d a multiple of 32 up to 256 run its fast path,
+    every other shape its generic loops (csrc/flow_score.cu)."""
+    if d <= 0 or K < 0 or W <= 0 or M < 0:
+        return f"d {d}, K {K}, W {W}, M {M}: d and W positive, K and M not negative"
+    return None
+
 
 Outputs = Dict[str, torch.Tensor]
 
@@ -98,6 +108,9 @@ def flow_score(
         return flow_score_plain(params, rules, pooled, sig, sticky, lambda_h=lambda_h)
     if pooled.device.type != "cuda":
         raise RuntimeError(f"flow_score: no kernel for device {pooled.device}")
+    refused = contract(d=d, K=K, W=W, M=M)
+    if refused:
+        raise ValueError(f"flow_score: outside the kernel's contract: {refused}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("flow_score: the kernel takes contiguous tensors only")

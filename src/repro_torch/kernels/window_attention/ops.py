@@ -14,8 +14,9 @@ the output is in q's dtype.
   their kv-heads (``Hkv`` dividing ``H``); the kernel reads kv-head
   ``h // (H / Hkv)`` for query head h, where the reference repeats K and V to
   ``H`` heads first.  It launches the kernel for CUDA tensors, for any T and
-  W and head widths d, dv in {64, 128} (split fp32 on the tensor cores; the
-  launcher refuses other widths, and the wrapper raises ``ValueError``), and
+  W and the head widths of :data:`DIMS_TAKEN` (split fp32 on the tensor
+  cores; :func:`contract` mirrors the launcher's checks, and the wrapper
+  raises ``ValueError`` before any launch on a shape outside them), and
   runs the plain version for CPU tensors; any other device raises.
   ``launches`` counts kernel launches (never plain calls).
 
@@ -26,12 +27,30 @@ Mixtral training.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 launches = 0
+
+# the launcher's contract (csrc/window_attention.cu): the (d, dv) pairs it
+# is built for
+DIMS_TAKEN = ((64, 64), (64, 128), (128, 64), (128, 128), (16, 16), (32, 32))
+
+
+def contract(*, d: int, dv: int, H: int, Hkv: int, window: int) -> Optional[str]:
+    """``None`` if the kernel takes these widths, else what it refuses: the
+    launcher's checks, mirrored so that a shape outside them raises here
+    rather than as a CUDA error code."""
+    if (d, dv) not in DIMS_TAKEN:
+        return f"(d, dv) = ({d}, {dv}) not in {DIMS_TAKEN}"
+    if Hkv <= 0 or H % Hkv:
+        return f"{H} query heads over {Hkv} kv-heads"
+    if window < 1:
+        return f"window {window} < 1"
+    return None
 
 
 def window_attention_plain(
@@ -102,8 +121,11 @@ def sliding_window_attention(
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError("window_attention: the kernel takes contiguous tensors only")
-    # the launcher checks the rest of its contract (d, dv, alignment, grid)
-    # and returns cudaErrorInvalidValue for a shape it does not take
+    refused = contract(d=d, dv=dv, H=H, Hkv=Hkv, window=window)
+    if refused:
+        raise ValueError(f"window_attention: outside the kernel's contract: {refused}")
+    # the launcher checks alignment and the grid too, and returns
+    # cudaErrorInvalidValue for what it does not take
     lib = _build.load_library()
     o = torch.empty((B, H, T, dv), dtype=q.dtype, device=q.device)
     err = lib.window_attention_launch(

@@ -20,15 +20,26 @@ A hard TCAM hit marks the flow vetoed for its lifetime and pins trust to
 byte budget, with LRU and idle eviction keeping the resident set inside
 ``capacity``.
 
-Ported: the per-round path, eviction, ``reset``, ``flow_scores`` and the
-state accounting.  Not yet: fused ingest, ``swap_tables``, int-emulation,
-the compile/deploy surface and the sharded engines.
+With ``FlowEngineConfig(fused=True)`` a batch takes the fused path
+instead (:meth:`FlowEngine._dispatch_fused`): its arrival rounds are packed
+into width-bucketed chunk stacks (:func:`pack_width_groups`), and each chunk
+runs the same flow step at its own power-of-two width, in chunk order, on
+the resident table.  On the card every width is one CUDA graph of the whole
+step (:mod:`repro_torch.kernels.flow_ingest.fused`), replayed once per
+chunk; on the CPU the same structure runs eagerly
+(:func:`make_fused_ingest`).  :class:`repro_torch.serve.ingest_pipeline
+.AsyncIngestPipeline` overlaps the host's packing of one batch with the
+card's work on the one before.
+
+Ported: the per-round and fused paths, eviction, ``reset``,
+``flow_scores`` and the state accounting.  Not yet: ``swap_tables``,
+int-emulation, the compile/deploy surface and the sharded engines.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +50,7 @@ from repro_torch.core import symbolic
 from repro_torch.core.chimera_attention import ChimeraState
 from repro_torch.core.hardware_model import DEFAULT_DATAPLANE
 from repro_torch.data.pipeline import arrival_rounds
+from repro_torch.kernels.flow_ingest import fused as fused_mod
 from repro_torch.models import model as M
 from repro_torch.train import classifier as C
 
@@ -49,6 +61,9 @@ class FlowEngineConfig:
     lanes: int = 256  # batch width per arrival round (padded, fixed)
     state_budget_bytes: int = 0  # 0 → DataplaneSpec shared-SRAM default
     idle_timeout: int = 0  # ticks without traffic before eviction (0 = off)
+    fused: bool = False  # fused ingest: width-bucketed chunks, a CUDA graph per width
+    min_chunk_lanes: int = 8  # smallest padded width for tail arrival rounds
+    ring_slots: int = 4  # host staging-ring depth (AsyncIngestPipeline)
 
 
 @dataclasses.dataclass
@@ -125,6 +140,126 @@ def make_flow_step(ccfg: C.ClassifierConfig, n_slots: int, *, score_fn=None):
     return step
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def pack_width_groups(
+    slots: np.ndarray, lanes: int, min_lanes: int = 8
+) -> List[Tuple[int, List[np.ndarray]]]:
+    """Pre-pack arrival rounds into width-bucketed chunk groups.
+
+    Each round is split into chunks of at most ``lanes`` packets, each chunk
+    gets the smallest power-of-two width that holds it (clamped to
+    ``[min_lanes, lanes]``), and *consecutive* chunks sharing a width are
+    grouped.  Order across groups preserves round order: round r + 1 of a
+    flow always runs after round r (consecutive rounds can never merge:
+    every flow in round r + 1 also appears in round r).
+
+    Returns ``[(width, [packet-index arrays])]``.
+    """
+    groups: List[Tuple[int, List[np.ndarray]]] = []
+    for round_lanes in arrival_rounds(list(slots)):
+        for c0 in range(0, len(round_lanes), lanes):
+            ch = np.asarray(round_lanes[c0 : c0 + lanes], np.intp)
+            w = min(lanes, _next_pow2(max(len(ch), min_lanes)))
+            if groups and groups[-1][0] == w:
+                groups[-1][1].append(ch)
+            else:
+                groups.append((w, [ch]))
+    return groups
+
+
+def make_fused_ingest(ccfg: C.ClassifierConfig, n_slots: int, *, score_fn=None):
+    """Build the fused ingest step over a stack of chunks.
+
+    ``fused(params, rules, caches, positions, sig, hidden_sum, vetoed,
+    idx (C, w), tokens (C, w, pkt_len), fresh (C, w)) -> outs`` runs the
+    :func:`make_flow_step` body once per chunk, in chunk order, on the
+    resident table (updated in place), and stacks the per-chunk score
+    outputs on a leading C axis.  ``score_fn`` is the step's score-stage
+    hook.  The JAX package pads the chunk axis to a power-of-two bucket and
+    passes the chunk count as a traced scalar, which bounds its traces;
+    here the step runs exactly the C chunks it is given, eagerly, and on
+    the card :class:`repro_torch.kernels.flow_ingest.fused.FlowStepGraphs`
+    replays one CUDA graph of the same body per chunk.
+    """
+    step = make_flow_step(ccfg, n_slots, score_fn=score_fn)
+
+    def fused(params, rules, caches, positions, sig, hidden_sum, vetoed, idx, tokens, fresh):
+        outs = [
+            step(params, rules, caches, positions, sig, hidden_sum, vetoed,
+                 idx[j], tokens[j], fresh[j])
+            for j in range(idx.shape[0])
+        ]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    return fused
+
+
+# columns of a packed result row: trust, s_nn and s_sym as float32 bit
+# patterns, the veto bit, the predicted class, then the signature words
+_RESULT_FIXED = 5
+
+
+def pack_step_outputs(out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A flow step's outputs (leading dims ``...``) as one int32 tensor
+    ``(..., 5 + sig_words)``: one device-to-host copy carries a batch."""
+    floats = torch.stack([out["trust"], out["s_nn"], out["s_sym"]], dim=-1)
+    return torch.cat([
+        floats.view(torch.int32),
+        out["hard_hit"].to(torch.int32)[..., None],
+        torch.argmax(out["class_logits"], -1).to(torch.int32)[..., None],
+        out["sig"],
+    ], dim=-1)
+
+
+class _PendingIngest:
+    """A dispatched fused batch whose results may still be in flight.
+
+    :meth:`FlowEngine._dispatch_fused` returns one of these before anything
+    waits for the card; the batch's results travel in one device-to-host
+    copy into pinned memory, enqueued behind its replays, and ``event``
+    completes with it.  :meth:`finalize` waits for that event and unpacks
+    the rows into the per-packet dict ``ingest`` returns.
+    """
+
+    def __init__(self, flow_ids, n_packets: int, result: torch.Tensor, event, layout):
+        self.flow_ids = flow_ids
+        self.n_packets = n_packets
+        self.result = result  # host (rows, 5 + sig_words) int32
+        self.event = event  # None on the CPU, where the result is ready
+        self.layout = layout  # [(first row, width, [chunk packet-index arrays])]
+        self._out: Optional[Dict[str, np.ndarray]] = None
+
+    def packet_rows(self) -> np.ndarray:
+        """Each packet's row in the result."""
+        rows = np.empty((self.n_packets,), np.intp)
+        for r0, w, chunks in self.layout:
+            for j, ch in enumerate(chunks):
+                rows[ch] = r0 + j * w + np.arange(len(ch))
+        return rows
+
+    def finalize(self) -> Dict[str, np.ndarray]:
+        if self._out is not None:
+            return self._out
+        if self.event is not None:
+            self.event.synchronize()
+        res = self.result.numpy()[self.packet_rows()]
+        floats = np.ascontiguousarray(res[:, :3]).view(np.float32)
+        self._out = {
+            "flow_ids": self.flow_ids,
+            "trust": floats[:, 0].copy(),
+            "vetoed": res[:, 3] != 0,
+            "pred": res[:, 4].copy(),
+            "s_nn": floats[:, 1].copy(),
+            "s_sym": floats[:, 2].copy(),
+            "sig": np.ascontiguousarray(res[:, _RESULT_FIXED:]).view(np.uint32),
+        }
+        self.result = None  # the pinned buffer can go back to its allocator
+        return self._out
+
+
 class FlowTableDirectory:
     """Host-side slot allocator for one flow table: fid → slot map, free
     list, LRU timestamps.  Owns no device state."""
@@ -197,6 +332,8 @@ class FlowEngine:
     """Streaming per-flow classification over a bounded flow table.
 
     ``device=None`` means ``"cuda"``; without a GPU the constructor raises.
+    With ``fcfg.fused`` on the card, the fused path runs only through
+    captured CUDA graphs: a failed capture or replay raises.
     """
 
     def __init__(
@@ -242,6 +379,57 @@ class FlowEngine:
         self.table = FlowTableDirectory(fcfg.capacity)
         self._tick = 0
         self._step = make_flow_step(ccfg, self._n_slots)
+
+        # fused ingest: the flow step with the flow_score kernel as its score
+        # stage, one CUDA graph per width on the card, eager on the CPU
+        self._staging: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
+        self._graphs: Optional[fused_mod.FlowStepGraphs] = None
+        self._fused_eager = None
+        if fcfg.fused:
+            score_fn = fused_mod.make_score_fn(ccfg)
+            if device.type == "cuda":
+                step = make_flow_step(ccfg, self._n_slots, score_fn=score_fn)
+                self._graphs = fused_mod.FlowStepGraphs(
+                    lambda *a: pack_step_outputs(step(*a)), self._table_args(),
+                    scratch=fcfg.capacity, device=device,
+                )
+            else:
+                self._fused_eager = make_fused_ingest(ccfg, self._n_slots, score_fn=score_fn)
+
+    def _table_args(self):
+        """The flow step's leading arguments: weights, rules and the table."""
+        return (self.params, self.rules, self.caches, self.positions, self.sig,
+                self.hidden_sum, self.vetoed)
+
+    def fused_widths(self) -> List[int]:
+        """The chunk widths :func:`pack_width_groups` can give this engine:
+        the powers of two from ``_next_pow2(min_chunk_lanes)`` up to
+        ``lanes``, and ``lanes`` itself when it is not a power of two."""
+        lanes = self.fcfg.lanes
+        widths = []
+        w = min(lanes, _next_pow2(max(self.fcfg.min_chunk_lanes, 1)))
+        while w < lanes:
+            widths.append(w)
+            w *= 2
+        widths.append(lanes)
+        return widths
+
+    def warm_fused(self, pkt_len: int) -> int:
+        """Capture the flow step's graph at every width traffic can produce,
+        so that steady-state ingest captures nothing; returns the number of
+        widths ready (on the CPU every width is, with no graph).  Optional:
+        without it a width is captured at its first chunk."""
+        if not self.fcfg.fused:
+            return 0
+        widths = self.fused_widths()
+        if self._graphs is not None:
+            for w in widths:
+                self._graphs.capture(w, pkt_len)
+        return len(widths)
+
+    def fused_graphs(self) -> Dict[Tuple[int, int], "fused_mod.StepGraph"]:
+        """The captured graphs by ``(width, pkt_len)`` (empty on the CPU)."""
+        return dict(self._graphs.graphs) if self._graphs is not None else {}
 
     # ------------------------------------------------------------------
     # state accounting
@@ -319,6 +507,8 @@ class FlowEngine:
         P, _ = tokens.shape
         assert flow_ids.shape == (P,), (flow_ids.shape, P)
         slots, fresh = self._resolve_slots(flow_ids)
+        if self.fcfg.fused:
+            return self._dispatch_fused(flow_ids, tokens, slots, fresh).finalize()
         return self._ingest_rounds(flow_ids, tokens, slots, fresh)
 
     def _resolve_slots(self, flow_ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -392,6 +582,82 @@ class FlowEngine:
             "s_sym": out_s_sym,
             "sig": out_sig,
         }
+
+    def _dispatch_fused(
+        self, flow_ids: np.ndarray, tokens: np.ndarray,
+        slots: np.ndarray, fresh: np.ndarray, staging: Optional[Dict] = None,
+    ) -> _PendingIngest:
+        """Pack this batch's arrival rounds into width-bucketed chunk stacks,
+        run every chunk through the flow step at its width, and return
+        without waiting for the card.
+
+        Each width group is packed into a pinned host buffer from ``staging``
+        (the engine's own pool, or an :class:`AsyncIngestPipeline` ring
+        slot's) and copied to the card with ``non_blocking=True``; its chunks
+        then replay the width's graph one by one.  The results of every
+        chunk land in one device tensor, which one non-blocking copy brings
+        to pinned host memory behind the replays.
+        """
+        P, pkt_len = tokens.shape
+        lanes, scratch = self.fcfg.lanes, self.fcfg.capacity
+        pool = self._staging if staging is None else staging
+        groups = pack_width_groups(slots, lanes, self.fcfg.min_chunk_lanes)
+        cols = _RESULT_FIXED + self.ccfg.sig_words
+        res = torch.empty((sum(w * len(ch) for w, ch in groups), cols), dtype=torch.int32,
+                          device=self.device)
+        pin = self.device.type == "cuda"
+        # A buffer shape can recur non-consecutively within one batch: a round
+        # larger than ``lanes`` emits a full-width group then a smaller tail,
+        # so widths run like [256, 64, 256, 64].  Repacking one buffer for the
+        # second group could overwrite data the first group's asynchronous
+        # copy still reads, so the pool key carries the occurrence index
+        # within the dispatch.  Across dispatches a pool is reused only after
+        # the batch that last used it is finalized.
+        uses: Dict[Tuple[int, int, int], int] = {}
+        layout = []
+        r0 = 0
+        for w, chunks in groups:
+            n = len(chunks)
+            shape = (w, _next_pow2(n), pkt_len)
+            occ = uses.get(shape, 0)
+            uses[shape] = occ + 1
+            key = shape + (occ,)
+            buf = pool.get(key)
+            if buf is None:
+                buf = pool[key] = torch.empty((shape[1], w, pkt_len + 2), dtype=torch.int64,
+                                              pin_memory=pin)
+            host = buf.numpy()
+            host[:n, :, 0] = scratch
+            host[:n, :, 1:] = 0
+            for j, ch in enumerate(chunks):
+                k = len(ch)
+                host[j, :k, 0] = slots[ch]
+                host[j, :k, 1] = fresh[ch]
+                host[j, :k, 2:] = tokens[ch]
+            stack = buf[:n].to(self.device, non_blocking=True)
+            self._run_fused(w, stack, res[r0 : r0 + n * w])
+            layout.append((r0, w, chunks))
+            r0 += n * w
+            self.stats.rounds += n
+        self.stats.packets += P
+        self.stats.tokens += P * pkt_len
+        event = None
+        if pin:
+            out = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+            out.copy_(res, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            res = out
+        return _PendingIngest(flow_ids, P, res, event, layout)
+
+    def _run_fused(self, width: int, stack: torch.Tensor, res: torch.Tensor) -> None:
+        """Chunks ``stack (C, width, pkt_len + 2)`` through the flow step,
+        their packed outputs into ``res (C * width, cols)``."""
+        if self._graphs is not None:
+            self._graphs.run(width, stack, res)
+            return
+        outs = self._fused_eager(*self._table_args(), *fused_mod.step_inputs(stack))
+        res.copy_(pack_step_outputs(outs).reshape(res.shape))
 
     # ------------------------------------------------------------------
     # per-flow snapshot

@@ -11,6 +11,7 @@ Tolerance: both sides are float32 with different summation orders
 booleans and integer state are identical.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -25,8 +26,11 @@ from repro.kernels.decode_step.ref import decode_step_ref
 from repro.kernels.flow_ingest.kernel import flow_ingest_scores_pallas
 from repro.train import classifier as JC
 from repro_torch import bridge
+from repro_torch.configs import registry
+from repro_torch.kernels.chimera_attention import ops as cops
 from repro_torch.kernels.decode_step import ops as dops
 from repro_torch.kernels.flow_ingest import ops as sops
+from repro_torch.kernels.window_attention import ops as wops
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -183,6 +187,73 @@ def test_flow_score_plain_matches_jax(tiny_classifier_cfg, M):
 
 
 # --------------------------------------------------------------------------
+# the kernels' contracts cover every width the port's configs give them
+# --------------------------------------------------------------------------
+
+def _port_configs():
+    """``(label, cfg)`` for every configuration the port runs: each registry
+    config at full width and as ``smoke_config``.  Mixtral-8x7B at full width
+    runs as its softmax variant (``configs/mixtral_8x7b.py``): its Chimera
+    variant at full width (L 256, d 128) is outside ``decode_step``'s shared
+    memory and ``chimera_attention``'s row tiling (ROADMAP Queue 3).  Its
+    smoke config runs both stacks."""
+    out = []
+    for name in sorted(registry.ARCHS):
+        full = registry.get_config(name)
+        if full.attention_kind == "swa":
+            full = dataclasses.replace(full, use_chimera=False)
+        out.append((f"{name} full", full))
+        smoke = registry.smoke_config(name)
+        out.append((f"{name} smoke", smoke))
+        if smoke.attention_kind == "swa":
+            out.append((f"{name} smoke softmax",
+                        dataclasses.replace(smoke, use_chimera=False)))
+    return out
+
+
+def _kernel_calls(cfg):
+    """``(kernel, contract(...))`` for each kernel the config's paths launch:
+    the Chimera stack's decode_step (flow ingest, LM decode), flow_score
+    (flow ingest, the classifier's 8 classes over 8 signature words) and
+    chimera_attention (training); the softmax SWA stack's window_attention
+    (LM prefill)."""
+    dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if cfg.use_chimera:
+        ch = cfg.chimera
+        m, L = ch.feature_map.feature_dim(dh), ch.chunk_size
+        return [
+            ("decode_step", dops.contract(Gq=H // Hkv, d=dh, dv=dh, m=m, L=L)),
+            ("flow_score", sops.contract(d=cfg.d_model, K=8, W=8, M=1)),
+            ("chimera_attention", cops.contract(d=dh, dv=dh, m=m, L=L)),
+        ]
+    return [("window_attention",
+             wops.contract(d=dh, dv=dh, H=H, Hkv=Hkv, window=cfg.sliding_window))]
+
+
+@pytest.mark.parametrize("label,cfg", _port_configs(), ids=[c[0] for c in _port_configs()])
+def test_every_port_config_lies_inside_every_kernel_contract(label, cfg):
+    calls = _kernel_calls(cfg)
+    assert calls
+    for kernel, refused in calls:
+        assert refused is None, f"{label}: {kernel}: {refused}"
+
+
+@pytest.mark.parametrize("contract,dims", [
+    (dops.contract, dict(Gq=1, d=64, dv=24, m=256, L=64)),
+    (dops.contract, dict(Gq=1, d=18, dv=64, m=256, L=64)),
+    (dops.contract, dict(Gq=4, d=128, dv=128, m=128, L=256)),  # shared memory
+    (cops.contract, dict(d=64, dv=64, m=256, L=256)),
+    (cops.contract, dict(d=64, dv=64, m=24, L=64)),
+    (cops.contract, dict(d=12, dv=64, m=64, L=64)),
+    (wops.contract, dict(d=256, dv=256, H=4, Hkv=2, window=8)),
+    (wops.contract, dict(d=64, dv=64, H=4, Hkv=3, window=8)),
+    (sops.contract, dict(d=0, K=8, W=8, M=1)),
+])
+def test_contracts_name_what_they_refuse(contract, dims):
+    assert isinstance(contract(**dims), str)
+
+
+# --------------------------------------------------------------------------
 # the CUDA kernels (skip without a GPU)
 # --------------------------------------------------------------------------
 
@@ -213,7 +284,7 @@ def test_decode_step_kernel_matches_plain_on_card(cuda, with_global):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fill", ["none", "spread", "all"])
 @pytest.mark.parametrize("Gq", [1, 2])
-@pytest.mark.parametrize("dv", [32, 64, 128])
+@pytest.mark.parametrize("dv", [16, 32, 64, 128])
 @pytest.mark.parametrize("with_global", [False, True])
 def test_decode_step_kernel_edge_shapes_on_card(cuda, fill, Gq, dv, with_global):
     """out, S, Z, the ring and count against the plain version (64 lanes x 4
