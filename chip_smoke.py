@@ -33,8 +33,16 @@ Phases, each printing its own lines:
 7. reference — the engine on a small table, 3 classifier training steps of
                a small model, and serving of a small softmax-SWA MoE model,
                on the card and on the CPU (plain versions): they must agree.
+8. program   — run right after the engine phase: the int_flow_score kernel
+               against its plain version bit for bit at the engine's shapes
+               (and flow_score at 24 signature words), then the compiled
+               DataplaneProgram: the paper's classifier compiled, saved,
+               loaded and deployed per-round and fused, with two table
+               swaps between batches, fused held to per-round after each;
+               then int-emulation engines at the smoke width on the card
+               beside the CPU, with a swap mid-stream.
 
-Phases 4, 5 and 6 are the main paths: the kernels' launch counters are
+Phases 4, 5, 6 and 8 are the main paths: the kernels' launch counters are
 zeroed just before each and read just after, and each fails if one of its
 kernels never launched.  Then a JSON line with every kernel's numbers, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -615,7 +623,8 @@ def build_other_library(csrc_dir):
 
 def compare_builds(others, rounds=1):
     """decode_step (the engine's shape, each fill pattern, with globals),
-    flow_score (the engine's 256 lanes, one rule), chimera_attention (the
+    flow_score (the engine's 256 lanes, one rule at 8 signature words and
+    two at the compiled program's 24), chimera_attention (the
     train phase's shape) and window_attention (the serve phase's prefill)
     from this tree and from the trees of ``others`` (``{label: csrc
     directory}``), timed in turns on one card: each round runs this, the
@@ -649,6 +658,8 @@ def compare_builds(others, rounds=1):
     cases["chimera_attention"] = (lambda: cops.chimera_attention_bh(*flat, chunk_size=L), 20)
     sargs = score_inputs(LANES, 1, SEED + 1)
     cases["flow_score M=1"] = (lambda: sops.flow_score(*sargs), 200)
+    sargs24 = score_inputs(LANES, 2, SEED + 2, W=24)  # the compiled program's layout
+    cases["flow_score M=2 W=24"] = (lambda: sops.flow_score(*sargs24), 200)
     wq, wk, wv = window_inputs(SERVE_SLOTS, MIX.n_heads, MIX.n_kv_heads, SERVE_T, MIX.head_dim,
                                MIX.head_dim, SEED + 20)
     cases["window_attention"] = (
@@ -1495,7 +1506,7 @@ def phase_reference(n_global):
     replays to the eager step (expected bit-identical)."""
     import dataclasses
 
-    from repro_torch.data.pipeline import FlowScenario, arrival_rounds
+    from repro_torch.data.pipeline import FlowScenario
     from repro_torch.kernels.flow_ingest import fused as fmod
     from repro_torch.serve.flow_engine import FlowEngine, FlowEngineConfig, make_fused_ingest
     from repro_torch.train import classifier as C
@@ -1519,51 +1530,26 @@ def phase_reference(n_global):
     twin._graphs = None
     twin._fused_eager = make_fused_ingest(ccfg, twin._n_slots, score_fn=fmod.make_score_fn(ccfg))
     # the per-round card engine's class logits, per packet, for the margin rule
-    rec = {"logits": [], "slots": None}
-    real_scores, real_rounds = C.streaming_scores, eng["card"]._ingest_rounds
-
-    def scores(*a, **k):
-        out, sticky = real_scores(*a, **k)
-        rec["logits"].append(out["class_logits"].detach().cpu().numpy())
-        return out, sticky
-
-    def rounds(flow_ids, tokens, slots, fresh):
-        rec["logits"], rec["slots"] = [], slots.copy()
-        return real_rounds(flow_ids, tokens, slots, fresh)
-
-    def margins(lanes):
-        logits = np.empty((len(rec["slots"]), ccfg.n_classes), np.float32)
-        chunks = [r[c0:c0 + lanes] for r in arrival_rounds(rec["slots"].tolist())
-                  for c0 in range(0, len(r), lanes)]
-        for chunk, lg in zip(chunks, rec["logits"]):
-            logits[chunk] = lg[: len(chunk)]
-        top2 = np.sort(logits, axis=-1)[:, -2:]
-        return top2[:, 1] - top2[:, 0]
-
+    margins = RoundMargins(eng["card"])
     tol = REFERENCE_TOL[n_global]
     pairs = (("card", "cpu"), ("card fused", "card"), ("card fused", "cpu fused"),
              ("card fused", "card fused eager"))
     worst = {p: {k: 0.0 for k in FLOATS} for p in pairs}
     bit_equal = True  # graph replays against the eager step
     vetoed = 0
-    eng["card"]._ingest_rounds = rounds
-    C.streaming_scores = scores
-    try:
-        for b in batches:
-            outs = {name: e.ingest(b["flow_ids"], b["tokens"]) for name, e in eng.items()
-                    if name == "card"}
-            mg = margins(fcfg.lanes)
-            outs.update({name: e.ingest(b["flow_ids"], b["tokens"]) for name, e in eng.items()
-                         if name != "card"})
-            for got, want in pairs:
-                errs = hold_outputs(f"reference n_global={n_global}: {got} vs {want}",
-                                    outs[got], outs[want], tol, mg)
-                worst[got, want] = {k: max(worst[got, want][k], errs[k]) for k in FLOATS}
-            g, e = outs["card fused"], outs["card fused eager"]
-            bit_equal &= all((g[k] == e[k]).all() for k in ("pred",) + FLOATS)
-            vetoed += int(outs["card"]["vetoed"].sum())
-    finally:
-        C.streaming_scores = real_scores
+    for b in batches:
+        with margins:
+            outs = {"card": eng["card"].ingest(b["flow_ids"], b["tokens"])}
+        mg = margins.margins()
+        outs.update({name: e.ingest(b["flow_ids"], b["tokens"]) for name, e in eng.items()
+                     if name != "card"})
+        for got, want in pairs:
+            errs = hold_outputs(f"reference n_global={n_global}: {got} vs {want}",
+                                outs[got], outs[want], tol, mg)
+            worst[got, want] = {k: max(worst[got, want][k], errs[k]) for k in FLOATS}
+        g, e = outs["card fused"], outs["card fused eager"]
+        bit_equal &= all((g[k] == e[k]).all() for k in ("pred",) + FLOATS)
+        vetoed += int(outs["card"]["vetoed"].sum())
     for name, e in eng.items():
         if e.stats != eng["cpu"].stats:
             fail(f"reference: {name} stats {e.stats} differ from the CPU's {eng['cpu'].stats}")
@@ -1730,7 +1716,8 @@ def phase_smoke_configs():
     from repro_torch.train import classifier as C
     from repro_torch.train.train_step import value_and_grad
 
-    before = {name: mod.launches for name, mod in fmod.COUNTED.items()}
+    kernels = ("decode_step", "flow_score", "chimera_attention", "window_attention")
+    before = {name: fmod.COUNTED[name].launches for name in kernels}
     rng = np.random.default_rng(SEED + 53)
 
     # chimera-dataplane: the flow engine, per-round and fused
@@ -1812,10 +1799,411 @@ def phase_smoke_configs():
                  f"{[len(p) for p in prompts]} tokens + 4 greedy tokens, card and CPU "
                  f"generations identical {got['cuda'][0]}; loss_fn (batch 2 x 64) {got['cuda'][1]:.6f} "
                  f"vs {got['cpu'][1]:.6f} (relative {lerr:.3e}, tolerance {REF_LOSS_RTOL:g})")
-    launched = {name: mod.launches - before[name] for name, mod in fmod.COUNTED.items()}
+    launched = {name: fmod.COUNTED[name].launches - before[name] for name in kernels}
     if min(launched.values()) <= 0:
         fail(f"smoke: a kernel did not launch at the smoke widths: {launched}")
     log("smoke", f"kernel launches at the smoke widths: {launched}")
+
+
+# --------------------------------------------------------------------------
+# 8. program (the compiled DataplaneProgram on the card)
+# --------------------------------------------------------------------------
+
+# Hopper's SM has 64 INT32 lanes against 128 FP32 ones (NVIDIA H100
+# architecture white paper): int32 arithmetic peaks at half the fp32 rate
+INT32_OPS = FP32_FLOPS / 2
+
+
+def int_score_case(params, ccfg, M, seed):
+    """A plan lowered from ``params`` with M rules (the program's one
+    default rule, or M random ones) and random int inputs at the engine's
+    256 lanes: hidden sums of up to 300 tokens of features inside the
+    plan's B_h range, count-0 and vetoed lanes, rules that hit lanes."""
+    import dataclasses
+
+    import torch
+    from repro_torch.compile import int_lowering as il
+    from repro_torch.core.symbolic import RuleSet, words_to_int32
+    from repro_torch.train import classifier as C
+
+    g = torch.Generator().manual_seed(seed)
+    W, d, B = ccfg.sig_words, ccfg.arch.d_model, LANES
+    sig = words_to_int32(torch.randint(0, 2**32, (B, W), generator=g))
+    if M == 1:
+        rules = C.default_rules(ccfg, program_signature(), device="cuda")
+    else:
+        src = torch.randint(0, B, (M,), generator=g)
+        masks = words_to_int32(torch.randint(0, 2**32, (M, W), generator=g))
+        values = torch.where(torch.rand((M, 1), generator=g) < 0.5, sig[src],
+                             words_to_int32(torch.randint(0, 2**32, (M, W), generator=g)))
+        rules = RuleSet(values=values, masks=masks, weights=torch.randn((M,), generator=g),
+                        hard=torch.rand((M,), generator=g) < 0.3).to("cuda")
+    plan, tables, _ = il.lower_scores(dataclasses.replace(ccfg, sig_words=W), params, rules)
+    count = torch.randint(0, 301, (B,), generator=g, dtype=torch.int32)
+    count[:4] = 0
+    h_max = int(plan.feature_range * 2 ** plan.feature_frac)
+    hs = (torch.randint(-h_max, h_max + 1, (B, d), generator=g, dtype=torch.int32)
+          * torch.clamp(count, min=1)[:, None])
+    sticky = torch.rand((B,), generator=g) < 0.1
+    return plan, tables, rules, hs.cuda(), count.cuda(), sig.cuda(), sticky.cuda()
+
+
+def int_score_cost(plan, tables, rules, hs, sig):
+    """Bytes and int32 operations of one int_flow_score call (each input read
+    once, each output written once)."""
+    B, d = hs.shape
+    K = tables["cls_w"].shape[1]
+    M, W = rules.values.shape
+    nbytes = 4 * (B * d + B + B * W + d * K + d + 2 * M * W + M + 2 + plan.n_lut) + B + M
+    nbytes += 4 * B * (K + 3) + B
+    ops = B * (d * (2 * (K + 1) + 2) + 3 * M * W + 2 * M + 16)
+    return nbytes, ops
+
+
+def check_int_score(M, timed, params, ccfg):
+    """``int_flow_score.cu`` against its plain version on the card, bit for
+    bit, at the engine's 256 lanes with the plan of ``params``."""
+    import torch
+    from repro_torch.compile import int_lowering as il
+    from repro_torch.kernels.flow_ingest import int_ops
+
+    plan, tables, rules, hs, count, sig, sticky = int_score_case(params, ccfg, M, SEED + 70 + M)
+    out_k, st_k = int_ops.int_flow_score(plan, tables, rules, hs, count, sig, sticky)
+    out_p, st_p = il.int_flow_score(plan, tables, rules, hs, count, sig, sticky)
+    torch.cuda.synchronize()
+    for k in out_p:
+        compare(f"int_flow_score {k}", out_k[k], out_p[k])  # exact: integer outputs
+    compare("int_flow_score sticky", st_k, st_p)
+    B, d = hs.shape
+    W = sig.shape[1]
+    log("program", f"int_flow_score B={B} d={d} K={tables['cls_w'].shape[1]} W={W} M={M}: "
+                   f"bit-identical to the plain version ({int(out_p['hard_hit'].sum())} vetoed "
+                   f"lanes, trust_q in [{int(out_p['trust_q'].min())}, "
+                   f"{int(out_p['trust_q'].max())}], plan f_h {plan.feature_frac}, shifts "
+                   f"{plan.nn_shift}/{plan.sym_shift}/{plan.fusion_frac}, lut_shift "
+                   f"{plan.lut_shift})")
+    rec = {"max_abs_err": 0.0}
+    if timed:
+        ms, call_ms = cuda_ms(
+            lambda: int_ops.int_flow_score(plan, tables, rules, hs, count, sig, sticky), iters=200)
+        plain_ms, plain_call_ms = cuda_ms(
+            lambda: il.int_flow_score(plan, tables, rules, hs, count, sig, sticky), iters=50)
+        floor_ms = launch_floor_ms(B)
+        nbytes, ops = int_score_cost(plan, tables, rules, hs, sig)
+        bound_ms, bound_by = bound(nbytes, ops, INT32_OPS)
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   floor_ms=floor_ms, bytes=nbytes, ops=ops, call_ms=call_ms,
+                   plain_call_ms=plain_call_ms, library_ms=None)
+        log("program", f"int_flow_score device time: kernel {ms:.5f} ms, launch floor (an empty "
+                       f"kernel on the same grid) {floor_ms:.5f} ms, plain {plain_ms:.4f} ms, "
+                       f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B, {ops} int32 ops); "
+                       f"per call from Python: kernel {call_ms:.4f} ms, plain "
+                       f"{plain_call_ms:.4f} ms")
+        # does the card's matrix product take int32 (the head MACs)?
+        x = torch.div(hs, torch.clamp(count, min=1)[:, None], rounding_mode="floor")
+        try:
+            y = x @ tables["cls_w"]
+        except RuntimeError as e:  # the probe's answer, not a fallback: nothing uses it
+            log("program", f"int32 matmul on the card: refused ({str(e).splitlines()[0]})")
+        else:
+            compare("int32 matmul", y, il.int_mac(x, tables["cls_w"]))
+            mm_ms = cuda_ms(lambda: x @ tables["cls_w"], iters=200)[0]
+            rec["int32_matmul_ms"] = mm_ms
+            log("program", f"int32 matmul on the card: exact, {mm_ms:.5f} ms for the class "
+                           f"head's (256, {d}) @ ({d}, 8)")
+    return rec
+
+
+def program_signature():
+    """The anomaly signature of the program's default rule: the protocol-mix
+    stream's, which the rule-violating stream of the same seed shares."""
+    from repro_torch.data.pipeline import FlowScenario
+
+    return FlowScenario(kind="protocol-mix", seed=SEED).anomaly_signature
+
+
+def program_rules(ccfg, device):
+    """Two rules at the compiled layout: the default hard rule on the
+    anomaly signature, and a soft one on half of its markers."""
+    import torch
+    from repro_torch.core.symbolic import RuleSet
+    from repro_torch.train import classifier as C
+
+    sig = program_signature()
+    hard = C.default_rules(ccfg, sig, device=device)
+    soft = C.default_rules(ccfg, sig[:2], device=device)
+    return RuleSet(values=torch.cat([hard.values, soft.values]),
+                   masks=torch.cat([hard.masks, soft.masks]),
+                   weights=torch.tensor([4.0, 1.5], device=device),
+                   hard=torch.tensor([True, False], device=device))
+
+
+class RoundMargins:
+    """Per-packet top-2 class-logit margins of a per-round engine's last
+    batch (the margin rule of ``hold_outputs``): keeps a copy of the score
+    stage's logits on the card while entered (no wait for the card), and
+    reads them in ``margins``."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __enter__(self):
+        from repro_torch.train import classifier as C
+
+        self.rounds, self.slots = [], None
+        self._scores, self._ingest = C.streaming_scores, self.engine._ingest_rounds
+
+        def scores(*a, **k):
+            out, sticky = self._scores(*a, **k)
+            self.rounds.append(out["class_logits"].detach().clone())
+            return out, sticky
+
+        def rounds(flow_ids, tokens, slots, fresh):
+            self.rounds, self.slots = [], slots.copy()
+            return self._ingest(flow_ids, tokens, slots, fresh)
+
+        C.streaming_scores = scores
+        self.engine._ingest_rounds = rounds
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import classifier as C
+
+        C.streaming_scores = self._scores
+        del self.engine._ingest_rounds
+
+    def margins(self):
+        from repro_torch.data.pipeline import arrival_rounds
+
+        lanes = self.engine.fcfg.lanes
+        logits = np.empty((len(self.slots), self.rounds[0].shape[1]), np.float32)
+        chunks = [r[c0:c0 + lanes] for r in arrival_rounds(self.slots.tolist())
+                  for c0 in range(0, len(r), lanes)]
+        for chunk, lg in zip(chunks, self.rounds):
+            logits[chunk] = lg[: len(chunk)].cpu().numpy()
+        top2 = np.sort(logits, axis=-1)[:, -2:]
+        return top2[:, 1] - top2[:, 0]
+
+
+def phase_program():
+    """The compiled-program surface on the card.
+
+    1. int_flow_score.cu against its plain version, bit for bit, at the
+       engine's shapes (B 256, d 256, K 8, W 24; M 1 and M 300) with plans
+       lowered from the paper classifier's seed-0 weights, timed beside the
+       launch floor; flow_score at W 24 (its generic path).
+    2. The main path, with the launch counters zeroed just before and read
+       just after: the paper's classifier compiled in the port (float
+       backend, waivers ("state-quantization",), verify=False), saved,
+       loaded and deployed per-round and fused (capacity 4096, lanes 256);
+       protocol-mix and rule-violating batches with two swaps between them
+       (a compile_delta of new weights, then a ruleset whose soft rule turns
+       hard), fused held to per-round after each.  Then the int-emulation
+       engines at the smoke width, per-round and fused, each beside the
+       same engine on the CPU, with one swap_tables(delta=...) mid-stream.
+    """
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.compile import DataplaneProgram, compile_delta, compile_program
+    from repro_torch.compile import int_lowering as il
+    from repro_torch.core.symbolic import decompile_table
+    from repro_torch.data.pipeline import FlowScenario
+    from repro_torch.kernels.flow_ingest import fused as fmod
+    from repro_torch.serve.deploy import DeploySpec
+    from repro_torch.serve.flow_engine import FlowEngineConfig
+
+    recs = {}
+    ccfg, params = paper_classifier()
+    ccfg24 = dataclasses.replace(ccfg, sig_words=24)  # the layout the compile gives
+    recs["int_flow_score"] = check_int_score(1, True, params, ccfg24)
+    check_int_score(300, False, params, ccfg24)
+    recs["flow_score_w24"] = check_score(2, True, W=24)
+
+    counted = ("decode_step", "flow_score", "int_flow_score")
+    for name in counted:
+        fmod.COUNTED[name].launches = 0
+
+    # --- the float program at the paper's width -------------------------
+    t0 = time.perf_counter()
+    program = compile_program(ccfg, params, rules=lambda c: program_rules(c, "cuda"),
+                              waivers=("state-quantization",), verify=False)
+    compile_s = time.perf_counter() - t0
+    print(program.ledger.as_table(), flush=True)
+    tmp = tempfile.mkdtemp(prefix="chimera-program-")
+    try:
+        t0 = time.perf_counter()
+        program.save(tmp)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = DataplaneProgram.load(tmp, device="cuda")
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    for a, b in zip(loaded.rules.tensors(), program.rules.tensors()):
+        compare("loaded program rules", a, b)
+    compare("loaded program weight table", loaded.weight_table, program.weight_table)
+    if loaded.ccfg != program.ccfg or loaded.ledger.as_dict() != program.ledger.as_dict():
+        fail("program: the loaded program's config or ledger differs from the saved one")
+    log("program", f"chimera-dataplane compiled in {compile_s:.2f} s (sig_words "
+                   f"{program.ccfg.sig_words}, {program.rules.n_rules} rules, backend "
+                   f"{program.backend}, waived {[e.resource for e in program.ledger.waived()]}), "
+                   f"saved in {save_s:.2f} s, loaded in {load_s:.2f} s: arrays identical")
+
+    budget = torch.cuda.mem_get_info()[0] // 3  # two tables, and room for the graphs
+    engines = {}
+    for label in ("per-round", "fused"):
+        fcfg = FlowEngineConfig(capacity=CAPACITY, lanes=LANES, state_budget_bytes=budget,
+                                fused=label == "fused")
+        engines[label] = loaded.deploy(DeploySpec(flow=fcfg, device="cuda"))
+    engines["fused"].warm_fused(PKT_LEN)
+    mix = FlowScenario(kind="protocol-mix", pkt_len=PKT_LEN, packets_per_batch=256, seed=SEED)
+    bad = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=256, seed=SEED,
+                       fid_base=1 << 32)
+    # the second swap: the soft rule turns hard, with new weights
+    hard_rules = dataclasses.replace(program_rules(loaded.ccfg, "cuda"),
+                                     hard=torch.tensor([True, True], device="cuda"),
+                                     weights=torch.tensor([4.0, 2.0], device="cuda"))
+    plan = [("mix", mix), ("swap", compile_delta(loaded, weights=[3.0, -1.0], step=1)),
+            ("mix", mix), ("mix", mix), ("rule-violating", bad),
+            ("swap", hard_rules), ("mix", mix), ("rule-violating", bad)]
+    walls = {label: 0.0 for label in engines}
+    n_timed, worst, vetoes, installs = 0, {k: 0.0 for k in FLOATS}, [], []
+    swapped_hard = False  # after the ruleset swap, the turned rule must veto
+    tol = REFERENCE_TOL[64]
+    margins = RoundMargins(engines["per-round"])
+    for i, (kind, x) in enumerate(plan):
+        if kind == "swap":
+            delta = hasattr(x, "weight_table")
+            installs.append([(e.swap_tables(delta=x) if delta else e.swap_tables(ruleset=x))
+                             .install_s for e in engines.values()])
+            swapped_hard = not delta
+            continue
+        b = x.next_batch()
+        outs = {}
+        for label, e in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "per-round":
+                with margins:
+                    outs[label] = e.ingest(b["flow_ids"], b["tokens"])
+            else:
+                outs[label] = e.ingest(b["flow_ids"], b["tokens"])
+            torch.cuda.synchronize()
+            if kind == "mix" and i > 0:
+                walls[label] += time.perf_counter() - t0
+        if kind == "mix" and i > 0:
+            n_timed += len(b["flow_ids"])
+        errs = hold_outputs(f"program batch {i} ({kind}): fused vs per-round", outs["fused"],
+                            outs["per-round"], tol, margins.margins())
+        worst = {k: max(worst[k], errs[k]) for k in FLOATS}
+        vetoes.append(int(outs["per-round"]["vetoed"].sum()))
+        if engines["fused"].stats != engines["per-round"].stats:
+            fail(f"program batch {i}: FlowStats of the two engines differ")
+        if swapped_hard:  # every packet whose signature hits the turned rule is vetoed
+            w = hard_rules.values[1].cpu().numpy().view(np.uint32)
+            hit = ((outs["fused"]["sig"] & w) == w).all(-1)
+            if not outs["fused"]["vetoed"][hit].all():
+                fail(f"program batch {i}: a packet that hits the rule turned hard is not vetoed")
+    if max(vetoes) == 0:
+        fail(f"program: no packet was vetoed ({vetoes})")
+    pps = {label: n_timed / w for label, w in walls.items()}
+    log("program", f"deployed per-round and fused (capacity {CAPACITY}, lanes {LANES}) "
+                   f"from the loaded program: {len(plan) - 2} batches, 2 swaps, fused held to "
+                   f"per-round after each (decisions identical, vetoes per batch {vetoes}, pred "
+                   f"where the top-2 margin exceeds {REF_PRED_MARGIN:g}; max diffs "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f", tolerance {tol:g})")
+    log("program", f"packets/s over {n_timed} protocol-mix packets: per-round "
+                   f"{pps['per-round']:.1f}, fused {pps['fused']:.1f} (synchronous ingest); "
+                   f"install_s (per-round, fused): delta " +
+                   ", ".join(f"{a:.6f}" for a in installs[0]) + "; ruleset " +
+                   ", ".join(f"{a:.6f}" for a in installs[1]))
+    recs["program"] = {"pps": pps, "installs": installs}
+    del engines, margins
+
+    # --- int-emulation at the smoke width, card beside CPU ----------------
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.train import classifier as C
+
+    arch = dataclasses.replace(smoke_config("chimera-dataplane"), vocab_size=512)
+    sccfg = C.ClassifierConfig(arch=arch, n_classes=8, marker_base=256)
+    sparams = C.init_classifier(sccfg, torch.Generator().manual_seed(SEED + 60), device="cpu")
+    sc = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=48,
+                      seed=SEED + 61)
+    iprog = compile_program(sccfg, sparams, backend="int-emulation", verify=False,
+                            rules=lambda c: C.default_rules(c, sc.anomaly_signature, device="cpu"))
+    delta = compile_delta(iprog, weights=[-2.5], step=1)
+    fcfg = dict(capacity=24, lanes=16, state_budget_bytes=1 << 40, idle_timeout=2)
+    ieng = {}
+    for dev in ("cuda", "cpu"):
+        for fused in (False, True):
+            ieng[dev, fused] = iprog.deploy(DeploySpec(
+                flow=FlowEngineConfig(fused=fused, **fcfg), device=dev))
+    iplan = ieng["cpu", False]._int_plan
+    rule_w = ieng["cuda", True]._int_tables["rule_w"]  # the tensor the graphs read
+    ptr = rule_w.data_ptr()
+    batches = [sc.next_batch() for _ in range(4)]
+    boundary_flows = {fused: set() for fused in (False, True)}
+    moved = {fused: 0 for fused in (False, True)}
+    n_pkts, after_swap_hits = 0, 0
+    for i, b in enumerate(batches):
+        if i == 2:
+            for e in ieng.values():
+                e.swap_tables(delta=delta)
+            new_w = decompile_table(delta.weight_table, delta.weight_spec)
+            if rule_w.data_ptr() != ptr or not torch.equal(
+                    rule_w.cpu(), il.requantize_rule_weights(iplan, new_w)):
+                fail("program: the fused card engine's rule_w was not rewritten in place")
+        outs = {k: e.ingest(b["flow_ids"], b["tokens"]) for k, e in ieng.items()}
+        n_pkts += len(b["flow_ids"])
+        for fused in (False, True):
+            got, want = outs["cuda", fused], outs["cpu", fused]
+            ge, we = ieng["cuda", fused], ieng["cpu", fused]
+            for k in ("vetoed", "sig"):
+                if not (got[k] == want[k]).all():
+                    fail(f"program int fused={fused} batch {i}: {k} differs card vs CPU")
+            if not ((got["trust"] == 1.0) == got["vetoed"]).all():
+                fail(f"program int fused={fused} batch {i}: trust == 1.0 is not exactly the veto")
+            if ge.stats != we.stats or ge.table.slot_of != we.table.slot_of:
+                fail(f"program int fused={fused} batch {i}: stats or slots differ card vs CPU")
+            ghs, whs = ge.hidden_sum.cpu().numpy().astype(np.int64), we.hidden_sum.numpy()
+            for fid, slot in we.table.slot_of.items():
+                delta_hs = np.abs(ghs[slot] - whs[slot])
+                if (delta_hs > we.positions[slot].item()).any():
+                    fail(f"program int fused={fused}: flow {fid}'s hidden_sum differs by more "
+                         f"than one LSB per token card vs CPU")
+                if delta_hs.any():
+                    boundary_flows[fused].add(fid)
+            diff = np.zeros(len(b["flow_ids"]), bool)
+            for k in ("trust", "s_nn", "s_sym", "pred"):
+                diff |= got[k] != want[k]
+            on_edge = np.array([f in boundary_flows[fused] for f in b["flow_ids"].tolist()])
+            if (diff & ~on_edge).any():
+                fail(f"program int fused={fused} batch {i}: quantized scores differ on a flow "
+                     f"whose accumulator does not")
+            moved[fused] += int(diff.sum())
+        if i >= 2:
+            after_swap_hits += int((outs["cuda", True]["s_sym"] != 0).sum())
+    if after_swap_hits == 0:
+        fail("program int: no rule hit after the swap, so the swap's table went unread")
+    log("program", f"int-emulation at the smoke width (d 64, rule_w of 1 rule): per-round and "
+                   f"fused on the card vs the CPU, {len(batches)} rule-violating batches "
+                   f"({n_pkts} packets), swap_tables(delta) after batch 2 rewrote the graphed "
+                   f"rule_w in place (requantized at 2^-{iplan.rule_frac}, "
+                   f"{after_swap_hits} rule hits read it after): decisions identical, quantized "
+                   f"scores identical but on {moved[False]} / {moved[True]} packets of boundary "
+                   f"flows (per-round / fused; {len(boundary_flows[False])} / "
+                   f"{len(boundary_flows[True])} flows whose int32 hidden_sum moved by a "
+                   f"rounding LSB)")
+
+    launched = {name: fmod.COUNTED[name].launches for name in counted}
+    if min(launched.values()) == 0:
+        fail(f"program: a kernel was never launched on the program's main path: {launched}")
+    log("program", f"launches on the program's main path: {launched}")
+    recs["launches"] = launched
+    return recs
 
 
 # --------------------------------------------------------------------------
@@ -1834,6 +2222,9 @@ def main():
     timed("build", phase_build)
     recs = timed("kernels", phase_kernels)
     launches = timed("engine", phase_engine, recs)["launches"]
+    program = timed("program", phase_program)
+    recs["int_flow_score"] = program["int_flow_score"]
+    launches["int_flow_score"] = program["launches"]["int_flow_score"]
     launches["chimera_attention"] = timed("train", phase_train, recs)["launches"][
         "chimera_attention"]
     launches["window_attention"] = timed("serve", phase_serve, recs)["launches"]["window_attention"]
@@ -1855,6 +2246,8 @@ def kernel_lines(recs, launches):
                         "src/repro/kernels/decode_step/kernel.py:93"),
         "flow_score": ("src/repro_torch/csrc/flow_score.cu",
                        "src/repro/kernels/flow_ingest/kernel.py:53"),
+        "int_flow_score": ("src/repro_torch/csrc/int_flow_score.cu",
+                           "src/repro/compile/int_lowering.py:367 (jnp, no pallas_call)"),
         "chimera_attention": ("src/repro_torch/csrc/chimera_attention.cu",
                               "src/repro/kernels/chimera_attention/kernel.py:104"),
         "window_attention": ("src/repro_torch/csrc/window_attention.cu",

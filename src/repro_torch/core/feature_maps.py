@@ -88,3 +88,19 @@ def apply_feature_map(cfg: FeatureMapConfig, params: Params, x: torch.Tensor) ->
         sq = 0.5 * torch.sum(xs * xs, dim=-1, keepdim=True)
         return torch.exp(xs @ w.T - sq) / math.sqrt(m)
     raise ValueError(f"unknown or unported feature map kind {cfg.kind!r}")
+
+
+def phi_norm_bound(cfg: FeatureMapConfig, d: int) -> float:
+    """Analytic B_φ (Eq. 21) for overflow sizing (Thm A.3); the codebook
+    map's branch is left out with the map."""
+    m = cfg.feature_dim(d)
+    r = cfg.input_scale
+    if cfg.kind == "elu1":
+        return math.sqrt(m) * (r + 1.0)
+    if cfg.kind == "relu":
+        return r + 1e-6
+    if cfg.kind == "exp_prf":
+        # per-feature exp(‖w_i‖ r / d^{1/4}) / sqrt(m); use 3σ row norm
+        wnorm = math.sqrt(d) + 3.0
+        return math.exp(wnorm * r / d ** 0.25)
+    raise ValueError(f"unknown or unported feature map kind {cfg.kind!r}")

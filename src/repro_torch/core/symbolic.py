@@ -1,6 +1,7 @@
 """Symbolic execution path: ternary rules over packed signatures (paper §3.5).
 
-Port of ``repro.core.symbolic`` lines 32-80.  A hard TCAM hit is
+Port of ``repro.core.symbolic`` lines 32-80 and 154-184 (the Eq. 19 SRAM
+image of the soft-rule weights).  A hard TCAM hit is
 (sig & mask) == (value & mask) on every word.
 
 Packed signatures are **int32 bit patterns** here, where the JAX package
@@ -12,9 +13,12 @@ gives the JAX words back.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.quantization import FixedPointSpec, dequantize, quantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,8 +30,16 @@ class RuleSet:
     weights: torch.Tensor  # (M,) float32 — soft-symbolic weights (HL-MRF W_q)
     hard: torch.Tensor  # (M,) bool — hard-veto rules (TCAM tier)
 
+    @property
+    def n_rules(self) -> int:
+        return self.values.shape[0]
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """``(values, masks, weights, hard)``: the JAX package's flatten order."""
+        return (self.values, self.masks, self.weights, self.hard)
+
     def to(self, device) -> "RuleSet":
-        return RuleSet(*(t.to(device) for t in dataclasses.astuple(self)))
+        return RuleSet(*(t.to(device) for t in self.tensors()))
 
 
 def words_to_int32(words: torch.Tensor) -> torch.Tensor:
@@ -66,3 +78,23 @@ def hard_hit(hits: torch.Tensor, rules: RuleSet) -> torch.Tensor:
 def soft_score(hits: torch.Tensor, rules: RuleSet) -> torch.Tensor:
     """s_sym = Σ_q W_q · hit_q — the compiled-table gather at line rate."""
     return torch.sum(hits.to(torch.float32) * rules.weights, dim=-1)
+
+
+def compile_weights_to_table(
+    weights: torch.Tensor, spec: FixedPointSpec, budget_bits: int
+) -> Tuple[torch.Tensor, FixedPointSpec]:
+    """Compile learned W_q into the fixed-point SRAM table (Eq. 19 check)."""
+    n = int(weights.shape[0])
+    if n * spec.bits > budget_bits:
+        raise ValueError(
+            f"rule table needs {n * spec.bits} bits > budget {budget_bits} (Eq. 19)"
+        )
+    wmax = float(torch.max(torch.abs(weights.float())))
+    scale = max(wmax, 1e-9) / spec.max_int
+    qspec = FixedPointSpec(bits=spec.bits, scale=scale)
+    return quantize(weights, qspec), qspec
+
+
+def decompile_table(table: torch.Tensor, spec: FixedPointSpec) -> torch.Tensor:
+    return dequantize(table, spec)
+

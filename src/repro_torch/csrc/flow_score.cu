@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tcam.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -49,24 +51,6 @@ __device__ __forceinline__ void warp_sum_n(float* s) {
   for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
     for (int c = 0; c < N; ++c) s[c] += __shfl_xor_sync(0xffffffffu, s[c], o);
-}
-
-// The TCAM match of rules r, r + 32, ... < M against the signature row sg
-__device__ __forceinline__ void match_rules(const int32_t* sg, const int32_t* __restrict__ values,
-                                            const int32_t* __restrict__ masks,
-                                            const float* __restrict__ weights,
-                                            const uint8_t* __restrict__ hard, int W, int M, int r,
-                                            float& soft, bool& any_hard) {
-  for (; r < M; r += 32) {
-    const float wr = weights[r];
-    const bool hr = hard[r] != 0;
-    int32_t miss = 0;
-#pragma unroll 8
-    for (int w = 0; w < W; ++w)
-      miss |= (sg[w] ^ values[(size_t)r * W + w]) & masks[(size_t)r * W + w];
-    soft += miss == 0 ? wr : 0.f;
-    any_hard |= miss == 0 && hr;
-  }
 }
 
 // FAST: K = 8, W = 8, d a multiple of 32 up to 256, M >= 1 and 16-byte

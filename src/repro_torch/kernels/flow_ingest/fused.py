@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/kernels/flow_ingest/kernel.py:230
 make_pallas_score_fn`` (:func:`make_score_fn`) and ``:246
-fused_ingest_pallas`` (:class:`FlowStepGraphs`).  The JAX package compiles
+fused_ingest_pallas`` (:class:`FlowStepGraphs`; its int-emulation branch
+is :func:`make_int_score_fn`, the ``int_flow_score`` kernel as the graphed
+step's score stage).  The JAX package compiles
 one launch per width group, whose on-device loop runs the flow step once
 per chunk.  In PyTorch the step is ~17,000 operator calls at the paper's
 configuration (16 tokens x ~1,085 per decode token), each dispatched from
@@ -40,6 +42,7 @@ import torch
 
 from repro_torch.kernels.chimera_attention import ops as chimera_ops
 from repro_torch.kernels.decode_step import ops as decode_ops
+from repro_torch.kernels.flow_ingest import int_ops
 from repro_torch.kernels.flow_ingest import ops as score_ops
 from repro_torch.kernels.window_attention import ops as window_ops
 
@@ -47,6 +50,7 @@ from repro_torch.kernels.window_attention import ops as window_ops
 COUNTED = {
     "decode_step": decode_ops,
     "flow_score": score_ops,
+    "int_flow_score": int_ops,
     "chimera_attention": chimera_ops,
     "window_attention": window_ops,
 }
@@ -59,6 +63,18 @@ def make_score_fn(ccfg):
 
     def score_fn(params, rules, pooled, sig, sticky):
         return score_ops.flow_score(params, rules, pooled, sig, sticky, lambda_h=ccfg.lambda_h)
+
+    return score_fn
+
+
+def make_int_score_fn(plan):
+    """The ``int_flow_score`` kernel's wrapper as the score-stage hook of the
+    flow step under int-emulation, ``(int_tables, rules, hidden_sum, count,
+    sig, sticky) -> (quantized outputs, new_sticky)``: the kernel on CUDA
+    tensors, its plain version on CPU tensors."""
+
+    def score_fn(tables, rules, hidden_sum, count, sig, sticky):
+        return int_ops.int_flow_score(plan, tables, rules, hidden_sum, count, sig, sticky)
 
     return score_fn
 

@@ -183,7 +183,8 @@ def attention_prefill(
     (the softmax SWA branch; Chimera's ``chimera_prefill`` is not ported)."""
     require_ported(cfg)
     if cfg.use_chimera:
-        raise NotImplementedError("chimera_prefill is not ported (ROADMAP Queue 1 item 1)")
+        raise NotImplementedError(
+            "chimera_prefill is not ported (ROADMAP Queue 1, 'Chimera prefill')")
     B, T, _ = x.shape
     q, k, v = _project_qkv(cfg, params, x, positions)
     o = _swa(cfg, q, k, v)

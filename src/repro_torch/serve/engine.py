@@ -13,7 +13,8 @@ The engine runs on one device, ``"cuda"`` unless the caller asks for the
 CPU; its parameters must lie there.  The caches live on that device and are
 updated in place.  Temperature sampling draws from an explicit
 ``torch.Generator`` (another stream of numbers than ``jax.random``).
-``from_program`` waits for the deploy surface (ROADMAP Queue 1 item 7).
+The deploy surface builds it for a program's backbone
+(``program.deploy(DeploySpec(engine="lm"))``, :mod:`repro_torch.serve.deploy`).
 """
 
 from __future__ import annotations
@@ -189,7 +190,7 @@ class ServeEngine:
         if self.cfg.use_chimera:
             raise NotImplementedError(
                 "prefill_batch on a Chimera config needs chimera_prefill "
-                "(ROADMAP Queue 1 item 1); use submit/step"
+                "(ROADMAP Queue 1, 'Chimera prefill'); use submit/step"
             )
         if len(requests) > self.slots:
             raise ValueError("more requests than slots")

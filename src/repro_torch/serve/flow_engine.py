@@ -31,9 +31,21 @@ chunk; on the CPU the same structure runs eagerly
 .AsyncIngestPipeline` overlaps the host's packing of one batch with the
 card's work on the one before.
 
-Ported: the per-round and fused paths, eviction, ``reset``,
-``flow_scores`` and the state accounting.  Not yet: ``swap_tables``,
-int-emulation, the compile/deploy surface and the sharded engines.
+Under the ``int-emulation`` backend the score stage is the integer
+lowering of :mod:`repro_torch.compile.int_lowering`: each decoded feature
+is quantized at the Map boundary, the row keeps an int32 ``hidden_sum``,
+and the ``int_flow_score`` kernel scores it; its outputs are dequantized
+for the engine's float contract.  A program that does not lower within
+the 32-bit budget is refused at construction (``BudgetError``).
+
+:meth:`FlowEngine.swap_tables` installs new rule tables between ticks:
+it rewrites the installed tensors in place, since the fused engine's CUDA
+graphs read them at the addresses they were captured with.
+
+Ported: the per-round and fused paths, both score backends, eviction,
+``reset``, ``flow_scores``, ``swap_tables``, the deploy surface
+(:mod:`repro_torch.serve.deploy`) and the state accounting.  Not yet: the
+sharded engines.
 """
 
 from __future__ import annotations
@@ -45,12 +57,17 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.compile import int_lowering as il
+from repro_torch.compile.ledger import ResourceLedger
+from repro_torch.compile.passes import INT_BACKEND, check_backend
 from repro_torch.core import hardware_model
 from repro_torch.core import symbolic
 from repro_torch.core.chimera_attention import ChimeraState
 from repro_torch.core.hardware_model import DEFAULT_DATAPLANE
+from repro_torch.core.two_timescale import atomic_swap, measure_install_time
 from repro_torch.data.pipeline import arrival_rounds
 from repro_torch.kernels.flow_ingest import fused as fused_mod
+from repro_torch.kernels.flow_ingest import int_ops
 from repro_torch.models import model as M
 from repro_torch.train import classifier as C
 
@@ -61,6 +78,9 @@ class FlowEngineConfig:
     lanes: int = 256  # batch width per arrival round (padded, fixed)
     state_budget_bytes: int = 0  # 0 → DataplaneSpec shared-SRAM default
     idle_timeout: int = 0  # ticks without traffic before eviction (0 = off)
+    t_cp_s: float = 0.0  # control-plane epoch for Eq. 18 checks (0 = off)
+    backend: Optional[str] = None  # score backend: None/"xla"/... float, "int-emulation"
+    horizon: int = 1024  # Eq. 39 flow-length horizon (int-emulation lowering)
     fused: bool = False  # fused ingest: width-bucketed chunks, a CUDA graph per width
     min_chunk_lanes: int = 8  # smallest padded width for tail arrival rounds
     ring_slots: int = 4  # host staging-ring depth (AsyncIngestPipeline)
@@ -86,11 +106,20 @@ class FlowStats:
         return self.flows_evicted / max(self.ticks, 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class SwapRecord:
+    tick: int
+    install_s: float  # measured wall-clock install (device-ready, Eq. 18)
+    churn_ok: bool  # Eq. 18: install completed within the control epoch
+    t_cp_s: float = 0.0  # the control-plane epoch the install was held to
+    source: str = "manual"  # "manual" | "delta" (audited ProgramDelta)
+
+
 def _state_leaves(caches) -> List[torch.Tensor]:
     return [t for st in caches.values() for t in st.leaves()]
 
 
-def make_flow_step(ccfg: C.ClassifierConfig, n_slots: int, *, score_fn=None):
+def make_flow_step(ccfg: C.ClassifierConfig, n_slots: int, int_plan=None, *, score_fn=None):
     """Build the flow-table update step over ``n_slots`` table rows.
 
     ``step(params, rules, caches, positions, sig, hidden_sum, vetoed, idx,
@@ -98,9 +127,20 @@ def make_flow_step(ccfg: C.ClassifierConfig, n_slots: int, *, score_fn=None):
     ``score_fn(params, rules, pooled, sig, sticky) -> (outputs, new_sticky)``
     replaces the score stage; ``None`` keeps :func:`repro_torch.train
     .classifier.streaming_scores`.
+
+    With an :class:`~repro_torch.compile.int_lowering.IntScorePlan` the
+    score stage is the integer program (``int-emulation``): each decoded
+    feature is quantized at the Map boundary, ``hidden_sum`` is the int32
+    accumulator, ``rules`` is ``(rules, int_tables)``, and ``score_fn(
+    int_tables, rules, hidden_sum, count, sig, sticky)`` returns quantized
+    outputs (``None`` keeps the ``int_flow_score`` kernel's wrapper), which
+    the step dequantizes.  The backbone is the float path either way.
     """
     arch = ccfg.arch
-    if score_fn is None:
+    if int_plan is not None:
+        if score_fn is None:
+            score_fn = fused_mod.make_int_score_fn(int_plan)
+    elif score_fn is None:
         def score_fn(params, rules, pooled, sig, sticky):
             return C.streaming_scores(ccfg, params, rules, pooled, sig, sticky)
 
@@ -117,16 +157,24 @@ def make_flow_step(ccfg: C.ClassifierConfig, n_slots: int, *, score_fn=None):
         }
         pos = torch.where(fresh, 0, positions[idx])
         sg = torch.where(fresh[:, None], 0, sig[idx])
-        hs = torch.where(fresh[:, None], 0.0, hidden_sum[idx])
+        hs = torch.where(fresh[:, None], 0, hidden_sum[idx])
         vt = torch.where(fresh, False, vetoed[idx])
 
         for t in range(tokens.shape[1]):
             h = M.decode_hidden_step(arch, params["backbone"], tokens[:, t], pos, cs)
             pos = pos + 1
-            hs = hs + h.float()
+            if int_plan is not None:  # the one float->int crossing (Map stage)
+                hs = hs + il.quantize_features(int_plan, h)
+            else:
+                hs = hs + h.float()
         sg = sg | C.packet_signature(ccfg, tokens)
-        pooled = hs / torch.clamp(pos, min=1)[:, None].float()
-        out, vt = score_fn(params, rules, pooled, sg, vt)
+        if int_plan is not None:
+            rule_set, int_tables = rules
+            out, vt = score_fn(int_tables, rule_set, hs, pos, sg, vt)
+            out = il.dequantize_scores(int_plan, out)  # the engine's float contract
+        else:
+            pooled = hs / torch.clamp(pos, min=1)[:, None].float()
+            out, vt = score_fn(params, rules, pooled, sg, vt)
         out["sig"] = sg  # cumulative signature after this packet
 
         for big, small in zip(_state_leaves(caches), _state_leaves(cs)):
@@ -170,21 +218,23 @@ def pack_width_groups(
     return groups
 
 
-def make_fused_ingest(ccfg: C.ClassifierConfig, n_slots: int, *, score_fn=None):
+def make_fused_ingest(ccfg: C.ClassifierConfig, n_slots: int, int_plan=None, *,
+                      score_fn=None):
     """Build the fused ingest step over a stack of chunks.
 
     ``fused(params, rules, caches, positions, sig, hidden_sum, vetoed,
     idx (C, w), tokens (C, w, pkt_len), fresh (C, w)) -> outs`` runs the
     :func:`make_flow_step` body once per chunk, in chunk order, on the
     resident table (updated in place), and stacks the per-chunk score
-    outputs on a leading C axis.  ``score_fn`` is the step's score-stage
-    hook.  The JAX package pads the chunk axis to a power-of-two bucket and
-    passes the chunk count as a traced scalar, which bounds its traces;
+    outputs on a leading C axis.  ``int_plan`` and ``score_fn`` are the
+    step's (:func:`make_flow_step`).  The JAX package pads the chunk axis to
+    a power-of-two bucket and passes the chunk count as a traced scalar,
+    which bounds its traces;
     here the step runs exactly the C chunks it is given, eagerly, and on
     the card :class:`repro_torch.kernels.flow_ingest.fused.FlowStepGraphs`
     replays one CUDA graph of the same body per chunk.
     """
-    step = make_flow_step(ccfg, n_slots, score_fn=score_fn)
+    step = make_flow_step(ccfg, n_slots, int_plan, score_fn=score_fn)
 
     def fused(params, rules, caches, positions, sig, hidden_sum, vetoed, idx, tokens, fresh):
         outs = [
@@ -328,6 +378,59 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def resolve_swap(
+    old: symbolic.RuleSet,
+    ruleset: Optional[symbolic.RuleSet],
+    weights,
+    weight_spec,
+    delta,
+) -> Tuple[symbolic.RuleSet, str]:
+    """Resolve a ``swap_tables`` request into the RuleSet to install.
+
+    Accepts raw tables (``ruleset`` and/or ``weights`` — float, or a
+    quantized Eq. 19 SRAM table with its ``FixedPointSpec``) or an audited
+    :class:`repro_torch.compile.ProgramDelta`, and checks the result's
+    shapes and dtypes against the installed tables: an install rewrites the
+    installed tensors, so it cannot change them.  Returns ``(new, source)``.
+    """
+    source = "manual"
+    if delta is not None:
+        if ruleset is not None or weights is not None:
+            raise ValueError("pass either a ProgramDelta or raw tables, not both")
+        ruleset = delta.ruleset
+        weights, weight_spec = delta.weight_table, delta.weight_spec
+        source = "delta"
+    new = ruleset if ruleset is not None else old
+    if weights is not None:
+        w = (
+            symbolic.decompile_table(torch.as_tensor(weights), weight_spec)
+            if weight_spec is not None
+            else torch.as_tensor(weights, dtype=torch.float32)
+        )
+        new = symbolic.RuleSet(values=new.values, masks=new.masks,
+                               weights=w.to(torch.float32), hard=new.hard)
+    for name, a, b in zip(("values", "masks", "weights", "hard"), old.tensors(), new.tensors()):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(
+                f"swap_tables: {name} {tuple(b.shape)}/{b.dtype} does not match "
+                f"installed {tuple(a.shape)}/{a.dtype}; a shape-changing install "
+                f"needs a new engine"
+            )
+    return new, source
+
+
+def _engine_kwargs_from_program(program, backend: Optional[str] = None) -> Dict:
+    """The constructor inputs the deploy paths share: the program's compiled
+    classifier config, parameters and packed rules, plus the score backend
+    (the program's unless the deployment site overrides it)."""
+    return {
+        "ccfg": program.ccfg,
+        "params": program.params,
+        "rules": program.rules,
+        "backend": backend if backend is not None else program.backend,
+    }
+
+
 class FlowEngine:
     """Streaming per-flow classification over a bounded flow table.
 
@@ -345,10 +448,30 @@ class FlowEngine:
         device=None,
     ):
         self.device = device = resolve_device(device, "FlowEngine")
+        self.backend = check_backend(fcfg.backend)
         self.ccfg = ccfg
         self.fcfg = fcfg
         self.stats = FlowStats()
+        self.swap_history: List[SwapRecord] = []
+        self.program = None  # set by the deploy surface
         arch = ccfg.arch
+        self.params = _to_device(params, device)
+        # the engine owns its installed tables (swaps rewrite them in place)
+        self.rules = symbolic.RuleSet(*(t.to(device).clone() for t in rules.tensors()))
+
+        # int-emulation: lower the score path to fixed point.  The plan is a
+        # pure function of (ccfg, params, rules, horizon); a lowering over
+        # the 32-bit budget raises BudgetError here, before any allocation
+        self._int_plan = None
+        self._int_tables = None
+        self._int_entries: List = []
+        if self.backend == INT_BACKEND:
+            self._int_plan, self._int_tables, self._int_entries = il.lower_scores(
+                ccfg, self.params, self.rules, horizon=fcfg.horizon
+            )
+            deploy_ledger = ResourceLedger()
+            deploy_ledger.extend(self._int_entries)
+            deploy_ledger.raise_if_over()
 
         # capacity real slots + one scratch slot that absorbs padding lanes
         self._n_slots = fcfg.capacity + 1
@@ -356,7 +479,8 @@ class FlowEngine:
         self._shapes = {
             "positions": ((self._n_slots,), torch.int32),
             "sig": ((self._n_slots, W), torch.int32),
-            "hidden_sum": ((self._n_slots, d), torch.float32),
+            "hidden_sum": ((self._n_slots, d),
+                           torch.float32 if self._int_plan is None else torch.int32),
             "vetoed": ((self._n_slots,), torch.bool),
         }
 
@@ -368,8 +492,6 @@ class FlowEngine:
             self._n_slots, self.per_flow_state_bytes(), budget
         )
 
-        self.params = _to_device(params, device)
-        self.rules = rules.to(device)
         # fp32 Chimera state whatever the residual stream's dtype, as the
         # reference engine keeps it (the decode_step kernel takes fp32 only)
         self.caches = M.init_caches(arch, self._n_slots, dtype=torch.float32, device=device)
@@ -378,27 +500,46 @@ class FlowEngine:
 
         self.table = FlowTableDirectory(fcfg.capacity)
         self._tick = 0
-        self._step = make_flow_step(ccfg, self._n_slots)
+        plan = self._int_plan
+        self._step = make_flow_step(ccfg, self._n_slots, plan)
 
-        # fused ingest: the flow step with the flow_score kernel as its score
-        # stage, one CUDA graph per width on the card, eager on the CPU
+        # fused ingest: the flow step with a score kernel as its score stage
+        # (flow_score, or int_flow_score under int-emulation), one CUDA graph
+        # per width on the card, eager on the CPU
         self._staging: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
         self._graphs: Optional[fused_mod.FlowStepGraphs] = None
         self._fused_eager = None
         if fcfg.fused:
-            score_fn = fused_mod.make_score_fn(ccfg)
+            score_fn = (fused_mod.make_score_fn(ccfg) if plan is None
+                        else fused_mod.make_int_score_fn(plan))
             if device.type == "cuda":
-                step = make_flow_step(ccfg, self._n_slots, score_fn=score_fn)
+                step = make_flow_step(ccfg, self._n_slots, plan, score_fn=score_fn)
                 self._graphs = fused_mod.FlowStepGraphs(
                     lambda *a: pack_step_outputs(step(*a)), self._table_args(),
                     scratch=fcfg.capacity, device=device,
                 )
             else:
-                self._fused_eager = make_fused_ingest(ccfg, self._n_slots, score_fn=score_fn)
+                self._fused_eager = make_fused_ingest(ccfg, self._n_slots, plan,
+                                                      score_fn=score_fn)
+
+    @classmethod
+    def from_program(cls, program, fcfg: FlowEngineConfig = FlowEngineConfig(),
+                     device=None) -> "FlowEngine":
+        """Deploy ``program`` (``program.deploy(DeploySpec(flow=fcfg))``)."""
+        from repro_torch.serve.deploy import build_flow_engine
+
+        return build_flow_engine(program, fcfg, device=device)
+
+    def _step_rules(self):
+        """The ``rules`` argument of the flow step: the installed RuleSet,
+        paired with the lowered int tables under int-emulation."""
+        if self._int_plan is not None:
+            return (self.rules, self._int_tables)
+        return self.rules
 
     def _table_args(self):
         """The flow step's leading arguments: weights, rules and the table."""
-        return (self.params, self.rules, self.caches, self.positions, self.sig,
+        return (self.params, self._step_rules(), self.caches, self.positions, self.sig,
                 self.hidden_sum, self.vetoed)
 
     def fused_widths(self) -> List[int]:
@@ -557,7 +698,7 @@ class FlowEngine:
                 tok[:n] = tokens[chunk]
                 fr[:n] = fresh[chunk]
                 out = self._step(
-                    self.params, self.rules, self.caches, self.positions,
+                    self.params, self._step_rules(), self.caches, self.positions,
                     self.sig, self.hidden_sum, self.vetoed,
                     torch.from_numpy(idx).to(dev), torch.from_numpy(tok).to(dev),
                     torch.from_numpy(fr).to(dev),
@@ -666,11 +807,18 @@ class FlowEngine:
         """Current scores for a resident flow (control-plane read path)."""
         slot = self.table.slot_of[fid]
         pos = self.positions[slot]
-        pooled = self.hidden_sum[slot] / torch.clamp(pos, min=1).float()
-        out, _ = C.streaming_scores(
-            self.ccfg, self.params, self.rules,
-            pooled[None], self.sig[slot][None], self.vetoed[slot][None],
-        )
+        if self._int_plan is not None:
+            out, _ = int_ops.int_flow_score(
+                self._int_plan, self._int_tables, self.rules, self.hidden_sum[slot][None],
+                pos[None], self.sig[slot][None], self.vetoed[slot][None],
+            )
+            out = il.dequantize_scores(self._int_plan, out)
+        else:
+            pooled = self.hidden_sum[slot] / torch.clamp(pos, min=1).float()
+            out, _ = C.streaming_scores(
+                self.ccfg, self.params, self.rules,
+                pooled[None], self.sig[slot][None], self.vetoed[slot][None],
+            )
         return {
             "trust": float(out["trust"][0]),
             "vetoed": bool(out["hard_hit"][0]),
@@ -679,3 +827,49 @@ class FlowEngine:
             "s_sym": float(out["s_sym"][0]),
             "tokens": int(pos),
         }
+
+    # ------------------------------------------------------------------
+    # two-timescale control-plane hook
+    # ------------------------------------------------------------------
+    def swap_tables(
+        self,
+        ruleset: Optional[symbolic.RuleSet] = None,
+        weights=None,
+        weight_spec=None,
+        delta=None,
+    ) -> SwapRecord:
+        """Install new compiled tables between ticks (§3.6).
+
+        ``ruleset`` replaces the whole TCAM/SRAM rule table; ``weights``
+        only the soft-rule weight column — a float array, or a quantized
+        SRAM table with its ``FixedPointSpec`` as ``weight_spec``; ``delta``
+        installs an audited :class:`repro_torch.compile.ProgramDelta`.
+        Shapes and dtypes must match the installed tables.
+
+        The new tables are copied into the installed tensors, on the
+        engine's stream: behind every step already launched, a batch that
+        :class:`AsyncIngestPipeline` has in flight included, and read by the
+        fused engine's graphs at their captured addresses.  Under
+        int-emulation the weight column is re-lowered at the installed
+        plan's LSB as part of the install.  The install is timed until the
+        card has the tables (Eq. 18), and the record flags an install
+        slower than ``t_cp_s``.
+        """
+        new, source = resolve_swap(self.rules, ruleset, weights, weight_spec, delta)
+
+        def _install():
+            atomic_swap(self.rules, new)
+            if self._int_plan is not None:
+                atomic_swap(self._int_tables["rule_w"],
+                            il.requantize_rule_weights(self._int_plan, self.rules.weights))
+            return self._step_rules()
+
+        dt = measure_install_time(_install)
+        t_cp = self.fcfg.t_cp_s
+        rec = SwapRecord(
+            tick=self._tick, install_s=dt,
+            churn_ok=hardware_model.install_time_ok(dt, t_cp) if t_cp else True,
+            t_cp_s=t_cp, source=source,
+        )
+        self.swap_history.append(rec)
+        return rec
