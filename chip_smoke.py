@@ -42,7 +42,20 @@ Phases, each printing its own lines:
                then int-emulation engines at the smoke width on the card
                beside the CPU, with a swap mid-stream.
 
-Phases 4, 5, 6 and 8 are the main paths: the kernels' launch counters are
+9. adapt     — run after the program phase: (a) the port's launcher
+               (``repro_torch.launch.flow_serve``'s build and serve) at the
+               paper's width, fused, on the default drift schedule with no
+               loop, under the sync and the async adaptation loop and with
+               no loop again: packets/s, drift-path ms per tick, epoch ms,
+               install µs, triggers, veto rate by phase; S pinned, no flip,
+               no eviction, no capture after warm-up.  (b) The CPU tests'
+               canonical drift replay at the tiny width, fused on the card
+               against per-round on the CPU, float and int-emulation, and an
+               async epoch held inside a fresh CUDA-graph capture.  (c) The
+               red-team gate (smoke campaign + sample trace) on the card and
+               on the CPU with the port's own weights.
+
+Phases 4, 5, 6, 8 and 9 are the main paths: the kernels' launch counters are
 zeroed just before each and read just after, and each fails if one of its
 kernels never launched.  Then a JSON line with every kernel's numbers, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -2207,6 +2220,396 @@ def phase_program():
 
 
 # --------------------------------------------------------------------------
+# 9. adapt: the closed adaptation loop, its traffic and the red-team gate
+# --------------------------------------------------------------------------
+
+ADAPT_ARGS = ["--fused", "--capacity", str(CAPACITY), "--lanes", str(LANES),
+              "--packets", "256", "--pkt-len", str(PKT_LEN)]
+ADAPT_TOL = 1e-2  # card vs CPU floats at the tiny width (the program phase's)
+TINY_FLOW = dict(capacity=512, lanes=16)  # the CPU tests' canonical replay
+TINY_POLICY = dict(warmup_ticks=2, cooldown_ticks=4, sig_novelty=0.05, churn_shift=0.12)
+HISTORY_FIELDS = ("tick", "fired_on", "installed", "install_tick", "rolled_back")
+
+
+def hold_invariants(what, batches, outputs):
+    """S pinned to 1.0 exactly on the vetoed packets, and no veto flip."""
+    from repro_torch.serve.redteam import TrustInvariantTracker
+
+    tr = TrustInvariantTracker()
+    for b, out in zip(batches, outputs):
+        tr.observe(b["flow_ids"], out)
+    if tr.pinning_violations or tr.veto_flips:
+        fail(f"{what}: {tr.pinning_violations} pinning violations, {tr.veto_flips} veto flips")
+    return tr
+
+
+def hold_loop(what, loop):
+    """A trigger, and every install inside t_cp or rolled back."""
+    if not loop.history:
+        fail(f"{what}: the drift policy never fired")
+    for r in loop.history:
+        if r.installed and not r.churn_ok:
+            fail(f"{what}: an install outside t_cp at tick {r.tick} was not rolled back")
+        if r.rolled_back and r.installed:
+            fail(f"{what}: tick {r.tick} both installed and rolled back")
+
+
+def adapt_full_width():
+    """(a) The launcher's build-and-serve code at the paper's width on the
+    default drift schedule's batches: with no loop (the staging ring),
+    under the sync loop and under the async loop, each twice, in turns
+    (no, sync, async, async, sync, no) so that an effect of the order on
+    the timing cancels in the pairs."""
+    import torch
+    from repro_torch.data.pipeline import DriftScenario, parse_phases
+    from repro_torch.launch import flow_serve as F
+
+    ccfg, params = paper_classifier()
+    budget = torch.cuda.mem_get_info()[0] // 3
+    phases = DriftScenario(phases=parse_phases(F.DEFAULT_DRIFT))
+    runs, first_outs = {}, {}
+    flags = {"no loop": ["--drift-phases", F.DEFAULT_DRIFT],
+             "sync loop": ["--adapt", "--adapt-sync"], "async loop": ["--adapt"]}
+    for mode in ("no loop", "sync loop", "async loop", "async loop", "sync loop", "no loop"):
+        extra = flags[mode]
+        args = F.parse_args(ADAPT_ARGS + extra + ["--batches", str(phases.batches_per_cycle),
+                                                  "--state-budget-bytes", str(budget)])
+        t0 = time.perf_counter()
+        dep = F.build(args, params=params)
+        build_s = time.perf_counter() - t0
+        if dep.program.ccfg.arch != ccfg.arch:
+            fail("adapt: the launcher's arch is not the paper classifier's")
+        eng = dep.engine
+        warmed = set(eng.fused_graphs())
+        res = F.serve(dep, keep=True)
+        if set(eng.fused_graphs()) != warmed:
+            fail(f"adapt {mode}: a CUDA graph was captured after warm-up: "
+                 f"{sorted(set(eng.fused_graphs()) - warmed)}")
+        hold_invariants(f"adapt {mode}", res.batches, res.outputs)
+        if eng.stats.flows_evicted:
+            fail(f"adapt {mode}: {eng.stats.flows_evicted} evictions")
+        veto = {}
+        for i, (b, out) in enumerate(zip(res.batches, res.outputs)):
+            ph = phases.phase_index(i)
+            n, v = veto.get(ph, (0, 0))
+            veto[ph] = (n + len(out["vetoed"]), v + int(out["vetoed"].sum()))
+        rec = {"pps": res.packets_per_s, "packets": res.packets, "seconds": res.seconds,
+               "build_s": build_s,
+               "veto_rate": {ph: v / max(n, 1) for ph, (n, v) in sorted(veto.items())}}
+        loop = dep.loop
+        if loop is not None:
+            hold_loop(f"adapt {mode}", loop)
+            # before the first fire every run serves the deployed tables
+            for i in range(loop.history[0].tick):
+                for k in ("vetoed", "sig"):
+                    if not (res.outputs[i][k] == first_outs["no loop"][i][k]).all():
+                        fail(f"adapt {mode}: batch {i} {k} differs from the run with no loop")
+            rec.update(
+                triggers=loop.trigger_ticks, installs=loop.installs,
+                install_ticks=[r.install_tick for r in loop.history],
+                fired_on=[list(r.fired_on) for r in loop.history],
+                drift_ms=1e3 * float(np.mean(loop.drift_s)),
+                drift_ms_max=1e3 * float(np.max(loop.drift_s)),
+                epoch_ms=[1e3 * r.epoch_s for r in loop.history],
+                install_us=[1e6 * r.install_s for r in loop.history],
+                rolled_back=sum(r.rolled_back for r in loop.history))
+        # the second run with no loop, and the second sync run (installs at
+        # the same ticks), must repeat the first one's decisions
+        if mode in first_outs and mode != "async loop":
+            for i, (a, b) in enumerate(zip(res.outputs, first_outs[mode])):
+                if not all((a[k] == b[k]).all() for k in ("vetoed", "sig")):
+                    fail(f"adapt {mode}: batch {i} differs from the first run of its mode")
+        first_outs.setdefault(mode, res.outputs)
+        runs.setdefault(mode, []).append(rec)
+        log("adapt", f"full width, {mode} (compile, deploy and warm-up {build_s:.1f} s): "
+                     f"{res.packets} packets in {res.seconds:.3f} s = "
+                     f"{rec['pps']:.1f} packets/s; veto rate by phase "
+                     + ", ".join(f"{ph}: {r:.4f}" for ph, r in rec["veto_rate"].items())
+                     + (f"; triggers at ticks {rec['triggers']} ({rec['fired_on']}), installs "
+                        f"at {rec['install_ticks']}, drift path {rec['drift_ms']:.3f} ms per "
+                        f"tick (max {rec['drift_ms_max']:.3f}), epoch ms "
+                        + ", ".join(f"{e:.2f}" for e in rec["epoch_ms"]) + ", install µs "
+                        + ", ".join(f"{u:.1f}" for u in rec["install_us"])
+                        if loop is not None else ""))
+        del dep, eng, loop, res
+        torch.cuda.empty_cache()
+    pps = {mode: [r["pps"] for r in rs] for mode, rs in runs.items()}
+    log("adapt", f"full width: {len(warmed)} widths warmed per engine, no capture after "
+                 f"warm-up, no eviction, S pinned and no flip in all six runs; packets/s by mode "
+                 + "; ".join(f"{m} " + ", ".join(f"{v:.1f}" for v in vs) for m, vs in pps.items())
+                 + "; each loop run over the mean of the runs with no loop: "
+                 + ", ".join(f"{v / np.mean(pps['no loop']):.3f}"
+                             for m in ("sync loop", "async loop") for v in pps[m]))
+    return runs
+
+
+def tiny_program(device, backend=None):
+    """The CPU tests' tiny classifier (the red-team harness's, port weights
+    from seed 0) compiled against the canonical schedule's signature."""
+    from repro_torch.compile import compile_program
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.serve import redteam as R
+    from repro_torch.train import classifier as C
+
+    ccfg, params = R._build_classifier(device="cpu")
+    sig = tiny_scenario().phase_anomaly_signature(0)
+    return compile_program(ccfg, tree_map(lambda t: t.to(device), params), backend=backend,
+                           verify=False,
+                           rules=lambda c: C.default_rules(c, sig, device=device))
+
+
+def tiny_scenario(**kw):
+    from repro_torch.data.pipeline import DriftPhase, DriftScenario
+
+    return DriftScenario(phases=(
+        DriftPhase(kind="protocol-mix", batches=4, anomaly_rate=0.3),
+        DriftPhase(kind="rule-violating", batches=6, anomaly_rate=0.6, sig_rotation=1),
+        DriftPhase(kind="heavy-churn", batches=4, anomaly_rate=0.3, sig_rotation=1),
+    ), pkt_len=8, packets_per_batch=48, seed=11, **kw)
+
+
+def tiny_loop(program, device, fused, **kw):
+    from repro_torch.serve.adaptive_loop import AdaptiveLoop, DriftPolicy
+    from repro_torch.serve.deploy import DeploySpec
+    from repro_torch.serve.flow_engine import FlowEngineConfig
+
+    eng = program.deploy(DeploySpec(flow=FlowEngineConfig(fused=fused, **TINY_FLOW),
+                                    device=device))
+    return AdaptiveLoop(eng, policy=DriftPolicy(**TINY_POLICY), **kw)
+
+
+def hold_histories(what, got, want):
+    if len(got.history) != len(want.history):
+        fail(f"{what}: {len(got.history)} adaptations vs {len(want.history)}")
+    worst = 0.0
+    for a, b in zip(got.history, want.history):
+        for f in HISTORY_FIELDS:
+            if getattr(a, f) != getattr(b, f):
+                metrics = ", ".join(f"{k} {a.trigger[k]:.6f} / {b.trigger[k]:.6f} (threshold "
+                                    f"{TINY_POLICY.get(k, 0.0)})" for k in a.trigger)
+                fail(f"{what}: {f} differs at tick {b.tick}: {getattr(a, f)} vs "
+                     f"{getattr(b, f)}; metrics card / CPU: {metrics}")
+        worst = max([worst] + [abs(a.trigger[k] - b.trigger[k]) for k in b.trigger])
+    for x, y in zip(got.engine.rules.tensors(), want.engine.rules.tensors()):
+        if not torch_equal(x, y):
+            fail(f"{what}: the installed tables differ")
+    return worst
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def adapt_card_vs_cpu():
+    """(b) The canonical drift replay of the CPU tests under sync loops:
+    the fused engine on the card against the per-round engine on the CPU,
+    float and int-emulation; then an async epoch held over a fresh CUDA
+    graph capture."""
+    import threading
+
+    import torch
+    from repro_torch.data.pipeline import FlowScenario
+    from repro_torch.serve import adaptive_loop as AL
+    from repro_torch.serve.deploy import DeploySpec
+    from repro_torch.serve.flow_engine import FlowEngineConfig
+
+    rec = {}
+    # --- float ---------------------------------------------------------
+    card_loop = tiny_loop(tiny_program("cuda"), "cuda", True)
+    cpu_loop = tiny_loop(tiny_program("cpu"), "cpu", False)
+    sc = tiny_scenario()
+    margins = RoundMargins(cpu_loop.engine)
+    worst = {k: 0.0 for k in FLOATS}
+    batches, outs = [], []
+    for i in range(sc.batches_per_cycle):
+        b = sc.next_batch()
+        got = card_loop.ingest(b["flow_ids"], b["tokens"])
+        with margins:
+            want = cpu_loop.ingest(b["flow_ids"], b["tokens"])
+        errs = hold_outputs(f"adapt tiny float batch {i}: card vs CPU", got, want, ADAPT_TOL,
+                            margins.margins())
+        worst = {k: max(worst[k], errs[k]) for k in FLOATS}
+        batches.append(b)
+        outs.append(got)
+    card_loop.close()
+    cpu_loop.close()
+    hold_invariants("adapt tiny float (card)", batches, outs)
+    hold_loop("adapt tiny float (card)", card_loop)
+    dm = hold_histories("adapt tiny float", card_loop, cpu_loop)
+    rec["triggers"] = card_loop.trigger_ticks
+    log("adapt", f"tiny width (d 32, capacity 512, lanes 16), 14 batches of the canonical "
+                 f"schedule under sync loops, fused on the card vs per-round on the CPU: "
+                 f"triggers {card_loop.trigger_ticks} "
+                 f"({[list(r.fired_on) for r in card_loop.history]}), installs "
+                 f"{card_loop.installs}, histories and installed tables identical (metrics max "
+                 f"diff {dm:.2e}), decisions identical, max diffs "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # --- int-emulation ---------------------------------------------------
+    card_loop = tiny_loop(tiny_program("cuda", "int-emulation"), "cuda", True)
+    cpu_loop = tiny_loop(tiny_program("cpu", "int-emulation"), "cpu", False)
+    sc = tiny_scenario()
+    boundary, moved, n = set(), 0, 0
+    for i in range(sc.batches_per_cycle):
+        b = sc.next_batch()
+        got = card_loop.ingest(b["flow_ids"], b["tokens"])
+        want = cpu_loop.ingest(b["flow_ids"], b["tokens"])
+        for k in ("vetoed", "sig"):
+            if not (got[k] == want[k]).all():
+                fail(f"adapt tiny int batch {i}: {k} differs card vs CPU")
+        hold_invariants(f"adapt tiny int batch {i}", [b], [got])
+        ge, we = card_loop.engine, cpu_loop.engine
+        ghs, whs = ge.hidden_sum.cpu().numpy().astype(np.int64), we.hidden_sum.numpy()
+        for fid, slot in we.table.slot_of.items():
+            d = np.abs(ghs[slot] - whs[slot])
+            if (d > we.positions[slot].item()).any():
+                fail(f"adapt tiny int: flow {fid}'s hidden_sum differs by more than one LSB "
+                     f"per token")
+            if d.any():
+                boundary.add(fid)
+        diff = np.zeros(len(b["flow_ids"]), bool)
+        for k in ("trust", "s_nn", "s_sym", "pred"):
+            diff |= got[k] != want[k]
+        edge = np.array([f in boundary for f in b["flow_ids"].tolist()], bool)
+        if (diff & ~edge).any():
+            fail(f"adapt tiny int batch {i}: quantized scores differ off the boundary flows")
+        moved += int(diff.sum())
+        n += len(diff)
+    card_loop.close()
+    cpu_loop.close()
+    hold_histories("adapt tiny int", card_loop, cpu_loop)
+    if not torch_equal(card_loop.engine._int_tables["rule_w"],
+                       cpu_loop.engine._int_tables["rule_w"]):
+        fail("adapt tiny int: the re-lowered rule_w differs card vs CPU")
+    log("adapt", f"tiny width int-emulation, same replay: triggers {card_loop.trigger_ticks}, "
+                 f"installs {card_loop.installs}, histories identical, decisions identical, "
+                 f"quantized scores identical but on {moved} of {n} packets "
+                 f"({len(boundary)} boundary flows)")
+
+    # --- an async epoch over a fresh capture -------------------------------
+    # the engine is warmed at pkt_len 8; after the fire, a batch of 4-token
+    # packets makes the engine capture new graphs, and the epoch is held to
+    # run while the main thread is inside that capture
+    marks, capture_started = {}, threading.Event()
+
+    def relearn(loop, trigger, fired):
+        if not capture_started.wait(120):
+            fail("adapt overlap: no capture began while the epoch waited")
+        marks["epoch_start"] = time.perf_counter()
+        return AL.default_relearn(loop, trigger, fired)  # recluster + compile_delta follow
+
+    card_loop = tiny_loop(tiny_program("cuda"), "cuda", True, relearn=relearn,
+                          cfg=AL.AdaptiveLoopConfig(sync=False))
+    eng = card_loop.engine
+    eng.warm_fused(8)
+    graphs = eng._graphs
+    run_body = graphs._run_body
+
+    def body(inp):
+        if (torch.cuda.is_current_stream_capturing() and card_loop._pending is not None
+                and "capture_start" not in marks):
+            marks["capture_start"] = time.perf_counter()
+            capture_started.set()
+            card_loop._pending[0].result(timeout=120)  # the epoch runs during the capture
+            marks["epoch_end"] = time.perf_counter()
+        return run_body(inp)
+
+    graphs._run_body = body
+    cpu_eng = tiny_program("cpu").deploy(DeploySpec(flow=FlowEngineConfig(**TINY_FLOW),
+                                                    device="cpu"))
+    sc = tiny_scenario()
+    short = FlowScenario(kind="rule-violating", pkt_len=4, packets_per_batch=48, seed=11,
+                         sig_rotation=1, fid_base=1 << 40)
+    plan = [sc.next_batch() for _ in range(sc.batches_per_cycle)]
+    plan = plan[:8] + [short.next_batch(), short.next_batch()] + plan[8:11]
+    card_outs = []
+    n_graphs0 = len(eng.fused_graphs())
+    for b in plan:
+        card_outs.append(card_loop.ingest(b["flow_ids"], b["tokens"]))
+    card_loop.close()
+    graphs._run_body = run_body
+    if len(card_loop.history) != 1 or not card_loop.history[0].installed:
+        fail(f"adapt overlap: expected one installed epoch, got {card_loop.history}")
+    r = card_loop.history[0]
+    overlap = ("capture_start" in marks and marks["capture_start"] <= marks["epoch_start"]
+               <= marks["epoch_end"])
+    if not overlap:
+        fail(f"adapt overlap: the epoch did not run inside a capture ({marks})")
+    new_graphs = len(eng.fused_graphs()) - n_graphs0
+    # the same traffic on the CPU with the install at the same tick boundary
+    for i, b in enumerate(plan):
+        if i == r.install_tick:
+            cpu_eng.swap_tables(ruleset=card_loop.host_rules)
+        want = cpu_eng.ingest(b["flow_ids"], b["tokens"])
+        hold_outputs(f"adapt overlap batch {i}: card (async loop) vs CPU", card_outs[i], want,
+                     ADAPT_TOL)
+    hold_invariants("adapt overlap", plan, card_outs)
+    rec["overlap"] = overlap
+    log("adapt", f"async epoch inside a fresh capture: fired at tick {r.tick}, the epoch ran "
+                 f"inside the capture of a 4-token width ({new_graphs} new graphs, epoch "
+                 f"{1e3 * r.epoch_s:.2f} ms), installed at the boundary after tick "
+                 f"{r.install_tick}; every batch equal to the CPU engine with the same install "
+                 f"at the same boundary (decisions identical, floats within {ADAPT_TOL:g})")
+    return rec
+
+
+def adapt_gate():
+    """(c) The red-team gate (the smoke campaign in its three modes and the
+    sample-trace replay) with the port's own weights, on the card and on
+    the CPU: every deterministic scorecard field identical."""
+    from repro_torch.data.campaigns import SMOKE_CAMPAIGN
+    from repro_torch.serve import redteam as R
+
+    cards = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        cards[dev] = R.run_redteam([SMOKE_CAMPAIGN], R.RedTeamConfig(device=dev))
+        log("adapt", f"red-team gate on {dev} in {time.perf_counter() - t0:.1f} s:")
+        for c in cards[dev]:
+            print("        " + R._summary_line(c), flush=True)
+            for msg in c.failures:
+                print(f"            {msg}", flush=True)
+    bad = 0
+    for a, b in zip(cards["cuda"], cards["cpu"]):
+        bad += a.pinning_violations + a.veto_flips + a.evictions
+        da, db = a.as_dict(), b.as_dict()
+        for k in ("wall_s", "installs_per_hour"):
+            da.pop(k)
+            db.pop(k)
+        for k in sorted(db):
+            if da[k] != db[k]:
+                fail(f"adapt gate {a.campaign}: scorecard field {k!r} differs card vs CPU: "
+                     f"{da[k]} vs {db[k]}")
+    if bad:
+        fail(f"adapt gate: {bad} pinning violations, veto flips or evictions on the card")
+    verdict = all(c.passed for c in cards["cuda"])
+    log("adapt", f"red-team gate {'PASSED' if verdict else 'FAILED (shared by the CPU run)'}: "
+                 f"card = CPU on every deterministic field; recovery by phase "
+                 + str([p.recovery for p in cards["cuda"][0].phases]))
+    return {"passed": verdict, "invariant_violations": bad,
+            "wall_s": {d: sum(c.wall_s for c in cs) for d, cs in cards.items()}}
+
+
+def phase_adapt():
+    """The closed adaptation loop on the card, run after the program phase,
+    with the launch counters zeroed just before and read just after."""
+    from repro_torch.kernels.flow_ingest import fused as fmod
+
+    counted = ("decode_step", "flow_score", "int_flow_score")
+    for name in counted:
+        fmod.COUNTED[name].launches = 0
+    rec = {"full": adapt_full_width(), "tiny": adapt_card_vs_cpu(), "gate": adapt_gate()}
+    launched = {name: fmod.COUNTED[name].launches for name in counted}
+    if min(launched.values()) == 0:
+        fail(f"adapt: a kernel was never launched on the adapt phase's path: {launched}")
+    log("adapt", f"launches on the adapt phase's path: {launched}")
+    rec["launches"] = launched
+    return rec
+
+
+# --------------------------------------------------------------------------
 
 def main():
     t_start = time.perf_counter()
@@ -2225,6 +2628,7 @@ def main():
     program = timed("program", phase_program)
     recs["int_flow_score"] = program["int_flow_score"]
     launches["int_flow_score"] = program["launches"]["int_flow_score"]
+    timed("adapt", phase_adapt)
     launches["chimera_attention"] = timed("train", phase_train, recs)["launches"][
         "chimera_attention"]
     launches["window_attention"] = timed("serve", phase_serve, recs)["launches"]["window_attention"]

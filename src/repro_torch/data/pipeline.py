@@ -2,8 +2,9 @@
 
 A copy of the parts of ``repro.data.pipeline`` that the port needs
 (``_rng``, ``_traffic_tables``, ``flow_shard``, ``arrival_rounds``,
-``TokenStream``, ``PacketStream``, ``SCENARIO_KINDS`` and
-``FlowScenario``), so the port runs where JAX is not installed.  Same
+``TokenStream``, ``PacketStream``, ``SCENARIO_KINDS``, ``FlowScenario``
+and the drift schedules ``DriftPhase``, ``label_ramp``, ``parse_phases``
+and ``DriftScenario``), so the port runs where JAX is not installed.  Same
 seeds, same draw order: both packages emit the same batches, which the
 port's tests check.
 """
@@ -443,6 +444,241 @@ class FlowScenario:
             # identically for all (shard_id, num_shards) settings
             keep = flow_shard(fids, self.num_shards) == self.shard_id
             batch = {k: v[keep] for k, v in batch.items()}
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.next_batch()
+
+
+# --------------------------------------------------------------------------
+# Non-stationary traffic: piecewise phase schedules over the stationary kinds
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DriftPhase:
+    """One stationary segment of a :class:`DriftScenario` schedule."""
+
+    kind: str = "protocol-mix"
+    batches: int = 8  # phase length, in next_batch calls
+    label_probs: Optional[Tuple[float, ...]] = None
+    anomaly_rate: Optional[float] = None  # overrides the kind's knob
+    sig_rotation: int = 0  # > 0: rotated (adversarial) anomaly signature
+
+
+def label_ramp(
+    start: Tuple[float, ...],
+    end: Tuple[float, ...],
+    n_phases: int,
+    batches_per_phase: int,
+    kind: str = "protocol-mix",
+    **phase_kwargs,
+) -> Tuple[DriftPhase, ...]:
+    """A gradual label-distribution ramp as a piecewise-constant phase
+    schedule: ``n_phases`` stationary segments whose class distributions
+    linearly interpolate ``start`` → ``end``.  Keeping each segment
+    stationary preserves the DriftScenario invariant that every phase slice
+    equals a stationary :class:`FlowScenario` stream."""
+    phases = []
+    for i in range(n_phases):
+        f = i / max(n_phases - 1, 1)
+        p = np.asarray(start, np.float64) * (1 - f) + np.asarray(end, np.float64) * f
+        phases.append(DriftPhase(
+            kind=kind, batches=batches_per_phase,
+            label_probs=tuple(p / p.sum()), **phase_kwargs,
+        ))
+    return tuple(phases)
+
+
+def parse_phases(spec: str) -> Tuple[DriftPhase, ...]:
+    """Parse a CLI phase schedule: comma-separated
+    ``kind:batches[:sig_rotation[:anomaly_rate]]`` items, e.g.
+    ``protocol-mix:6,rule-violating:8:1:0.6,heavy-churn:6:1``."""
+    phases = []
+    for item in spec.split(","):
+        parts = item.strip().split(":")
+        if not 2 <= len(parts) <= 4:
+            raise ValueError(
+                f"bad phase {item!r}; want kind:batches[:rot[:anomaly_rate]]"
+            )
+        # validate up front: a bad kind or non-positive length otherwise
+        # surfaces batches later as a confusing DriftScenario/FlowScenario
+        # failure far from the CLI flag that caused it
+        kind = parts[0]
+        if kind != "mix" and kind not in SCENARIO_KINDS:
+            raise ValueError(
+                f"unknown phase kind {kind!r} in {item!r}; "
+                f"expected 'mix' or one of {sorted(SCENARIO_KINDS)}"
+            )
+        batches = int(parts[1])
+        if batches <= 0:
+            raise ValueError(
+                f"phase batches must be >= 1, got {batches} in {item!r}"
+            )
+        phases.append(DriftPhase(
+            kind=kind,
+            batches=batches,
+            sig_rotation=int(parts[2]) if len(parts) > 2 else 0,
+            anomaly_rate=float(parts[3]) if len(parts) > 3 else None,
+        ))
+    return tuple(phases)
+
+
+@dataclasses.dataclass
+class DriftScenario:
+    """Piecewise non-stationary packet arrivals: a schedule of stationary
+    :class:`DriftPhase` segments over the :data:`SCENARIO_KINDS` generators,
+    plus label-distribution ramps (see :func:`label_ramp`) and adversarial
+    rule-violation surges (``sig_rotation`` phases whose anomaly signature
+    the installed rules have never seen).
+
+    Construction guarantees, all property-tested:
+
+    * **Union = concatenation.**  The stream is *exactly* the concatenation
+      of the stationary :class:`FlowScenario` streams returned by
+      :meth:`stationary_phase` — each phase instance runs a fresh stationary
+      generator with a disjoint ``fid_base`` ID space (``instance << 32``)
+      and a ``step`` offset continuing the global RNG schedule.  Drift
+      enters only through *which* stationary process is active, never
+      through hidden generator state.
+    * **Sharding commutes with phasing.**  ``(shard_id, num_shards)`` is
+      passed through to every phase generator, so the per-shard streams
+      partition each batch by :func:`flow_shard` owner and their union is
+      the unsharded stream — across phase boundaries too.
+    * **Repeats.**  The schedule cycles (phase instance ``len(phases)`` is
+      phase 0 again, with fresh flow IDs and fresh arrivals), so the stream
+      is infinite like every other pipeline generator.
+
+    At a phase boundary the previous phase's still-active flows simply stop
+    transmitting (the serving engine's idle eviction reclaims them) — the
+    flow-churn signature of a real traffic shift.
+    """
+
+    phases: Tuple[DriftPhase, ...] = (DriftPhase(),)
+    n_classes: int = 8
+    vocab_size: int = 512
+    pkt_len: int = 16
+    packets_per_batch: int = 256
+    seed: int = 0
+    hard_mode: bool = False
+    max_flow_pkts: int = 64
+    max_active: int = 8192
+    shard_id: int = 0
+    num_shards: int = 1
+    step: int = 0
+
+    def __post_init__(self):
+        self.phases = tuple(
+            ph if isinstance(ph, DriftPhase) else DriftPhase(**ph)
+            for ph in self.phases
+        )
+        if not self.phases:
+            raise ValueError("DriftScenario needs at least one phase")
+        for ph in self.phases:
+            if ph.kind != "mix" and ph.kind not in SCENARIO_KINDS:
+                raise ValueError(f"unknown phase kind {ph.kind!r}")
+            if ph.batches < 1:
+                raise ValueError(f"phase batches must be >= 1, got {ph.batches}")
+            if ph.label_probs is not None and (
+                len(ph.label_probs) != self.n_classes
+            ):
+                # phases instantiate lazily; surface bad label_probs now
+                raise ValueError(
+                    f"phase label_probs needs {self.n_classes} entries, "
+                    f"got {len(ph.label_probs)}"
+                )
+        if not 0 <= self.shard_id < self.num_shards:
+            raise ValueError(
+                f"shard_id {self.shard_id} outside [0, {self.num_shards})"
+            )
+        starts = [0]
+        for ph in self.phases:
+            starts.append(starts[-1] + ph.batches)
+        self._starts = starts  # len(phases) + 1; [-1] == batches per cycle
+        self._current: Optional[FlowScenario] = None
+        self._current_instance = -1
+        self._done_spawned = 0
+        self._done_retired = 0
+
+    # ------------------------------------------------------------------
+    @property
+    def batches_per_cycle(self) -> int:
+        return self._starts[-1]
+
+    def _locate(self, step: int) -> Tuple[int, int]:
+        """Global batch index -> (phase instance, instance start step)."""
+        cycle, within = divmod(step, self.batches_per_cycle)
+        i = max(j for j in range(len(self.phases)) if self._starts[j] <= within)
+        return cycle * len(self.phases) + i, cycle * self.batches_per_cycle + self._starts[i]
+
+    def phase_index(self, step: Optional[int] = None) -> int:
+        """Index into ``phases`` active at batch ``step`` (default: now)."""
+        s = self.step if step is None else step
+        return self._locate(s)[0] % len(self.phases)
+
+    def phase_at(self, step: Optional[int] = None) -> DriftPhase:
+        return self.phases[self.phase_index(step)]
+
+    def stationary_phase(self, instance: int) -> FlowScenario:
+        """The stationary generator whose stream IS phase ``instance``'s
+        slice of this scenario (the union-equals-concatenation witness)."""
+        cycle, i = divmod(instance, len(self.phases))
+        ph = self.phases[i]
+        return FlowScenario(
+            kind=ph.kind, n_classes=self.n_classes, vocab_size=self.vocab_size,
+            pkt_len=self.pkt_len, packets_per_batch=self.packets_per_batch,
+            seed=self.seed, hard_mode=self.hard_mode,
+            max_flow_pkts=self.max_flow_pkts, max_active=self.max_active,
+            shard_id=self.shard_id, num_shards=self.num_shards,
+            fid_base=instance << 32,
+            label_probs=ph.label_probs, anomaly_rate=ph.anomaly_rate,
+            sig_rotation=ph.sig_rotation,
+            step=cycle * self.batches_per_cycle + self._starts[i],
+        )
+
+    def phase_anomaly_signature(self, phase: int) -> np.ndarray:
+        """The 4-token anomaly signature phase ``phase`` injects (rotated
+        when the phase is an adversarial surge) — what a phase oracle's
+        rules must match."""
+        ph = self.phases[phase % len(self.phases)]
+        if not ph.sig_rotation:
+            return _traffic_tables(
+                self.seed, self.n_classes, self.vocab_size, self.hard_mode
+            )[3]
+        return _rng(self.seed, 0xA51, ph.sig_rotation).integers(
+            256, self.vocab_size, size=(4,)
+        )
+
+    @property
+    def anomaly_signature(self) -> np.ndarray:
+        """Signature of the phase active now (matches FlowScenario's API)."""
+        return self.phase_anomaly_signature(self.phase_index())
+
+    @property
+    def active_flows(self) -> int:
+        return self._current.active_flows if self._current else 0
+
+    @property
+    def flows_spawned(self) -> int:
+        cur = self._current.flows_spawned if self._current else 0
+        return self._done_spawned + cur
+
+    @property
+    def flows_retired(self) -> int:
+        cur = self._current.flows_retired if self._current else 0
+        return self._done_retired + cur
+
+    # ------------------------------------------------------------------
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        instance, _ = self._locate(self.step)
+        if instance != self._current_instance:
+            if self._current is not None:
+                self._done_spawned += self._current.flows_spawned
+                self._done_retired += self._current.flows_retired
+            self._current = self.stationary_phase(instance)
+            self._current_instance = instance
+        batch = self._current.next_batch()
+        self.step += 1
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port's package boundary.
 
-* ``src/repro_torch`` and ``chip_smoke.py`` import neither jax nor the JAX
-  package (the card's machine has no jax);
+* ``src/repro_torch`` (every package, ``launch/`` included) and
+  ``chip_smoke.py`` import neither jax nor the JAX package (the card's
+  machine has no jax), and the port's data fixtures are its own copies;
 * the port's own copy of the traffic generator emits the JAX package's
   batches, packet for packet;
 * without a GPU the engine and the kernels refuse to run (no CPU fallback
@@ -51,6 +52,31 @@ def test_port_imports_no_jax_and_no_reference(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in FORBIDDEN, f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_guard_walks_every_port_package():
+    """The walk above covers every package of the port, ``launch/`` and
+    ``data/`` included, and every one of them is covered."""
+    walked = set(_port_files())
+    pkg_root = ROOT / "src" / "repro_torch"
+    for pkg in ("launch", "data", "serve", "core", "compile", "kernels"):
+        assert (pkg_root / pkg / "__init__.py") in walked, pkg
+    for mod in ("launch/flow_serve.py", "data/traces.py", "data/campaigns.py",
+                "serve/adaptive_loop.py", "serve/redteam.py", "core/two_timescale.py"):
+        assert (pkg_root / mod) in walked, mod
+
+
+def test_port_data_fixtures_are_its_own_copies():
+    """The port reads its own data files (``data/fixtures/``), byte copies of
+    the JAX package's, and holds no code there."""
+    from repro_torch.data import traces
+
+    fixtures = ROOT / "src" / "repro_torch" / "data" / "fixtures"
+    assert Path(traces.SAMPLE_TRACE).parent == fixtures
+    files = sorted(fixtures.iterdir())
+    assert [f.name for f in files] == ["sample_trace.json"]
+    for f in files:
+        assert f.read_bytes() == (ROOT / "src" / "repro" / "data" / "fixtures" / f.name).read_bytes()
 
 
 @pytest.mark.parametrize("kind", ["protocol-mix", "port-scan", "burst", "rule-violating", "mix"])
