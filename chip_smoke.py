@@ -55,9 +55,21 @@ Phases, each printing its own lines:
                red-team gate (smoke campaign + sample trace) on the card and
                on the CPU with the port's own weights.
 
-Phases 4, 5, 6, 8 and 9 are the main paths: the kernels' launch counters are
-zeroed just before each and read just after, and each fails if one of its
-kernels never launched.  Then a JSON line with every kernel's numbers, and as the
+10. shard    — run after the adapt phase: sharded and elastic flow serving,
+               all shards on the one card.  decode_step at the stacked width
+               (4 shards x 256 lanes) against its plain version, timed;
+               (a) a ShardedFlowEngine of 4 shards x 1024 slots beside a
+               FlowEngine of 4096 at the paper's width on the same batches:
+               decisions identical, packets/s of both, busy share, launches
+               per round; (b) the elastic service through the launcher
+               (reshard 2 -> 4 -> 2, checkpoints to a temporary directory),
+               then a shard killed and recovered, held to a service never
+               killed; (c) sharded int-emulation at the smoke width, card
+               against CPU.
+
+Phases 4, 5, 6, 8, 9 and 10 are the main paths: the kernels' launch counters
+are zeroed just before each (each part of phase 10) and read just after, and
+each fails if one of its kernels never launched.  Then a JSON line with every kernel's numbers, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 without it.  It imports nothing of JAX and nothing of the JAX package.
 
@@ -395,14 +407,14 @@ def score_cost(params, rules, pooled, sig):
     return nbytes, flops
 
 
-def check_score(M, timed, K=8, W=8):
-    """The kernel against its plain version at the engine's 256 lanes with M
-    rules; K classes and W signature words other than 8 take its generic
-    path."""
+def check_score(M, timed, K=8, W=8, B=LANES):
+    """The kernel against its plain version at B rows (by default the
+    engine's 256 lanes) with M rules; K classes and W signature words other
+    than 8 take its generic path."""
     import torch
     from repro_torch.kernels.flow_ingest import ops
 
-    params, rules, pooled, sig, sticky = score_inputs(LANES, M, SEED + M, K, W)
+    params, rules, pooled, sig, sticky = score_inputs(B, M, SEED + M, K, W)
     out_k, st_k = ops.flow_score(params, rules, pooled, sig, sticky)
     out_p, st_p = ops.flow_score_plain(params, rules, pooled, sig, sticky)
     torch.cuda.synchronize()
@@ -410,14 +422,14 @@ def check_score(M, timed, K=8, W=8):
     compare("flow_score sticky", st_k, st_p)
     hard_hits = int(out_p["hard_hit"].sum())
     rec = {"max_abs_err": err}
-    log("kernels", f"flow_score B={LANES} M={M} K={K} W={W} hard={hard_hits}: max abs err "
+    log("kernels", f"flow_score B={B} M={M} K={K} W={W} hard={hard_hits}: max abs err "
                    f"{err:.3e} (tolerance {ATOL:g} + {RTOL:g}*|ref|)")
     if timed:
         ms, call_ms = cuda_ms(lambda: ops.flow_score(params, rules, pooled, sig, sticky),
                               iters=200)
         plain_ms, plain_call_ms = cuda_ms(
             lambda: ops.flow_score_plain(params, rules, pooled, sig, sticky), iters=50)
-        floor_ms = launch_floor_ms(LANES)
+        floor_ms = launch_floor_ms(B)
         nbytes, flops = score_cost(params, rules, pooled, sig)
         bound_ms, bound_by = bound(nbytes, flops)
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -2610,6 +2622,436 @@ def phase_adapt():
 
 
 # --------------------------------------------------------------------------
+# 10. shard: sharded and elastic flow serving, N logical shards on the card
+# --------------------------------------------------------------------------
+
+SHARDS = 4  # logical shards of the paper-width sharded engine
+# floats of one launch over S x lanes rows against launches over lanes rows
+# (cuBLAS picks its kernels by row count).  Set between the sound readings
+# of (a) and its control, the same stacked launch with TF32 matmuls
+# allowed, which the limit must catch: on an H100 80GB HBM3 at 700 W, up
+# to 3.8e-05 sound and 6.3e-02 under TF32 (both s_nn; PERF.md section 6)
+SHARD_TOL = 1e-4
+N_TIMED = 4  # protocol-mix batches timed in (a), the two engines taking turns first
+ELASTIC_ARGS = ["--elastic", "--num-shards", "2", "--reshard", "4:4,8:2", "--batches", "12",
+                "--scenario", "rule-violating", "--packets", "64", "--pkt-len", str(PKT_LEN),
+                "--capacity", "1024", "--lanes", str(LANES)]
+
+
+def shard_paper_width():
+    """(a) A ShardedFlowEngine of SHARDS logical shards x CAPACITY / SHARDS
+    slots (lanes 256 per shard) beside a per-round FlowEngine (capacity
+    CAPACITY, lanes 256), both on the card with the paper classifier's
+    seed-0 weights, on the same protocol-mix and rule-violating batches,
+    held to each other within SHARD_TOL.  Then the control: the sharded
+    engine, reset, takes the first two batches again with TF32 matmuls
+    allowed, and its distance from the single engine is read."""
+    import torch
+    from repro_torch.data.pipeline import FlowScenario
+    from repro_torch.kernels.flow_ingest import fused as fmod
+    from repro_torch.serve.flow_engine import FlowEngine, FlowEngineConfig
+    from repro_torch.serve.sharded_flow_engine import ShardedFlowEngine
+    from repro_torch.train import classifier as C
+
+    ccfg, params = paper_classifier()
+    mix = FlowScenario(kind="protocol-mix", pkt_len=PKT_LEN, packets_per_batch=256, seed=SEED)
+    bad = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=256,
+                       seed=SEED, fid_base=1 << 32)
+    rules = C.default_rules(ccfg, bad.anomaly_signature, device="cuda")
+    plan = [("warm-up", mix.next_batch())] + [
+        ("timed", mix.next_batch()) for _ in range(N_TIMED)] + [
+        ("rule-violating", bad.next_batch())]
+    # the profiled batch: the first 64 packets of the next protocol-mix
+    # batch (flows already resident, so their rings are as full as the timed
+    # batches'; fewer rounds keep the profiler's cost down)
+    profiled = {k: v[:64] for k, v in mix.next_batch().items()}
+    budget = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    sharded = ShardedFlowEngine(ccfg, params, rules, FlowEngineConfig(
+        capacity=CAPACITY // SHARDS, lanes=LANES, state_budget_bytes=budget),
+        num_shards=SHARDS, device="cuda")
+    single = FlowEngine(ccfg, params, rules, FlowEngineConfig(
+        capacity=CAPACITY, lanes=LANES, state_budget_bytes=budget), device="cuda")
+    log("shard", f"(a) {SHARDS} shards x {CAPACITY // SHARDS} slots (aggregate "
+                 f"{sharded.aggregate_capacity}, {sharded.resident_state_bytes()} B) beside one "
+                 f"engine of {CAPACITY} slots ({single.resident_state_bytes()} B), lanes {LANES} "
+                 f"per shard, built in {time.perf_counter() - t0:.2f} s")
+    margins = RoundMargins(single)
+    wall = {"sharded": 0.0, "single": 0.0}
+    n_timed, worst, vetoes, ratios, wants = 0, {k: 0.0 for k in FLOATS}, 0, [], []
+    counts = {"decode_step": 0, "flow_score": 0, "rounds": 0}
+
+    def run_sharded(b):
+        before = {n: fmod.COUNTED[n].launches for n in ("decode_step", "flow_score")}
+        rounds0 = sharded.stats.rounds
+        t0 = time.perf_counter()
+        got = sharded.ingest(b["flow_ids"], b["tokens"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for n in before:
+            counts[n] += fmod.COUNTED[n].launches - before[n]
+        counts["rounds"] += sharded.stats.rounds - rounds0
+        return got, dt
+
+    def run_single(b):
+        with margins:
+            t0 = time.perf_counter()
+            want = single.ingest(b["flow_ids"], b["tokens"])
+            torch.cuda.synchronize()
+            return want, time.perf_counter() - t0, margins.margins()
+
+    for i, (kind, b) in enumerate(plan):
+        if i % 2:  # the engines take turns going first
+            want, t_single, mg = run_single(b)
+            got, t_sharded = run_sharded(b)
+        else:
+            got, t_sharded = run_sharded(b)
+            want, t_single, mg = run_single(b)
+        wants.append(want)
+        errs = hold_outputs(f"shard (a) batch {i} ({kind}): sharded vs single", got, want,
+                            SHARD_TOL, mg)
+        worst = {k: max(worst[k], errs[k]) for k in FLOATS}
+        if kind == "timed":
+            wall["sharded"] += t_sharded
+            wall["single"] += t_single
+            n_timed += len(b["flow_ids"])
+            ratios.append(t_single / t_sharded)
+        vetoes += int(got["vetoed"].sum())
+    st, sst = sharded.stats, single.stats
+    if (st.flows_created, st.flows_evicted, st.packets) != (
+            sst.flows_created, sst.flows_evicted, sst.packets):
+        fail(f"shard (a): flow counts differ, sharded {st} vs single {sst}")
+    if sorted(sharded.flow_ids()) != sorted(single.flow_ids()):
+        fail("shard (a): the resident flows differ")
+    if vetoes == 0:
+        fail("shard (a): no packet was vetoed")
+    shard_rows = {s: n for s, n in enumerate(sharded.resident_flows_per_shard())}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sharded.ingest(profiled["flow_ids"], profiled["tokens"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, _ = report_profile(prof, prof_wall, f"shard (a): one protocol-mix batch of "
+                             f"{len(profiled['flow_ids'])} packets, sharded")
+    pps = {k: n_timed / v for k, v in wall.items()}
+    per_round = {n: counts[n] / counts["rounds"] for n in ("decode_step", "flow_score")}
+    log("shard", f"(a) decisions identical on {len(plan)} batches ({vetoes} vetoes, "
+                 f"{st.flows_created} flows, {st.flows_evicted} evictions on both; pred where the "
+                 f"top-2 margin exceeds {REF_PRED_MARGIN:g}); max diffs sharded vs single "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                 + f" (limit {SHARD_TOL:g}); timed protocol-mix: {n_timed} packets in {N_TIMED} "
+                 f"batches, sharded {pps['sharded']:.1f} packets/s, single {pps['single']:.1f} "
+                 f"packets/s, sharded/single per batch " + ", ".join(f"{r:.3f}" for r in ratios)
+                 + f"; rounds {counts['rounds']} sharded vs {sst.rounds} single; launches per "
+                 f"sharded round " + ", ".join(f"{n} {v:.1f}" for n, v in per_round.items())
+                 + f"; busy share {'not measured' if busy is None else f'{busy / prof_wall / 1e3:.3f}'}")
+    log("shard", f"(a) resident flows per shard {shard_rows}")
+
+    # the control: what the limit is set to catch, a lower-precision stacked launch
+    control = {k: 0.0 for k in FLOATS}
+    flips = 0
+    sharded.reset()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for (kind, b), want in zip(plan[:2], wants):
+            got = sharded.ingest(b["flow_ids"], b["tokens"])
+            control = {k: max(control[k], float(np.abs(got[k] - want[k]).max())) for k in FLOATS}
+            flips += int((got["vetoed"] != want["vetoed"]).sum())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    log("shard", f"(a) control, the first 2 batches again with TF32 matmuls allowed: max diffs "
+                 f"sharded vs single " + ", ".join(f"{k} {v:.3e}" for k, v in control.items())
+                 + f", {flips} veto flips; the limit {SHARD_TOL:g} "
+                 + ("catches it" if max(control.values()) > SHARD_TOL else "does NOT catch it"))
+    return {"pps": pps, "ratios": ratios, "worst": worst, "control": control,
+            "per_round": per_round, "counts": counts,
+            "busy": None if busy is None else busy / prof_wall / 1e3}
+
+
+def shard_elastic():
+    """(b) The elastic service through the port's launcher (build and serve)
+    at the paper's width: 2 shards, reshard 2 -> 4 -> 2 over 12 rule-violating
+    batches, checkpoints every 6 ticks into a temporary directory; beside it a
+    service with no checkpoint directory on the same batches, never killed.
+    Then 2 more batches, the first service loses shard 1 and recovers (from
+    its in-memory checkpoint), and one more batch: every flow's decisions
+    and scores equal the other's.  A fresh service then restores the newest
+    checkpoint from disk, held to the in-memory one bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.checkpointer import flatten_with_names
+    from repro_torch.launch import flow_serve as F
+    from repro_torch.serve.deploy import ElasticConfig
+    from repro_torch.serve.elastic import ElasticFlowService, snapshot_flow_state
+
+    ccfg, params = paper_classifier()
+    budget = torch.cuda.mem_get_info()[0] // 4
+    tmp = tempfile.mkdtemp(prefix="chimera-elastic-")
+    try:
+        deps, results = {}, {}
+        for label, extra in (("service", ["--checkpoint-dir", tmp, "--checkpoint-every", "6"]),
+                             ("never killed", [])):
+            args = F.parse_args(ELASTIC_ARGS + extra + ["--state-budget-bytes", str(budget)])
+            t0 = time.perf_counter()
+            dep = deps[label] = F.build(args, params=params)
+            if dep.program.ccfg.arch != ccfg.arch:
+                fail("shard (b): the launcher's arch is not the paper classifier's")
+            build_s = time.perf_counter() - t0
+            saves = []
+            if dep.engine._ckpt is not None:
+                real_save = dep.engine._ckpt.save
+
+                def save(step, tree, extra=None, blocking=False, _real=real_save, _saves=saves):
+                    nbytes = sum(np.asarray(x).nbytes for x in flatten_with_names(tree)[1])
+                    t1 = time.perf_counter()
+                    _real(step, tree, extra=extra, blocking=blocking)
+                    _saves.append((extra["elastic"]["kind"], nbytes, time.perf_counter() - t1))
+
+                dep.engine._ckpt.save = save
+            res = results[label] = F.serve(dep, keep=True)
+            hold_invariants(f"shard (b) {label}", res.batches, res.outputs)
+            for line in F.report(dep, res):
+                log("shard", f"(b) {label}: {line}")
+            log("shard", f"(b) {label}: compile and deploy {build_s:.3f} s; " + "; ".join(
+                f"reshard @batch {i} {r.old_shards}->{r.new_shards}: {r.migrated_flows} flows "
+                f"migrated, {r.moved_flows} moved, install {r.install_s * 1e3:.3f} ms, "
+                f"churn_ok {r.churn_ok}" for i, r in res.reshards))
+            if not all(r.churn_ok and not r.rolled_back for _, r in res.reshards):
+                fail(f"shard (b) {label}: a reshard was rolled back")
+            if saves:
+                log("shard", f"(b) {label}: checkpoints " + "; ".join(
+                    f"{kind} {nbytes} B in {sec:.3f} s" for kind, nbytes, sec in saves))
+        svc, ref = deps["service"].engine, deps["never killed"].engine
+        worst = {k: 0.0 for k in FLOATS}
+        for i, (a, b) in enumerate(zip(results["service"].outputs, results["never killed"].outputs)):
+            errs = hold_outputs(f"shard (b) batch {i}: service vs never killed", a, b, SHARD_TOL)
+            worst = {k: max(worst[k], errs[k]) for k in FLOATS}
+        for _ in range(2):  # past the last checkpoint (tick 12): the replay window's work
+            b = deps["service"].scenario.next_batch()
+            if not np.array_equal(b["tokens"], deps["never killed"].scenario.next_batch()["tokens"]):
+                fail("shard (b): the two launchers' scenarios diverged")
+            hold_outputs("shard (b) after the checkpoint", svc.ingest(b["flow_ids"], b["tokens"]),
+                         ref.ingest(b["flow_ids"], b["tokens"]), SHARD_TOL)
+        lost = svc.kill_shard(1)
+        t0 = time.perf_counter()
+        rec = svc.recover()
+        recover_s = time.perf_counter() - t0
+        if svc.dead_shards() or svc.num_shards != 1 or not lost:
+            fail(f"shard (b): recovery left shards {svc.dead_shards()} of {svc.num_shards}")
+        b = deps["service"].scenario.next_batch()
+        deps["never killed"].scenario.next_batch()
+        errs = hold_outputs("shard (b) after recovery", svc.ingest(b["flow_ids"], b["tokens"]),
+                            ref.ingest(b["flow_ids"], b["tokens"]), SHARD_TOL)
+        worst = {k: max(worst[k], errs[k]) for k in FLOATS}
+        if sorted(svc.flow_ids()) != sorted(ref.flow_ids()):
+            fail("shard (b): the recovered service's flows differ from the never-killed one's")
+        flow_worst = {k: 0.0 for k in FLOATS}
+        for fid in ref.flow_ids():
+            g, w = svc.flow_scores(fid), ref.flow_scores(fid)
+            if (g["vetoed"], g["tokens"], g["pred"]) != (w["vetoed"], w["tokens"], w["pred"]):
+                fail(f"shard (b): flow {fid} after recovery {g} vs never killed {w}")
+            flow_worst = {k: max(flow_worst[k], abs(g[k] - w[k])) for k in FLOATS}
+        if max(flow_worst.values()) > SHARD_TOL:
+            fail(f"shard (b): flow scores after recovery differ by {flow_worst}")
+        vetoed = sum(svc.flow_scores(f)["vetoed"] for f in ref.flow_ids())
+        if not vetoed:
+            fail("shard (b): no flow was vetoed, so no sticky veto bit crossed the recovery")
+        # recover() took the checkpoint from memory; the disk path: a fresh
+        # service restores the newest checkpoint on disk, which must hold
+        # the in-memory snapshot's rows bit for bit
+        mem_snap, mem_meta = svc._last_ckpt
+        t0 = time.perf_counter()
+        fresh = ElasticFlowService(deps["service"].program, svc.fcfg,
+                                   ElasticConfig(checkpoint_dir=tmp), num_shards=2, device="cuda")
+        step = fresh.restore_checkpoint()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        disk_names, disk_leaves = flatten_with_names(snapshot_flow_state(fresh.engine))
+        mem_names, mem_leaves = flatten_with_names(mem_snap)
+        if disk_names != mem_names or not all(
+                np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(disk_leaves, mem_leaves)):
+            fail("shard (b): the checkpoint restored from disk differs from the in-memory snapshot")
+        if fresh.engine._tick != mem_meta["tick"]:
+            fail(f"shard (b): restored tick {fresh.engine._tick} vs {mem_meta['tick']}")
+        log("shard", f"(b) disk restore: a fresh 2-shard service loaded checkpoint step {step} "
+                     f"({len(mem_snap['fids'])} flows, tick {mem_meta['tick']}) in {restore_s:.3f} "
+                     f"s (deploy included); its rows equal the in-memory snapshot's bit for bit")
+        del fresh
+        log("shard", f"(b) kill shard 1 ({len(lost)} flows lost) and recover: {rec.old_shards}->"
+                     f"{rec.new_shards} shards, {rec.restored_flows} flows restored from the "
+                     f"in-memory checkpoint at tick {mem_meta['tick']}, {rec.replayed_packets} "
+                     f"packets replayed, install {rec.install_s * 1e3:.3f} ms, recover "
+                     f"{recover_s:.3f} s; then every flow ({len(ref.flow_ids())}, {vetoed} vetoed) "
+                     f"equals the never-killed service's: vetoes, tokens, pred identical, max "
+                     f"diffs " + ", ".join(f"{k} {v:.3e}" for k, v in flow_worst.items())
+                     + "; outputs over the run " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        out = {"reshards": [r.as_dict() for _, r in results["service"].reshards],
+               "recover_s": recover_s, "recover": rec.as_dict(), "restore_s": restore_s,
+               "pps": {k: r.packets_per_s for k, r in results.items()}}
+        del deps, svc, ref
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def shard_int_emulation():
+    """(c) int-emulation sharded (SHARDS shards x 32 slots, lanes 16) at the
+    smoke width (the program phase's program), on the card against the CPU,
+    with a swap_tables(delta=...) after batch 2."""
+    import dataclasses
+
+    import torch
+    from repro_torch.compile import compile_delta, compile_program
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import FlowScenario
+    from repro_torch.serve.deploy import DeploySpec
+    from repro_torch.serve.flow_engine import FlowEngineConfig
+    from repro_torch.train import classifier as C
+
+    arch = dataclasses.replace(smoke_config("chimera-dataplane"), vocab_size=512)
+    sccfg = C.ClassifierConfig(arch=arch, n_classes=8, marker_base=256)
+    sparams = C.init_classifier(sccfg, torch.Generator().manual_seed(SEED + 60), device="cpu")
+    sc = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=48,
+                      seed=SEED + 61)
+    iprog = compile_program(sccfg, sparams, backend="int-emulation", verify=False,
+                            rules=lambda c: C.default_rules(c, sc.anomaly_signature, device="cpu"))
+    delta = compile_delta(iprog, weights=[-2.5], step=1)
+    engs = {dev: iprog.deploy(DeploySpec(engine="sharded", num_shards=SHARDS, device=dev,
+                                         flow=FlowEngineConfig(capacity=32, lanes=16,
+                                                               state_budget_bytes=1 << 40)))
+            for dev in ("cuda", "cpu")}
+    boundary, moved, n, vetoes = set(), 0, 0, 0
+    for i in range(4):
+        b = sc.next_batch()
+        if i == 2:
+            for e in engs.values():
+                e.swap_tables(delta=delta)
+        got, want = (engs[d].ingest(b["flow_ids"], b["tokens"]) for d in ("cuda", "cpu"))
+        ge, we = engs["cuda"], engs["cpu"]
+        for k in ("vetoed", "sig"):
+            if not (got[k] == want[k]).all():
+                fail(f"shard (c) batch {i}: {k} differs card vs CPU")
+        if not ((got["trust"] == 1.0) == got["vetoed"]).all():
+            fail(f"shard (c) batch {i}: trust == 1.0 is not exactly the veto")
+        if ge.stats != we.stats or [t.slot_of for t in ge.tables] != [t.slot_of for t in we.tables]:
+            fail(f"shard (c) batch {i}: stats or slots differ card vs CPU")
+        ghs = ge.hidden_sum.cpu().numpy().astype(np.int64)
+        whs = we.hidden_sum.numpy().astype(np.int64)
+        for s, t in enumerate(we.tables):
+            for fid, slot in t.slot_of.items():
+                d = np.abs(ghs[s, slot] - whs[s, slot])
+                if (d > int(we.positions[s, slot])).any():
+                    fail(f"shard (c): flow {fid}'s hidden_sum differs by more than one LSB per "
+                         f"token card vs CPU")
+                if d.any():
+                    boundary.add(fid)
+        diff = np.zeros(len(b["flow_ids"]), bool)
+        for k in ("trust", "s_nn", "s_sym", "pred"):
+            diff |= got[k] != want[k]
+        edge = np.array([f in boundary for f in b["flow_ids"].tolist()], bool)
+        if (diff & ~edge).any():
+            fail(f"shard (c) batch {i}: quantized scores differ on a flow whose accumulator "
+                 f"does not")
+        moved += int(diff.sum())
+        n += len(diff)
+        vetoes += int(got["vetoed"].sum())
+    if not torch.equal(engs["cuda"]._int_tables["rule_w"].cpu(), engs["cpu"]._int_tables["rule_w"]):
+        fail("shard (c): the re-lowered rule_w differs card vs CPU")
+    log("shard", f"(c) int-emulation, {SHARDS} shards at the smoke width (d 64), 4 rule-violating "
+                 f"batches ({n} packets, {vetoes} vetoes), swap_tables(delta) after batch 2, card "
+                 f"vs CPU: decisions, slots and stats identical, quantized scores identical but "
+                 f"on {moved} packets ({len(boundary)} flows whose int32 hidden_sum moved by a "
+                 f"rounding LSB)")
+    return {"moved": moved, "packets": n, "boundary_flows": len(boundary)}
+
+
+def scratch_scatter_check():
+    """The flow step's scatter at the sharded width: every shard's padding
+    lanes write its one scratch row (duplicate indices), its real lanes
+    distinct rows.  Real rows must get exactly their lanes' values, by
+    default and under ``torch.use_deterministic_algorithms`` (reported, not
+    held, if that mode refuses the scatter)."""
+    import torch
+
+    S, n_slots, d = SHARDS, CAPACITY // SHARDS + 1, 256
+    g = torch.Generator().manual_seed(SEED + 90)
+    idx = torch.arange(S)[:, None].repeat(1, LANES) * n_slots + (n_slots - 1)
+    real = torch.randperm(n_slots - 1, generator=g)[:LANES // 2]
+    idx[:, : LANES // 2] = torch.arange(S)[:, None] * n_slots + real
+    idx = idx.reshape(-1).cuda()
+    rows = torch.randn((S * LANES, d), generator=g).cuda()
+    keep = torch.ones((S, LANES), dtype=torch.bool)
+    keep[:, LANES // 2:] = False
+    keep = keep.reshape(-1).cuda()
+    outs = {}
+    for mode in ("default", "deterministic"):
+        t = torch.zeros((S * n_slots, d), device="cuda")
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        try:
+            t[idx] = rows
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            outs[mode] = f"raises: {str(e)[:120]}"
+            continue
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not torch.equal(t[idx[keep]], rows[keep]):
+            fail(f"shard: the {mode} scatter wrote wrong values into real rows")
+        outs[mode] = t
+    same = (torch.equal(outs["default"], outs["deterministic"])
+            if not isinstance(outs["deterministic"], str) else outs["deterministic"])
+    log("shard", f"scatter with {S * (LANES - LANES // 2)} padding lanes on {S} scratch rows: real "
+                 f"rows exact; under use_deterministic_algorithms the table equals the default "
+                 f"scatter's: {same}")
+
+
+def phase_shard():
+    """Sharded and elastic flow serving on one card: (a) the paper's width,
+    sharded beside single; (b) the elastic service through the launcher,
+    resharded, checkpointed, a shard killed and recovered; (c) sharded
+    int-emulation card vs CPU.  The stacked-width decode_step and flow_score
+    are held against their plain versions and timed first; then the kernels' launch
+    counters are zeroed, and each part fails if a kernel of its path never
+    launched."""
+    from repro_torch.kernels.flow_ingest import fused as fmod
+
+    stacked = check_decode(with_global=True, timed=True, B=SHARDS * LANES)
+    log("shard", f"decode_step at the stacked width ({SHARDS} x {LANES} lanes x 4 kv-heads = "
+                 f"{SHARDS * LANES * 4} rows): {stacked['ms']:.4f} ms per launch, bound "
+                 f"{stacked['bound_ms']:.4f} ms by {stacked['bound_by']}, plain "
+                 f"{stacked['plain_ms']:.4f} ms")
+    # default_rules' one rule; the paper classifier's 8 classes, 8 words
+    score = check_score(M=1, timed=True, B=SHARDS * LANES)
+    log("shard", f"flow_score at the stacked width ({SHARDS} x {LANES} lanes = "
+                 f"{SHARDS * LANES} rows): {score['ms']:.5f} ms per launch, launch floor "
+                 f"{score['floor_ms']:.5f} ms, bound {score['bound_ms']:.6f} ms by "
+                 f"{score['bound_by']}, plain {score['plain_ms']:.4f} ms")
+    scratch_scatter_check()
+    counted = ("decode_step", "flow_score", "int_flow_score")
+    rec, launched = {"decode_stacked": stacked, "score_stacked": score}, {}
+    for part, fn, needs in (("paper", shard_paper_width, ("decode_step", "flow_score")),
+                            ("elastic", shard_elastic, ("decode_step", "flow_score")),
+                            ("int", shard_int_emulation, ("int_flow_score",))):
+        for name in counted:
+            fmod.COUNTED[name].launches = 0
+        t0 = time.perf_counter()
+        rec[part] = fn()
+        launched[part] = {name: fmod.COUNTED[name].launches for name in counted}
+        log("shard", f"{part} part: {time.perf_counter() - t0:.1f} s")
+        if min(launched[part][name] for name in needs) == 0:
+            fail(f"shard: a kernel was never launched on the {part} part's path: "
+                 f"{launched[part]}")
+    rec["launches"] = {name: sum(p[name] for p in launched.values()) for name in counted}
+    log("shard", f"launches on the shard phase's path: {launched}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 
 def main():
     t_start = time.perf_counter()
@@ -2629,6 +3071,8 @@ def main():
     recs["int_flow_score"] = program["int_flow_score"]
     launches["int_flow_score"] = program["launches"]["int_flow_score"]
     timed("adapt", phase_adapt)
+    for name, n in timed("shard", phase_shard)["launches"].items():
+        launches[name] += n
     launches["chimera_attention"] = timed("train", phase_train, recs)["launches"][
         "chimera_attention"]
     launches["window_attention"] = timed("serve", phase_serve, recs)["launches"]["window_attention"]

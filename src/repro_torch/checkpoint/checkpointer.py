@@ -12,12 +12,14 @@ leaves a half checkpoint.  Saves may run on a writer thread; ``keep``
 bounds the steps kept.
 
 A tree is nested dicts whose leaves are tensors or arrays, with a RuleSet
-(anything with ``tensors()``) as a node of four leaves.  Leaves go out in
-JAX's flatten order (sorted dict keys; a RuleSet as values, masks,
-weights, hard) under JAX's ``keystr`` names (``['params']['cls']['w']``,
-``['rules'][<flat index 0>]``), so JAX's positional ``restore`` reads
-what this writes.  :meth:`Checkpointer.restore` reads by those names into
-nested dicts of numpy arrays (a RuleSet's leaves under the keys 0..3),
+(anything with ``tensors()``) or a decode state (``leaves()``) as a node
+flattened by position, as JAX flattens its registered nodes.  Leaves go
+out in JAX's flatten order (sorted dict keys; a RuleSet as values, masks,
+weights, hard; a decode state as S, Z, k_buf, v_buf, count) under JAX's
+``keystr`` names (``['params']['cls']['w']``, ``['rules'][<flat index
+0>]``), so JAX's positional ``restore`` reads what this writes.
+:meth:`Checkpointer.restore` reads by those names into nested dicts of
+numpy arrays (a positional node's leaves under the keys 0, 1, ...),
 needing no target tree.
 """
 
@@ -48,8 +50,8 @@ def flatten_with_names(tree: Any, prefix: str = "") -> Tuple[List[str], List[Any
             names += n
             leaves += lv
         return names, leaves
-    if hasattr(tree, "tensors"):  # RuleSet: a node flattened by position
-        ts = tree.tensors()
+    if hasattr(tree, "tensors") or hasattr(tree, "leaves"):  # nodes flattened by position
+        ts = tree.tensors() if hasattr(tree, "tensors") else tree.leaves()
         return [f"{prefix}[<flat index {i}>]" for i in range(len(ts))], list(ts)
     return [prefix], [tree]
 

@@ -1,10 +1,10 @@
 """Traffic and token streams (numpy only).
 
 A copy of the parts of ``repro.data.pipeline`` that the port needs
-(``_rng``, ``_traffic_tables``, ``flow_shard``, ``arrival_rounds``,
-``TokenStream``, ``PacketStream``, ``SCENARIO_KINDS``, ``FlowScenario``
-and the drift schedules ``DriftPhase``, ``label_ramp``, ``parse_phases``
-and ``DriftScenario``), so the port runs where JAX is not installed.  Same
+(``_rng``, ``_traffic_tables``, ``flow_shard``, ``reshard_moves``,
+``arrival_rounds``, ``TokenStream``, ``PacketStream``, ``SCENARIO_KINDS``,
+``FlowScenario`` and the drift schedules ``DriftPhase``, ``label_ramp``,
+``parse_phases`` and ``DriftScenario``), so the port runs where JAX is not installed.  Same
 seeds, same draw order: both packages emit the same batches, which the
 port's tests check.
 """
@@ -57,6 +57,18 @@ def flow_shard(fids, num_shards: int) -> np.ndarray:
     z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
     z = z ^ (z >> np.uint64(31))
     return (z % np.uint64(num_shards)).astype(np.int64)
+
+
+def reshard_moves(fids, old_shards: int, new_shards: int) -> np.ndarray:
+    """Boolean mask of flows whose owner changes between two shard counts —
+    the migrating key ranges a live reshard must quiesce (flows whose owner
+    is unchanged could keep serving through the install).  Pure function of
+    :func:`flow_shard`, so the service and the traffic generators agree on
+    exactly which keys move."""
+    f = np.atleast_1d(np.asarray(fids))
+    if f.size == 0:
+        return np.zeros((0,), bool)
+    return flow_shard(f, old_shards) != flow_shard(f, new_shards)
 
 
 def arrival_rounds(keys) -> "list[list[int]]":

@@ -26,11 +26,23 @@ arch's flow table exceeds the switch budget: give it
     PYTHONPATH=src python -m repro_torch.launch.flow_serve --smoke --campaign scan-evasion
     PYTHONPATH=src python -m repro_torch.launch.flow_serve --smoke --trace sample --device cpu
 
+Scale-out on one card: ``--num-shards N`` deploys a ShardedFlowEngine of N
+logical shards (``--capacity`` is then per shard); ``--elastic`` deploys
+the :class:`~repro_torch.serve.elastic.ElasticFlowService`: ``--reshard
+4:4,12:2`` reshards to 4 shards before batch 4 and back to 2 before batch
+12 (each install measured against Eq. 18), and ``--checkpoint-dir`` /
+``--checkpoint-every`` write flow-state checkpoints for kill-a-shard
+recovery.  ``--fused`` serves one engine only, and ``--adapt`` a fixed
+engine: both refuse ``--elastic`` (``--fused`` also ``--num-shards``), as
+in the JAX package.  ``--host-devices`` (the JAX package's XLA host
+platform flag) raises: logical shards need no devices.
+
+    PYTHONPATH=src python -m repro_torch.launch.flow_serve --smoke --elastic \
+        --num-shards 2 --reshard 4:4,12:2 --batches 16
+
 The weights are random, drawn from a ``torch.Generator`` seeded 0.  The
 engine runs on ``--device`` (``cuda`` unless ``cpu`` is asked for; without
-a GPU it raises).  ``--num-shards``, ``--elastic``, ``--reshard``,
-``--checkpoint-dir``, ``--checkpoint-every`` and ``--host-devices`` raise:
-sharded and elastic serving wait for ROADMAP Queue 1 item 10.
+a GPU it raises).
 
 :func:`build` and :func:`serve` are the CLI's body, callable in-process
 (``chip_smoke.py`` and the tests drive them); :func:`main` parses, builds,
@@ -47,16 +59,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-NOT_PORTED = (
-    "{flag}: sharded and elastic serving are not ported yet (ROADMAP Queue 1, "
-    "item 10 'Sharding on one H100'); serve one FlowEngine instead"
+HOST_DEVICES = (
+    "--host-devices forces N XLA host-platform devices in the JAX package; it has "
+    "no counterpart on the card: the port's shards are logical shards of one "
+    "device and need no devices. Use --num-shards N"
 )
-# flag -> argparse destination of the options that wait for the sharded engines
-SHARDING_FLAGS = {
-    "--num-shards": "num_shards", "--elastic": "elastic", "--reshard": "reshard",
-    "--checkpoint-dir": "checkpoint_dir", "--checkpoint-every": "checkpoint_every",
-    "--host-devices": "host_devices",
-}
 DEFAULT_DRIFT = "protocol-mix:6,rule-violating:8:1:0.6,heavy-churn:6:1"
 
 
@@ -106,24 +113,45 @@ def make_parser() -> argparse.ArgumentParser:
                          "= the committed fixture) instead of a generator")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs: cuda (default) or cpu")
-    # the sharded and elastic options of the JAX package's launcher: they raise
-    ap.add_argument("--num-shards", type=int, default=0)
-    ap.add_argument("--elastic", action="store_true")
-    ap.add_argument("--reshard", default="")
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=0)
-    ap.add_argument("--host-devices", type=int, default=0)
+    ap.add_argument("--num-shards", type=int, default=0,
+                    help="shard the flow table into N logical shards on the "
+                         "device; 0 = one FlowEngine")
+    ap.add_argument("--elastic", action="store_true",
+                    help="deploy the ElasticFlowService: sharded serving with "
+                         "live resharding, flow-state checkpoints and "
+                         "admission control")
+    ap.add_argument("--reshard", default="", metavar="B:S,...",
+                    help="live-reshard schedule: before batch B, reshard to S "
+                         "shards (comma-separated; requires --elastic), e.g. 4:4,12:2")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="elastic flow-state checkpoint directory")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="ticks between automatic elastic checkpoints (0 = manual)")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="the JAX package's XLA host-device count: raises here")
     return ap
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = make_parser()
     args = ap.parse_args(argv)
-    for flag, dest in SHARDING_FLAGS.items():
-        if getattr(args, dest) != ap.get_default(dest):
-            raise NotImplementedError(NOT_PORTED.format(flag=flag))
+    if args.host_devices:
+        raise NotImplementedError(HOST_DEVICES)
     if args.campaign and args.trace:
         ap.error("--campaign and --trace are mutually exclusive")
+    if args.fused and (args.num_shards or args.elastic):
+        ap.error("--fused serves one engine (the sharded engine launches per-round "
+                 "steps); drop --fused or --num-shards/--elastic")
+    if args.reshard and not args.elastic:
+        ap.error("--reshard needs --elastic (only the ElasticFlowService can change "
+                 "num_shards live)")
+    if args.elastic and (args.adapt or args.campaign):
+        ap.error("--adapt drives a fixed engine; combining it with --elastic "
+                 "resharding is not supported")
+    args.reshard_plan = {}
+    for part in filter(None, args.reshard.split(",")):
+        b, n = part.split(":")
+        args.reshard_plan[int(b)] = int(n)
     args.batches_given = args.batches != ap.get_default("batches")
     return args
 
@@ -149,6 +177,7 @@ class ServeResult:
     seconds: float  # host wall clock around the batches, generation included
     batches: Optional[List[Dict[str, np.ndarray]]] = None  # kept inputs
     outputs: Optional[List[Dict[str, np.ndarray]]] = None  # kept outputs
+    reshards: List[Any] = dataclasses.field(default_factory=list)  # (batch, ReshardRecord)
 
     @property
     def packets_per_s(self) -> float:
@@ -164,7 +193,7 @@ def build(args: argparse.Namespace, params=None) -> Deployment:
     from repro_torch.compile import compile_program
     from repro_torch.configs.registry import get_config, smoke_config
     from repro_torch.data.pipeline import DriftScenario, FlowScenario, parse_phases
-    from repro_torch.serve.deploy import DeploySpec
+    from repro_torch.serve.deploy import DeploySpec, ElasticConfig
     from repro_torch.serve.flow_engine import FlowEngineConfig
     from repro_torch.train import classifier as C
 
@@ -232,7 +261,17 @@ def build(args: argparse.Namespace, params=None) -> Deployment:
     fcfg = FlowEngineConfig(capacity=args.capacity, lanes=args.lanes,
                             idle_timeout=args.idle_timeout, fused=args.fused,
                             state_budget_bytes=args.state_budget_bytes)
-    engine = program.deploy(DeploySpec(flow=fcfg, device=device))
+    if args.elastic:
+        spec = DeploySpec(engine="elastic", flow=fcfg, num_shards=args.num_shards or 1,
+                          elastic=ElasticConfig(checkpoint_dir=args.checkpoint_dir,
+                                                checkpoint_every=args.checkpoint_every),
+                          device=device)
+    elif args.num_shards:
+        spec = DeploySpec(engine="sharded", flow=fcfg, num_shards=args.num_shards,
+                          device=device)
+    else:
+        spec = DeploySpec(flow=fcfg, device=device)
+    engine = program.deploy(spec)
     dep = Deployment(args=args, program=program, engine=engine, scenario=scenario,
                      label=label)
     if args.adapt:
@@ -264,10 +303,12 @@ def serve(dep: Deployment, keep: bool = False) -> ServeResult:
     ``keep`` the batches and their outputs come back too."""
     args, engine, loop, pipe = dep.args, dep.engine, dep.loop, dep.pipe
     sink = loop if loop is not None else engine
-    batches, outputs = [], []
+    batches, outputs, reshards = [], [], []
     t0 = time.perf_counter()
     pkts = 0
-    for _ in range(args.batches):
+    for i in range(args.batches):
+        if i in args.reshard_plan:
+            reshards.append((i, engine.reshard(args.reshard_plan[i])))
         batch = dep.scenario.next_batch()
         if pipe is not None:
             pipe.submit(batch["flow_ids"], batch["tokens"])
@@ -289,7 +330,8 @@ def serve(dep: Deployment, keep: bool = False) -> ServeResult:
 
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
-    return ServeResult(pkts, dt, batches if keep else None, outputs if keep else None)
+    return ServeResult(pkts, dt, batches if keep else None, outputs if keep else None,
+                       reshards)
 
 
 def report(dep: Deployment, res: ServeResult) -> List[str]:
@@ -297,15 +339,24 @@ def report(dep: Deployment, res: ServeResult) -> List[str]:
     args, engine, loop = dep.args, dep.engine, dep.loop
     s = engine.stats
     lines = [
+        f"reshard @batch {i}: {rec.old_shards}->{rec.new_shards} shards, "
+        f"{rec.migrated_flows} flows migrated ({rec.moved_flows} moved) in "
+        f"{rec.install_s * 1e3:.2f}ms {'ok' if rec.churn_ok else 'ROLLED BACK'}"
+        for i, rec in res.reshards
+    ]
+    capacity = getattr(engine, "aggregate_capacity", args.capacity)
+    budget = getattr(engine, "aggregate_state_budget_bytes", engine.state_budget_bytes)
+    shards = f" shards={engine.num_shards}" if (args.num_shards or args.elastic) else ""
+    lines.append(
         f"{dep.label}: {res.packets} packets / {s.flows_created} flows in "
         f"{res.seconds:.2f}s = {res.packets_per_s:.0f} pkt/s "
         f"({res.packets * args.pkt_len / res.seconds:.0f} tok/s) | "
-        f"backend={engine.backend} device={engine.device} "
-        f"resident={engine.resident_flows}/{args.capacity} evicted={s.flows_evicted} "
+        f"backend={engine.backend}{shards} device={engine.device} "
+        f"resident={engine.resident_flows}/{capacity} evicted={s.flows_evicted} "
         f"(rate {s.eviction_rate:.2f}/tick) | "
         f"state={engine.resident_state_bytes() / 2**20:.1f}MiB "
-        f"of {engine.state_budget_bytes / 2**20:.0f}MiB budget"
-    ]
+        f"of {budget / 2**20:.0f}MiB budget"
+    )
     if loop is not None:
         h = loop.history
         mode = "sync" if args.adapt_sync else "async"

@@ -38,10 +38,11 @@ and a CPU view of the program (:attr:`host_program`) that ``compile_delta``
 packs against.  k-means runs on CPU tensors.  Only the install, on the
 main thread at a tick boundary, copies the delta's tables to the card.
 
-Not ported: the sharded engine's harvest (it waits for the sharded engine,
-ROADMAP Queue 1 item 10) and ``jit_entry_points`` (the retrace sentry,
-item 12): on the card the loop's counterpart of "no retrace" is "no graph
-captured after warm-up", which ``chip_smoke.py`` checks.
+Over a :class:`~repro_torch.serve.sharded_flow_engine.ShardedFlowEngine`
+the harvest reads each shard's rows in slot order, shard by shard, as the
+JAX package's does.  Not ported: ``jit_entry_points`` (the retrace
+sentry, item 12): on the card the loop's counterpart of "no retrace" is
+"no graph captured after warm-up", which ``chip_smoke.py`` checks.
 """
 
 from __future__ import annotations
@@ -342,17 +343,23 @@ class AdaptiveLoop:
 
     def _harvest_pooled(self, cap: int) -> Optional[np.ndarray]:
         """Pooled hidden features of up to ``cap`` resident flows (the
-        control plane's recluster reservoir), in slot order, so the sample
-        is deterministic for a replayed stream.  Reads the table tensors the
-        fused graphs write in place; a float32 result under int-emulation
-        too (int32 / int32 is a true division)."""
+        control plane's recluster reservoir), in slot order (shard by shard
+        on a sharded engine), so the sample is deterministic for a replayed
+        stream.  Reads the table tensors the fused graphs write in place; a
+        float32 result under int-emulation too (int32 / int32 is a true
+        division)."""
         eng = self.engine
-        slots = sorted(eng.table.fid_of)[:cap]
-        if not slots:
+        rows: List[int] = []
+        for s, t in enumerate(eng.tables):
+            rows += [s * eng._n_slots + slot for slot in sorted(t.fid_of)[: cap - len(rows)]]
+            if len(rows) >= cap:
+                break
+        _, positions, _, hidden_sum, _ = eng.flat_tables()
+        if not rows:
             return None
-        idx = torch.tensor(slots, dtype=torch.long, device=eng.device)
-        pos = torch.clamp(eng.positions[idx], min=1)[:, None]
-        return (eng.hidden_sum[idx] / pos).to(torch.float32).cpu().numpy()
+        idx = torch.tensor(rows, dtype=torch.long, device=eng.device)
+        pos = torch.clamp(positions[idx], min=1)[:, None]
+        return (hidden_sum[idx] / pos).to(torch.float32).cpu().numpy()
 
     # ------------------------------------------------------------------
     # drift policy

@@ -1,23 +1,29 @@
 """One front door onto the serving runtimes (port of ``repro.serve.deploy``:
-``DeploySpec`` :88, ``Engine`` :128, ``_site_fcfg`` :154,
-``_reset_deploy_stages`` :164, ``build_flow_engine`` :170,
-``build_serve_engine`` :238, ``deploy_program`` :254)::
+``TenantSpec`` :55, ``ElasticConfig`` :71, ``DeploySpec`` :88, ``Engine``
+:128, ``_site_fcfg`` :154, ``_reset_deploy_stages`` :164,
+``build_flow_engine`` :170, ``build_sharded_engine`` :189,
+``record_sharding_entry`` :220, ``build_serve_engine`` :238,
+``deploy_program`` :254)::
 
-    from repro_torch.serve.deploy import DeploySpec
+    from repro_torch.serve.deploy import DeploySpec, ElasticConfig
 
     engine = program.deploy(DeploySpec())                      # FlowEngine on the card
     engine = program.deploy(DeploySpec(device="cpu"))          # ... on the CPU
+    engine = program.deploy(DeploySpec(engine="sharded",
+                                       num_shards=4))          # 4 shards, one card
+    service = program.deploy(DeploySpec(engine="elastic", num_shards=2,
+                                        elastic=ElasticConfig(checkpoint_dir="ck")))
     lm = program.deploy(DeploySpec(engine="lm", batch_slots=8))
 
-The ``"sharded"`` and ``"elastic"`` kinds wait for the sharding item of
-ROADMAP Queue 1 and raise.  The JAX package's positional ``deploy(fcfg,
-mesh=..., num_shards=...)`` form is not ported.
+Sharded and elastic deploys place every shard on the one device the spec
+names: the JAX package's ``mesh=`` and its positional ``deploy(fcfg,
+mesh=..., num_shards=...)`` form have no counterpart.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Protocol, runtime_checkable
+from typing import Any, Dict, Optional, Protocol, Tuple, runtime_checkable
 
 from repro_torch.serve.flow_engine import FlowEngineConfig
 
@@ -27,10 +33,34 @@ ENGINE_KINDS = ("flow", "sharded", "elastic", "lm")
 #: so the program's audit trail always describes the active deployment
 DEPLOY_STAGES = ("flow-table-sharding", "int-lowering", "admission-control")
 
-SHARDING_NOT_PORTED = (
-    "engine={kind!r}: the sharded and elastic engines are not ported yet "
-    "(ROADMAP Queue 1, the item 'Sharding on one H100'); deploy engine='flow'"
-)
+
+@dataclasses.dataclass(frozen=True)
+class TenantSpec:
+    """Admission-control identity: a traffic class holding a bounded share
+    of the aggregate flow table.  Under pressure, new flows of
+    lower-priority tenants are shed first."""
+
+    name: str
+    priority: int = 0  # higher priority survives longer under pressure
+    share: float = 1.0  # fraction of aggregate flow capacity this tenant may hold
+
+    def __post_init__(self):
+        if not (0.0 < self.share <= 1.0):
+            raise ValueError(f"tenant {self.name!r}: share must be in (0, 1], "
+                             f"got {self.share}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticConfig:
+    """Knobs of :class:`~repro_torch.serve.elastic.ElasticFlowService`."""
+
+    checkpoint_dir: Optional[str] = None  # flow-state checkpoints (None = in-memory)
+    checkpoint_every: int = 0  # ticks between automatic checkpoints (0 = manual)
+    replay_window: int = 64  # ingest batches buffered for post-recovery replay
+    heartbeat_timeout_s: float = 60.0  # shard liveness horizon (HeartbeatMonitor)
+    keep_topologies: bool = True  # keep an engine per shard count: reshard-back reuses it
+    tenants: Tuple[TenantSpec, ...] = ()
+    default_tenant: str = "default"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,17 +68,20 @@ class DeploySpec:
     """Declarative deployment request for :meth:`repro_torch.compile
     .DataplaneProgram.deploy`.
 
-    ``flow`` carries the flow-table knobs (capacity, lanes, fused, t_cp).
+    ``flow`` carries the flow-table knobs (capacity, lanes, fused, t_cp);
+    for sharded and elastic deploys ``capacity`` is per shard, and
+    ``num_shards`` (``None``: 1) counts logical shards on the one device.
     ``backend`` overrides both ``flow.backend`` and the program's backend.
     ``batch_slots`` / ``max_len`` / ``temperature`` / ``seed`` apply to the
     ``"lm"`` slot engine only.  ``device`` is where the engine runs:
     ``None`` means ``"cuda"``, and without a GPU the deploy raises.
     """
 
-    engine: str = "flow"  # "flow" | "lm" ("sharded" | "elastic" are not ported)
+    engine: str = "flow"  # "flow" | "sharded" | "elastic" | "lm"
     flow: FlowEngineConfig = FlowEngineConfig()
     num_shards: Optional[int] = None
     backend: Optional[str] = None
+    elastic: ElasticConfig = ElasticConfig()
     # LM slot-engine knobs (engine="lm")
     batch_slots: int = 8
     max_len: int = 4096
@@ -116,6 +149,52 @@ def build_flow_engine(program, fcfg: FlowEngineConfig = FlowEngineConfig(), *,
     return eng
 
 
+def build_sharded_engine(program, fcfg: FlowEngineConfig = FlowEngineConfig(), *,
+                         num_shards: Optional[int] = None, backend: Optional[str] = None,
+                         record: bool = True, device=None):
+    """Deploy ``program`` on a :class:`~repro_torch.serve.sharded_flow_engine
+    .ShardedFlowEngine` of ``num_shards`` logical shards on ``device``.
+
+    The per-shard Eq. 11 budget check runs at construction; with ``record``
+    (the default) the per-shard usage and the shards x budget aggregate are
+    refreshed in the program's ledger.  The elastic service passes
+    ``record=False`` when it builds a provisional reshard target and
+    refreshes the ledger itself on commit.
+    """
+    from repro_torch.serve.flow_engine import _engine_kwargs_from_program
+    from repro_torch.serve.sharded_flow_engine import ShardedFlowEngine
+
+    kw = _engine_kwargs_from_program(program)
+    eng = ShardedFlowEngine(kw["ccfg"], kw["params"], kw["rules"],
+                            _site_fcfg(program, fcfg, backend),
+                            num_shards=1 if num_shards is None else num_shards, device=device)
+    eng.program = program
+    if record:
+        _reset_deploy_stages(program)
+        program.ledger.entries.extend(eng._int_entries)
+        record_sharding_entry(program, eng)
+        program.ledger.raise_if_over()
+    return eng
+
+
+def record_sharding_entry(program, eng, note: str = "") -> None:
+    """Refresh the ``flow-table-sharding`` StageEntry to describe ``eng``
+    (the active sharded placement).  Reshards call this on commit."""
+    program.ledger.entries = [
+        e for e in program.ledger.entries if e.stage != "flow-table-sharding"
+    ]
+    program.ledger.add(
+        "flow-table-sharding", "per-shard-table-bytes",
+        used=eng.shard_state_bytes(), budget=eng.state_budget_bytes,
+        detail=(
+            f"{eng.num_shards} shard(s) x {eng.fcfg.capacity} flows/shard; "
+            f"aggregate capacity {eng.aggregate_capacity} flows, "
+            f"aggregate budget {eng.aggregate_state_budget_bytes} B"
+            + (f"; {note}" if note else "")
+        ),
+    )
+
+
 def build_serve_engine(program, *, batch_slots: int = 8, max_len: int = 4096,
                        temperature: float = 0.0, seed: int = 0, device=None):
     """Deploy ``program``'s backbone as the LM slot engine
@@ -139,8 +218,14 @@ def deploy_program(program, spec: DeploySpec = DeploySpec()):
         raise TypeError(f"deploy_program expects a DeploySpec, got {type(spec).__name__}")
     if spec.engine == "flow":
         return build_flow_engine(program, spec.flow, backend=spec.backend, device=spec.device)
-    if spec.engine in ("sharded", "elastic"):
-        raise NotImplementedError(SHARDING_NOT_PORTED.format(kind=spec.engine))
+    if spec.engine == "sharded":
+        return build_sharded_engine(program, spec.flow, num_shards=spec.num_shards,
+                                    backend=spec.backend, device=spec.device)
+    if spec.engine == "elastic":
+        from repro_torch.serve.elastic import ElasticFlowService
+
+        return ElasticFlowService(program, spec.flow, spec.elastic, num_shards=spec.num_shards,
+                                  backend=spec.backend, device=spec.device)
     return build_serve_engine(
         program, batch_slots=spec.batch_slots, max_len=spec.max_len,
         temperature=spec.temperature, seed=spec.seed, device=spec.device,

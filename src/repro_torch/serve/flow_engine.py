@@ -44,8 +44,8 @@ graphs read them at the addresses they were captured with.
 
 Ported: the per-round and fused paths, both score backends, eviction,
 ``reset``, ``flow_scores``, ``swap_tables``, the deploy surface
-(:mod:`repro_torch.serve.deploy`) and the state accounting.  Not yet: the
-sharded engines.
+(:mod:`repro_torch.serve.deploy`) and the state accounting.  The sharded
+engine is :mod:`repro_torch.serve.sharded_flow_engine`.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ from repro_torch.core import symbolic
 from repro_torch.core.chimera_attention import ChimeraState
 from repro_torch.core.hardware_model import DEFAULT_DATAPLANE
 from repro_torch.core.two_timescale import atomic_swap, measure_install_time
-from repro_torch.data.pipeline import arrival_rounds
+from repro_torch.data.pipeline import arrival_rounds, flow_shard
 from repro_torch.kernels.flow_ingest import fused as fused_mod
 from repro_torch.kernels.flow_ingest import int_ops
 from repro_torch.models import model as M
@@ -264,6 +264,20 @@ def pack_step_outputs(out: Dict[str, torch.Tensor]) -> torch.Tensor:
     ], dim=-1)
 
 
+def unpack_step_outputs(res: np.ndarray) -> Dict[str, np.ndarray]:
+    """Host rows ``(n, 5 + sig_words)`` of :func:`pack_step_outputs` as the
+    per-packet arrays ``ingest`` returns (all but ``flow_ids``)."""
+    floats = np.ascontiguousarray(res[:, :3]).view(np.float32)
+    return {
+        "trust": floats[:, 0].copy(),
+        "vetoed": res[:, 3] != 0,
+        "pred": res[:, 4].copy(),
+        "s_nn": floats[:, 1].copy(),
+        "s_sym": floats[:, 2].copy(),
+        "sig": np.ascontiguousarray(res[:, _RESULT_FIXED:]).view(np.uint32),
+    }
+
+
 class _PendingIngest:
     """A dispatched fused batch whose results may still be in flight.
 
@@ -295,17 +309,8 @@ class _PendingIngest:
             return self._out
         if self.event is not None:
             self.event.synchronize()
-        res = self.result.numpy()[self.packet_rows()]
-        floats = np.ascontiguousarray(res[:, :3]).view(np.float32)
-        self._out = {
-            "flow_ids": self.flow_ids,
-            "trust": floats[:, 0].copy(),
-            "vetoed": res[:, 3] != 0,
-            "pred": res[:, 4].copy(),
-            "s_nn": floats[:, 1].copy(),
-            "s_sym": floats[:, 2].copy(),
-            "sig": np.ascontiguousarray(res[:, _RESULT_FIXED:]).view(np.uint32),
-        }
+        self._out = {"flow_ids": self.flow_ids,
+                     **unpack_step_outputs(self.result.numpy()[self.packet_rows()])}
         self.result = None  # the pinned buffer can go back to its allocator
         return self._out
 
@@ -431,30 +436,31 @@ def _engine_kwargs_from_program(program, backend: Optional[str] = None) -> Dict:
     }
 
 
-class FlowEngine:
-    """Streaming per-flow classification over a bounded flow table.
+class TableEngine:
+    """What the single and the sharded engine share: the control plane (the
+    weights, the installed rules, the int-emulation lowering, ``swap_tables``),
+    the flow tables and the per-round ingest over them.
 
-    ``device=None`` means ``"cuda"``; without a GPU the constructor raises.
-    With ``fcfg.fused`` on the card, the fused path runs only through
-    captured CUDA graphs: a failed capture or replay raises.
-    """
+    There are ``num_shards`` tables of ``capacity + 1`` rows each (the
+    scratch row absorbs padding lanes), with one host directory per table.
+    The Eq. 11 budget check holds per table and is made before any table is
+    allocated.  The flow step sees every table's rows on one axis
+    (:meth:`flat_tables`), table ``s`` at rows ``s * (capacity + 1)`` on; the
+    single engine is the case of one table.  ``shard_axis`` is the leading
+    axis of the aux tensors (``positions``, ``sig``, ``hidden_sum``,
+    ``vetoed``): none on the single engine, ``(num_shards,)`` on the sharded
+    one.  ``who`` names the entry point in the error raised for a CUDA
+    device without a GPU."""
 
-    def __init__(
-        self,
-        ccfg: C.ClassifierConfig,
-        params,
-        rules: symbolic.RuleSet,
-        fcfg: FlowEngineConfig = FlowEngineConfig(),
-        device=None,
-    ):
-        self.device = device = resolve_device(device, "FlowEngine")
+    def __init__(self, ccfg: C.ClassifierConfig, params, rules: symbolic.RuleSet,
+                 fcfg: FlowEngineConfig, device, who: str, shard_axis: Tuple[int, ...] = ()):
+        self.device = device = resolve_device(device, who)
         self.backend = check_backend(fcfg.backend)
         self.ccfg = ccfg
         self.fcfg = fcfg
         self.stats = FlowStats()
         self.swap_history: List[SwapRecord] = []
         self.program = None  # set by the deploy surface
-        arch = ccfg.arch
         self.params = _to_device(params, device)
         # the engine owns its installed tables (swaps rewrite them in place)
         self.rules = symbolic.RuleSet(*(t.to(device).clone() for t in rules.tensors()))
@@ -475,7 +481,7 @@ class FlowEngine:
 
         # capacity real slots + one scratch slot that absorbs padding lanes
         self._n_slots = fcfg.capacity + 1
-        W, d = ccfg.sig_words, arch.d_model
+        W, d = ccfg.sig_words, ccfg.arch.d_model
         self._shapes = {
             "positions": ((self._n_slots,), torch.int32),
             "sig": ((self._n_slots, W), torch.int32),
@@ -493,15 +499,286 @@ class FlowEngine:
         )
 
         # fp32 Chimera state whatever the residual stream's dtype, as the
-        # reference engine keeps it (the decode_step kernel takes fp32 only)
-        self.caches = M.init_caches(arch, self._n_slots, dtype=torch.float32, device=device)
+        # reference engine keeps it (the decode_step kernel takes fp32 only);
+        # the caches keep the model's stacked layer axis in front, then every
+        # table's rows: (groups, num_shards * (capacity + 1), ...)
+        self.num_shards = S = int(np.prod(shard_axis, dtype=np.int64))
+        self.caches = M.init_caches(ccfg.arch, S * self._n_slots, dtype=torch.float32,
+                                    device=device)
         for name, (shape, dtype) in self._shapes.items():
-            setattr(self, name, torch.zeros(shape, dtype=dtype, device=device))
-
-        self.table = FlowTableDirectory(fcfg.capacity)
+            setattr(self, name, torch.zeros(tuple(shard_axis) + shape, dtype=dtype,
+                                            device=device))
+        # allocation, LRU and idle eviction are table-local: a flow competes
+        # for slots only within its shard
+        self.tables = [FlowTableDirectory(fcfg.capacity) for _ in range(S)]
         self._tick = 0
-        plan = self._int_plan
-        self._step = make_flow_step(ccfg, self._n_slots, plan)
+        self._step = make_flow_step(ccfg, S * self._n_slots, self._int_plan)
+
+    def _step_rules(self):
+        """The ``rules`` argument of the flow step: the installed RuleSet,
+        paired with the lowered int tables under int-emulation."""
+        if self._int_plan is not None:
+            return (self.rules, self._int_tables)
+        return self.rules
+
+    def per_flow_state_bytes(self) -> int:
+        """Bytes of one flow-table entry: Chimera decode state (S, Z, ring
+        buffers, fill count) + classifier aggregates (signature words,
+        pooled-feature accumulator, counters, veto bit) + the host LRU stamp."""
+        meta = M.init_caches(self.ccfg.arch, self._n_slots, dtype=torch.float32, device="meta")
+        cache_bytes = sum(
+            t.numel() * t.element_size() // self._n_slots for t in _state_leaves(meta)
+        )
+        aux = sum(
+            int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+            for shape, dtype in self._shapes.values()
+        ) // self._n_slots
+        return cache_bytes + aux + 8
+
+    def flat_tables(self):
+        """The table tensors as the flow step takes them: every table's rows
+        on one axis, ``num_shards * (capacity + 1)`` long (views, written in
+        place)."""
+        N = self.num_shards * self._n_slots
+        return (self.caches, self.positions.view(N), self.sig.view(N, -1),
+                self.hidden_sum.view(N, -1), self.vetoed.view(N))
+
+    def shard_of(self, fid: int) -> int:
+        """Owner shard of a flow ID (deterministic, batch-independent)."""
+        return int(flow_shard([fid], self.num_shards)[0])
+
+    def _row_of(self, fid: int) -> int:
+        """A resident flow's row in :meth:`flat_tables`."""
+        s = self.shard_of(fid)
+        return s * self._n_slots + self.tables[s].slot_of[fid]
+
+    @property
+    def resident_flows(self) -> int:
+        return sum(t.resident for t in self.tables)
+
+    def flow_ids(self) -> List[int]:
+        return [f for t in self.tables for f in t.slot_of]
+
+    # ------------------------------------------------------------------
+    # flow-table bookkeeping (host side)
+    # ------------------------------------------------------------------
+    def reset(self) -> None:
+        """Clear the flow tables.  Device state is not rewritten: reused
+        slots are lazily zeroed by the per-lane ``fresh`` flag."""
+        for t in self.tables:
+            t.reset()
+        self._tick = 0
+        self.stats = FlowStats()
+
+    def evict(self, fid: int) -> bool:
+        """Drop a flow's table entry (state is lazily zeroed on slot reuse)."""
+        return self.tables[self.shard_of(fid)].evict(fid)
+
+    def evict_idle(self) -> int:
+        """Evict flows idle for more than ``idle_timeout`` ticks."""
+        if not self.fcfg.idle_timeout:
+            return 0
+        horizon = self._tick - self.fcfg.idle_timeout
+        n = 0
+        for t in self.tables:
+            for fid in t.idle_victims(horizon):
+                t.evict(fid)
+                self.stats.flows_evicted_idle += 1
+                n += 1
+        return n
+
+    def _resolve_slots(self, flow_ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Host bookkeeping for one batch: tick, LRU touch, idle sweep, slot
+        assignment in the owner shard's table.  Returns each packet's row in
+        :meth:`flat_tables` and its ``fresh`` flag."""
+        self._tick += 1
+        self.stats.ticks += 1
+        pairs = list(zip(flow_ids.tolist(), flow_shard(flow_ids, self.num_shards).tolist()))
+        # touch every already-resident flow in this batch BEFORE the idle
+        # sweep and any allocation, so eviction victims come from flows with
+        # no packets pending here
+        for fid, own in pairs:
+            self.tables[own].touch(fid, self._tick)
+        self.evict_idle()
+
+        rows = np.empty((len(pairs),), np.int64)
+        fresh = np.zeros((len(pairs),), bool)
+        for i, (fid, own) in enumerate(pairs):
+            slot, fr, evicted = self.tables[own].slot_for(fid, self._tick)
+            rows[i], fresh[i] = own * self._n_slots + slot, fr
+            if fr:
+                self.stats.flows_created += 1
+            if evicted:
+                self.stats.flows_evicted_lru += 1
+        return rows, fresh
+
+    # ------------------------------------------------------------------
+    # ingest
+    # ------------------------------------------------------------------
+    def ingest(self, flow_ids: np.ndarray, tokens: np.ndarray) -> Dict[str, np.ndarray]:
+        """Stream one batch of packet arrivals through the flow tables.
+
+        ``flow_ids`` (P,) int — flow keys in arrival order (repeats allowed);
+        ``tokens`` (P, pkt_len) int.  Returns per-packet numpy outputs aligned
+        with the input order: ``trust``, ``vetoed``, ``pred``, ``s_nn``,
+        ``s_sym`` and ``sig`` (uint32 words) after each flow's packet.
+        Same-flow packets are serialized, distinct flows vectorized.
+        """
+        flow_ids = np.asarray(flow_ids)
+        tokens = np.asarray(tokens, np.int32)
+        P, _ = tokens.shape
+        assert flow_ids.shape == (P,), (flow_ids.shape, P)
+        rows, fresh = self._resolve_slots(flow_ids)
+        if self.fcfg.fused:  # the single engine only: the sharded one refuses it
+            return self._dispatch_fused(flow_ids, tokens, rows, fresh).finalize()
+        return self._ingest_rounds(flow_ids, tokens, rows, fresh)
+
+    def _ingest_rounds(
+        self, flow_ids: np.ndarray, tokens: np.ndarray,
+        rows: np.ndarray, fresh: np.ndarray,
+    ) -> Dict[str, np.ndarray]:
+        """One flow step per arrival round over every table: each shard's
+        arrival rounds are cut into chunks of at most ``lanes``, and launch
+        ``k`` carries chunk ``k`` of every shard, ``lanes`` lanes per shard
+        (width ``num_shards * lanes``), each shard's unused lanes at its
+        scratch row.  One device-to-host copy per launch brings back every
+        shard's outputs."""
+        P, pkt_len = tokens.shape
+        S, lanes, n_slots = self.num_shards, self.fcfg.lanes, self._n_slots
+        owners = rows // n_slots
+        per_shard: List[List[np.ndarray]] = []
+        for s in range(S):
+            pkt_idx = np.nonzero(owners == s)[0]
+            chunks = []
+            for round_lanes in arrival_rounds(rows[pkt_idx].tolist()):
+                sel = pkt_idx[round_lanes]
+                chunks += [sel[c0 : c0 + lanes] for c0 in range(0, len(sel), lanes)]
+            per_shard.append(chunks)
+        n_steps = max((len(c) for c in per_shard), default=0)
+
+        scratch = np.arange(S, dtype=np.int64)[:, None] * n_slots + self.fcfg.capacity
+        res_rows = np.empty((P, _RESULT_FIXED + self.ccfg.sig_words), np.int32)
+        dev = self.device
+        for k in range(n_steps):
+            idx = np.repeat(scratch, lanes, axis=1)  # every lane at its shard's scratch row
+            tok = np.zeros((S, lanes, pkt_len), np.int64)
+            fr = np.zeros((S, lanes), bool)
+            lane_of = []
+            for s, chunks in enumerate(per_shard):
+                if k < len(chunks):
+                    sel = chunks[k]
+                    n = len(sel)
+                    idx[s, :n] = rows[sel]
+                    tok[s, :n] = tokens[sel]
+                    fr[s, :n] = fresh[sel]
+                    lane_of.append((sel, s * lanes + np.arange(n)))
+            out = self._step(
+                self.params, self._step_rules(), *self.flat_tables(),
+                torch.from_numpy(idx.reshape(-1)).to(dev),
+                torch.from_numpy(tok.reshape(S * lanes, pkt_len)).to(dev),
+                torch.from_numpy(fr.reshape(-1)).to(dev),
+            )
+            self.stats.rounds += 1
+            res = pack_step_outputs(out).cpu().numpy()
+            for sel, lane in lane_of:
+                res_rows[sel] = res[lane]
+        self.stats.packets += P
+        self.stats.tokens += P * pkt_len
+        return {"flow_ids": flow_ids, **unpack_step_outputs(res_rows)}
+
+    # ------------------------------------------------------------------
+    # per-flow snapshot
+    # ------------------------------------------------------------------
+    def flow_scores(self, fid: int) -> Dict[str, float]:
+        """Current scores for a resident flow (control-plane read path; reads
+        the owner shard's row)."""
+        r = self._row_of(fid)
+        _, positions, sig, hidden_sum, vetoed = self.flat_tables()
+        pos = positions[r]
+        hs, sg, vt = hidden_sum[r][None], sig[r][None], vetoed[r][None]
+        if self._int_plan is not None:
+            out, _ = int_ops.int_flow_score(self._int_plan, self._int_tables, self.rules,
+                                            hs, pos[None], sg, vt)
+            out = il.dequantize_scores(self._int_plan, out)
+        else:
+            pooled = hs / torch.clamp(pos, min=1).float()
+            out, _ = C.streaming_scores(self.ccfg, self.params, self.rules, pooled, sg, vt)
+        return {
+            "trust": float(out["trust"][0]),
+            "vetoed": bool(out["hard_hit"][0]),
+            "pred": int(torch.argmax(out["class_logits"][0])),
+            "s_nn": float(out["s_nn"][0]),
+            "s_sym": float(out["s_sym"][0]),
+            "tokens": int(pos),
+        }
+
+    # ------------------------------------------------------------------
+    # two-timescale control-plane hook
+    # ------------------------------------------------------------------
+    def swap_tables(
+        self,
+        ruleset: Optional[symbolic.RuleSet] = None,
+        weights=None,
+        weight_spec=None,
+        delta=None,
+    ) -> SwapRecord:
+        """Install new compiled tables between ticks (§3.6).
+
+        ``ruleset`` replaces the whole TCAM/SRAM rule table; ``weights``
+        only the soft-rule weight column — a float array, or a quantized
+        SRAM table with its ``FixedPointSpec`` as ``weight_spec``; ``delta``
+        installs an audited :class:`repro_torch.compile.ProgramDelta`.
+        Shapes and dtypes must match the installed tables.
+
+        The new tables are copied into the installed tensors, on the
+        engine's stream: behind every step already launched, a batch that
+        :class:`AsyncIngestPipeline` has in flight included, and read by the
+        fused engine's graphs at their captured addresses.  Under
+        int-emulation the weight column is re-lowered at the installed
+        plan's LSB as part of the install.  A sharded engine's shards all
+        read the one installed copy, so one install covers every shard.  The
+        install is timed until the card has the tables (Eq. 18), and the
+        record flags an install slower than ``t_cp_s``.
+        """
+        new, source = resolve_swap(self.rules, ruleset, weights, weight_spec, delta)
+
+        def _install():
+            atomic_swap(self.rules, new)
+            if self._int_plan is not None:
+                atomic_swap(self._int_tables["rule_w"],
+                            il.requantize_rule_weights(self._int_plan, self.rules.weights))
+            return self._step_rules()
+
+        dt = measure_install_time(_install)
+        t_cp = self.fcfg.t_cp_s
+        rec = SwapRecord(
+            tick=self._tick, install_s=dt,
+            churn_ok=hardware_model.install_time_ok(dt, t_cp) if t_cp else True,
+            t_cp_s=t_cp, source=source,
+        )
+        self.swap_history.append(rec)
+        return rec
+
+
+class FlowEngine(TableEngine):
+    """Streaming per-flow classification over a bounded flow table.
+
+    ``device=None`` means ``"cuda"``; without a GPU the constructor raises.
+    With ``fcfg.fused`` on the card, the fused path runs only through
+    captured CUDA graphs: a failed capture or replay raises.
+    """
+
+    def __init__(
+        self,
+        ccfg: C.ClassifierConfig,
+        params,
+        rules: symbolic.RuleSet,
+        fcfg: FlowEngineConfig = FlowEngineConfig(),
+        device=None,
+    ):
+        super().__init__(ccfg, params, rules, fcfg, device, "FlowEngine")
+        device, plan = self.device, self._int_plan
+        self.table = self.tables[0]
 
         # fused ingest: the flow step with a score kernel as its score stage
         # (flow_score, or int_flow_score under int-emulation), one CUDA graph
@@ -529,13 +806,6 @@ class FlowEngine:
         from repro_torch.serve.deploy import build_flow_engine
 
         return build_flow_engine(program, fcfg, device=device)
-
-    def _step_rules(self):
-        """The ``rules`` argument of the flow step: the installed RuleSet,
-        paired with the lowered int tables under int-emulation."""
-        if self._int_plan is not None:
-            return (self.rules, self._int_tables)
-        return self.rules
 
     def _table_args(self):
         """The flow step's leading arguments: weights, rules and the table."""
@@ -575,155 +845,13 @@ class FlowEngine:
     # ------------------------------------------------------------------
     # state accounting
     # ------------------------------------------------------------------
-    def per_flow_state_bytes(self) -> int:
-        """Bytes of one flow-table entry: Chimera decode state (S, Z, ring
-        buffers, fill count) + classifier aggregates (signature words,
-        pooled-feature accumulator, counters, veto bit) + the host LRU stamp."""
-        meta = M.init_caches(self.ccfg.arch, self._n_slots, dtype=torch.float32, device="meta")
-        cache_bytes = sum(
-            t.numel() * t.element_size() // self._n_slots for t in _state_leaves(meta)
-        )
-        aux = sum(
-            int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
-            for shape, dtype in self._shapes.values()
-        ) // self._n_slots
-        return cache_bytes + aux + 8
-
     def resident_state_bytes(self) -> int:
         """Total allocated flow-table bytes (capacity + the scratch lane)."""
         return hardware_model.flow_table_bytes(self._n_slots, self.per_flow_state_bytes())
 
-    @property
-    def resident_flows(self) -> int:
-        return self.table.resident
-
-    def flow_ids(self) -> List[int]:
-        return list(self.table.slot_of)
-
     # ------------------------------------------------------------------
-    # flow-table bookkeeping (host side)
+    # fused ingest
     # ------------------------------------------------------------------
-    def _slot_for(self, fid: int) -> Tuple[int, bool]:
-        slot, fresh, evicted = self.table.slot_for(fid, self._tick)
-        if evicted:
-            self.stats.flows_evicted_lru += 1
-        if fresh:
-            self.stats.flows_created += 1
-        return slot, fresh
-
-    def reset(self) -> None:
-        """Clear the flow table.  Device state is not rewritten: reused slots
-        are lazily zeroed by the per-lane ``fresh`` flag."""
-        self.table.reset()
-        self._tick = 0
-        self.stats = FlowStats()
-
-    def evict(self, fid: int) -> bool:
-        """Drop a flow's table entry (state is lazily zeroed on slot reuse)."""
-        return self.table.evict(fid)
-
-    def evict_idle(self) -> int:
-        """Evict flows idle for more than ``idle_timeout`` ticks."""
-        if not self.fcfg.idle_timeout:
-            return 0
-        stale = self.table.idle_victims(self._tick - self.fcfg.idle_timeout)
-        for fid in stale:
-            self.table.evict(fid)
-            self.stats.flows_evicted_idle += 1
-        return len(stale)
-
-    # ------------------------------------------------------------------
-    # ingest
-    # ------------------------------------------------------------------
-    def ingest(self, flow_ids: np.ndarray, tokens: np.ndarray) -> Dict[str, np.ndarray]:
-        """Stream one batch of packet arrivals through the flow table.
-
-        ``flow_ids`` (P,) int — flow keys in arrival order (repeats allowed);
-        ``tokens`` (P, pkt_len) int.  Returns per-packet numpy outputs aligned
-        with the input order: ``trust``, ``vetoed``, ``pred``, ``s_nn``,
-        ``s_sym`` and ``sig`` (uint32 words) after each flow's packet.
-        """
-        flow_ids = np.asarray(flow_ids)
-        tokens = np.asarray(tokens, np.int32)
-        P, _ = tokens.shape
-        assert flow_ids.shape == (P,), (flow_ids.shape, P)
-        slots, fresh = self._resolve_slots(flow_ids)
-        if self.fcfg.fused:
-            return self._dispatch_fused(flow_ids, tokens, slots, fresh).finalize()
-        return self._ingest_rounds(flow_ids, tokens, slots, fresh)
-
-    def _resolve_slots(self, flow_ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Host bookkeeping for one batch: tick, LRU touch, idle sweep, slot
-        assignment."""
-        self._tick += 1
-        self.stats.ticks += 1
-        # touch every already-resident flow in this batch BEFORE the idle
-        # sweep and any allocation, so eviction victims come from flows with
-        # no packets pending here
-        for fid in set(flow_ids.tolist()):
-            self.table.touch(fid, self._tick)
-        self.evict_idle()
-
-        P = len(flow_ids)
-        slots = np.empty((P,), np.int32)
-        fresh = np.zeros((P,), bool)
-        for i, fid in enumerate(flow_ids.tolist()):
-            slots[i], fresh[i] = self._slot_for(fid)
-        return slots, fresh
-
-    def _ingest_rounds(
-        self, flow_ids: np.ndarray, tokens: np.ndarray,
-        slots: np.ndarray, fresh: np.ndarray,
-    ) -> Dict[str, np.ndarray]:
-        """One flow step per arrival round, every round padded to ``lanes``."""
-        P, pkt_len = tokens.shape
-        out_trust = np.empty((P,), np.float32)
-        out_veto = np.empty((P,), bool)
-        out_pred = np.empty((P,), np.int32)
-        out_s_nn = np.empty((P,), np.float32)
-        out_s_sym = np.empty((P,), np.float32)
-        out_sig = np.zeros((P, self.ccfg.sig_words), np.uint32)
-
-        lanes = self.fcfg.lanes
-        scratch = self.fcfg.capacity
-        dev = self.device
-        for round_lanes in arrival_rounds(slots.tolist()):
-            for c0 in range(0, len(round_lanes), lanes):
-                chunk = round_lanes[c0 : c0 + lanes]
-                idx = np.full((lanes,), scratch, np.int64)
-                tok = np.zeros((lanes, pkt_len), np.int64)
-                fr = np.zeros((lanes,), bool)
-                n = len(chunk)
-                idx[:n] = slots[chunk]
-                tok[:n] = tokens[chunk]
-                fr[:n] = fresh[chunk]
-                out = self._step(
-                    self.params, self._step_rules(), self.caches, self.positions,
-                    self.sig, self.hidden_sum, self.vetoed,
-                    torch.from_numpy(idx).to(dev), torch.from_numpy(tok).to(dev),
-                    torch.from_numpy(fr).to(dev),
-                )
-                self.stats.rounds += 1
-                lanes_idx = np.asarray(chunk, np.intp)
-                floats = torch.stack([out["trust"], out["s_nn"], out["s_sym"]]).cpu().numpy()
-                out_trust[lanes_idx] = floats[0, :n]
-                out_s_nn[lanes_idx] = floats[1, :n]
-                out_s_sym[lanes_idx] = floats[2, :n]
-                out_veto[lanes_idx] = out["hard_hit"].cpu().numpy()[:n]
-                out_pred[lanes_idx] = torch.argmax(out["class_logits"], -1).cpu().numpy()[:n]
-                out_sig[lanes_idx] = out["sig"].cpu().numpy().view(np.uint32)[:n]
-        self.stats.packets += P
-        self.stats.tokens += P * pkt_len
-        return {
-            "flow_ids": flow_ids,
-            "trust": out_trust,
-            "vetoed": out_veto,
-            "pred": out_pred,
-            "s_nn": out_s_nn,
-            "s_sym": out_s_sym,
-            "sig": out_sig,
-        }
-
     def _dispatch_fused(
         self, flow_ids: np.ndarray, tokens: np.ndarray,
         slots: np.ndarray, fresh: np.ndarray, staging: Optional[Dict] = None,
@@ -799,77 +927,3 @@ class FlowEngine:
             return
         outs = self._fused_eager(*self._table_args(), *fused_mod.step_inputs(stack))
         res.copy_(pack_step_outputs(outs).reshape(res.shape))
-
-    # ------------------------------------------------------------------
-    # per-flow snapshot
-    # ------------------------------------------------------------------
-    def flow_scores(self, fid: int) -> Dict[str, float]:
-        """Current scores for a resident flow (control-plane read path)."""
-        slot = self.table.slot_of[fid]
-        pos = self.positions[slot]
-        if self._int_plan is not None:
-            out, _ = int_ops.int_flow_score(
-                self._int_plan, self._int_tables, self.rules, self.hidden_sum[slot][None],
-                pos[None], self.sig[slot][None], self.vetoed[slot][None],
-            )
-            out = il.dequantize_scores(self._int_plan, out)
-        else:
-            pooled = self.hidden_sum[slot] / torch.clamp(pos, min=1).float()
-            out, _ = C.streaming_scores(
-                self.ccfg, self.params, self.rules,
-                pooled[None], self.sig[slot][None], self.vetoed[slot][None],
-            )
-        return {
-            "trust": float(out["trust"][0]),
-            "vetoed": bool(out["hard_hit"][0]),
-            "pred": int(torch.argmax(out["class_logits"][0])),
-            "s_nn": float(out["s_nn"][0]),
-            "s_sym": float(out["s_sym"][0]),
-            "tokens": int(pos),
-        }
-
-    # ------------------------------------------------------------------
-    # two-timescale control-plane hook
-    # ------------------------------------------------------------------
-    def swap_tables(
-        self,
-        ruleset: Optional[symbolic.RuleSet] = None,
-        weights=None,
-        weight_spec=None,
-        delta=None,
-    ) -> SwapRecord:
-        """Install new compiled tables between ticks (§3.6).
-
-        ``ruleset`` replaces the whole TCAM/SRAM rule table; ``weights``
-        only the soft-rule weight column — a float array, or a quantized
-        SRAM table with its ``FixedPointSpec`` as ``weight_spec``; ``delta``
-        installs an audited :class:`repro_torch.compile.ProgramDelta`.
-        Shapes and dtypes must match the installed tables.
-
-        The new tables are copied into the installed tensors, on the
-        engine's stream: behind every step already launched, a batch that
-        :class:`AsyncIngestPipeline` has in flight included, and read by the
-        fused engine's graphs at their captured addresses.  Under
-        int-emulation the weight column is re-lowered at the installed
-        plan's LSB as part of the install.  The install is timed until the
-        card has the tables (Eq. 18), and the record flags an install
-        slower than ``t_cp_s``.
-        """
-        new, source = resolve_swap(self.rules, ruleset, weights, weight_spec, delta)
-
-        def _install():
-            atomic_swap(self.rules, new)
-            if self._int_plan is not None:
-                atomic_swap(self._int_tables["rule_w"],
-                            il.requantize_rule_weights(self._int_plan, self.rules.weights))
-            return self._step_rules()
-
-        dt = measure_install_time(_install)
-        t_cp = self.fcfg.t_cp_s
-        rec = SwapRecord(
-            tick=self._tick, install_s=dt,
-            churn_ok=hardware_model.install_time_ok(dt, t_cp) if t_cp else True,
-            t_cp_s=t_cp, source=source,
-        )
-        self.swap_history.append(rec)
-        return rec

@@ -59,10 +59,12 @@ def test_guard_walks_every_port_package():
     ``data/`` included, and every one of them is covered."""
     walked = set(_port_files())
     pkg_root = ROOT / "src" / "repro_torch"
-    for pkg in ("launch", "data", "serve", "core", "compile", "kernels"):
+    for pkg in ("launch", "data", "serve", "core", "compile", "kernels", "runtime"):
         assert (pkg_root / pkg / "__init__.py") in walked, pkg
     for mod in ("launch/flow_serve.py", "data/traces.py", "data/campaigns.py",
-                "serve/adaptive_loop.py", "serve/redteam.py", "core/two_timescale.py"):
+                "serve/adaptive_loop.py", "serve/redteam.py", "core/two_timescale.py",
+                "runtime/fault_tolerance.py", "serve/sharded_flow_engine.py",
+                "serve/elastic.py"):
         assert (pkg_root / mod) in walked, mod
 
 

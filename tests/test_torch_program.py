@@ -14,7 +14,8 @@
   the same leaf names and the manifest's config as it was.
 * The deploy surface: ``deploy(DeploySpec())`` builds a ``FlowEngine``; a
   deploy leaves the program's ledger with this deploy's ``int-lowering``
-  rows only; ``verify=True`` and the unported engine kinds raise.
+  rows only; sharded and elastic deploys record the ``flow-table-sharding``
+  entry; ``verify=True`` raises.
 * ``swap_tables`` on the float backend, by weights, by a quantized table
   with its spec, by a ruleset and by a ``ProgramDelta``: the next batches
   match JAX's engine after the same swaps (decisions identical, floats
@@ -402,9 +403,16 @@ def test_deploy_builds_engines_and_keeps_the_ledger_current(models):
     assert isinstance(lm, ServeEngine) and isinstance(lm, Engine)
     with pytest.raises(NotImplementedError):
         lm.swap_tables()
-    for kind in ("sharded", "elastic"):
-        with pytest.raises(NotImplementedError, match="Sharding on one H100"):
-            tprog.deploy(DeploySpec(engine=kind, num_shards=2, device="cpu"))
+    for kind in ("sharded", "elastic"):  # both deploy and record the sharding entry
+        eng = tprog.deploy(DeploySpec(engine=kind, num_shards=2, flow=fcfg, device="cpu"))
+        assert isinstance(eng, Engine) and eng.num_shards == 2 and eng.program is tprog
+        rows = [e for e in tprog.ledger.entries if e.stage == "flow-table-sharding"]
+        assert len(rows) == 1 and rows[0].used == eng.shard_state_bytes()
+        assert rows[0].detail.startswith("2 shard(s) x 8 flows/shard; aggregate capacity 16")
+        assert rows[0].detail.endswith("; elastic") == (kind == "elastic")
+        assert (len(tprog.ledger.entries) == n0 + 1 + 1) == (kind == "elastic")  # + a tenant row
+    tprog.deploy(DeploySpec(flow=fcfg, device="cpu"))  # a single-engine deploy drops them
+    assert len(tprog.ledger.entries) == n0
     with pytest.raises(ValueError, match="single-placement"):
         DeploySpec(engine="flow", num_shards=2)
     with pytest.raises(ValueError, match="unknown engine kind"):

@@ -13,8 +13,10 @@
   raise for the default ``cuda`` device without a GPU.
 * The launcher in-process: ``--adapt --adapt-sync``, ``--adapt --fused``
   (async), ``--campaign``, ``--trace sample`` and ``--fused`` with the
-  staging ring, all ``--device cpu``; the sharding and elastic flags raise
-  naming their ROADMAP item.
+  staging ring, all ``--device cpu``; the sharding and elastic flags
+  serve on the CPU (``--num-shards``, ``--elastic``, ``--reshard``,
+  ``--checkpoint-dir``, ``--checkpoint-every``), their combinations the
+  JAX launcher refuses are refused, and ``--host-devices`` raises.
 * ``cuda``-marked: the pieces of ``chip_smoke.phase_adapt`` that run at the
   tiny width (card against CPU, and the gate on both).
 """
@@ -229,12 +231,61 @@ def test_launcher_trace_and_fused_ring(capsys):
     assert "pkt/s" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--num-shards", "2"], ["--elastic"], ["--reshard", "4:2"],
-                                  ["--checkpoint-dir", "x"], ["--checkpoint-every", "3"],
-                                  ["--host-devices", "8"]])
-def test_launcher_sharding_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
-        F.parse_args(CPU + flag)
+SHARD_RUN = ["--pkt-len", "4", "--packets", "32", "--lanes", "8", "--capacity", "256",
+             "--batches", "6"]
+
+
+@pytest.mark.parametrize("flag", ["--num-shards", "--elastic", "--reshard", "--checkpoint-dir",
+                                  "--checkpoint-every"])
+def test_launcher_sharding_flags_serve_on_cpu(flag, tmp_path):
+    """Each sharding or elastic flag of the JAX package's launcher, served
+    on the CPU: the engine kind it deploys, its reshard lines and its
+    checkpoints, and the ``shards=`` field of the summary."""
+    argv = {
+        "--num-shards": ["--num-shards", "3"],
+        "--elastic": ["--elastic"],
+        "--reshard": ["--elastic", "--num-shards", "2", "--reshard", "2:4,4:2"],
+        "--checkpoint-dir": ["--elastic", "--num-shards", "2", "--reshard", "3:1",
+                             "--checkpoint-dir", str(tmp_path)],
+        "--checkpoint-every": ["--elastic", "--checkpoint-every", "2"],
+    }[flag]
+    dep, res = _serve(argv + SHARD_RUN)
+    eng = dep.engine
+    lines = F.report(dep, res)
+    assert f"shards={eng.num_shards} " in lines[-1]
+    assert f"/{eng.aggregate_capacity} " in lines[-1]
+    if flag == "--num-shards":
+        assert type(eng).__name__ == "ShardedFlowEngine" and eng.num_shards == 3
+        return
+    assert type(eng).__name__ == "ElasticFlowService" and all(o["admitted"].all()
+                                                              for o in res.outputs)
+    if flag == "--reshard":
+        assert [(i, r.old_shards, r.new_shards) for i, r in res.reshards] == [(2, 2, 4), (4, 4, 2)]
+        assert lines[0].startswith("reshard @batch 2: 2->4 shards") and lines[1].endswith(" ok")
+        assert eng.num_shards == 2 and all(r.churn_ok for _, r in res.reshards)
+    elif flag == "--checkpoint-dir":
+        assert eng.num_shards == 1 and eng._ckpt.all_steps() == [0]  # the reshard's snapshot
+        assert eng._ckpt.manifest(0)["extra"]["elastic"]["kind"] == "reshard->1"
+    elif flag == "--checkpoint-every":
+        assert eng._ckpt is None and eng._ckpt_seq == 3  # in memory at ticks 2, 4, 6
+
+
+def test_launcher_sharding_flags_raise():
+    with pytest.raises(NotImplementedError, match="no counterpart on the card"):
+        F.parse_args(CPU + ["--host-devices", "8"])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--fused", "--num-shards", "2"], "--fused serves one engine"),
+    (["--fused", "--elastic"], "--fused serves one engine"),
+    (["--reshard", "4:2"], "--reshard needs --elastic"),
+    (["--elastic", "--adapt"], "--adapt drives a fixed engine"),
+    (["--elastic", "--campaign", "smoke-surge"], "--adapt drives a fixed engine"),
+])
+def test_launcher_refuses_sharding_combinations_as_jax(argv, match, capsys):
+    with pytest.raises(SystemExit):
+        F.parse_args(CPU + argv)
+    assert match in capsys.readouterr().err
 
 
 def test_launcher_refuses_cuda_without_gpu_and_mixed_sources():
