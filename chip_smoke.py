@@ -67,9 +67,24 @@ Phases, each printing its own lines:
                killed; (c) sharded int-emulation at the smoke width, card
                against CPU.
 
-Phases 4, 5, 6, 8, 9 and 10 are the main paths: the kernels' launch counters
-are zeroed just before each (each part of phase 10) and read just after, and
-each fails if one of its kernels never launched.  Then a JSON line with every kernel's numbers, and as the
+11. lm-chimera — run after the serve phase: Chimera prefill and LM serving
+               at the model zoo's default Chimera widths (L 256, d = dv = m
+               128).  (a) decode_step (tiled ring) at Gq 1, 4 and 8 under
+               four fill patterns and chimera_attention
+               (``csrc/chimera_attention_long.cu``) at the prefill shape and
+               its edges, against their plain versions, timed; (b) the port's
+               LM launcher (``repro_torch.launch.serve``'s build and serve) on
+               Mixtral-8x7B's Chimera variant at full width, 2 of 32 layers:
+               prefill_batch of 4 x 8192 tokens, 16 new tokens per slot;
+               (c) that prefill and decode against the plain versions on the
+               card, and a ragged 641-token prompt's prefill_batch against
+               token-by-token decode; (d) five configs' smoke sizes through
+               prefill_batch and decode, card against CPU.
+
+Phases 4, 5, 6, 8, 9, 10 and 11 are the main paths: the kernels' launch
+counters are zeroed just before each (each part of phase 10) and read just
+after, and each fails if one of its kernels never launched.  Then a JSON
+line with every kernel's numbers, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 without it.  It imports nothing of JAX and nothing of the JAX package.
 
@@ -238,7 +253,7 @@ def ptxas_usage(text):
             if names:
                 _, name, targs = min(names)
                 args = (["bf16"] if "nv_bfloat16" in targs else ["f32"] if targs.startswith("If")
-                        else []) + re.findall(r"Li(\d+)E", targs)
+                        else []) + re.findall(r"L[ib](\d+)E", targs)
                 fn = name + (f"<{', '.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -281,7 +296,8 @@ def decode_inputs(B, heads, Gq, d, dv, m, L, with_global, seed, fill="spread"):
         "S": r(BH, m, dv, scale=0.1), "Z": pos(BH, m) * L,
         "count": {"none": torch.zeros(B, dtype=torch.int32),
                   "spread": torch.arange(B, dtype=torch.int32) % L,
-                  "all": torch.full((B,), L - 1, dtype=torch.int32)}[fill].to("cuda"),
+                  "all": torch.full((B,), L - 1, dtype=torch.int32),
+                  "high": (L - 2 - torch.arange(B, dtype=torch.int32)) % L}[fill].to("cuda"),
     }
     if with_global:
         x["gnum"] = r(BH, Gq, dv, scale=0.1)
@@ -316,7 +332,7 @@ def bound(nbytes, flops, flops_per_s=FP32_FLOPS):
 
 
 def check_decode(with_global, timed, fill="spread", B=LANES, Gq=None, dv=None, d=None, m=None,
-                 L=None):
+                 L=None, heads=None):
     """The kernel against its plain version on every output (out, S, Z, the
     ring, the new fill levels); by default at the engine's shape (the
     paper's config, 256 lanes x 4 kv-heads), each argument overriding it."""
@@ -329,8 +345,8 @@ def check_decode(with_global, timed, fill="spread", B=LANES, Gq=None, dv=None, d
     d = d or ARCH.head_dim
     dv = dv or d
     Gq = Gq or ARCH.n_heads // ARCH.n_kv_heads
-    x = decode_inputs(B, ARCH.n_kv_heads, Gq, d, dv, m, L, with_global,
-                      SEED + int(with_global), fill)
+    heads = heads or ARCH.n_kv_heads
+    x = decode_inputs(B, heads, Gq, d, dv, m, L, with_global, SEED + int(with_global), fill)
     kw = dict(chunk_size=L, gamma=ARCH.chimera.gamma)
 
     def run(fn, t):
@@ -348,9 +364,10 @@ def check_decode(with_global, timed, fill="spread", B=LANES, Gq=None, dv=None, d
         *(compare(f"decode_step {n}", ka[n], pa[n]) for n in ("S", "Z", "k_buf", "v_buf")),
         compare("decode_step count", cnt_k, cnt_p),
     )
-    n_fold = int(((x["count"] + 1) >= L).sum()) * ARCH.n_kv_heads
+    n_fold = int(((x["count"] + 1) >= L).sum()) * heads
     rec = {"max_abs_err": err}
     log("kernels", f"decode_step BH={out_k.shape[0]} Gq={Gq} d={d} dv={dv} m={m} L={L} "
+                   f"layout={ops.layout(Gq, d, dv, m, L)[0]} "
                    f"globals={with_global} fill={fill} folds={n_fold}: max abs err {err:.3e} "
                    f"(tolerance {ATOL:g} + {RTOL:g}*|ref|) on out, S, Z, the ring and count")
     if timed:
@@ -607,6 +624,127 @@ def check_decode_edges():
                     check_decode(with_global, timed=False, fill=fill, B=64, Gq=Gq, dv=dv)
                 check_decode(with_global, timed=False, fill=fill, B=64, Gq=Gq, dv=16, d=16,
                              m=16, L=16)
+
+
+# the model zoo's default Chimera widths (L 256, d = dv = m = 128), where
+# decode_step stages the ring in tiles and chimera_attention runs
+# csrc/chimera_attention_long.cu: Mixtral-8x7B's serve shape (4 slots x 8
+# kv-heads, Gq 4), yi-9b's and qwen3-32b's Gq 8 and codeqwen1.5-7b's Gq 1
+# (4 slots x 32 kv-heads)
+ZOO_L, ZOO_D, ZOO_M = 256, 128, 128
+ZOO_DECODE = ((4, 8, 4), (4, 8, 8), (4, 32, 1))  # (slots, kv-heads, Gq)
+ZOO_FILLS = DECODE_FILLS + ("high",)  # "high": rings of 251-254 rows, no fold
+
+
+def check_decode_wide():
+    """decode_step at the zoo's widths against its plain version under
+    every fill pattern, with and without the static globals; the Mixtral
+    shape is timed with its globals (the serve path's 32 of them)."""
+    recs = {}
+    for B, heads, Gq in ZOO_DECODE:
+        for fill in ZOO_FILLS:
+            for with_global in (False, True):
+                timed = (B, heads, Gq) == ZOO_DECODE[0] and with_global and fill in (
+                    "spread", "all")
+                r = check_decode(with_global, timed, fill=fill, B=B, Gq=Gq, d=ZOO_D, dv=ZOO_D,
+                                 m=ZOO_M, L=ZOO_L, heads=heads)
+                if timed:
+                    recs[fill] = r
+    return recs
+
+
+# the prefill shape: Mixtral's 4 slots x 8 kv-heads, Gq 4, T 8192
+LONG_SHAPE = (4, 8, 4, 8192)
+# chimera_attention partials at T 8192 are sums of up to 8192 terms (den
+# reaches ~10^4), so fp32 in another summation order than the plain
+# version's (a blocked cuBLAS product over dense T x T scores) differs by
+# more than at the train shape's T 256: atol 1e-3 and rtol 1e-4 there;
+# the edge shapes (T <= 1024) keep ATTN_ATOL
+LONG_ATOL = 1e-3
+
+
+def long_plain(q, k, v, pq, pk, L, use_local=True, use_stream=True):
+    """The plain version at the prefill shape, one (batch, kv-head) row at a
+    time: it forms (Gq, T, T) fp32 scores, 1 GB a row at T 8192."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops
+
+    B, Hkv = q.shape[:2]
+    num, den = [], []
+    for b in range(B):
+        for h in range(Hkv):
+            sl = [x[b:b + 1, h:h + 1] for x in (q, k, v, pq, pk)]
+            n_, d_ = ops.chimera_attention_partials_plain(*sl, L, use_local, use_stream)
+            num.append(n_[0, 0])
+            den.append(d_[0, 0])
+    return torch.stack(num), torch.stack(den)
+
+
+def check_chimera_long(timed):
+    """csrc/chimera_attention_long.cu against the plain version at the
+    prefill shape (and, timed, beside its local-only and stream-only parts)."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops
+
+    B, Hkv, Gq, T = LONG_SHAPE
+    L, m, d = ZOO_L, ZOO_M, ZOO_D
+    q, k, v, pq, pk = chimera_inputs(B, Hkv, Gq, T, m, SEED + 9, d=d)
+    BH = B * Hkv
+    flat = [q.reshape(BH, Gq, T, d), k.reshape(BH, T, d), v.reshape(BH, T, d),
+            pq.reshape(BH, Gq, T, m), pk.reshape(BH, T, m)]
+    with torch.no_grad():
+        num_k, den_k = ops.chimera_attention_bh(*flat, chunk_size=L)
+        num_p, den_p = long_plain(q, k, v, pq, pk, L)
+    torch.cuda.synchronize()
+    err = max(compare("chimera_attention L256 num", num_k, num_p, atol=LONG_ATOL),
+              compare("chimera_attention L256 den", den_k, den_p, atol=LONG_ATOL))
+    rec = {"max_abs_err": err}
+    log("kernels", f"chimera_attention (long-chunk kernel) BH={BH} Gq={Gq} T={T} d={d} m={m} "
+                   f"L={L}: max abs err {err:.3e} (tolerance {LONG_ATOL:g} + {RTOL:g}*|ref|; "
+                   f"|den| up to {float(den_p.max()):.1f}, |num| up to "
+                   f"{float(num_p.abs().max()):.1f})")
+    if timed:
+        with torch.no_grad():
+            ms, call_ms = cuda_ms(lambda: ops.chimera_attention_bh(*flat, chunk_size=L), iters=5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            long_plain(q, k, v, pq, pk, L)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            parts = {mode: cuda_ms(lambda mode=mode: ops.chimera_attention_bh(
+                *flat, chunk_size=L, use_local=mode[0], use_stream=mode[1]), iters=5)[0]
+                for mode in ((True, False), (False, True))}
+        nbytes, flops = chimera_cost(B, Hkv, Gq, T, d, d, m, L)
+        bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+        fp32_ms = flops / FP32_FLOPS * 1e3
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, flops=flops, call_ms=call_ms, local_ms=parts[True, False],
+                   stream_ms=parts[False, True])
+        log("kernels", f"chimera_attention L256 device time: kernel {ms:.4f} ms (local only "
+                       f"{parts[True, False]:.4f} ms, stream only {parts[False, True]:.4f} ms), "
+                       f"plain {plain_ms:.1f} ms (host clock over its {BH} rows), bound "
+                       f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B; {flops} flop, "
+                       f"x{TF32_PASSES} in TF32 on the tensor cores; on the fp32 CUDA cores, "
+                       f"which the kernel uses, {fp32_ms:.4f} ms); per call from Python "
+                       f"{call_ms:.4f} ms")
+    del q, k, v, pq, pk, flat, num_k, den_k, num_p, den_p
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_chimera_long_edges():
+    """The long-chunk kernel at T = L and 4L, every (use_local, use_stream)
+    pair, and d = dv 16-64 with m 16 (the 16-row stream tile alone)."""
+    worst = 0.0
+    for T in (ZOO_L, 4 * ZOO_L):
+        for mode in CHIMERA_MODES:
+            worst = max(worst, check_chimera_edge(ZOO_L, T, *mode, m=ZOO_M, d=ZOO_D))
+    for d in (16, 32, 64):
+        for T in (ZOO_L, 3 * ZOO_L):
+            worst = max(worst, check_chimera_edge(ZOO_L, T, True, True, m=16, d=d))
+    log("kernels", f"chimera_attention (long-chunk kernel) edge shapes (L {ZOO_L}, T = L, 3L "
+                   f"and 4L, every local/stream pair, d = dv 16-128, m 16 and 128): max abs err "
+                   f"{worst:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|)")
 
 
 def build_other_library(csrc_dir):
@@ -1483,6 +1621,333 @@ def phase_serve(recs):
     del engine, params
     torch.cuda.empty_cache()
     return {"launches": launches, "prefill_s": prefill_s, "decode_s": decode_s}
+
+
+# --------------------------------------------------------------------------
+# 11. lm-chimera (Chimera prefill and LM serving at the zoo's default widths)
+# --------------------------------------------------------------------------
+
+# the ragged prompt of part (c): 2 chunks of 256 and a tail of 128
+# prefilled (4 x 640 tokens split into the MoE's dispatch groups of 512,
+# in both packages)
+RAGGED_T, RAGGED_NEW = 641, 4
+# full width, bf16 activations: kernel against plain version, or prefill
+# against token-by-token decode, differ in fp32 summation orders, which can
+# move the bf16 residual stream by one rounding (2^-8 relative) at some
+# entries; logits are held within LM_LOGIT_TOL (abs, + the same relative;
+# measured 8.7e-3 and 1.3e-2 on an H100, against 3.4 where the MoE drops
+# tokens in one run and not the other), and a greedy token wherever the
+# reference's top-2 margin exceeds twice it
+LM_LOGIT_TOL = 3e-2
+LM_MARGIN = 2 * LM_LOGIT_TOL
+SMOKE_LM = ("chimera-dataplane", "mixtral-8x7b", "codeqwen1.5-7b", "yi-9b", "qwen3-32b")
+
+
+def mixtral_chimera(n_layers):
+    """Mixtral-8x7B's registry default, the Chimera variant (m 128, L 256,
+    n_global 32, d_head 128, Gq 4), cut to ``n_layers`` of its 32 layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("mixtral-8x7b"), n_layers=n_layers)
+
+
+class plain_chimera_kernels:
+    """Within the block, the two Chimera kernels' wrappers run their plain
+    versions on the card (chimera_attention one (batch x kv-head) row at a
+    time: its dense (Gq, T, T) scores are 1 GB a row at T 8192), with the
+    wrappers' own casts."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.chimera_attention import ops as cops
+        from repro_torch.kernels.decode_step import ops as dops
+
+        self.saved = cops.chimera_attention_bh, dops.decode_step
+
+        def attention(q, k, v, phi_q, phi_k, *, chunk_size, use_local=True, use_stream=True):
+            dtype = q.dtype
+            for t in (k, v, phi_q, phi_k):
+                dtype = torch.promote_types(dtype, t.dtype)
+            rows = [cops.chimera_attention_partials_plain(
+                *(x[i:i + 1, None].float() for x in (q, k, v, phi_q, phi_k)),
+                chunk_size, use_local, use_stream) for i in range(q.shape[0])]
+            return (torch.cat([n[:, 0] for n, _ in rows]).to(dtype),
+                    torch.cat([d[:, 0] for _, d in rows]).to(dtype))
+
+        def decode(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count, *, chunk_size,
+                   gamma=1e-6, gnum=None, gden=None):
+            f = [None if t is None else t.float() for t in (q, k_t, v_t, phi_q, phi_buf, gnum,
+                                                            gden)]
+            return dops.decode_step_plain(*f[:5], k_buf, v_buf, S, Z, count,
+                                          chunk_size=chunk_size, gamma=gamma, gnum=f[5],
+                                          gden=f[6])
+
+        cops.chimera_attention_bh, dops.decode_step = attention, decode
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.chimera_attention import ops as cops
+        from repro_torch.kernels.decode_step import ops as dops
+
+        cops.chimera_attention_bh, dops.decode_step = self.saved
+
+
+def lm_replay(cfg, params, prompts, pre, gens, max_len, sequential=False):
+    """The engine's path outside the engine, keeping every step's logits:
+    the prompts' first ``pre`` tokens through ``prefill_with_caches`` (or,
+    ``sequential``, through ``decode_step`` token by token) into float32
+    caches, then ``decode_step`` on token ``pre`` and on the generations
+    ``gens`` (B, n) teacher-forced.  Returns (B, n, vocab) float32 logits."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import _cache_leaves
+
+    B = prompts.shape[0]
+    dev = next(iter(params["embed"].values())).device
+    caches = M.init_caches(cfg, B, max_len, dtype=torch.float32, device=dev)
+    tokens = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad():
+        if sequential:
+            for t in range(pre):
+                M.decode_step(cfg, params, tokens[:, t],
+                              torch.full((B,), t, dtype=torch.int32, device=dev), caches)
+        else:
+            _, pc = M.prefill_with_caches(cfg, params, tokens[:, :pre], max_len=max_len)
+            for dst, src in zip(_cache_leaves(caches), _cache_leaves(pc)):
+                dst.copy_(src)
+            del pc
+        feed = [tokens[:, pre]] + [torch.from_numpy(gens[:, i]).to(dev)
+                                   for i in range(gens.shape[1] - 1)]
+        out = []
+        for i, tok in enumerate(feed):
+            lg = M.decode_step(cfg, params, tok,
+                               torch.full((B,), pre + i, dtype=torch.int32, device=dev), caches)
+            out.append(lg[:, :cfg.vocab_size].float().cpu())
+    return torch.stack(out, dim=1)
+
+
+def hold_generations(what, gens, logits, margin):
+    """Each greedy token equals the reference logits' argmax wherever their
+    top-2 margin exceeds ``margin``; returns (held, total, smallest margin)."""
+    import torch
+
+    top = torch.topk(logits, 2, dim=-1)
+    gaps = top.values[..., 0] - top.values[..., 1]
+    sure = gaps > margin
+    wrong = sure & (top.indices[..., 0] != torch.from_numpy(gens))
+    if wrong.any():
+        fail(f"{what}: {int(wrong.sum())} greedy tokens differ where the reference's top-2 "
+             f"margin exceeds {margin:g}")
+    return int(sure.sum()), sure.numel(), float(gaps.min())
+
+
+def phase_lm_chimera(recs):
+    """Mixtral-8x7B's Chimera variant served on the card.  (a) decode_step
+    and chimera_attention at the zoo's widths against their plain versions,
+    timed; (b) the main path: ``launch/serve.py``'s build and serve at full
+    width, 2 of 32 layers, 4 slots x 8193-token prompts through
+    prefill_batch (T 8192 = 32 chunks of 256 through chimera_attention)
+    and 16 new tokens each (decode_step at L 256); (c) that prefill and
+    decode held against the plain versions on the card, and a ragged
+    641-token prompt's prefill against token-by-token decode; (d) the five
+    configs' smoke sizes, card against CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.flow_ingest import ops as sops
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_flatten
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import classifier as C
+
+    # (a) the kernels at the zoo's widths
+    wide = check_decode_wide()
+    check_chimera_long_edges()
+    long = check_chimera_long(timed=True)
+    for name, r in (("decode_step", wide["spread"]), ("chimera_attention", long)):
+        recs[name].setdefault("other_shapes", []).append(
+            {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    recs["decode_step"]["other_shapes"][-1]["shape"] = "BH 32 Gq 4 d=dv=m 128 L 256, tiled ring"
+    recs["chimera_attention"]["other_shapes"][-1]["shape"] = (
+        "BH 32 Gq 4 T 8192 d=dv=m 128 L 256, chimera_attention_long.cu")
+
+    # (b) the main path through the launcher
+    cfg = mixtral_chimera(SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ccfg = C.ClassifierConfig(arch=cfg, n_classes=2, marker_base=cfg.vocab_size)
+    params = C.init_classifier(ccfg, torch.Generator(device="cuda").manual_seed(SEED),
+                               device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])
+    ch = cfg.chimera
+    log("lm-chimera", f"{cfg.name} Chimera variant, {cfg.n_layers} of 32 layers at full width "
+                      f"(d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv-heads, "
+                      f"head_dim {cfg.head_dim}, m {ch.feature_map.m}, L {ch.chunk_size}, "
+                      f"n_global {ch.n_global}, {cfg.moe_experts} experts top-{cfg.moe_top_k}, "
+                      f"dtype {cfg.dtype}): {nbytes // 4} fp32 parameters drawn on the card in "
+                      f"{time.perf_counter() - t0:.2f} s")
+    args = LS.parse_args(["--arch", cfg.name, "--requests", str(SERVE_SLOTS), "--slots",
+                          str(SERVE_SLOTS), "--prompt-len", str(SERVE_T + 1), "--max-new",
+                          str(SERVE_NEW), "--max-len", str(SERVE_MAX_LEN), "--prefill",
+                          "--waive", "resource-ledger"])
+    dep = LS.build(args, params=params, arch=cfg)
+    engine = dep.engine
+    # warm-up at the main path's shapes (cuBLAS picks its kernels on a first call)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_T + 1))
+    warm = lm_replay(cfg, engine.params, prompts, SERVE_T, np.zeros((SERVE_SLOTS, 1), np.int64),
+                     SERVE_MAX_LEN)
+    if not torch.isfinite(warm).all():
+        fail("lm-chimera: non-finite logits after the warm-up prefill")
+    torch.cuda.reset_peak_memory_stats()
+    wops.launches = cops.launches = dops.launches = sops.launches = 0
+    res = LS.serve(dep)
+    launches = {"chimera_attention": cops.launches, "decode_step": dops.launches,
+                "window_attention": wops.launches, "flow_score": sops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    decode_s = res.seconds - res.prefill_seconds
+    want = {"chimera_attention": cfg.n_layers, "decode_step": cfg.n_layers * res.ticks}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"lm-chimera: {name} launched {launches[name]} times, want {n}: {launches}")
+    gens = np.array([r.generated for r in res.requests])
+    if gens.shape != (SERVE_SLOTS, SERVE_NEW) or gens.min() < 0 or gens.max() >= cfg.vocab_size:
+        fail(f"lm-chimera: generations of shape {gens.shape}, ids {gens.min()}..{gens.max()}")
+    if [r.prompt for r in res.requests] != prompts.tolist():
+        fail("lm-chimera: the launcher's prompts are not the replays' prompts")
+    n_prefill = SERVE_SLOTS * SERVE_T
+    log("lm-chimera", LS.summary(dep, res))
+    log("lm-chimera", f"prefill_batch {SERVE_SLOTS} x {SERVE_T} tokens: "
+                      f"{res.prefill_seconds * 1e3:.1f} ms, {n_prefill / res.prefill_seconds:.0f} "
+                      f"tokens/s; decode: {res.ticks} ticks ({SERVE_SLOTS} slots) in "
+                      f"{decode_s * 1e3:.1f} ms: {decode_s / res.ticks * 1e3:.2f} ms per tick")
+    log("lm-chimera", f"launches in the main-path run: {launches} (chimera_attention = "
+                      f"{cfg.n_layers} layers x 1 prefill of 32 chunks; decode_step = "
+                      f"{cfg.n_layers} layers x {res.ticks} ticks); "
+                      f"{cfg.n_layers * long['ms']:.1f} ms of chimera_attention device time per "
+                      f"prefill (part (a)'s ms per launch); max_memory_allocated {peak} B")
+    log("lm-chimera", "greedy generations (first 8 ids): "
+                      + "; ".join(f"{r.rid}: {r.generated[:8]}" for r in res.requests))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    tokens = torch.from_numpy(prompts[:, :SERVE_T]).to("cuda")
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        M.prefill_with_caches(cfg, engine.params, tokens, max_len=SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, f"one Chimera prefill of {SERVE_SLOTS} x {SERVE_T} tokens")
+    tok = torch.from_numpy(gens[:, -1]).to("cuda")
+    pos = torch.full((SERVE_SLOTS,), SERVE_T + SERVE_NEW, dtype=torch.int32, device="cuda")
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        M.decode_step(cfg, engine.params, tok, pos, engine.caches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, f"one Chimera decode_step of {SERVE_SLOTS} slots (no engine "
+                               "bookkeeping)")
+    del tokens
+
+    # (c) against the plain versions on the card, and prefill against decode
+    got = lm_replay(cfg, engine.params, prompts, SERVE_T, gens, SERVE_MAX_LEN)
+    with plain_chimera_kernels():
+        ref = lm_replay(cfg, engine.params, prompts, SERVE_T, gens, SERVE_MAX_LEN)
+    err = compare("lm-chimera logits, kernels vs plain versions", got, ref, atol=LM_LOGIT_TOL,
+                  rtol=LM_LOGIT_TOL)
+    held, total, gap = hold_generations("lm-chimera kernels vs plain", gens, ref, LM_MARGIN)
+    log("lm-chimera", f"prefill + {SERVE_NEW} decode steps, kernels against the plain versions "
+                      f"on the card: logits max abs diff {err:.3e} (tolerance {LM_LOGIT_TOL:g} + "
+                      f"{LM_LOGIT_TOL:g}*|ref|); greedy tokens equal at {held} of {total} "
+                      f"positions whose top-2 margin exceeds {LM_MARGIN:g} (smallest margin "
+                      f"{gap:.3e})")
+    # prefill equals token-by-token decode where the MoE drops no token: at
+    # capacity factor 1.25 a prefill of 4 x 640 tokens drops some, in both
+    # packages (the JAX package holds its prefill to decode on drop-free
+    # smoke configs), and one-token decode drops none.  So this part serves
+    # the same weights with capacity_factor = E, drop-free, as smoke_config
+    # makes it; attention, the path under test, is unchanged.
+    dcfg = dataclasses.replace(cfg, capacity_factor=float(cfg.moe_experts))
+    rengine = ServeEngine(dcfg, engine.params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                          device="cuda")
+    rprompts = np.random.default_rng(SEED + 60).integers(0, cfg.vocab_size,
+                                                         (SERVE_SLOTS, RAGGED_T))
+    reqs = [Request(rid=i, prompt=p.tolist(), max_new_tokens=RAGGED_NEW)
+            for i, p in enumerate(rprompts)]
+    rengine.prefill_batch(reqs)
+    rengine.run_until_done()
+    rgens = np.array([r.generated for r in reqs])
+    pre = RAGGED_T - 1
+    fast = lm_replay(dcfg, engine.params, rprompts, pre, rgens, SERVE_MAX_LEN)
+    t0 = time.perf_counter()
+    seq = lm_replay(dcfg, engine.params, rprompts, pre, rgens, SERVE_MAX_LEN, sequential=True)
+    seq_s = time.perf_counter() - t0
+    err = compare("lm-chimera ragged prefill vs token-by-token decode", fast, seq,
+                  atol=LM_LOGIT_TOL, rtol=LM_LOGIT_TOL)
+    held, total, gap = hold_generations("lm-chimera ragged prefill_batch vs token-by-token",
+                                        rgens, seq, LM_MARGIN)
+    log("lm-chimera", f"ragged prompt of {RAGGED_T} tokens ({pre // ch.chunk_size} chunks + "
+                      f"{pre % ch.chunk_size} in the ring), capacity factor "
+                      f"{dcfg.capacity_factor:g} (drop-free): prefill_batch then {RAGGED_NEW} "
+                      f"tokens against token-by-token decode ({pre} steps, {seq_s:.1f} s): "
+                      f"logits max abs diff {err:.3e} (tolerance {LM_LOGIT_TOL:g} + "
+                      f"{LM_LOGIT_TOL:g}*|ref|); greedy tokens equal at {held} of {total} "
+                      f"positions whose top-2 margin exceeds {LM_MARGIN:g} (smallest margin "
+                      f"{gap:.3e})")
+    del dep, engine, rengine, params, got, ref, fast, seq, warm
+    torch.cuda.empty_cache()
+
+    # (d) the smoke sizes, card against CPU
+    for name in SMOKE_LM:
+        lm_smoke_card_vs_cpu(name)
+    return {"launches": launches, "prefill_s": res.prefill_seconds, "decode_s": decode_s,
+            "ticks": res.ticks}
+
+
+def lm_smoke_card_vs_cpu(name):
+    """``smoke_config(name)`` (fp32, L 16) through the launcher's engine on
+    the card and on the CPU: prefill_batch of ragged prompts, 6 greedy
+    tokens each; generations identical and the prefill's next-token logits
+    within REF_LOGIT_TOL."""
+    import torch
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = smoke_config(name)
+    params = M.init_model(cfg, torch.Generator().manual_seed(SEED + 61), device="cpu")
+    rng = np.random.default_rng(SEED + 62)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 37, 45)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = cops.launches + dops.launches
+        p = tree_map(lambda t: t.to(dev), params)
+        engine = ServeEngine(cfg, p, batch_slots=4, max_len=64, device=dev)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=6) for i, pr in enumerate(prompts)]
+        engine.prefill_batch(reqs)
+        engine.run_until_done()
+        with torch.no_grad():
+            logits, _ = M.prefill_with_caches(
+                cfg, p, torch.tensor([pr[:36] for pr in prompts], device=dev), max_len=64)
+        if (cops.launches + dops.launches > before) != (dev == "cuda"):
+            fail(f"lm-chimera smoke {name}: kernel launches on {dev}")
+        runs[dev] = ([r.generated for r in reqs], logits.cpu())
+    (gen_g, lg), (gen_c, lc) = runs["cuda"], runs["cpu"]
+    if gen_g != gen_c:
+        fail(f"lm-chimera smoke {name}: greedy generations differ: card {gen_g} vs CPU {gen_c}")
+    err = compare(f"lm-chimera smoke {name} logits", lg, lc, atol=REF_LOGIT_TOL,
+                  rtol=REF_LOGIT_TOL)
+    log("lm-chimera", f"{name} smoke (d_head 16, m 16, L 16): prefill_batch of "
+                      f"{[len(p) for p in prompts]} tokens + 6 greedy tokens, card and CPU "
+                      f"generations identical; next-token logits after 36 tokens max abs diff "
+                      f"{err:.3e} (tolerance {REF_LOGIT_TOL:g} + {REF_LOGIT_TOL:g}*|ref|)")
 
 
 # --------------------------------------------------------------------------
@@ -3076,6 +3541,8 @@ def main():
     launches["chimera_attention"] = timed("train", phase_train, recs)["launches"][
         "chimera_attention"]
     launches["window_attention"] = timed("serve", phase_serve, recs)["launches"]["window_attention"]
+    for name, n in timed("lm-chimera", phase_lm_chimera, recs)["launches"].items():
+        launches[name] += n
     timed("reference n_global=0", phase_reference, 0)
     timed("reference n_global=64", phase_reference, 64)
     timed("reference train", phase_reference_train)
@@ -3110,6 +3577,8 @@ def kernel_lines(recs, launches):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         })
+        if "other_shapes" in r:
+            lines[-1]["other_shapes"] = r["other_shapes"]
     return lines
 
 

@@ -1,7 +1,10 @@
-"""Mixtral-8x7B [arXiv:2401.04088] — 8 experts top-2, sliding-window
-attention (4096).  Same values as ``repro.configs.mixtral_8x7b.CONFIG``;
-the port serves its softmax variant (``use_chimera=False``), where the
-banded SWA path runs through the ``window_attention`` kernel."""
+"""Mixtral-8x7B [arXiv:2401.04088]: 8 experts top-2, sliding-window
+attention (4096).  Same values as ``repro.configs.mixtral_8x7b.CONFIG``.
+The registry default is its Chimera variant (m 128, L 256, n_global 32,
+d_head 128, Gq 4), where the local SRAM layer subsumes the window: the
+prefill runs the ``chimera_attention`` kernel, the decode ``decode_step``.
+Its softmax variant (``use_chimera=False``) runs the banded SWA path
+through the ``window_attention`` kernel."""
 
 from repro_torch.configs.base import ArchConfig
 

@@ -9,10 +9,19 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import chimera_dataplane, mixtral_8x7b
+from repro_torch.configs import (
+    chimera_dataplane,
+    codeqwen15_7b,
+    mixtral_8x7b,
+    qwen3_32b,
+    yi_9b,
+)
 from repro_torch.configs.base import ArchConfig
 
 ARCHS = {
+    "codeqwen1.5-7b": codeqwen15_7b.CONFIG,
+    "yi-9b": yi_9b.CONFIG,
+    "qwen3-32b": qwen3_32b.CONFIG,
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
     "chimera-dataplane": chimera_dataplane.CONFIG,
 }

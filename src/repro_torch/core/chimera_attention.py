@@ -1,6 +1,8 @@
 """Chimera attention (port of ``repro.core.chimera_attention``: the config
 :53, ``_group_queries`` :99, ``_global_partials`` :106, the train/prefill
-``chimera_attention`` :134 and the bounded-state decode :246-422).
+``chimera_attention`` :134, the bounded-state decode :246-422,
+``prefill_into_state`` :283, ``reference_attention`` :425 and
+``chimera_prefill`` :475).
 
 Per query and (flow, kv-head), three partials in the shared exp-kernel
 space are summed and normalized (Eqs. 6, 9-10, 14):
@@ -15,6 +17,16 @@ partials of whole chunked sequences with
 :func:`repro_torch.kernels.chimera_attention.ops.chimera_attention_partials`
 (the Hopper kernel on a CUDA tensor, differentiable through its plain
 formulation), as the JAX package's ``use_pallas`` branch does.
+
+Serving prefill (:func:`chimera_prefill`) runs the prompt's full chunks
+through the same partials (the kernel on the card), computes the ragged
+tail (T mod L tokens) as one partial chunk in plain PyTorch, as the JAX
+package does in jnp, and returns the decode state that
+:func:`prefill_into_state` builds: the full chunks folded into (S, Z) by
+one product, the tail in the ring.  The tail's partials are computed in
+float32, as the kernels compute the full chunks' (their wrappers' stated
+cast of bfloat16 inputs).  :func:`reference_attention` is the O(T²)
+oracle with dense masks that the tests hold both paths to.
 
 Decode (:func:`chimera_decode_step`) runs the ring write, the local and
 stream readouts, the merge and the fold-on-full in one call of
@@ -41,7 +53,10 @@ from repro_torch.core.feature_maps import (
     apply_feature_map,
     init_feature_map,
 )
-from repro_torch.kernels.chimera_attention.ops import chimera_attention_partials
+from repro_torch.kernels.chimera_attention.ops import (
+    chimera_attention_partials,
+    chimera_attention_partials_plain,
+)
 
 Params = Dict[str, Any]
 
@@ -64,10 +79,12 @@ def init_chimera_attention(
     if cfg.n_global > 0:
         params["sig_proj"] = ks.init_signature_projection(g, d_head, cfg.sig_bits, device)
         params["k_global"] = (
-            torch.randn((n_kv_heads, cfg.n_global, d_head), generator=g) / math.sqrt(d_head)
+            torch.randn((n_kv_heads, cfg.n_global, d_head), generator=g, device=g.device)
+            / math.sqrt(d_head)
         ).to(device)
         params["v_global"] = (
-            torch.randn((n_kv_heads, cfg.n_global, d_v), generator=g) / math.sqrt(d_v)
+            torch.randn((n_kv_heads, cfg.n_global, d_v), generator=g, device=g.device)
+            / math.sqrt(d_v)
         ).to(device)
     return params
 
@@ -158,6 +175,117 @@ def init_decode_state(
         v_buf=z(batch, n_kv_heads, L, d_v),
         count=z(batch, dt=torch.int32),
     )
+
+
+def prefill_into_state(
+    cfg: ChimeraAttentionConfig,
+    params: Params,
+    k: torch.Tensor,  # (B, Hkv, T, d) raw keys of the prompt
+    v: torch.Tensor,  # (B, Hkv, T, d_v)
+) -> ChimeraState:
+    """Decode state from a prompt: the full chunks fold into (S, Z), the
+    ragged tail occupies the ring, with the chunked path's boundaries."""
+    B, n_kv, T, d = k.shape
+    d_v = v.shape[-1]
+    L = cfg.chunk_size
+    n_full = T // L
+    tail = T - n_full * L
+    kh = _normalize(k, cfg.feature_map.input_scale)
+    phi_k = apply_feature_map(cfg.feature_map, params["fm"], kh)
+    m = phi_k.shape[-1]
+    if n_full > 0:
+        # in the common type, as jnp promotes the float32 features of a
+        # bfloat16 model against its values
+        dt = torch.promote_types(phi_k.dtype, v.dtype)
+        pk, vv = phi_k[:, :, : n_full * L].to(dt), v[:, :, : n_full * L].to(dt)
+        S = torch.einsum("bhjm,bhjd->bhmd", pk, vv)
+        Z = torch.sum(pk, dim=2)
+    else:
+        S = k.new_zeros((B, n_kv, m, d_v))
+        Z = k.new_zeros((B, n_kv, m))
+    k_buf = k.new_zeros((B, n_kv, L, d))
+    v_buf = v.new_zeros((B, n_kv, L, d_v))
+    if tail:
+        k_buf[:, :, :tail] = kh[:, :, n_full * L:]
+        v_buf[:, :, :tail] = v[:, :, n_full * L:]
+    count = torch.full((B,), tail, dtype=torch.int32, device=k.device)
+    return ChimeraState(S=S, Z=Z, k_buf=k_buf, v_buf=v_buf, count=count)
+
+
+def reference_attention(
+    cfg: ChimeraAttentionConfig,
+    params: Params,
+    q: torch.Tensor,  # (B, H, T, d)
+    k: torch.Tensor,  # (B, Hkv, T, d)
+    v: torch.Tensor,  # (B, Hkv, T, d_v)
+) -> torch.Tensor:
+    """O(T²) oracle with dense masks: token i attends exactly (exp kernel)
+    to the keys j <= i of its own chunk, through φ to every earlier chunk,
+    plus the matched globals.  Any T (the last chunk may be partial)."""
+    B, H, T, d = q.shape
+    n_kv = k.shape[1]
+    scale = cfg.feature_map.input_scale
+    qh = _normalize(_group_queries(q, n_kv), scale)
+    kh = _normalize(k, scale)
+    phi_q = apply_feature_map(cfg.feature_map, params["fm"], qh)
+    phi_k = apply_feature_map(cfg.feature_map, params["fm"], kh)
+    num, den = chimera_attention_partials_plain(
+        *(x.float() for x in (qh, kh, v, phi_q, phi_k)), cfg.chunk_size)
+    if cfg.n_global > 0:
+        gnum, gden = _global_partials(cfg, params, qh, phi_q)
+        num = num + gnum
+        den = den + gden
+    out = num / (den[..., None] + cfg.gamma)
+    return out.reshape(B, H, T, v.shape[-1])
+
+
+def chimera_prefill(
+    cfg: ChimeraAttentionConfig,
+    params: Params,
+    q: torch.Tensor,  # (B, H, T, d); T may be ragged (not a chunk multiple)
+    k: torch.Tensor,  # (B, Hkv, T, d)
+    v: torch.Tensor,  # (B, Hkv, T, d_v)
+) -> Tuple[torch.Tensor, ChimeraState]:
+    """Serving prefill: the outputs at every prompt position and the decode
+    state, in one chunk-parallel pass.  A ragged tail is one partial chunk:
+    exact local attention over the tail, the stream readout against the
+    folded full chunks and the static-global partials; it stays in the ring
+    unfolded, as token-by-token decode leaves it."""
+    B, H, T, d = q.shape
+    n_kv = k.shape[1]
+    L = cfg.chunk_size
+    n_full = T // L
+    tail = T - n_full * L
+    Gq = H // n_kv
+    d_v = v.shape[-1]
+    scale = cfg.feature_map.input_scale
+
+    outs = []
+    if n_full:
+        outs.append(chimera_attention(cfg, params, q[:, :, : n_full * L],
+                                      k[:, :, : n_full * L], v[:, :, : n_full * L]))
+    state = prefill_into_state(cfg, params, k, v)
+
+    if tail:
+        qh = _normalize(_group_queries(q[:, :, n_full * L:], n_kv), scale).float()
+        kh = _normalize(k[:, :, n_full * L:], scale).float()
+        v_t = v[:, :, n_full * L:].float()
+        phi_q = apply_feature_map(cfg.feature_map, params["fm"], qh)
+        causal = torch.tril(torch.ones((tail, tail), device=q.device))
+        s_loc = torch.exp(torch.einsum("bhgid,bhjd->bhgij", qh, kh) / math.sqrt(d)) * causal
+        num = torch.einsum("bhgij,bhjd->bhgid", s_loc, v_t)
+        den = torch.sum(s_loc, dim=-1)
+        if n_full:
+            num = num + torch.einsum("bhgim,bhmd->bhgid", phi_q, state.S.float())
+            den = den + torch.einsum("bhgim,bhm->bhgi", phi_q, state.Z.float())
+        if cfg.n_global > 0:
+            gnum, gden = _global_partials(cfg, params, qh, phi_q)
+            num = num + gnum
+            den = den + gden
+        out_tail = (num / (den[..., None] + cfg.gamma)).reshape(B, H, tail, d_v)
+        outs.append(out_tail.to(outs[0].dtype) if outs else out_tail)
+    out = torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
+    return out, state
 
 
 def chimera_decode_step(

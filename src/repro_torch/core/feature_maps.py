@@ -42,13 +42,13 @@ def _normalize(x: torch.Tensor, scale: float) -> torch.Tensor:
 def _orthogonal_gaussian(g: torch.Generator, m: int, d: int) -> np.ndarray:
     """Block-orthogonal Gaussian matrix (Performer's ORF construction):
     QR of a Gaussian block, rows rescaled to chi(d) norms."""
+    def gauss():  # drawn on the generator's device
+        return torch.randn((d, d), generator=g, dtype=torch.float64, device=g.device).cpu()
+
     blocks = []
     for _ in range(math.ceil(m / d)):
-        gauss = torch.randn((d, d), generator=g, dtype=torch.float64).numpy()
-        q, _ = np.linalg.qr(gauss)
-        norms = np.linalg.norm(
-            torch.randn((d, d), generator=g, dtype=torch.float64).numpy(), axis=-1
-        )
+        q, _ = np.linalg.qr(gauss().numpy())
+        norms = np.linalg.norm(gauss().numpy(), axis=-1)
         blocks.append(q * norms[:, None])
     return np.concatenate(blocks, axis=0)[:m]
 
@@ -60,13 +60,13 @@ def init_feature_map(
     if cfg.kind in ("elu1", "relu"):
         if m == d:
             return {}
-        proj = torch.randn((d, m), generator=g) / math.sqrt(d)
+        proj = torch.randn((d, m), generator=g, device=g.device) / math.sqrt(d)
         return {"proj": proj.to(device)}
     if cfg.kind == "exp_prf":
         if cfg.orthogonal:
             w = torch.from_numpy(_orthogonal_gaussian(g, m, d)).float()
         else:
-            w = torch.randn((m, d), generator=g)
+            w = torch.randn((m, d), generator=g, device=g.device)
         return {"w": w.to(device)}
     raise ValueError(f"unknown or unported feature map kind {cfg.kind!r}")
 
@@ -75,7 +75,7 @@ def apply_feature_map(cfg: FeatureMapConfig, params: Params, x: torch.Tensor) ->
     """x: (..., d) -> φ(x): (..., m).  Always strictly positive outputs."""
     xh = _normalize(x, cfg.input_scale)
     if cfg.kind in ("elu1", "relu"):
-        z = xh @ params["proj"] if "proj" in params else xh
+        z = _matmul(xh, params["proj"]) if "proj" in params else xh
         if cfg.kind == "elu1":
             return torch.nn.functional.elu(z) + 1.0
         return torch.relu(z) + 1e-6
@@ -86,8 +86,15 @@ def apply_feature_map(cfg: FeatureMapConfig, params: Params, x: torch.Tensor) ->
         d = x.shape[-1]
         xs = xh / (d ** 0.25)
         sq = 0.5 * torch.sum(xs * xs, dim=-1, keepdim=True)
-        return torch.exp(xs @ w.T - sq) / math.sqrt(m)
+        return torch.exp(_matmul(xs, w.T) - sq) / math.sqrt(m)
     raise ValueError(f"unknown or unported feature map kind {cfg.kind!r}")
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the operands' common type, as jnp promotes it: bfloat16
+    activations against the float32 map give float32 features."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
 
 
 def phi_norm_bound(cfg: FeatureMapConfig, d: int) -> float:

@@ -10,12 +10,13 @@ import torch
 
 
 def init_signature_projection(g: torch.Generator, d: int, sig_bits: int, device="cpu"):
-    return torch.randn((d, sig_bits), generator=g).to(device)
+    return torch.randn((d, sig_bits), generator=g, device=g.device).to(device)
 
 
 def make_signature(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """Sign-LSH signature: (..., d) -> (..., sig_bits) in {0,1} (int32)."""
-    return (x @ proj > 0).to(torch.int32)
+    dt = torch.promote_types(x.dtype, proj.dtype)  # jnp's promotion of bf16 @ f32
+    return (x.to(dt) @ proj.to(dt) > 0).to(torch.int32)
 
 
 def ternary_match_mask(

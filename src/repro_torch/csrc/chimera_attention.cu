@@ -57,7 +57,9 @@
 // Contract (all float32, contiguous, 16-byte aligned; BH = batch * kv-heads):
 //   q (BH,Gq,T,d) k (BH,T,d) v (BH,T,dv) phi_q (BH,Gq,T,m) phi_k (BH,T,m)
 //   num (BH,Gq,T,dv) den (BH,Gq,T), written in full
-// Takes L in {16, 32, 64, 128}, T % L == 0, dv in {16, 32, 64, 128},
+// Takes L in {16, 32, 64, 128} (L 256, the model zoo's default chunk, is
+// chimera_attention_long.cu's: its chunk does not fit one block's shared
+// memory in this layout), T % L == 0, dv in {16, 32, 64, 128},
 // d % 8 == 0, m % 16 == 0, and the shared memory of the layout below within
 // the 227 KB a block may use; anything else is cudaErrorInvalidValue.
 // use_local, use_stream and any Gq are kept.  The phi tile is 64 columns

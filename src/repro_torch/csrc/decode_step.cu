@@ -40,6 +40,17 @@
 // or prefetching phi_buf to L2, measured slower).
 // fp32 throughout on CUDA cores, so the engine's decisions match the CPU's.
 //
+// Two layouts of shared memory.  Where the whole ring (L x dv values and
+// L x (d + 4) keys) fits beside the partials, as at the paper's shape, it is
+// staged whole (the design above).  Where it does not, as at the zoo's
+// default Chimera widths (L 256, d = dv = m 128: 262,144 B of ring alone),
+// the ring goes through shared memory in tiles of kTileRows rows: the local
+// half stages a tile, scores it and adds its numerator to the partials it
+// keeps in shared memory, then takes the next tile (the exp kernel is
+// unnormalized, so the tiles' partials simply add); the fold walks the
+// pairs (row tile of S, ring tile) with both the phi_buf tile and the ring's
+// value tile double-buffered by cp.async, the arriving value read from v_t.
+//
 // Contract (all float32, contiguous, 16-byte aligned; BH = flows * heads):
 //   q (BH,Gq,d) k_t (BH,d) v_t (BH,dv) phi_q (BH,Gq,m) phi_buf (BH,L,m)
 //   k_buf (BH,L,d) v_buf (BH,L,dv) S (BH,m,dv) Z (BH,m)
@@ -47,11 +58,12 @@
 //   gnum (BH,Gq,dv) and gden (BH,Gq), or both null
 //   out (BH,Gq,dv)
 // Takes dv in {16, 32, 64, 128}, d and m multiples of 4, and the shared
-// memory below within what a block may use; anything else is
-// cudaErrorInvalidValue.  At dv 16 a row of S is four float4 column groups,
-// so the stream half sums 32 row groups and a fold tile is 256 rows of S;
-// at m 16 and d 16 (the smoke configs) the tile holds all of S, 16 of the
-// fold's threads own its rows and one score quad covers a key.
+// memory of the whole-ring layout, else of the tiled one, within what a
+// block may use; anything else is cudaErrorInvalidValue.  At dv 16 a row of
+// S is four float4 column groups, so the stream half sums 32 row groups and
+// a fold tile is 256 rows of S; at m 16 and d 16 (the smoke configs) the
+// tile holds all of S, 16 of the fold's threads own its rows and one score
+// quad covers a key.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,29 +89,37 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-// Shared-memory layout, in floats.  The fold's phi tiles reuse the space of
-// the staged keys, the query and the partials, which are dead by then.
+constexpr int kTileRows = 64;  // ring rows per tile of the tiled layout
+
+// Shared-memory layout, in floats, staging kt ring rows at once (kt = L: the
+// whole ring).  The fold's tiles reuse the space of the staged ring, the
+// query and the partials, which are dead by then: with the whole ring staged
+// they follow its values (which the fold reads in place), else they take
+// the space from its start, the phi_buf tiles then the value tiles.
 struct Layout {
-  int vs, ks, qs, sc, red_s, red_l, den_s, den_l, ftile, total;
-  __host__ __device__ Layout(int Gq, int d, int dv, int L, int m) {
+  int kt, vs, ks, qs, sc, red_s, red_l, den_s, den_l, ftile, fv, total;
+  __host__ __device__ Layout(int Gq, int d, int dv, int L, int m, bool tiled) {
     const int rgh = kHalf / (dv / 4);       // row groups of a half
     const int mt = 4 * (kThreads / (dv / 4));  // rows of S per fold tile
-    vs = 0;                                 // (L, dv) ring values
-    ks = vs + L * dv;                       // (L, d + 4) ring keys
-    qs = ks + L * (d + 4);                  // (Gq, d)
-    sc = qs + Gq * d;                       // (Gq, L) local scores
-    red_s = sc + ((Gq * L + 3) & ~3);       // (Gq, rgh, dv) stream partials
+    const int fw = mt < m ? mt : m;         // width of a phi_buf tile
+    kt = tiled && L > kTileRows ? kTileRows : L;
+    vs = 0;                                 // (kt, dv) ring values
+    ks = vs + kt * dv;                      // (kt, d + 4) ring keys
+    qs = ks + kt * (d + 4);                 // (Gq, d)
+    sc = qs + Gq * d;                       // (Gq, kt) local scores
+    red_s = sc + ((Gq * kt + 3) & ~3);      // (Gq, rgh, dv) stream partials
     red_l = red_s + Gq * rgh * dv;          // (Gq, rgh, dv) local partials
     den_s = red_l + Gq * rgh * dv;          // (Gq, rgh)
     den_l = den_s + Gq * rgh;               // (Gq, rgh)
     const int end = den_l + Gq * rgh;
-    ftile = ks;                             // (2, L, mt) phi_buf tiles, on a fold
-    const int fend = ftile + 2 * L * (mt < m ? mt : m);
+    ftile = tiled ? 0 : ks;                 // (2, kt, fw) phi_buf tiles, on a fold
+    fv = ftile + 2 * kt * fw;               // (2, kt, dv) ring value tiles (tiled)
+    const int fend = fv + (tiled ? 2 * kt * dv : 0);
     total = end > fend ? end : fend;
   }
 };
 
-template <int DV>
+template <int DV, bool TILED>
 __global__ void __launch_bounds__(kThreads, 4) decode_step_kernel(
     const float* __restrict__ q, const float* __restrict__ k_t,
     const float* __restrict__ v_t, const float* __restrict__ phi_q,
@@ -114,7 +134,8 @@ __global__ void __launch_bounds__(kThreads, 4) decode_step_kernel(
   constexpr int MT = 4 * RG;          // rows of S per fold tile
   extern __shared__ __align__(16) float smem[];
   __shared__ int c_sh;  // the fill level, read by the local half
-  const Layout lay(Gq, d, DV, L, m);
+  const Layout lay(Gq, d, DV, L, m, TILED);
+  const int KT = lay.kt;              // ring rows staged at once (L: all)
   float* vs = smem + lay.vs;
   float* ks = smem + lay.ks;
   float* qs = smem + lay.qs;
@@ -148,7 +169,8 @@ __global__ void __launch_bounds__(kThreads, 4) decode_step_kernel(
       if (cg == 0) den_s[g * RGH + rg] = dn;
     }
   } else {
-    // local layer: stage the valid ring rows (the arriving token at slot c)
+    // local layer: stage the valid ring rows (the arriving token at slot c),
+    // the whole ring at once or a tile of KT rows at a time
     const int u = t - kHalf;
     int c = count_in[b];
     c = c < 0 ? 0 : (c >= L ? L - 1 : c);  // memory safety only; callers keep 0 <= c < L
@@ -158,46 +180,56 @@ __global__ void __launch_bounds__(kThreads, 4) decode_step_kernel(
     const float* kt = k_t + (size_t)bh * d;
     const float* vt = v_t + (size_t)bh * DV;
     const int d4 = d / 4;
-    for (int x = u; x < (c + 1) * d4; x += kHalf) {
-      const int j = x / d4, e = 4 * (x - j * d4);
-      st4(ks + j * dp + e, ld4(j == c ? kt + e : kb + (size_t)j * d + e));
-    }
-    for (int x = u; x < (c + 1) * CG; x += kHalf) {
-      const int j = x / CG, e = 4 * (x - j * CG);
-      st4(vs + j * DV + e, ld4(j == c ? vt + e : vb + (size_t)j * DV + e));
-    }
-    for (int x = u; x < Gq * d4; x += kHalf) st4(qs + 4 * x, ld4(q + (size_t)bh * Gq * d + 4 * x));
-    asm volatile("bar.sync 1, %0;\n" ::"n"(kHalf) : "memory");
-    // scores exp(q.k_j / sqrt(d)): four lanes per slot, 32 slots at once
     const float inv_sqrt_d = rsqrtf((float)d);
     const int quad = u & 3;
-    for (int g = 0; g < Gq; ++g) {
-      for (int j0 = 0; j0 <= c; j0 += kHalf / 4) {
-        const int j = j0 + u / 4;
-        float acc = 0.f;
-        if (j <= c)
-          for (int e = 4 * quad; e < d; e += 16) {
-            const float4 a = ld4(qs + g * d + e), kk = ld4(ks + j * dp + e);
-            acc = fmaf(a.x, kk.x, fmaf(a.y, kk.y, fmaf(a.z, kk.z, fmaf(a.w, kk.w, acc))));
-          }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-        if (j <= c && quad == 0) sc[g * L + j] = expf(acc * inv_sqrt_d);
-      }
-    }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(kHalf) : "memory");
-    // local numerator: thread (cg, rg) sums slots rg, rg + RGH, ...
     const int cg = u % CG, rg = u / CG;
-    for (int g = 0; g < Gq; ++g) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      float dn = 0.f;
-      for (int j = rg; j <= c; j += RGH) {
-        const float s = sc[g * L + j];
-        fma4(acc, s, ld4(vs + j * DV + 4 * cg));
-        dn += s;
+    for (int x = u; x < Gq * d4; x += kHalf) st4(qs + 4 * x, ld4(q + (size_t)bh * Gq * d + 4 * x));
+    for (int j0 = 0; j0 <= c; j0 += KT) {
+      const int n = c + 1 - j0 < KT ? c + 1 - j0 : KT;  // valid rows of this tile
+      for (int x = u; x < n * d4; x += kHalf) {
+        const int jj = x / d4, e = 4 * (x - jj * d4), j = j0 + jj;
+        st4(ks + jj * dp + e, ld4(j == c ? kt + e : kb + (size_t)j * d + e));
       }
-      st4(red_l + (g * RGH + rg) * DV + 4 * cg, acc);
-      if (cg == 0) den_l[g * RGH + rg] = dn;
+      for (int x = u; x < n * CG; x += kHalf) {
+        const int jj = x / CG, e = 4 * (x - jj * CG), j = j0 + jj;
+        st4(vs + jj * DV + e, ld4(j == c ? vt + e : vb + (size_t)j * DV + e));
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kHalf) : "memory");
+      // scores exp(q.k_j / sqrt(d)): four lanes per slot, 32 slots at once
+      for (int g = 0; g < Gq; ++g) {
+        for (int i0 = 0; i0 < n; i0 += kHalf / 4) {
+          const int jj = i0 + u / 4;
+          float acc = 0.f;
+          if (jj < n)
+            for (int e = 4 * quad; e < d; e += 16) {
+              const float4 a = ld4(qs + g * d + e), kk = ld4(ks + jj * dp + e);
+              acc = fmaf(a.x, kk.x, fmaf(a.y, kk.y, fmaf(a.z, kk.z, fmaf(a.w, kk.w, acc))));
+            }
+          acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+          acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+          if (jj < n && quad == 0) sc[g * KT + jj] = expf(acc * inv_sqrt_d);
+        }
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kHalf) : "memory");
+      // local numerator: thread (cg, rg) sums slots rg, rg + RGH, ... of the
+      // tile into its own partial (a tile's partials add to the last one's)
+      for (int g = 0; g < Gq; ++g) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        float dn = 0.f;
+        for (int jj = rg; jj < n; jj += RGH) {
+          const float s = sc[g * KT + jj];
+          fma4(acc, s, ld4(vs + jj * DV + 4 * cg));
+          dn += s;
+        }
+        float* rl = red_l + (g * RGH + rg) * DV + 4 * cg;
+        if (j0 > 0) {
+          add4(acc, ld4(rl));
+          if (cg == 0) dn += den_l[g * RGH + rg];
+        }
+        st4(rl, acc);
+        if (cg == 0) den_l[g * RGH + rg] = dn;
+      }
+      if (j0 + KT <= c) asm volatile("bar.sync 1, %0;\n" ::"n"(kHalf) : "memory");
     }
   }
   __syncthreads();
@@ -230,57 +262,79 @@ __global__ void __launch_bounds__(kThreads, 4) decode_step_kernel(
     for (int x = t; x < CG; x += kThreads) st4(vw + (size_t)c * DV + 4 * x, ld4(v_t + (size_t)bh * DV + 4 * x));
   } else {
     // fold: thread (cg, rg) owns rows 4 rg .. 4 rg + 3 of each MT-row tile of
-    // S and columns 4 cg .. 4 cg + 3; phi_buf[:, tile] is double-buffered
+    // S and columns 4 cg .. 4 cg + 3.  The steps walk (row tile, ring tile)
+    // pairs, each step's phi_buf tile (and, tiled, the ring's value tile)
+    // double-buffered; with the whole ring staged there is one ring tile and
+    // its values are read where the local half staged them.
     __syncthreads();  // the partials are read; their space takes the tiles
     const float* pb = phi_buf + (size_t)bh * L * m;
+    const float* vb = v_buf + (size_t)bh * L * DV;
+    const float* vt = v_t + (size_t)bh * DV;
     float* Sw = S + (size_t)bh * m * DV;
     float* Zw = Z + (size_t)bh * m;
     float* ft = smem + lay.ftile;
+    float* fv = smem + lay.fv;
     const int mt = MT < m ? MT : m;  // tile width, in rows of S
     const int ntile = (m + MT - 1) / MT;
+    const int nkt = (L + KT - 1) / KT;  // ring tiles (1 unless tiled)
+    const int nstep = ntile * nkt;
     const int cg = t % CG, rg = t / CG;
-    auto load_tile = [&](int tile, int buf) {
-      const int r0 = tile * MT, w = (m - r0 < MT ? m - r0 : MT) / 4;
-      float* dst = ft + buf * L * mt;
-      for (int x = t; x < L * w; x += kThreads) {
+    auto load_step = [&](int step, int buf) {
+      const int r0 = (step / nkt) * MT, w = (m - r0 < MT ? m - r0 : MT) / 4;
+      const int j0 = (step % nkt) * KT, n = L - j0 < KT ? L - j0 : KT;
+      float* dst = ft + buf * KT * mt;
+      for (int x = t; x < n * w; x += kThreads) {
         const int j = x / w, e = 4 * (x - j * w);
-        cp_async16(dst + j * mt + e, pb + (size_t)j * m + r0 + e);
+        cp_async16(dst + j * mt + e, pb + (size_t)(j0 + j) * m + r0 + e);
+      }
+      if (TILED) {
+        float* vdst = fv + buf * KT * DV;
+        for (int x = t; x < n * CG; x += kThreads) {
+          const int j = x / CG, e = 4 * (x - j * CG);
+          cp_async16(vdst + j * DV + e, j0 + j == c ? vt + e : vb + (size_t)(j0 + j) * DV + e);
+        }
       }
       cp_async_commit();
     };
-    load_tile(0, 0);
-    for (int tile = 0; tile < ntile; ++tile) {
-      if (tile + 1 < ntile) {
-        load_tile(tile + 1, (tile + 1) & 1);
+    float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0, a2 = a0, a3 = a0, z = a0;
+    load_step(0, 0);
+    for (int step = 0; step < nstep; ++step) {
+      if (step + 1 < nstep) {
+        load_step(step + 1, (step + 1) & 1);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const float* f = ft + (tile & 1) * L * mt;
+      const int tile = step / nkt, kk = step % nkt;
+      const int n = L - kk * KT < KT ? L - kk * KT : KT;
+      const float* f = ft + (step & 1) * KT * mt;
+      const float* vsrc = TILED ? fv + (step & 1) * KT * DV : vs;
       const int r = tile * MT + 4 * rg;  // first row of this thread's tile
       if (r < m) {
-        float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0, a2 = a0, a3 = a0, z = a0;
+        if (kk == 0) a0 = a1 = a2 = a3 = z = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
-        for (int j = 0; j < L; ++j) {
+        for (int j = 0; j < n; ++j) {
           const float4 p = ld4(f + j * mt + 4 * rg);
-          const float4 v = ld4(vs + j * DV + 4 * cg);
+          const float4 v = ld4(vsrc + j * DV + 4 * cg);
           fma4(a0, p.x, v); fma4(a1, p.y, v); fma4(a2, p.z, v); fma4(a3, p.w, v);
           add4(z, p);
         }
-        // the sums, then the state, as the plain version adds them
-        float* s = Sw + (size_t)r * DV + 4 * cg;
-        float4 o = ld4(s);           add4(o, a0); st4(s, o);
-        o = ld4(s + DV);             add4(o, a1); st4(s + DV, o);
-        o = ld4(s + 2 * DV);         add4(o, a2); st4(s + 2 * DV, o);
-        o = ld4(s + 3 * DV);         add4(o, a3); st4(s + 3 * DV, o);
-        if (cg == 0) {
-          float4 zo = ld4(Zw + r);
-          add4(zo, z);
-          st4(Zw + r, zo);
+        if (kk + 1 == nkt) {
+          // the sums, then the state, as the plain version adds them
+          float* s = Sw + (size_t)r * DV + 4 * cg;
+          float4 o = ld4(s);           add4(o, a0); st4(s, o);
+          o = ld4(s + DV);             add4(o, a1); st4(s + DV, o);
+          o = ld4(s + 2 * DV);         add4(o, a2); st4(s + 2 * DV, o);
+          o = ld4(s + 3 * DV);         add4(o, a3); st4(s + 3 * DV, o);
+          if (cg == 0) {
+            float4 zo = ld4(Zw + r);
+            add4(zo, z);
+            st4(Zw + r, zo);
+          }
         }
       }
-      __syncthreads();  // the tile's buffer is refilled next
+      __syncthreads();  // the step's buffer is refilled next
     }
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int x = t; x < L * d / 4; x += kThreads) st4(kw + 4 * x, zero);
@@ -289,21 +343,39 @@ __global__ void __launch_bounds__(kThreads, 4) decode_step_kernel(
   if (t == 0 && bh % heads == 0) count_out[b] = full ? 0 : c + 1;
 }
 
+template <int DV, bool TILED>
+int launch_layout(const float* q, const float* k_t, const float* v_t, const float* phi_q,
+                  const float* phi_buf, float* k_buf, float* v_buf, float* S, float* Z,
+                  const int32_t* count_in, int32_t* count_out, const float* gnum,
+                  const float* gden, float* out, int BH, int heads, int Gq, int d, int m,
+                  int L, float gamma, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_step_kernel<DV, TILED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_step_kernel<DV, TILED><<<BH, kThreads, smem, stream>>>(
+      q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out,
+      gnum, gden, out, heads, Gq, d, m, L, gamma);
+  return (int)cudaGetLastError();
+}
+
+// the whole ring where it fits, else the tiled ring
 template <int DV>
 int launch(const float* q, const float* k_t, const float* v_t, const float* phi_q,
            const float* phi_buf, float* k_buf, float* v_buf, float* S, float* Z,
            const int32_t* count_in, int32_t* count_out, const float* gnum,
            const float* gden, float* out, int BH, int heads, int Gq, int d, int m,
            int L, float gamma, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)Layout(Gq, d, DV, L, m).total;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_step_kernel<DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_step_kernel<DV><<<BH, kThreads, smem, stream>>>(
-      q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in, count_out,
-      gnum, gden, out, heads, Gq, d, m, L, gamma);
-  return (int)cudaGetLastError();
+  constexpr size_t kLimit = 227 * 1024;
+  size_t smem = sizeof(float) * (size_t)Layout(Gq, d, DV, L, m, false).total;
+  if (smem <= kLimit)
+    return launch_layout<DV, false>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in,
+                                    count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma,
+                                    smem, stream);
+  smem = sizeof(float) * (size_t)Layout(Gq, d, DV, L, m, true).total;
+  if (smem > kLimit) return (int)cudaErrorInvalidValue;
+  return launch_layout<DV, true>(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count_in,
+                                 count_out, gnum, gden, out, BH, heads, Gq, d, m, L, gamma,
+                                 smem, stream);
 }
 
 bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }

@@ -2,7 +2,9 @@
 version and the autograd Function around them.
 
 Replaces ``repro/kernels/chimera_attention/kernel.py::chimera_attention_pallas``
-with ``csrc/chimera_attention.cu`` (training and prefill).  Token i attends
+with ``csrc/chimera_attention.cu`` (training and prefill; chunks of 16 to
+128 tokens) and ``csrc/chimera_attention_long.cu`` (chunks of 256, the model
+zoo's default, as in Mixtral-8x7B's Chimera prefill).  Token i attends
 exactly (exp kernel) to the tokens j <= i of its own chunk and through the
 feature map, φ(q)ᵀφ(k), to every token of earlier chunks; the unnormalized
 ``(num, den)`` partials are returned so that the caller can add the
@@ -13,7 +15,12 @@ static-global term before dividing.
 * :func:`chimera_attention_bh` — the kernel's wrapper on the flattened
   (batch × kv-head) layout: it launches the kernel for CUDA tensors and runs
   the plain version for CPU tensors; any other device raises.  ``launches``
-  counts kernel launches (never plain calls).
+  counts kernel launches (never plain calls).  Types: the kernels read and
+  write float32; bfloat16 inputs (a model whose ``ArchConfig.dtype`` is
+  bfloat16, as the JAX package runs Chimera in the input type) are cast to
+  float32 explicitly before either route, and the partials are cast to the
+  inputs' common type after it (bfloat16 where all five are; the float32
+  features of a bfloat16 model make it float32, as in jnp).
 * :func:`chimera_attention_partials` — the port of the JAX ``custom_vjp``
   (``repro/kernels/chimera_attention/ops.py``): the forward takes the
   wrapper's route, the backward recomputes the plain formulation and
@@ -31,10 +38,13 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-# the launcher's contract (csrc/chimera_attention.cu)
-L_TAKEN = (16, 32, 64, 128)
+# the launchers' contract (csrc/chimera_attention.cu for L up to 128,
+# csrc/chimera_attention_long.cu for L 256)
+L_TAKEN = (16, 32, 64, 128, 256)
+L_LONG = 256
 DV_TAKEN = (16, 32, 64, 128)
 SMEM_LIMIT = 227 * 1024
+TYPES = (torch.float32, torch.bfloat16)
 _WARPS = 8
 
 
@@ -53,6 +63,15 @@ def _smem_bytes(d: int, dv: int, m: int, L: int, stages: int, vbufs: int) -> int
     return 4 * (ring + stages * L * sf + (ks - 1) * L * ss)
 
 
+def _long_smem_bytes(d: int, dv: int) -> int:
+    """The long-chunk kernel's shared memory (its ``Layout``), in bytes:
+    64 query rows, 32-key tiles of k, v and P, which the 16-row stream
+    tiles reuse."""
+    local = 64 * (d + 4) + 32 * (d + 4) + 32 * dv + 64 * 33
+    stream = 64 * (d + 4) + 64 * 17 + 16 * dv + 16
+    return 4 * max(local, stream)
+
+
 def contract(*, d: int, dv: int, m: int, L: int) -> Optional[str]:
     """``None`` if the kernel takes these widths, else what it refuses: the
     launcher's checks on the widths, mirrored so that a shape outside them
@@ -65,7 +84,10 @@ def contract(*, d: int, dv: int, m: int, L: int) -> Optional[str]:
         return f"d {d} is not a positive multiple of 8"
     if m <= 0 or m % 16:
         return f"m {m} is not a positive multiple of 16"
-    smem = _smem_bytes(d, dv, m, L, stages=2, vbufs=1)  # the shallowest plan
+    if L == L_LONG:
+        smem = _long_smem_bytes(d, dv)
+    else:
+        smem = _smem_bytes(d, dv, m, L, stages=2, vbufs=1)  # the shallowest plan
     if smem > SMEM_LIMIT:
         return f"{smem} B of shared memory at d {d}, dv {dv}, m {m}, L {L} > {SMEM_LIMIT}"
     return None
@@ -111,8 +133,8 @@ def _check(q, k, v, phi_q, phi_k, L):
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"chimera_attention: {name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"chimera_attention: {name} must be float32, got {t.dtype}")
+        if t.dtype not in TYPES:
+            raise TypeError(f"chimera_attention: {name} must be one of {TYPES}, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"chimera_attention: {name} on {t.device}, q on {q.device}")
     if T % L:
@@ -135,12 +157,18 @@ def chimera_attention_bh(
     global launches
     L = chunk_size
     BH, Gq, T, d, dv, m = _check(q, k, v, phi_q, phi_k, L)
+    # the stated cast: bfloat16 inputs are computed in float32 on either route,
+    # and the partials come back in the inputs' common type (jnp's promotion)
+    dtype = q.dtype
+    for t in (k, v, phi_q, phi_k):
+        dtype = torch.promote_types(dtype, t.dtype)
+    q, k, v, phi_q, phi_k = (t.float() for t in (q, k, v, phi_q, phi_k))
     if q.device.type == "cpu":
         num, den = chimera_attention_partials_plain(
             q[:, None], k[:, None], v[:, None], phi_q[:, None], phi_k[:, None],
             L, use_local, use_stream,
         )
-        return num[:, 0], den[:, 0]
+        return num[:, 0].to(dtype), den[:, 0].to(dtype)
     if q.device.type != "cuda":
         raise RuntimeError(f"chimera_attention: no kernel for device {q.device}")
     refused = contract(d=d, dv=dv, m=m, L=L)
@@ -152,14 +180,25 @@ def chimera_attention_bh(
     lib = _build.load_library()
     num = torch.empty((BH, Gq, T, dv), dtype=torch.float32, device=q.device)
     den = torch.empty((BH, Gq, T), dtype=torch.float32, device=q.device)
-    err = lib.chimera_attention_launch(
-        *map(_build.ptr, (q, k, v, phi_q, phi_k, num, den)),
-        BH, Gq, T, d, dv, m, L, 1.0 / math.sqrt(d), int(bool(use_local)),
-        int(bool(use_stream)), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flags = (1.0 / math.sqrt(d), int(bool(use_local)), int(bool(use_stream)))
+    if L == L_LONG:
+        # the stream state before every chunk: (BH, T / L, m, dv + 1) scratch
+        state = None
+        if use_stream and T > L:
+            state = torch.empty((BH, T // L, m, dv + 1), dtype=torch.float32, device=q.device)
+        err = lib.chimera_attention_long_launch(
+            *map(_build.ptr, (q, k, v, phi_q, phi_k, num, den, state)),
+            BH, Gq, T, d, dv, m, L, *flags, stream,
+        )
+    else:
+        err = lib.chimera_attention_launch(
+            *map(_build.ptr, (q, k, v, phi_q, phi_k, num, den)),
+            BH, Gq, T, d, dv, m, L, *flags, stream,
+        )
     _build.check(err, "chimera_attention")
     launches += 1
-    return num, den
+    return num.to(dtype), den.to(dtype)
 
 
 class _Partials(torch.autograd.Function):
@@ -187,7 +226,8 @@ class _Partials(torch.autograd.Function):
         if not need:
             return tuple(grads)
         with torch.enable_grad():
-            xs = [x.detach().requires_grad_(i in need) for i, x in enumerate(saved)]
+            # in float32, as the forward (autograd casts the grads back)
+            xs = [x.detach().float().requires_grad_(i in need) for i, x in enumerate(saved)]
             num, den = chimera_attention_partials_plain(*xs, *ctx.cfg)
             got = torch.autograd.grad(
                 (num, den), [xs[i] for i in need], (g_num, g_den), allow_unused=True

@@ -8,6 +8,14 @@ exact local readout → φ-stream readout → (+ static-global partials) → mer
 :func:`decode_step` launches the kernel for CUDA tensors and runs
 :func:`decode_step_plain` for CPU tensors; any other device raises.
 ``launches`` counts kernel launches (never plain calls).
+
+Types.  The state (ring, S, Z) is float32 and is updated in place: the
+kernel reads and writes float32 only.  The token's inputs (q, k_t, v_t, the
+features and the static-global partials) may also be bfloat16, the
+activations of a model whose ``ArchConfig.dtype`` is bfloat16: the wrapper
+casts them to float32 explicitly before either route, and the output is
+float32, as the JAX package's promotion of bfloat16 activations against a
+float32 state makes it.
 """
 
 from __future__ import annotations
@@ -22,22 +30,42 @@ from repro_torch.kernels import _build
 launches = 0
 
 # the launcher's contract (csrc/decode_step.cu): value widths it is built
-# for, and the shared memory a block may use
+# for, the shared memory a block may use, and the ring rows a tile of the
+# tiled layout stages
 DV_TAKEN = (16, 32, 64, 128)
 SMEM_LIMIT = 227 * 1024
+TILE_ROWS = 64
 _THREADS = 256
+STATE = ("k_buf", "v_buf", "S", "Z")  # updated in place, float32
+STATE_TYPES = (torch.float32,)
+INPUT_TYPES = (torch.float32, torch.bfloat16)  # cast to float32 before the launch
+
+
+def _layout_floats(Gq: int, d: int, dv: int, m: int, L: int, tiled: bool) -> int:
+    """Floats of shared memory of the kernel's ``Layout``: the whole ring, or
+    ``TILE_ROWS`` rows of it at a time."""
+    half = _THREADS // 2
+    rgh = half // (dv // 4)
+    fw = min(4 * (_THREADS // (dv // 4)), m)
+    kt = TILE_ROWS if tiled and L > TILE_ROWS else L
+    red_s = kt * dv + kt * (d + 4) + Gq * d + ((Gq * kt + 3) & ~3)
+    end = red_s + 2 * Gq * rgh * dv + 2 * Gq * rgh
+    fend = 2 * kt * (fw + dv) if tiled else kt * dv + 2 * kt * fw
+    return max(end, fend)
+
+
+def layout(Gq: int, d: int, dv: int, m: int, L: int) -> Tuple[str, int]:
+    """``(name, bytes)`` of the layout the launcher takes: ``"whole"`` (the
+    ring staged whole) where it fits, else ``"tiled"``."""
+    whole = 4 * _layout_floats(Gq, d, dv, m, L, tiled=False)
+    if whole <= SMEM_LIMIT:
+        return "whole", whole
+    return "tiled", 4 * _layout_floats(Gq, d, dv, m, L, tiled=True)
 
 
 def _smem_bytes(Gq: int, d: int, dv: int, m: int, L: int) -> int:
-    """The kernel's shared memory (its ``Layout``), in bytes."""
-    half = _THREADS // 2
-    rgh = half // (dv // 4)
-    mt = 4 * (_THREADS // (dv // 4))
-    sc = L * dv + L * (d + 4) + Gq * d
-    red_s = sc + ((Gq * L + 3) & ~3)
-    end = red_s + 2 * Gq * rgh * dv + 2 * Gq * rgh
-    fend = L * dv + 2 * L * min(mt, m)
-    return 4 * max(end, fend)
+    """The kernel's shared memory per block (its ``Layout``), in bytes."""
+    return layout(Gq, d, dv, m, L)[1]
 
 
 def contract(*, Gq: int, d: int, dv: int, m: int, L: int) -> Optional[str]:
@@ -50,7 +78,8 @@ def contract(*, Gq: int, d: int, dv: int, m: int, L: int) -> Optional[str]:
         return f"Gq {Gq}, d {d}, m {m}, L {L}: all positive, d and m multiples of 4"
     smem = _smem_bytes(Gq, d, dv, m, L)
     if smem > SMEM_LIMIT:
-        return f"{smem} B of shared memory at Gq {Gq}, d {d}, dv {dv}, m {m}, L {L} > {SMEM_LIMIT}"
+        return (f"{smem} B of shared memory at Gq {Gq}, d {d}, dv {dv}, m {m}, L {L} > "
+                f"{SMEM_LIMIT}, with the ring tiled {TILE_ROWS} rows at a time")
     return None
 
 
@@ -105,8 +134,9 @@ def _check(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count, L, gnum, gden
     for name, (t, shape) in [("q", (q, (BH, Gq, d)))] + list(shapes.items()):
         if tuple(t.shape) != shape:
             raise ValueError(f"decode_step: {name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"decode_step: {name} must be float32, got {t.dtype}")
+        want = STATE_TYPES if name in STATE else INPUT_TYPES
+        if t.dtype not in want:
+            raise TypeError(f"decode_step: {name} must be one of {want}, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"decode_step: {name} on {t.device}, q on {q.device}")
     if count.dtype != torch.int32 or count.device != q.device:
@@ -139,6 +169,9 @@ def decode_step(
     BH, Gq, d, dv, m = _check(
         q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count, L, gnum, gden
     )
+    # the stated cast: bfloat16 token inputs become float32 on either route
+    q, k_t, v_t, phi_q, phi_buf, gnum, gden = (
+        None if t is None else t.float() for t in (q, k_t, v_t, phi_q, phi_buf, gnum, gden))
     if q.device.type == "cpu":
         return decode_step_plain(
             q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count,

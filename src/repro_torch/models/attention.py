@@ -4,10 +4,14 @@
 ``attention_decode`` :249, ``attention_prefill`` :466 and
 ``_fill_kv_cache`` :495).
 
-Two modes are ported: the causal Chimera transform (``use_chimera``), and
-softmax attention with a sliding window (``attention_kind="swa"``), whose
-prefill runs through the ``window_attention`` kernel and whose decode keeps
-a ring KV cache of ``min(max_len, window)`` tokens.  The other softmax paths
+Two modes are ported.  The causal Chimera transform (``use_chimera``, the
+default of every config): its prefill is ``chimera_prefill`` (the full
+chunks through the ``chimera_attention`` kernel, at chunks of 16 to 256
+tokens), and its decode cache is the bounded ``ChimeraState`` that
+``decode_step`` updates.  Softmax attention with a sliding window
+(``attention_kind="swa"`` with ``use_chimera=False``), whose prefill runs
+through the ``window_attention`` kernel and whose decode keeps a ring KV
+cache of ``min(max_len, window)`` tokens.  The other softmax paths
 (full-causal ``blockwise_softmax_attention``, MLA, cross-attention) raise
 ``NotImplementedError``; they wait for ROADMAP Queue 1 item 11.
 """
@@ -179,16 +183,17 @@ def attention_prefill(
     positions: torch.Tensor,  # (B, T)
     max_len: int,
 ):
-    """Forward over the whole prompt + the decode cache to continue from
-    (the softmax SWA branch; Chimera's ``chimera_prefill`` is not ported)."""
+    """Forward over the whole prompt + the decode cache to continue from:
+    Chimera's chunked prefill and its bounded state (``max_len`` unused), or
+    the banded softmax and its ring KV cache."""
     require_ported(cfg)
-    if cfg.use_chimera:
-        raise NotImplementedError(
-            "chimera_prefill is not ported (ROADMAP Queue 1, 'Chimera prefill')")
     B, T, _ = x.shape
     q, k, v = _project_qkv(cfg, params, x, positions)
-    o = _swa(cfg, q, k, v)
-    cache = _fill_kv_cache(cfg, k, v, max_len)
+    if cfg.use_chimera:
+        o, cache = chimera.chimera_prefill(cfg.chimera, params["chimera"], q, k, v)
+    else:
+        o = _swa(cfg, q, k, v)
+        cache = _fill_kv_cache(cfg, k, v, max_len)
     o = o.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.head_dim)
     return dense(params["wo"], o), cache
 

@@ -67,10 +67,14 @@ def _init_block(cfg: ArchConfig, pos_in_pattern: int, g: torch.Generator, device
 
 
 def stack_params(trees: list) -> Params:
-    """Stack identical dict trees along a new leading 'layers' axis."""
+    """Stack identical dict trees (Chimera states among their leaves) along
+    a new leading 'layers' axis."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: stack_params([t[k] for t in trees]) for k in first}
+    if isinstance(first, ChimeraState):
+        return ChimeraState(*(torch.stack(ls, dim=0)
+                              for ls in zip(*(t.leaves() for t in trees))))
     return torch.stack(trees, dim=0)
 
 

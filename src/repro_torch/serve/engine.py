@@ -5,7 +5,8 @@ Slot-based continuous batching over the non-iterative ``decode_step``:
 ``submit`` queues a prompt, every ``step()`` fills free slots and decodes one
 token for all active slots (prompt tokens are teacher-forced through the
 same step), and ``prefill_batch`` ingests a batch of prompts in one forward
-(``prefill_with_caches``, the softmax SWA path through the
+(``prefill_with_caches``: Chimera's chunked prefill through the
+``chimera_attention`` kernel, or the softmax SWA path through the
 ``window_attention`` kernel).  Greedy or temperature sampling; slots free on
 EOS or at the length cap.
 
@@ -14,12 +15,14 @@ CPU; its parameters must lie there.  The caches live on that device and are
 updated in place.  Temperature sampling draws from an explicit
 ``torch.Generator`` (another stream of numbers than ``jax.random``).
 The deploy surface builds it for a program's backbone
-(``program.deploy(DeploySpec(engine="lm"))``, :mod:`repro_torch.serve.deploy`).
+(``program.deploy(DeploySpec(engine="lm"))``, :mod:`repro_torch.serve.deploy`);
+``ServeEngine.from_program`` is the JAX package's deprecated shim over it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -109,6 +112,23 @@ class ServeEngine:
         )
 
     # ------------------------------------------------------------------
+    # compiled-program deployment (the JAX package's deprecated shim)
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_program(cls, program, **kwargs) -> "ServeEngine":
+        """Deprecated: deploy through the one front door instead,
+        ``program.deploy(DeploySpec(engine="lm", batch_slots=...))``."""
+        warnings.warn(
+            "ServeEngine.from_program is deprecated; use "
+            "DataplaneProgram.deploy(DeploySpec(engine='lm', batch_slots=..., "
+            "max_len=...))",
+            DeprecationWarning, stacklevel=2,
+        )
+        from repro_torch.serve.deploy import build_serve_engine
+
+        return build_serve_engine(program, **kwargs)
+
+    # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
         self.pending.append(req)
 
@@ -185,13 +205,7 @@ class ServeEngine:
         """Ingest the prompts of a batch of slots in one forward
         (``prefill_with_caches``) instead of token-by-token teacher forcing.
         Every slot is prefilled to the shortest prompt's length less one; the
-        rest of each prompt, and its last token, go through ``step``.
-        Chimera configs raise: ``chimera_prefill`` is not ported yet."""
-        if self.cfg.use_chimera:
-            raise NotImplementedError(
-                "prefill_batch on a Chimera config needs chimera_prefill "
-                "(ROADMAP Queue 1, 'Chimera prefill'); use submit/step"
-            )
+        rest of each prompt, and its last token, go through ``step``."""
         if len(requests) > self.slots:
             raise ValueError("more requests than slots")
         min_len = min(len(r.prompt) for r in requests)
@@ -205,10 +219,9 @@ class ServeEngine:
                     self.cfg, self.params, torch.from_numpy(batch_tokens).to(self.device),
                     max_len=self.max_len,
                 )
-            # the caches keep the engine's dtype (prefill runs in the model's)
-            for j, c in caches.items():
-                for name, t in c.items():
-                    self.caches[j][name].copy_(t)
+            # the caches keep the engine's dtypes (prefill runs in the model's)
+            for dst, src in zip(_cache_leaves(self.caches), _cache_leaves(caches)):
+                dst.copy_(src)
             del caches
         for i, r in enumerate(requests):
             self.active[i] = r

@@ -192,22 +192,19 @@ def test_flow_score_plain_matches_jax(tiny_classifier_cfg, M):
 
 def _port_configs():
     """``(label, cfg)`` for every configuration the port runs: each registry
-    config at full width and as ``smoke_config``.  Mixtral-8x7B at full width
-    runs as its softmax variant (``configs/mixtral_8x7b.py``): its Chimera
-    variant at full width (L 256, d 128) is outside ``decode_step``'s shared
-    memory and ``chimera_attention``'s row tiling (ROADMAP Queue 3).  Its
-    smoke config runs both stacks."""
+    config at full width and as ``smoke_config``, the SWA configs (Mixtral-
+    8x7B) also as their softmax variant.  The full widths are the model zoo's
+    default Chimera widths (L 256, m 128, d_head 128, Gq 1, 4 and 8), which
+    ``decode_step`` takes with its ring tiled and ``chimera_attention``
+    through its long-chunk kernel."""
     out = []
     for name in sorted(registry.ARCHS):
-        full = registry.get_config(name)
-        if full.attention_kind == "swa":
-            full = dataclasses.replace(full, use_chimera=False)
-        out.append((f"{name} full", full))
-        smoke = registry.smoke_config(name)
-        out.append((f"{name} smoke", smoke))
-        if smoke.attention_kind == "swa":
-            out.append((f"{name} smoke softmax",
-                        dataclasses.replace(smoke, use_chimera=False)))
+        for size, cfg in (("full", registry.get_config(name)),
+                          ("smoke", registry.smoke_config(name))):
+            out.append((f"{name} {size}", cfg))
+            if cfg.attention_kind == "swa":
+                out.append((f"{name} {size} softmax",
+                            dataclasses.replace(cfg, use_chimera=False)))
     return out
 
 
@@ -241,8 +238,8 @@ def test_every_port_config_lies_inside_every_kernel_contract(label, cfg):
 @pytest.mark.parametrize("contract,dims", [
     (dops.contract, dict(Gq=1, d=64, dv=24, m=256, L=64)),
     (dops.contract, dict(Gq=1, d=18, dv=64, m=256, L=64)),
-    (dops.contract, dict(Gq=4, d=128, dv=128, m=128, L=256)),  # shared memory
-    (cops.contract, dict(d=64, dv=64, m=256, L=256)),
+    (dops.contract, dict(Gq=8, d=1024, dv=128, m=128, L=256)),  # shared memory, ring tiled
+    (cops.contract, dict(d=64, dv=64, m=256, L=512)),
     (cops.contract, dict(d=64, dv=64, m=24, L=64)),
     (cops.contract, dict(d=12, dv=64, m=64, L=64)),
     (wops.contract, dict(d=256, dv=256, H=4, Hkv=2, window=8)),

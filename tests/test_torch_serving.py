@@ -395,8 +395,15 @@ def test_serve_engine_step_on_chimera_dataplane_matches_jax():
     ej.run_until_done()
     et.run_until_done()
     _same_runs(ej, et, reqs_j, reqs_t)
-    with pytest.raises(NotImplementedError, match="chimera_prefill"):
-        et.prefill_batch([TE.Request(rid=9, prompt=prompts[0])])
+    # prefill_batch on the Chimera config, since chimera_prefill is ported
+    ej, et = _engines(jcfg, params, bridge.params_from_jax(_np(params), device="cpu"))
+    reqs_j = [JE.Request(rid=i, prompt=p, max_new_tokens=5) for i, p in enumerate(prompts)]
+    reqs_t = [TE.Request(rid=i, prompt=p, max_new_tokens=5) for i, p in enumerate(prompts)]
+    ej.prefill_batch(reqs_j)
+    et.prefill_batch(reqs_t)
+    ej.run_until_done()
+    et.run_until_done()
+    _same_runs(ej, et, reqs_j, reqs_t)
 
 
 def test_serve_engine_temperature_sampling_is_seeded(mixtral):
@@ -448,7 +455,8 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "chimera-dataplane"])
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "chimera-dataplane", "yi-9b", "qwen3-32b",
+                                  "codeqwen1.5-7b"])
 def test_configs_match_jax(name):
     from repro.configs import get_config as j_get
 
