@@ -19,11 +19,9 @@ Phases, each printing its own lines:
                (chimera-dataplane: 4 layers, d 256, m 256, L 64, n_global
                64; capacity 4096, lanes 256) with random weights from a
                seed ingests protocol-mix and rule-violating batches.
-5. train     — the training path at the same width: the classifier
-               objective (``train_classifier``, batch 256 x 256 tokens) and
-               the LM objective (``make_train_step``, batch 8 x 128), then
-               one profiled classifier step (forward against backward) and
-               one profiled LM step.
+5. train     — the classifier objective at the same width
+               (``train_classifier``, batch 256 x 256 tokens), then one
+               profiled classifier step (forward against backward).
 6. serve     — the LM serving path: ``ServeEngine`` on Mixtral-8x7B's
                softmax variant (sliding-window attention, MoE) at full width,
                2 of its 32 layers, random weights from a seed: a prefill of
@@ -81,11 +79,29 @@ Phases, each printing its own lines:
                token-by-token decode; (d) five configs' smoke sizes through
                prefill_batch and decode, card against CPU.
 
-Phases 4, 5, 6, 8, 9, 10 and 11 are the main paths: the kernels' launch
-counters are zeroed just before each (each part of phase 10) and read just
-after, and each fails if one of its kernels never launched.  Then a JSON
-line with every kernel's numbers, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+12. trainer  — run after the lm-chimera phase: the ``Trainer`` on the card.
+               chimera_attention at lm_100m's shape (L 128, m 64, BH 96)
+               against its plain version, timed, with its gradients; (a)
+               ``launch/train.py`` at its defaults (chimera-dataplane, batch
+               8 x 128, 100 steps): ms/step, tokens/s, checkpoint save and
+               restore, peak memory; its smoke config card against CPU; (b)
+               10 steps direct against 5 + 5 through a checkpoint, in
+               deterministic mode; (c) the codebook map (m 256, 256
+               centroids) with the two-timescale controller (installs every
+               10 steps) against the same run without it (its host k-means
+               timed apart), the same controller run on the card against
+               the CPU (losses, installs, centroids, every code recomputed
+               on the CPU from the card's inputs), and an 8-bit
+               codebook program compiled by the port, saved, loaded and
+               deployed on the card and on the CPU; (d) examples/train_lm.py's
+               lm_100m through the Trainer (1 + 20 steps) and one profiled step.
+
+Phases 4, 5, 6, 8, 9, 10, 11 and 12 are the main paths: the kernels' launch
+counters are zeroed just before each (each part of phases 10 and 12) and
+read just after, and each fails if one of its kernels never launched.  Then
+a JSON line with every kernel's numbers, a JSON line ``{"phases": {...}}``
+with every phase's seconds (and the run's total), and as the last line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 without it.  It imports nothing of JAX and nothing of the JAX package.
 
 ``compare_builds({label: dir})`` times every kernel at its main path's
@@ -514,15 +530,18 @@ def chimera_cost(B, Hkv, Gq, T, d, dv, m, L):
     return 4 * (reads + writes), flops
 
 
-def check_chimera(timed):
-    """The kernel against its plain version at the train phase's shapes."""
+def check_chimera(timed, shape=None, seed=SEED + 5):
+    """The kernel against its plain version at ``shape`` = (B, Hkv, Gq, T,
+    m, L), the train phase's unless given (d = dv the paper's)."""
     import torch
     from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
     from repro_torch.kernels.chimera_attention import ops
 
-    B, Hkv, Gq, T = TRAIN_BATCH, ARCH.n_kv_heads, ARCH.n_heads // ARCH.n_kv_heads, TRAIN_SEQ
-    L, m, d = ARCH.chimera.chunk_size, ARCH.chimera.feature_map.m, ARCH.head_dim
-    q, k, v, pq, pk = chimera_inputs(B, Hkv, Gq, T, m, SEED + 5)
+    B, Hkv, Gq, T, m, L = shape or (
+        TRAIN_BATCH, ARCH.n_kv_heads, ARCH.n_heads // ARCH.n_kv_heads, TRAIN_SEQ,
+        ARCH.chimera.feature_map.m, ARCH.chimera.chunk_size)
+    d = ARCH.head_dim
+    q, k, v, pq, pk = chimera_inputs(B, Hkv, Gq, T, m, seed)
     BH = B * Hkv
     flat = [q.reshape(BH, Gq, T, d), k.reshape(BH, T, d), v.reshape(BH, T, d),
             pq.reshape(BH, Gq, T, m), pk.reshape(BH, T, m)]
@@ -532,7 +551,7 @@ def check_chimera(timed):
     torch.cuda.synchronize()
     err = max(compare("chimera_attention num", num_k, num_p.reshape(BH, Gq, T, d), atol=ATTN_ATOL),
               compare("chimera_attention den", den_k, den_p.reshape(BH, Gq, T), atol=ATTN_ATOL))
-    rec = {"max_abs_err": err}
+    rec = {"max_abs_err": err, "shape": f"BH {BH} Gq {Gq} T {T} d=dv {d} m {m} L {L}"}
     log("kernels", f"chimera_attention BH={BH} Gq={Gq} T={T} d={d} m={m} L={L}: max abs err "
                    f"{err:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|; |den| up to "
                    f"{float(den_p.max()):.1f})")
@@ -842,14 +861,14 @@ def compare_builds(others, rounds=1):
     return times
 
 
-def check_chimera_grads():
+def check_chimera_grads(B=2, Hkv=2, Gq=2, T=128, m=64, L=64):
     """The autograd Function (kernel forward, plain backward) against
-    autograd through the plain version, at a small shape with Gq 2."""
+    autograd through the plain version, at a small shape with Gq 2 unless
+    given another."""
     import torch
     from repro_torch.kernels.chimera_attention import ops
 
-    L, T, m = 64, 128, 64
-    xs = chimera_inputs(2, 2, 2, T, m, SEED + 6, requires_grad=True)
+    xs = chimera_inputs(B, Hkv, Gq, T, m, SEED + 6, requires_grad=True)
     g = torch.Generator().manual_seed(SEED + 7)
     w_num = torch.randn(xs[0].shape[:-1] + (xs[2].shape[-1],), generator=g).to("cuda")
     w_den = torch.randn(xs[0].shape[:-1], generator=g).to("cuda")
@@ -865,7 +884,8 @@ def check_chimera_grads():
               compare("chimera_attention fwd den", outs[0][1], outs[1][1], atol=ATTN_ATOL))
     gerr = max(compare(f"chimera_attention grad {n}", a, b, atol=ATTN_ATOL)
                for n, a, b in zip(("q", "k", "v", "phi_q", "phi_k"), outs[0][2], outs[1][2]))
-    log("kernels", f"chimera_attention Function (B 2, Hkv 2, Gq 2, T {T}, m {m}): forward max "
+    log("kernels", f"chimera_attention Function (B {B}, Hkv {Hkv}, Gq {Gq}, T {T}, m {m}, L "
+                   f"{L}): forward max "
                    f"abs err {err:.3e}, gradients of q, k, v, phi_q, phi_k max abs err {gerr:.3e} "
                    f"against autograd through the plain version")
 
@@ -1369,7 +1389,6 @@ def report_profile(p, wall, what):
 # --------------------------------------------------------------------------
 
 TRAIN_STEPS, TRAIN_WARMUP, EVAL_BATCHES = 20, 2, 2
-LM_BATCH, LM_SEQ, LM_STEPS = 8, 128, 5  # launch/train.py's --batch and --seq
 
 
 def packet_stream(seed, batch=TRAIN_BATCH, seq=TRAIN_SEQ, step=0):
@@ -1389,15 +1408,14 @@ def check_losses(name, losses):
 
 
 def phase_train(recs):
+    """The classifier objective at the paper's width (the LM objective runs
+    through the Trainer in the trainer phase)."""
     import torch
     from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
-    from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels.chimera_attention import ops as cops
     from repro_torch.kernels.decode_step import ops as dops
     from repro_torch.kernels.flow_ingest import ops as sops
-    from repro_torch.optim.optimizer import AdamWConfig
     from repro_torch.train import classifier as C
-    from repro_torch.train.train_step import make_train_state, make_train_step
 
     ccfg, params = paper_classifier()
     s = packet_stream(SEED + 50)
@@ -1409,7 +1427,7 @@ def phase_train(recs):
 
     # the main path: counters zeroed just before, read just after
     dops.launches = sops.launches = cops.launches = 0
-    # (a) the classifier objective (benchmarks/common.py's loop)
+    # the classifier objective (benchmarks/common.py's loop)
     C.train_classifier(ccfg, packet_stream(SEED + 100), params, steps=TRAIN_WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1417,31 +1435,14 @@ def phase_train(recs):
                                                 steps=TRAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    cls_launches = cops.launches
-    losses = check_losses("train classifier", losses)
-    # held-out batches of the same traffic, far past the training steps
-    ev = C.eval_classifier(ccfg, trained, rules, packet_stream(SEED, step=1000),
-                           batches=EVAL_BATCHES)
-    # (b) the LM objective (launch/train.py's defaults: batch 8, seq 128)
-    lm_params, lm_opt = make_train_state(ARCH, torch.Generator().manual_seed(SEED), device="cuda")
-    step = make_train_step(ARCH, AdamWConfig(lr=3e-4, total_steps=100))
-    ts = TokenStream(vocab_size=ARCH.vocab_size, batch_size=LM_BATCH, seq_len=LM_SEQ + 1,
-                     seed=SEED)
-    lm_losses = []
-    for i in range(LM_STEPS + 1):
-        b = C.batch_to_device(ts.next_batch(), "cuda")
-        if i == 1:  # step 0 is the warm-up
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-        lm_params, lm_opt, met = step(lm_params, lm_opt, b)
-        lm_losses.append(met["loss"])
-    torch.cuda.synchronize()
-    lm_wall = time.perf_counter() - t1
-    lm_losses = check_losses("train LM", torch.stack(lm_losses))
     launches = {"decode_step": dops.launches, "flow_score": sops.launches,
                 "chimera_attention": cops.launches}
     if launches["chimera_attention"] == 0:
         fail(f"train: chimera_attention was never launched on the training path: {launches}")
+    losses = check_losses("train classifier", losses)
+    # held-out batches of the same traffic, far past the training steps
+    ev = C.eval_classifier(ccfg, trained, rules, packet_stream(SEED, step=1000),
+                           batches=EVAL_BATCHES)
 
     n_layers = ARCH.n_layers
     ms = wall / TRAIN_STEPS * 1e3
@@ -1452,25 +1453,13 @@ def phase_train(recs):
     log("train", f"classifier loss first {losses[0]:.5f} last {losses[-1]:.5f}; held-out "
                  f"macro-F1 {ev['f1']:.4f} (precision {ev['pr']:.4f}, recall {ev['rc']:.4f}, "
                  f"{EVAL_BATCHES} batches)")
-    log("train", f"LM objective (make_train_step), batch {LM_BATCH} x {LM_SEQ}: "
-                 f"{lm_wall / LM_STEPS * 1e3:.2f} ms/step over {LM_STEPS} steps after 1 warm-up, "
-                 f"{LM_BATCH * LM_SEQ * LM_STEPS / lm_wall:.0f} tokens/s; loss first "
-                 f"{lm_losses[0]:.5f} last {lm_losses[-1]:.5f}")
-    per_step = cls_launches / (TRAIN_WARMUP + TRAIN_STEPS)
+    per_step = launches["chimera_attention"] / (TRAIN_WARMUP + TRAIN_STEPS)
     log("train", f"launches in the training run: {launches}; chimera_attention {per_step:.1f} "
                  f"per classifier step ({n_layers} layers), so "
                  f"{per_step * recs['chimera_attention']['ms']:.3f} ms of kernel device time per "
                  f"step (phase 3's ms per launch)")
     log("train", f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
     profile_train_step(ccfg, trained, rules)
-    b = C.batch_to_device(ts.next_batch(), "cuda")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t1 = time.perf_counter()
-        step(lm_params, lm_opt, b)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t1
-    report_profile(prof, prof_wall, "one LM step (forward, backward, AdamW)")
     return {"launches": launches, "ms_per_step": ms}
 
 
@@ -3517,17 +3506,526 @@ def phase_shard():
 
 
 # --------------------------------------------------------------------------
+# 12. trainer (the Trainer and launch/train.py)
+# --------------------------------------------------------------------------
 
-def main():
-    t_start = time.perf_counter()
-    card = phase_device()
+TRAINER_STEPS = 100  # launch/train.py's defaults: --batch 8 --seq 128 --steps 100
+RESUME_STEPS = 10  # (b): 10 direct against 5 + 5 resumed
+RESUME_TOL = 1e-6  # (b): final parameters, direct against resumed (deterministic mode)
+CODEBOOK_STEPS, CODEBOOK_T_CP = 30, 10  # (c): installs at steps 10, 20 and 30
+CODEBOOK_PACKETS, CODEBOOK_BATCHES = 48, 2  # (c): the deployed program, card against CPU
+LM100M_STEPS = 20  # (d): timed steps after 1 warm-up
+# (c) card against CPU: delta_map is a mean of relative centroid moves,
+# computed on the host from features that carry the card's rounding, so it
+# is held as the losses are; the installed centroids (means of those
+# features) are held as the kernels' outputs are
+CODEBOOK_DM_RTOL = REF_LOSS_RTOL
+# top-2 gap of the assignment scores ||c||^2 - 2 x.c (|scores| ~ 64 at d
+# 64): a code that differs between the card and the CPU on the same inputs
+# where the CPU's gap exceeds this is a fault
+CODE_MARGIN = 1e-4
+SMOKE_STEPS = 5  # the launcher's smoke config, card against CPU
+
+
+def lm_100m():
+    """``examples/train_lm.py``'s ``lm_100m``: 12 layers, d 768, 12 heads,
+    d_head 64, d_ff 2048, vocab 32000, exp_prf m 64, L 128, n_global 32, fp32."""
+    import dataclasses
+
+    from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+    from repro_torch.core.chimera_attention import ChimeraAttentionConfig
+    from repro_torch.core.feature_maps import FeatureMapConfig
+
+    return dataclasses.replace(
+        ARCH, name="chimera-lm-100m", n_layers=12, d_model=768, n_heads=12, n_kv_heads=12,
+        d_head=64, d_ff=2048, vocab_size=32000,
+        chimera=ChimeraAttentionConfig(feature_map=FeatureMapConfig(kind="exp_prf", m=64),
+                                       chunk_size=128, n_global=32),
+        dtype="float32")
+
+
+def codebook_arch(bits=0):
+    """The paper's model with the codebook map (m 256, 256 centroids)."""
+    import dataclasses
+
+    from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+    from repro_torch.core.feature_maps import FeatureMapConfig
+
+    fm = FeatureMapConfig(kind="codebook", m=256, codebook_size=256, codebook_bits=bits)
+    return dataclasses.replace(ARCH, chimera=dataclasses.replace(ARCH.chimera, feature_map=fm))
+
+
+def trainer_for(arch, directory, steps, seed=SEED, lr=3e-4, warmup=100, device="cuda", **tcfg):
+    """A Trainer (on the card unless told) over launch/train.py's stream
+    (batch 8 x 128)."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    tcfg = {"log_every": 1, "ckpt_every": 1000, **tcfg}
+    return Trainer(arch, TrainerConfig(total_steps=steps, ckpt_dir=directory, **tcfg),
+                   TokenStream(vocab_size=arch.vocab_size, batch_size=8, seq_len=129, seed=seed),
+                   opt_cfg=AdamWConfig(lr=lr, warmup_steps=warmup, total_steps=steps),
+                   device=device)
+
+
+def timed_run(tr, steps):
+    """``tr.run(steps)`` with a synchronize around it; returns ``(out, loop
+    seconds, final save seconds)``: the loop's seconds leave out the
+    blocking save that ends every run (host copy and write), timed apart."""
     import torch
 
+    saves = []
+    real = tr.save
+
+    def save(blocking=False):
+        t0 = time.perf_counter()
+        real(blocking=blocking)
+        if blocking:
+            saves.append(time.perf_counter() - t0)
+
+    tr.save = save
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tr.run(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del tr.save
+    return out, wall - saves[-1], saves[-1]
+
+
+def logged_losses(what, out):
+    losses = [r["loss"] for r in out["log"]]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: losses {losses}")
+    return losses
+
+
+def param_diff(a, b):
+    from repro_torch.optim.optimizer import tree_flatten
+
+    return max(float((x - y).abs().max()) for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+
+
+def trainer_launcher(cops):
+    """(a) launch/train.py at its defaults on the paper's model."""
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train as LT
+
+    with tempfile.TemporaryDirectory(prefix="chimera-train-") as tmp:
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        tr = LT.build(LT.parse_args(["--arch", "chimera-dataplane", "--ckpt-dir", tmp]))
+        torch.cuda.reset_peak_memory_stats()
+        cops.launches = 0
+        warm, warm_s, _ = timed_run(tr, 1)
+        out, loop_s, save_s = timed_run(tr, TRAINER_STEPS)
+        launches = cops.launches
+        peak = torch.cuda.max_memory_allocated()
+        if launches == 0:
+            fail("trainer (a): chimera_attention was never launched")
+        t0 = time.perf_counter()
+        tr.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if tr.step != TRAINER_STEPS:
+            fail(f"trainer (a): restored step {tr.step}")
+    losses = logged_losses("trainer (a)", out)
+    timed_steps = TRAINER_STEPS - 1
+    ms = loop_s / timed_steps * 1e3
+    log("trainer", f"(a) launch/train.py --arch chimera-dataplane (batch 8 x 128, "
+                   f"{TRAINER_STEPS} steps, lr 3e-4): step 1 {warm_s * 1e3:.1f} ms; steps 2-"
+                   f"{TRAINER_STEPS} {ms:.2f} ms/step, {8 * 128 / (ms / 1e3):.0f} tokens/s "
+                   f"(checkpoints every 25 steps inside the loop); loss step "
+                   f"{out['log'][0]['step']} {losses[0]:.5f}, step {out['log'][-1]['step']} "
+                   f"{losses[-1]:.5f}; final save {save_s:.3f} s, restore {restore_s:.3f} s; "
+                   f"chimera_attention launches {launches} ({launches / TRAINER_STEPS:.1f} per "
+                   f"step); max_memory_allocated {peak}, {peak - base} above the {base} B "
+                   f"allocated before the part")
+    return {"launches": launches, "ms": ms, "loss": (losses[0], losses[-1]), "save_s": save_s,
+            "restore_s": restore_s, "peak": peak - base}
+
+
+def trainer_card_vs_cpu():
+    """The launcher's smoke config, SMOKE_STEPS steps on the card and on the
+    CPU from the same seed: losses within REF_LOSS_RTOL."""
+    import tempfile
+
+    from repro_torch.launch import train as LT
+
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory(prefix="chimera-train-") as tmp:
+            args = LT.parse_args(["--smoke", "--steps", str(SMOKE_STEPS), "--device", dev,
+                                  "--ckpt-dir", tmp])
+            losses[dev] = logged_losses(f"trainer smoke {dev}", LT.build(args).run())
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if err > REF_LOSS_RTOL:
+        fail(f"trainer smoke: card and CPU losses differ by {err:.3e} > {REF_LOSS_RTOL:g}")
+    log("trainer", f"smoke config, {SMOKE_STEPS} launcher steps, card (kernel) vs CPU (plain): "
+                   f"losses max relative diff {err:.3e} (tolerance {REF_LOSS_RTOL:g})")
+
+
+def trainer_resume(cops):
+    """(b) 10 steps direct against 5 + 5 through a checkpoint, in
+    deterministic mode (the embedding's backward otherwise adds with
+    atomics in any order)."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
+
+    torch.use_deterministic_algorithms(True)  # cuBLAS's workspace is fixed in main()
+    cops.launches = 0
+    try:
+        with tempfile.TemporaryDirectory(prefix="chimera-resume-") as tmp:
+            kw = dict(lr=1e-3, warmup=2, seed=SEED + 1, ckpt_every=5)
+            direct = trainer_for(ARCH, os.path.join(tmp, "a"), RESUME_STEPS, **kw)
+            direct.run()
+            first = trainer_for(ARCH, os.path.join(tmp, "b"), RESUME_STEPS, **kw)
+            first.run(RESUME_STEPS // 2)
+            resumed = trainer_for(ARCH, os.path.join(tmp, "b"), RESUME_STEPS, **kw)
+            if resumed.step != RESUME_STEPS // 2 or resumed.stream.step != RESUME_STEPS // 2:
+                fail(f"trainer (b): resumed at step {resumed.step}, stream {resumed.stream.step}")
+            resumed.run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = cops.launches
+    if launches == 0:
+        fail("trainer (b): chimera_attention was never launched")
+    diff = param_diff(direct.params, resumed.params)
+    odiff = param_diff(direct.opt_state, resumed.opt_state)
+    if diff > RESUME_TOL or odiff > RESUME_TOL:
+        fail(f"trainer (b): resumed run differs from the direct one: params {diff:.3e}, "
+             f"optimizer {odiff:.3e} > {RESUME_TOL:g}")
+    log("trainer", f"(b) resume under torch.use_deterministic_algorithms(True): {RESUME_STEPS} "
+                   f"steps direct vs {RESUME_STEPS // 2} + {RESUME_STEPS // 2} through a "
+                   f"checkpoint (the new Trainer reported step {RESUME_STEPS // 2}): final "
+                   f"parameters max abs diff {diff:.3e}, optimizer state {odiff:.3e} (tolerance "
+                   f"{RESUME_TOL:g}); chimera_attention launches {launches}")
+    return {"launches": launches, "diff": diff}
+
+
+class CodeRecorder:
+    """Wraps ``assign_codes`` where the feature map and the Trainer's tick
+    call it, keeping every call's inputs and codes (cloned on their device:
+    an install swaps the centroids in place)."""
+
+    def __enter__(self):
+        from repro_torch.core import feature_maps as F
+        from repro_torch.train import trainer as T
+
+        self.calls, self.modules, real = [], (F, T), F.assign_codes
+
+        def record(centroids, x):
+            codes = real(centroids, x)
+            self.calls.append(tuple(t.detach().clone() for t in (centroids, x, codes)))
+            return codes
+
+        for mod in self.modules:
+            mod.assign_codes = record
+        self.real = real
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.modules:
+            mod.assign_codes = self.real
+
+
+def count_code_flips(calls):
+    """Recompute each recorded call's codes on the CPU from the same inputs;
+    returns (codes, flips, flips where the CPU's top-2 gap exceeds
+    CODE_MARGIN)."""
+    import torch
+    from repro_torch.core.feature_maps import _matmul, assign_codes
+
+    n = flips = sure = 0
+    for centroids, x, codes in calls:
+        c, xc = centroids.cpu(), x.cpu()
+        want = assign_codes(c, xc)
+        s = torch.sum(c * c, dim=-1) - 2.0 * _matmul(xc, c.T)
+        top = torch.topk(s, 2, dim=-1, largest=False).values
+        f = codes.cpu() != want
+        n, flips = n + f.numel(), flips + int(f.sum())
+        sure += int((f & ((top[..., 1] - top[..., 0]) > CODE_MARGIN)).sum())
+    return n, flips, sure
+
+
+def trainer_codebook(cops):
+    """(c) the codebook map with the two-timescale controller, timed against
+    the same run without it (the controller's host k-means timed apart);
+    then the controller run again on the card, every assign_codes call
+    recorded, and on the CPU from the same seed: losses, install history
+    and installed centroids held to the CPU's, and every recorded code
+    recomputed on the CPU from the same inputs."""
+    import tempfile
+
+    from repro_torch.core.two_timescale import TwoTimescaleConfig
+
+    arch = codebook_arch()
+    tt = TwoTimescaleConfig(t_cp_steps=CODEBOOK_T_CP)
+    runs, recluster_s = {}, []
+    for label, cfg in (("controller", tt), ("no controller", None)):
+        with tempfile.TemporaryDirectory(prefix="chimera-codebook-") as tmp:
+            tr = trainer_for(arch, tmp, CODEBOOK_STEPS, two_timescale=cfg)
+            if cfg is not None:  # host seconds of each recluster (k-means, delta_map)
+                real = tr.controller.maybe_recluster
+
+                def recluster(*a, real=real, **k):
+                    t0 = time.perf_counter()
+                    out = real(*a, **k)
+                    if out[1] is not None:
+                        recluster_s.append(time.perf_counter() - t0)
+                    return out
+
+                tr.controller.maybe_recluster = recluster
+            cops.launches = 0
+            out, loop_s, _ = timed_run(tr, CODEBOOK_STEPS)
+            if cops.launches == 0:
+                fail(f"trainer (c) {label}: chimera_attention was never launched")
+            runs[label] = (tr, loop_s / CODEBOOK_STEPS * 1e3, cops.launches,
+                           logged_losses(f"trainer (c) {label}", out))
+    tr, ms, launches, losses = runs["controller"]
+    hist = tr.controller.history
+    if not any(r.installed for r in hist) or not all(r.churn_ok for r in hist):
+        fail(f"trainer (c): install records {hist}")
+    cent = tr.params["blocks"]["b0"]["attn"]["chimera"]["fm"]["centroids"]
+    if not all(bool((cent[i] == cent[0]).all()) for i in range(cent.shape[0])):
+        fail("trainer (c): the installed centroids differ across the layer axis")
+    ms_plain = runs["no controller"][1]
+    log("trainer", f"(c) codebook map (m 256, 256 centroids), {CODEBOOK_STEPS} steps, T_cp "
+                   f"{CODEBOOK_T_CP} steps: {ms:.2f} ms/step with the controller, "
+                   f"{ms_plain:.2f} without; the reclusters (host k-means and delta_map) "
+                   + ", ".join(f"{t:.3f}" for t in recluster_s)
+                   + f" s, {sum(recluster_s) / CODEBOOK_STEPS * 1e3:.2f} ms/step of the "
+                   f"{ms - ms_plain:.2f} ms/step difference; installs "
+                   + ", ".join(f"step {r.step} delta_map {r.delta_map:.4f} installed "
+                               f"{r.installed} churn_ok {r.churn_ok}" for r in hist)
+                   + f"; loss first {losses[0]:.5f} last {losses[-1]:.5f}; chimera_attention "
+                   f"launches {launches}")
+
+    got, t_dev = {}, {}
+    for dev in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory(prefix="chimera-codebook-") as tmp:
+            t0 = time.perf_counter()
+            tr = trainer_for(arch, tmp, CODEBOOK_STEPS, device=dev, two_timescale=tt)
+            if dev == "cuda":
+                with CodeRecorder() as codes:
+                    out = tr.run()
+            else:
+                out = tr.run()
+            t_dev[dev] = time.perf_counter() - t0
+        got[dev] = (logged_losses(f"trainer (c) {dev}", out), tr.controller.history,
+                    tr.params["blocks"]["b0"]["attn"]["chimera"]["fm"]["centroids"])
+    (lc, hc, cc), (lp, hp, cp) = got["cuda"], got["cpu"]
+    calls = codes.calls
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    if lerr > REF_LOSS_RTOL:
+        fail(f"trainer (c): card and CPU losses differ by {lerr:.3e} > {REF_LOSS_RTOL:g}")
+    key = [(r.step, r.installed, r.churn_ok) for r in hc]
+    if key != [(r.step, r.installed, r.churn_ok) for r in hp]:
+        fail(f"trainer (c): card install history {hc} differs from the CPU's {hp}")
+    dm = max(abs(a.delta_map - b.delta_map) / abs(b.delta_map) for a, b in zip(hc, hp))
+    if dm > CODEBOOK_DM_RTOL:
+        fail(f"trainer (c): delta_map card vs CPU differs by {dm:.3e} (relative) > "
+             f"{CODEBOOK_DM_RTOL:g}: {[r.delta_map for r in hc]} vs {[r.delta_map for r in hp]}")
+    cerr = compare("trainer (c) installed centroids card vs CPU", cc, cp, atol=ATTN_ATOL)
+    n, flips, sure = count_code_flips(calls)
+    if sure:
+        fail(f"trainer (c): {sure} of {n} codes differ between the card and the CPU on the "
+             f"same inputs where the CPU's top-2 gap exceeds {CODE_MARGIN:g}")
+    log("trainer", f"(c) the controller run on the card against the CPU from the same seed "
+                   f"({t_dev['cuda']:.1f} s and {t_dev['cpu']:.1f} s, recorded): losses within "
+                   f"{lerr:.3e} (tolerance {REF_LOSS_RTOL:g}); installs {key} equal; delta_map "
+                   f"within {dm:.3e} (relative, tolerance {CODEBOOK_DM_RTOL:g}); installed "
+                   f"centroids within {cerr:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|); "
+                   f"{len(calls)} assign_codes calls on the card, {n} codes recomputed on the CPU "
+                   f"from the same inputs: {flips} differ, {sure} of them with a top-2 gap above "
+                   f"{CODE_MARGIN:g}")
+    return {"launches": launches + runs["no controller"][2], "ms": ms, "ms_plain": ms_plain,
+            "installs": sum(r.installed for r in hist)}
+
+
+def codebook_program():
+    """The paper's classifier with an 8-bit codebook table compiled by the
+    port from the exp_prf map (compile_codebook), compiled into a program,
+    saved, loaded on the card and on the CPU and deployed on each."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.compile import DataplaneProgram, compile_program
+    from repro_torch.core.feature_maps import FeatureMapConfig, compile_codebook, init_feature_map
+    from repro_torch.core.two_timescale import prng_key
+    from repro_torch.data.pipeline import FlowScenario
+    from repro_torch.kernels.flow_ingest import fused as fmod
+    from repro_torch.serve.deploy import DeploySpec
+    from repro_torch.serve.flow_engine import FlowEngineConfig
+    from repro_torch.train import classifier as C
+
+    arch = codebook_arch(bits=8)
+    fm_cfg = arch.chimera.feature_map
+    ccfg = C.ClassifierConfig(arch=arch, n_classes=8, marker_base=256, sig_words=8)
+    params = C.init_classifier(ccfg, torch.Generator().manual_seed(SEED), device="cuda")
+    g = torch.Generator().manual_seed(SEED + 11)
+    base = FeatureMapConfig(kind="exp_prf", m=fm_cfg.m)
+    samples = torch.randn((4096, arch.head_dim), generator=g).to("cuda")
+    cb = compile_codebook(fm_cfg, base, init_feature_map(base, arch.head_dim, g, "cuda"), samples,
+                          prng_key(SEED))
+    fm = params["backbone"]["blocks"]["b0"]["attn"]["chimera"]["fm"]
+    n = fm["centroids"].shape[0]
+    for name, t in cb.items():  # one table for every layer
+        fm[name] = t[None].expand((n,) + tuple(t.shape)).contiguous()
+    program = compile_program(ccfg, params, rules=lambda c: program_rules(c, "cuda"),
+                              waivers=("state-quantization",), verify=False)
+    places = {"card": "cuda", "cpu": "cpu"}
+    tmp = tempfile.mkdtemp(prefix="chimera-codebook-program-")
+    try:
+        program.save(tmp)
+        loaded = {where: DataplaneProgram.load(tmp, device=dev) for where, dev in places.items()}
+    finally:
+        shutil.rmtree(tmp)
+    table = loaded["card"].params["backbone"]["blocks"]["b0"]["attn"]["chimera"]["fm"]["table"]
+    if table.dtype != torch.int8:
+        fail(f"codebook program: the loaded table is {table.dtype}")
+    compare("codebook program table", table, fm["table"])
+    fcfg = FlowEngineConfig(capacity=512, lanes=64, state_budget_bytes=1 << 34)
+    eng = {where: loaded[where].deploy(DeploySpec(flow=fcfg, device=dev))
+           for where, dev in places.items()}
+    sc = FlowScenario(kind="protocol-mix", pkt_len=PKT_LEN, packets_per_batch=CODEBOOK_PACKETS,
+                      seed=SEED + 12)
+    margins = RoundMargins(eng["card"])
+    counted = ("decode_step", "flow_score")
+    worst = {k: 0.0 for k in FLOATS}
+    launched = {name: 0 for name in counted}
+    for _ in range(CODEBOOK_BATCHES):
+        b = sc.next_batch()
+        for name in counted:
+            fmod.COUNTED[name].launches = 0
+        with margins:
+            got = eng["card"].ingest(b["flow_ids"], b["tokens"])
+        for name in counted:
+            launched[name] += fmod.COUNTED[name].launches
+        want = eng["cpu"].ingest(b["flow_ids"], b["tokens"])
+        errs = hold_outputs("codebook program card vs CPU", got, want, REFERENCE_TOL[64],
+                            margins.margins())
+        worst = {k: max(worst[k], errs[k]) for k in FLOATS}
+    if not all(launched.values()):
+        fail(f"codebook program: a kernel never launched on the card's engine: {launched}")
+    if eng["card"].stats != eng["cpu"].stats or eng["card"].table.slot_of != \
+            eng["cpu"].table.slot_of:
+        fail("codebook program: the card's engine stats or slots differ from the CPU's")
+    map_rows = [e for e in program.ledger.entries if e.stage == "resource-ledger"]
+    log("trainer", f"(c) codebook program (8-bit table from compile_codebook, 256 centroids): "
+                   f"compiled, saved, loaded on the card and the CPU, deployed (capacity "
+                   f"{fcfg.capacity}, lanes {fcfg.lanes}); {CODEBOOK_BATCHES} protocol-mix "
+                   f"batches of {CODEBOOK_PACKETS} packets: decisions identical (pred wherever "
+                   f"the top-2 margin exceeds {REF_PRED_MARGIN:g}), max diffs "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                   + f" (tolerance {REFERENCE_TOL[64]:g}); launches on the card {launched}; "
+                   f"ledger {[(e.resource, e.used, e.budget) for e in map_rows]}")
+    return launched
+
+
+def trainer_lm100m(cops):
+    """(d) lm_100m through the Trainer: 1 warm-up step, then LM100M_STEPS
+    timed; then one step of the same step function under the profiler."""
+    import tempfile
+
+    import torch
+    from repro_torch.optim.optimizer import tree_flatten
+    from repro_torch.train import classifier as C
+    from repro_torch.train import make_train_step
+
+    cfg = lm_100m()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    with tempfile.TemporaryDirectory(prefix="chimera-lm100m-") as tmp:
+        tr = trainer_for(cfg, tmp, LM100M_STEPS + 1, warmup=5)
+        n_params = sum(t.numel() for t in tree_flatten(tr.params)[0])
+        timed_run(tr, 1)
+        torch.cuda.reset_peak_memory_stats()
+        cops.launches = 0
+        out, loop_s, save_s = timed_run(tr, LM100M_STEPS + 1)
+        launches = cops.launches
+        peak = torch.cuda.max_memory_allocated()
+    if launches == 0:
+        fail("trainer (d): chimera_attention was never launched")
+    losses = logged_losses("trainer (d)", out)
+    ms = loop_s / LM100M_STEPS * 1e3
+    log("trainer", f"(d) {cfg.name} ({n_params} parameters; 12 layers, d 768, d_head 64, d_ff "
+                   f"2048, vocab 32000, exp_prf m 64, L 128, n_global 32, fp32), batch 8 x 128: "
+                   f"{ms:.2f} ms/step over {LM100M_STEPS} steps after 1 warm-up, "
+                   f"{8 * 128 / (ms / 1e3):.0f} tokens/s; loss step {out['log'][0]['step']} "
+                   f"{losses[0]:.5f}, step {out['log'][-1]['step']} {losses[-1]:.5f}; "
+                   f"chimera_attention launches {launches} "
+                   f"({launches / LM100M_STEPS:.1f} per step); final save {save_s:.3f} s; "
+                   f"max_memory_allocated {peak}, {peak - base} above the {base} B allocated "
+                   f"before the part")
+    step = make_train_step(cfg, tr.opt_cfg)
+    b = C.batch_to_device(tr.stream.next_batch(), "cuda")
+    step(tr.params, tr.opt_state, b)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(tr.params, tr.opt_state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, f"one {cfg.name} step (forward, backward, AdamW)")
+    return {"launches": launches, "ms": ms, "peak": peak - base}
+
+
+def phase_trainer(recs):
+    """The Trainer on the card.  chimera_attention at (d)'s shape against
+    its plain version (timed, with the Function's gradients); then (a)
+    launch/train.py at its defaults on the paper's model, the launcher's
+    smoke config card against CPU; (b) a resumed run against a direct one;
+    (c) the codebook map with the two-timescale controller, and a codebook
+    program deployed on the card and the CPU; (d) lm_100m.  The
+    chimera_attention counter is zeroed before each part's run and read
+    after it."""
+    from repro_torch.kernels.chimera_attention import ops as cops
+
+    rec = check_chimera(True, shape=(8, 12, 1, 128, 64, 128), seed=SEED + 13)
+    recs["chimera_attention"].setdefault("other_shapes", []).append(
+        {k: rec[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    check_chimera_grads(B=8, Hkv=12, Gq=1, T=128, m=64, L=128)
+    parts = {"a": trainer_launcher(cops)}
+    trainer_card_vs_cpu()
+    parts["b"] = trainer_resume(cops)
+    parts["c"] = trainer_codebook(cops)
+    program = codebook_program()
+    parts["d"] = trainer_lm100m(cops)
+    launches = {"chimera_attention": sum(p["launches"] for p in parts.values()), **program}
+    log("trainer", f"launches on the trainer phase's paths: chimera_attention "
+                   + ", ".join(f"({k}) {p['launches']}" for k, p in parts.items())
+                   + f"; the codebook program's engine {program}")
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+
+def main():
+    # one fixed cuBLAS workspace (8 x 4 MiB) for every phase, so that the
+    # trainer phase's resume check may run cuBLAS in deterministic mode:
+    # PyTorch reads this once, at its first cuBLAS call
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t_start = time.perf_counter()
+    phases = {}  # seconds of every phase, in the order run
+
     def timed(name, fn, *args):
+        log("time", f"{name}: start at {time.perf_counter() - t_start:.1f} s")
         t0 = time.perf_counter()
         out = fn(*args)
-        log("time", f"{name}: {time.perf_counter() - t0:.1f} s")
+        phases[name] = round(time.perf_counter() - t0, 3)
+        log("time", f"{name}: {phases[name]:.1f} s")
         return out
+
+    card = timed("device", phase_device)
+    import torch
 
     timed("build", phase_build)
     recs = timed("kernels", phase_kernels)
@@ -3543,13 +4041,19 @@ def main():
     launches["window_attention"] = timed("serve", phase_serve, recs)["launches"]["window_attention"]
     for name, n in timed("lm-chimera", phase_lm_chimera, recs)["launches"].items():
         launches[name] += n
+    for name, n in timed("trainer", phase_trainer, recs)["launches"].items():
+        launches[name] += n
     timed("reference n_global=0", phase_reference, 0)
     timed("reference n_global=64", phase_reference, 64)
     timed("reference train", phase_reference_train)
     timed("reference serve", phase_reference_serve)
     timed("smoke configs", phase_smoke_configs)
-    print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
+    total = time.perf_counter() - t_start
+    phases["outside the phases"] = round(total - sum(phases.values()), 3)
+    phases["total"] = round(total, 3)
+    print(f"[done] {total:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernel_lines(recs, launches)}), flush=True)
+    print(json.dumps({"phases": phases}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

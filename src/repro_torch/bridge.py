@@ -44,7 +44,9 @@ def arch_from_reference(ref) -> ArchConfig:
         block_pattern=tuple(ref.block_pattern), use_chimera=ref.use_chimera,
         chimera=ChimeraAttentionConfig(
             feature_map=FeatureMapConfig(
-                kind=fm.kind, m=fm.m, input_scale=fm.input_scale, orthogonal=fm.orthogonal
+                kind=fm.kind, m=fm.m, input_scale=fm.input_scale,
+                codebook_size=fm.codebook_size, codebook_bits=fm.codebook_bits,
+                orthogonal=fm.orthogonal,
             ),
             chunk_size=ch.chunk_size, n_global=ch.n_global, sig_bits=ch.sig_bits,
             match_hamming=ch.match_hamming, gamma=ch.gamma,
@@ -62,10 +64,12 @@ def classifier_config_from_reference(ref) -> ClassifierConfig:
 
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays (a JAX model or classifier pytree) -> the
-    same nesting of float32 tensors on ``device`` (``None`` means
-    ``"cuda"``; without a GPU it raises).  Every leaf is converted, the MoE
-    tree's stacked expert tensors and its 0-d ``_moe`` marker included; a
-    leaf that is not an array raises, so nothing is silently dropped."""
+    same nesting of tensors on ``device`` (``None`` means ``"cuda"``;
+    without a GPU it raises): float leaves as float32, signed integer leaves
+    (a fixed-point codebook table, an optimizer's step) in their own dtype.
+    Every leaf is converted, the MoE tree's stacked expert tensors and its
+    0-d ``_moe`` marker included; a leaf that is not an array, or of
+    another dtype, raises, so nothing is silently dropped."""
     device = resolve_device(device, "params_from_jax")
 
     def conv(t):
@@ -73,9 +77,11 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, (np.ndarray, np.generic)):
             a = np.asarray(t)
-            if a.dtype.kind != "f":
-                raise TypeError(f"params_from_jax: parameter leaf of dtype {a.dtype}")
-            return torch.from_numpy(np.array(a, np.float32)).to(device)
+            if a.dtype.kind == "f":
+                return torch.from_numpy(np.array(a, np.float32)).to(device)
+            if a.dtype.kind == "i":
+                return torch.from_numpy(np.array(a)).to(device)
+            raise TypeError(f"params_from_jax: parameter leaf of dtype {a.dtype}")
         raise TypeError(f"params_from_jax: unexpected leaf {type(t).__name__}")
 
     return conv(tree)

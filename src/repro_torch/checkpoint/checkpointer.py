@@ -19,8 +19,11 @@ weights, hard; a decode state as S, Z, k_buf, v_buf, count) under JAX's
 ``keystr`` names (``['params']['cls']['w']``, ``['rules'][<flat index
 0>]``), so JAX's positional ``restore`` reads what this writes.
 :meth:`Checkpointer.restore` reads by those names into nested dicts of
-numpy arrays (a positional node's leaves under the keys 0, 1, ...),
-needing no target tree.
+numpy arrays (a positional node's leaves under the keys 0, 1, ...), or,
+given a target tree of nested dicts of tensors, into that tree's
+structure: each leaf on the target leaf's device in its dtype, as the JAX
+package's ``restore(target_tree)`` reads a checkpoint positionally into
+its target.
 """
 
 from __future__ import annotations
@@ -171,9 +174,15 @@ class Checkpointer:
         with open(os.path.join(self.directory, f"step_{step:08d}", "manifest.json")) as f:
             return json.load(f)
 
-    def restore(self, step: Optional[int] = None) -> Tuple[Dict, Dict, int]:
-        """``(tree, extra, step)``: the leaves as numpy arrays in nested dicts
-        rebuilt from the manifest's names (the latest step by default)."""
+    def restore(self, target_tree: Any = None,
+                step: Optional[int] = None) -> Tuple[Any, Dict, int]:
+        """``(tree, extra, step)`` of a step (the latest by default).
+
+        Without ``target_tree``: the leaves as numpy arrays in nested dicts
+        rebuilt from the manifest's names.  With one: the target's
+        structure (nested dicts of tensors), each leaf placed on the target
+        leaf's device in its dtype; raises if the number of leaves, a name
+        or a shape differs."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -186,4 +195,33 @@ class Checkpointer:
             if list(leaf.shape) != shape or str(leaf.dtype) != dtype:
                 raise ValueError(f"checkpoint leaf {name}: {leaf.shape}/{leaf.dtype} against "
                                  f"the manifest's {shape}/{dtype}")
-        return unflatten_names(manifest["names"], leaves), manifest["extra"], step
+        if target_tree is None:
+            return unflatten_names(manifest["names"], leaves), manifest["extra"], step
+        names, targets = flatten_with_names(target_tree)
+        if len(targets) != len(leaves):
+            raise ValueError(f"checkpoint has {len(leaves)} leaves, target {len(targets)}")
+        placed = []
+        for name, saved, leaf, target in zip(manifest["names"], names, leaves, targets):
+            if name != saved or tuple(leaf.shape) != tuple(target.shape):
+                raise ValueError(f"checkpoint leaf {name} {tuple(leaf.shape)} against the "
+                                 f"target's {saved} {tuple(target.shape)}")
+            placed.append(_like(leaf, target))
+        return _rebuild(target_tree, iter(placed)), manifest["extra"], step
+
+
+def _like(leaf: np.ndarray, target):
+    """``leaf`` as a tensor on ``target``'s device in its dtype."""
+    import torch
+
+    return torch.from_numpy(np.array(leaf)).to(device=target.device, dtype=target.dtype)
+
+
+def _rebuild(tree: Any, leaves) -> Any:
+    """``tree``'s structure (nested dicts of tensors) with its leaves taken
+    in order from ``leaves`` (the order of :func:`flatten_with_names`)."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+    if not hasattr(tree, "detach"):
+        raise TypeError(f"restore: a target leaf of type {type(tree).__name__}; a target "
+                        f"tree is nested dicts of tensors")
+    return next(leaves)

@@ -249,9 +249,12 @@ def select_backend(
 # --------------------------------------------------------------------------
 
 def _map_table(ccfg) -> Tuple[int, int]:
-    """(entries, bits/entry) of the shared Map projection SRAM."""
+    """(entries, bits/entry) of the shared Map codebook / projection SRAM."""
     arch = ccfg.arch
-    return arch.chimera.feature_map.feature_dim(arch.head_dim), arch.head_dim * 16
+    fm = arch.chimera.feature_map
+    if fm.kind == "codebook":
+        return fm.codebook_size, arch.head_dim * (fm.codebook_bits or 16)
+    return fm.feature_dim(arch.head_dim), arch.head_dim * 16
 
 
 def assemble_ledger(

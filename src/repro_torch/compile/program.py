@@ -127,7 +127,7 @@ class DataplaneProgram:
         means ``"cuda"``; without a GPU it raises).  Shapes and dtypes come
         from the manifest: no initializer runs."""
         device = resolve_device(device, "DataplaneProgram.load")
-        tree, extra, step = Checkpointer(directory).restore(step)
+        tree, extra, step = Checkpointer(directory).restore(step=step)
         meta = extra["program"]
         ccfg = _ccfg_from_dict(meta["ccfg"])
         wspec = FixedPointSpec(**meta["weight_spec"])
@@ -335,15 +335,15 @@ _OFF = {
     "arch": {"q_lora_rank": 0, "kv_lora_rank": 0, "qk_nope_dim": 0, "qk_rope_dim": 0,
              "v_head_dim": 0, "encoder_layers": 0},
     "chimera": {"use_local": True, "use_stream": True, "expand_kv": False},
-    "feature_map": {"codebook_bits": 0},
+    "feature_map": {},
 }
 # and the knobs of such a feature are inert while it is off (Mamba blocks,
-# the encoder, the codebook map; the port refuses each below):
+# the encoder; the port refuses each below):
 _INERT = {
     "arch": ("mamba_d_state", "mamba_d_conv", "mamba_expand", "mamba_dt_rank", "mamba_chunk",
              "encoder_seq_fraction"),
     "chimera": (),
-    "feature_map": ("codebook_size",),
+    "feature_map": (),
 }
 
 
@@ -375,8 +375,6 @@ def _ccfg_from_dict(d: Dict) -> ClassifierConfig:
     arch = dict(d.pop("arch"))
     chim = dict(arch.pop("chimera"))
     fm = _take("feature_map", chim.pop("feature_map"), FeatureMapConfig)
-    if fm.get("kind") == "codebook":
-        raise ValueError("program config: the codebook feature map is not ported")
     chimera = ChimeraAttentionConfig(feature_map=FeatureMapConfig(**fm),
                                      **_take("chimera", chim, ChimeraAttentionConfig))
     arch = _take("arch", arch, ArchConfig)

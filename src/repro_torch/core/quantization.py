@@ -1,10 +1,9 @@
 """Fixed-point quantization with overflow accounting (paper §3.3.1, Thm A.3).
 
-Port of ``repro.core.quantization`` lines 25-89: ``FixedPointSpec``,
+Port of ``repro.core.quantization`` lines 25-113: ``FixedPointSpec``,
 ``quantize``, ``dequantize``, ``quantization_error_bound``,
-``overflow_safe_horizon`` and ``check_overflow``.  ``QuantizedTensor`` and
-``quantize_per_channel`` serve the codebook feature map, which is not
-ported, and are left out with it.
+``overflow_safe_horizon``, ``check_overflow``, and ``QuantizedTensor`` with
+``quantize_per_channel`` (the codebook feature map's fixed-point tables).
 
 The dataplane stores the incremental accumulators S_t ∈ R^{m×d_v} and
 Z_t ∈ R^m in b-bit fixed point (Eq. 7).  Theorem A.3 bounds the
@@ -91,3 +90,31 @@ def overflow_safe_horizon(B_phi: float, R_v: float, spec: FixedPointSpec) -> int
 def check_overflow(T: int, B_phi: float, R_v: float, spec: FixedPointSpec) -> bool:
     """True if T updates provably cannot overflow the accumulator (Eq. 39)."""
     return T <= overflow_safe_horizon(B_phi, R_v, spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedTensor:
+    """An int tensor with a (possibly per-channel) fp32 scale."""
+
+    values: torch.Tensor  # int8/int16/int32
+    scale: torch.Tensor  # fp32, broadcastable to ``values``
+
+    def dequantize(self) -> torch.Tensor:
+        return self.values.float() * self.scale
+
+
+def quantize_per_channel(x: torch.Tensor, bits: int, axis: Optional[int] = -1) -> QuantizedTensor:
+    """Symmetric per-channel quantization (state caches and codebook
+    tables); ``axis=None`` takes one scale over the whole tensor, kept with
+    ``x``'s number of dimensions, as ``jnp.max(..., keepdims=True)`` does.
+    Rounds half to even, as ``jnp.round``."""
+    max_int = 2 ** (bits - 1) - 1
+    x = x.float()
+    if axis is None:
+        absmax = torch.amax(torch.abs(x)).reshape((1,) * x.ndim)
+    else:
+        absmax = torch.amax(torch.abs(x), dim=axis, keepdim=True)
+    scale = torch.clamp(absmax, min=1e-12) / max_int
+    dtype = {8: torch.int8, 16: torch.int16, 32: torch.int32}[bits]
+    q = to_int(torch.round(x / scale), -max_int - 1, max_int, dtype)
+    return QuantizedTensor(values=q, scale=scale)

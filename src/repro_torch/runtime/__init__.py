@@ -1,2 +1,2 @@
-"""Runtime control logic of the port (port of ``repro.runtime``): so far the
-serving side of fault tolerance (:mod:`repro_torch.runtime.fault_tolerance`)."""
+"""Runtime control logic of the port (port of ``repro.runtime``): fault
+tolerance for training and serving (:mod:`repro_torch.runtime.fault_tolerance`)."""

@@ -1,17 +1,21 @@
-"""Serving-shard liveness and recovery planning (port of the serving side of
+"""Liveness, stragglers and recovery planning (port of
 ``repro.runtime.fault_tolerance``: ``HeartbeatMonitor`` :32,
+``StragglerDetector`` :53, ``ElasticPlan`` :91, ``ElasticPlanner`` :106,
 ``ShardRecoveryPlan`` :156, ``plan_shard_recovery`` :177).
 
 Pure host logic (``time``, dataclasses):
 
 * :class:`HeartbeatMonitor` — per-worker liveness with a timeout; the
-  elastic flow service beats every live shard once per ingest tick.
+  trainer beats once per step, the elastic flow service once per live
+  shard and ingest tick.
+* :class:`StragglerDetector` — per-worker step-time EWMA against the fleet
+  median; flags workers slower than ``threshold`` x median for
+  ``patience`` consecutive checks, with the mitigations ranked.
+* :class:`ElasticPlanner` — after worker failures, the largest (pod, data,
+  model) mesh that keeps the model (TP) axis, as an :class:`ElasticPlan`.
 * :func:`plan_shard_recovery` — after losing flow-table shard(s): which
   shards survive, the shrunk shard count to reshard onto, and the tick the
   bounded packet-replay window must reach back to.
-
-The trainer's side of the JAX module (``StragglerDetector``,
-``ElasticPlan``, ``ElasticPlanner``) waits for the trainer port.
 """
 
 from __future__ import annotations
@@ -40,6 +44,100 @@ class HeartbeatMonitor:
             return []
         lead = max(self._step.values())
         return sorted(w for w, s in self._step.items() if lead - s > slack_steps)
+
+
+@dataclasses.dataclass
+class StragglerDetector:
+    threshold: float = 1.5  # × fleet median
+    patience: int = 3
+    ewma: float = 0.5
+    _t: Dict[int, float] = dataclasses.field(default_factory=dict)
+    _strikes: Dict[int, int] = dataclasses.field(default_factory=dict)
+
+    def record(self, worker: int, step_seconds: float) -> None:
+        prev = self._t.get(worker, step_seconds)
+        self._t[worker] = self.ewma * step_seconds + (1 - self.ewma) * prev
+
+    def _median(self) -> float:
+        xs = sorted(self._t.values())
+        return xs[len(xs) // 2] if xs else 0.0
+
+    def stragglers(self) -> List[int]:
+        med = self._median()
+        out = []
+        for w, t in self._t.items():
+            if med > 0 and t > self.threshold * med:
+                self._strikes[w] = self._strikes.get(w, 0) + 1
+            else:
+                self._strikes[w] = 0
+            if self._strikes.get(w, 0) >= self.patience:
+                out.append(w)
+        return sorted(out)
+
+    def mitigation(self, worker: int) -> str:
+        """Ranked mitigation policy (documented order for operators)."""
+        strikes = self._strikes.get(worker, 0)
+        if strikes < self.patience:
+            return "monitor"
+        if strikes < 2 * self.patience:
+            return "reshard-away"  # move its FSDP shard to a hot spare
+        return "evict-and-shrink"  # trigger ElasticPlanner
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    mesh_shape: Tuple[int, ...]
+    mesh_axes: Tuple[str, ...]
+    n_devices: int
+    dropped_workers: Tuple[int, ...]
+    note: str
+
+    @property
+    def valid(self) -> bool:
+        n = 1
+        for s in self.mesh_shape:
+            n *= s
+        return n == self.n_devices
+
+
+class ElasticPlanner:
+    """Shrink/regrow the mesh preserving the model (TP) axis."""
+
+    def __init__(self, model_parallel: int = 16, pods: int = 2, data: int = 16):
+        self.model = model_parallel
+        self.pods = pods
+        self.data = data
+
+    def plan_after_failures(self, failed_workers: Sequence[int],
+                            devices_per_worker: int = 4) -> ElasticPlan:
+        dropped = tuple(sorted(set(failed_workers)))
+        avail = self.pods * self.data * self.model - len(dropped) * devices_per_worker
+        # keep `model` intact; shrink data to the largest power of two that
+        # fits, so that it divides the global batch
+        new_data = avail // self.pods // self.model
+        if new_data < 1:
+            return ElasticPlan((), (), 0, dropped, "insufficient capacity")
+        p = 1
+        while p * 2 <= new_data:
+            p *= 2
+        new_data = p
+        return ElasticPlan(
+            mesh_shape=(self.pods, new_data, self.model),
+            mesh_axes=("pod", "data", "model"),
+            n_devices=self.pods * new_data * self.model,
+            dropped_workers=dropped,
+            note=(
+                f"TP axis preserved ({self.model}); data {self.data}->{new_data}; "
+                "restore via Checkpointer.restore with re-derived shardings; "
+                "global batch kept via grad accumulation x"
+                f"{max(1, self.data // new_data)}"
+            ),
+        )
+
+    def regrow(self, plan: ElasticPlan, recovered: int) -> ElasticPlan:
+        return self.plan_after_failures(
+            plan.dropped_workers[: max(0, len(plan.dropped_workers) - recovered)]
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -508,7 +508,7 @@ class ElasticFlowService:
         return step
 
     def _restore(self, step: Optional[int]) -> Tuple[Dict, Dict, int]:
-        tree, extra, step = self._ckpt.restore(step)
+        tree, extra, step = self._ckpt.restore(step=step)
         return snapshot_from_tree(tree, snapshot_template(self.engine)), extra["elastic"], step
 
     def restore_checkpoint(self, step: Optional[int] = None) -> int:

@@ -4,7 +4,9 @@
 
 ``jax.value_and_grad`` becomes :func:`value_and_grad`: every parameter
 leaf gets a gradient, and a leaf with no path to the loss gets zeros (JAX's
-behaviour), so that AdamW still decays it.
+behaviour), so that AdamW still decays it.  A tree with an integer leaf (a
+fixed-point codebook table) raises ``TypeError``, as ``jax.value_and_grad``
+does.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ def value_and_grad(fn: Callable[[Any], Tuple[torch.Tensor, Any]], params: Any):
     """``((loss, aux), grads)`` of ``fn(params) -> (loss, aux)`` with respect
     to every leaf of ``params``; the outputs are detached."""
     leaves, unflatten = tree_flatten(params)
+    for p in leaves:
+        if not (p.dtype.is_floating_point or p.dtype.is_complex):
+            raise TypeError(f"grad requires real- or complex-valued inputs, but got {p.dtype}")
     xs = [p.detach().requires_grad_(True) for p in leaves]
     loss, aux = fn(unflatten(xs))
     grads = torch.autograd.grad(loss, xs, allow_unused=True)

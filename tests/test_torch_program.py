@@ -362,8 +362,7 @@ def test_config_reader_refuses_what_the_port_cannot_honor(models):
     assert _ccfg_from_dict(ok) == _ccfg_from_dict(base)
     for path, value, match in ((("arch", "q_lora_rank"), 8, "not supported"),
                                (("arch", "chimera", "use_local"), False, "not supported"),
-                               (("arch", "chimera", "feature_map", "kind"), "codebook",
-                                "codebook"),
+                               (("arch", "chimera", "feature_map", "kind"), "codebook", None),
                                (("arch", "block_pattern"), ["attn", "mamba"], "attention only"),
                                (("arch", "novel_field"), 1, "unknown field")):
         bad = json.loads(json.dumps(base))
@@ -371,8 +370,90 @@ def test_config_reader_refuses_what_the_port_cannot_honor(models):
         for k in path[:-1]:
             node = node[k]
         node[path[-1]] = value
+        if match is None:  # the codebook map crosses, with its size and bits
+            node.update(codebook_size=16, codebook_bits=8)
+            fm = _ccfg_from_dict(bad).arch.chimera.feature_map
+            assert (fm.kind, fm.codebook_size, fm.codebook_bits) == ("codebook", 16, 8)
+            continue
         with pytest.raises(ValueError, match=match):
             _ccfg_from_dict(bad)
+
+
+# --------------------------------------------------------------------------
+# codebook programs cross the packages
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def codebook_models(tiny_classifier_cfg):
+    """The tiny classifier with the codebook feature map (16 centroids,
+    m 16): fp32 tables, and 8-bit tables quantized per layer with one scale
+    each, as ``compile_codebook`` stores them."""
+    out = {}
+    for bits in (0, 8):
+        arch = tiny_classifier_cfg.arch
+        arch = dataclasses.replace(arch, chimera=dataclasses.replace(
+            arch.chimera, feature_map=dataclasses.replace(
+                arch.chimera.feature_map, kind="codebook", m=16, codebook_size=16,
+                codebook_bits=bits)))
+        jccfg = dataclasses.replace(tiny_classifier_cfg, arch=arch)
+        params, _ = JC.init_classifier(jccfg, jax.random.PRNGKey(2))
+        if bits:
+            fm = params["backbone"]["blocks"]["b0"]["attn"]["chimera"]["fm"]
+            qts = [jq.quantize_per_channel(t, bits, axis=None) for t in fm["table"]]
+            fm["table"] = jnp.stack([q.values for q in qts])
+            fm["table_scale"] = jnp.stack([q.scale for q in qts])
+        out[bits] = (jccfg, params, bridge.classifier_config_from_reference(jccfg),
+                     bridge.params_from_jax(_np(params), device="cpu"))
+    return out
+
+
+def _replay_decisions(jeng, teng, batches=3, seed=7):
+    sc = JFlowScenario(kind="protocol-mix", vocab_size=512, pkt_len=8, packets_per_batch=32,
+                       seed=seed)
+    for _ in range(batches):
+        b = sc.next_batch()
+        oj = jeng.ingest(b["flow_ids"], b["tokens"])
+        ot = teng.ingest(b["flow_ids"], b["tokens"])
+        for k in ("vetoed", "sig", "pred"):
+            np.testing.assert_array_equal(np.asarray(ot[k]), np.asarray(oj[k]), err_msg=k)
+        for k in FLOATS:
+            np.testing.assert_allclose(ot[k], oj[k], rtol=RTOL, atol=ATOL, err_msg=k)
+        assert teng.table.slot_of == jeng.table.slot_of
+
+
+FLOATS = ("trust", "s_nn", "s_sym")
+
+
+@pytest.mark.parametrize("bits", [0, 8])
+def test_codebook_program_crosses_both_ways_with_the_same_decisions(codebook_models, tmp_path,
+                                                                    bits):
+    jccfg, jparams, tccfg, tparams = codebook_models[bits]
+    fcfg = dict(capacity=64, lanes=8)
+    rules = dict(rules=lambda c: JC.default_rules(c, jnp.asarray(SIG)))
+    jprog = j_compile_program(jccfg, jparams, verify=False, **rules)
+    jprog.save(str(tmp_path / "jax"))
+    # JAX -> port: the same arrays and config, an integer table kept integer
+    loaded = DataplaneProgram.load(str(tmp_path / "jax"), device="cpu")
+    _assert_programs_equal(loaded, jprog)
+    table = loaded.params["backbone"]["blocks"]["b0"]["attn"]["chimera"]["fm"]["table"]
+    assert table.dtype == (torch.int8 if bits else torch.float32)
+    map_rows = [e for e in loaded.ledger.entries if e.stage == "resource-ledger"]
+    assert_rows_equal(map_rows, [e for e in jprog.ledger.entries
+                                 if e.stage == "resource-ledger"])
+    _replay_decisions(jprog.deploy(JDeploySpec(flow=JFlowEngineConfig(**fcfg))),
+                      loaded.deploy(DeploySpec(flow=TFE.FlowEngineConfig(**fcfg),
+                                               device="cpu")))
+    # port -> JAX: a program the port compiled, loaded by the JAX package
+    tprog = compile_program(tccfg, tparams, verify=False, rules=lambda c: TC.default_rules(
+        c, SIG, device="cpu"))
+    assert_rows_equal(tprog.ledger.entries, jprog.ledger.entries, skip_backend=True)
+    tprog.save(str(tmp_path / "port"))
+    back = JProgram.load(str(tmp_path / "port"))
+    assert bridge.classifier_config_from_reference(back.ccfg) == tprog.ccfg
+    _assert_programs_equal(tprog, back)
+    _replay_decisions(back.deploy(JDeploySpec(flow=JFlowEngineConfig(**fcfg))),
+                      tprog.deploy(DeploySpec(flow=TFE.FlowEngineConfig(**fcfg), device="cpu")),
+                      seed=8)
 
 
 def test_load_without_checkpoint_raises(tmp_path):

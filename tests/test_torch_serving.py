@@ -33,6 +33,7 @@ from repro.serve import engine as JE
 from repro_torch import bridge
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.feature_maps import FeatureMapConfig
 from repro_torch.kernels.window_attention import ops as wops
 from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
@@ -456,11 +457,20 @@ def _leaves(tree, prefix=()):
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "chimera-dataplane", "yi-9b", "qwen3-32b",
-                                  "codeqwen1.5-7b"])
+                                  "codeqwen1.5-7b", "chimera-dataplane+codebook"])
 def test_configs_match_jax(name):
     from repro.configs import get_config as j_get
+    from repro.core.feature_maps import FeatureMapConfig as JFeatureMapConfig
 
-    for port, ref in ((get_config(name), j_get(name)), (smoke_config(name), j_smoke(name))):
+    name, _, fm = name.partition("+")
+    pairs = ((get_config(name), j_get(name)), (smoke_config(name), j_smoke(name)))
+    if fm:  # the codebook map, with its size and fixed-point bits
+        kw = dict(kind=fm, m=64, codebook_size=128, codebook_bits=8)
+        pairs = tuple((dataclasses.replace(p, chimera=dataclasses.replace(
+            p.chimera, feature_map=FeatureMapConfig(**kw))), dataclasses.replace(
+            r, chimera=dataclasses.replace(r.chimera, feature_map=JFeatureMapConfig(**kw))))
+            for p, r in pairs)
+    for port, ref in pairs:
         assert port == bridge.arch_from_reference(ref)
         assert [port.layer_is_moe(i) for i in range(4)] == [ref.layer_is_moe(i) for i in range(4)]
     assert ArchConfig(name="x", family="dense", n_layers=1, d_model=8, n_heads=1,
