@@ -88,11 +88,12 @@ Phases, each printing its own lines:
                10 steps direct against 5 + 5 through a checkpoint, in
                deterministic mode; (c) the codebook map (m 256, 256
                centroids) with the two-timescale controller (installs every
-               10 steps) against the same run without it (its host k-means
-               timed apart), the same controller run on the card against
-               the CPU (losses, installs, centroids, every code recomputed
-               on the CPU from the card's inputs), and an 8-bit
-               codebook program compiled by the port, saved, loaded and
+               10 steps) against the same run without it (its k-means on
+               the card timed apart), the same controller run on the card
+               (deterministic mode) against the CPU (losses, installs,
+               centroids, every code recomputed on the CPU from the card's
+               inputs), and an 8-bit codebook program compiled by the
+               port, saved, loaded and
                deployed on the card and on the CPU; (d) examples/train_lm.py's
                lm_100m through the Trainer (1 + 20 steps) and one profiled step.
 
@@ -107,10 +108,15 @@ without it.  It imports nothing of JAX and nothing of the JAX package.
 ``compare_builds({label: dir})`` times every kernel at its main path's
 shape from this tree against the same kernels built from other trees'
 ``csrc`` directories, in turns on one card (this, other, other, this).
+``route_gaps(n_seeds, {label: dir})`` gives the readings behind
+ROUTE_MARGIN: the top-2 gaps of the MoE choices that differ between a
+ragged prefill and token-by-token decode, with each tree's kernels, the
+plain versions and a planted attention error.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -495,10 +501,10 @@ def launch_floor_ms(B):
 ATTN_ATOL = 1e-4
 
 
-def chimera_inputs(B, Hkv, Gq, T, m, seed, requires_grad=False, d=None):
+def chimera_inputs(B, Hkv, Gq, T, m, seed, requires_grad=False, d=None, dv=None):
     """Normalized q, k, random v and their exp_prf features from the paper's
-    feature map (public layout (B, Hkv, Gq, T, .)), on the card; d = dv is
-    the paper's head width unless given."""
+    feature map (public layout (B, Hkv, Gq, T, .)), on the card; d is the
+    paper's head width unless given, and dv = d unless given."""
     import dataclasses
 
     import torch
@@ -506,7 +512,8 @@ def chimera_inputs(B, Hkv, Gq, T, m, seed, requires_grad=False, d=None):
     from repro_torch.core.feature_maps import _normalize, apply_feature_map, init_feature_map
 
     fm = dataclasses.replace(ARCH.chimera.feature_map, m=m)
-    d = dv = d or ARCH.head_dim
+    d = d or ARCH.head_dim
+    dv = dv or d
     g = torch.Generator().manual_seed(seed)
     fm_params = init_feature_map(fm, d, g, "cuda")
     q = _normalize(torch.randn((B, Hkv, Gq, T, d), generator=g).to("cuda"), fm.input_scale)
@@ -597,20 +604,24 @@ CHIMERA_SMOKE_EDGES = ((16, 16, 16), (16, 32, 16), (32, 32, 32), (64, 32, 16), (
                        (64, 16, 64))
 
 
-def check_chimera_edge(L, T, use_local, use_stream, m=64, d=None):
+def check_chimera_edge(L, T, use_local, use_stream, m=64, d=None, exact=False, dv=None):
     """The kernel against its plain version at one edge shape of its
-    contract (B 2 x Hkv 2, Gq 2, m 64 and the paper's d unless given);
-    returns the max abs error."""
+    contract (B 2 x Hkv 2, Gq 2, m 64, the paper's d and dv = d unless
+    given); returns the max abs error.  ``exact``: the plain version
+    evaluated in float64 on the same inputs, so that the tolerance measures
+    the kernel's rounding alone."""
     import torch
     from repro_torch.kernels.chimera_attention import ops
 
-    q, k, v, pq, pk = chimera_inputs(2, 2, 2, T, m, SEED + 8 + L + T + m, d=d)
+    q, k, v, pq, pk = chimera_inputs(2, 2, 2, T, m, SEED + 8 + L + T + m, d=d, dv=dv)
     flat = [x.flatten(0, 1) for x in (q, k, v, pq, pk)]
+    ref = [x.double() for x in (q, k, v, pq, pk)] if exact else (q, k, v, pq, pk)
     with torch.no_grad():
         a = ops.chimera_attention_bh(*flat, chunk_size=L, use_local=use_local,
                                      use_stream=use_stream)
-        b = ops.chimera_attention_partials_plain(q, k, v, pq, pk, L, use_local, use_stream)
-    return max(compare(f"chimera_attention {name} L={L} T={T} m={m} d={q.shape[-1]} Gq=2 "
+        b = ops.chimera_attention_partials_plain(*ref, L, use_local, use_stream)
+    return max(compare(f"chimera_attention {name} L={L} T={T} m={m} d={q.shape[-1]} "
+                       f"dv={v.shape[-1]} Gq=2 "
                        f"local={use_local} stream={use_stream}", x, y.reshape(x.shape),
                        atol=ATTN_ATOL)
                for name, x, y in zip(("num", "den"), a, b))
@@ -699,9 +710,48 @@ def long_plain(q, k, v, pq, pk, L, use_local=True, use_stream=True):
     return torch.stack(num), torch.stack(den)
 
 
+def profiled_kernel_ms(fn, names, iters=20):
+    """Device ms per launch of each kernel whose name holds one of
+    ``names`` (each launched once per call), from a profiler trace of
+    ``iters`` calls of ``fn`` after one warm-up call; returns {name: (ms,
+    launches the trace holds)}, None for a name it does not hold.  Late in a
+    long process the trace drops the device events of its first tens of ms
+    (on an H100, 17 of 20 calls of 2.7 ms), so the calls are framed by
+    idle time and each time is a mean over the launches the trace holds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.5)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.5)
+    us, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name in names:
+            if name in ev.key and dev_us:
+                us[name] += dev_us
+                count[name] += ev.count
+    return {x: (us[x] / 1e3 / count[x], count[x]) if count[x] else None for x in names}
+
+
+# the long-chunk kernel's three kernels, as a profiler names them
+LONG_KERNELS = ("chimera_fold_kernel", "chimera_prefix_kernel", "chimera_chunk_kernel")
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def check_chimera_long(timed):
     """csrc/chimera_attention_long.cu against the plain version at the
-    prefill shape (and, timed, beside its local-only and stream-only parts)."""
+    prefill shape; timed, beside its local-only and stream-only parts and
+    the device time of each of its three kernels in a profiler trace of
+    the whole call."""
     import torch
     from repro_torch.kernels.chimera_attention import ops
 
@@ -722,6 +772,7 @@ def check_chimera_long(timed):
                    f"L={L}: max abs err {err:.3e} (tolerance {LONG_ATOL:g} + {RTOL:g}*|ref|; "
                    f"|den| up to {float(den_p.max()):.1f}, |num| up to "
                    f"{float(num_p.abs().max()):.1f})")
+    del num_p, den_p
     if timed:
         with torch.no_grad():
             ms, call_ms = cuda_ms(lambda: ops.chimera_attention_bh(*flat, chunk_size=L), iters=5)
@@ -733,37 +784,59 @@ def check_chimera_long(timed):
             parts = {mode: cuda_ms(lambda mode=mode: ops.chimera_attention_bh(
                 *flat, chunk_size=L, use_local=mode[0], use_stream=mode[1]), iters=5)[0]
                 for mode in ((True, False), (False, True))}
+            traced = profiled_kernel_ms(lambda: ops.chimera_attention_bh(*flat, chunk_size=L),
+                                        LONG_KERNELS)
+        fold_ms, prefix_ms, chunk_ms = (traced[x] and traced[x][0] for x in LONG_KERNELS)
+        held = [traced[x] and traced[x][1] for x in LONG_KERNELS]
         nbytes, flops = chimera_cost(B, Hkv, Gq, T, d, d, m, L)
         bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
         fp32_ms = flops / FP32_FLOPS * 1e3
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes=nbytes, flops=flops, call_ms=call_ms, local_ms=parts[True, False],
-                   stream_ms=parts[False, True])
+                   stream_ms=parts[False, True], fold_ms=fold_ms, prefix_ms=prefix_ms,
+                   chunk_ms=chunk_ms)
         log("kernels", f"chimera_attention L256 device time: kernel {ms:.4f} ms (local only "
-                       f"{parts[True, False]:.4f} ms, stream only {parts[False, True]:.4f} ms), "
-                       f"plain {plain_ms:.1f} ms (host clock over its {BH} rows), bound "
-                       f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B; {flops} flop, "
-                       f"x{TF32_PASSES} in TF32 on the tensor cores; on the fp32 CUDA cores, "
-                       f"which the kernel uses, {fp32_ms:.4f} ms); per call from Python "
-                       f"{call_ms:.4f} ms")
-    del q, k, v, pq, pk, flat, num_k, den_k, num_p, den_p
+                       f"{parts[True, False]:.4f} ms, stream only {parts[False, True]:.4f} ms; "
+                       f"in a profiler trace of 20 calls, per launch: fold {fmt_ms(fold_ms)}, "
+                       f"prefix {fmt_ms(prefix_ms)}, chunk kernel {fmt_ms(chunk_ms)}; launches "
+                       f"the trace holds {held}), plain "
+                       f"{plain_ms:.1f} ms (host clock over its {BH} rows), bound {bound_ms:.4f} "
+                       f"ms by {bound_by} ({nbytes} B; {flops} flop, x{TF32_PASSES} in TF32 on "
+                       f"the tensor cores; on the fp32 CUDA cores {fp32_ms:.4f} ms); per call "
+                       f"from Python {call_ms:.4f} ms")
+    del q, k, v, pq, pk, flat, num_k, den_k
     torch.cuda.empty_cache()
     return rec
 
 
+# (d, dv, m) of the long-chunk kernel's edge shapes: d = dv at every dv it
+# takes, at m 16 (one m-tile: the fold's single-tile pair) and m 128 (the
+# zoo's); m 144 (a second fold slice of one m-tile, a readout slice of
+# 16); m 320 (five readout slices, a second fold slice of 64 features);
+# d != dv (d 64, dv 128), and d % 16
+# == 8 (the score loop's odd tail: d 24 at dv 32 with m 16, d 40 at dv 64
+# with m 48, three m-tiles), both on the kernel's runtime-d instantiation
+LONG_EDGE_WIDTHS = (tuple((d, d, m) for d in (16, 32, 64, 128) for m in (16, 128))
+                    + ((128, 128, 144), (128, 128, 320), (64, 128, 128), (24, 32, 16),
+                       (40, 64, 48)))
+
+
 def check_chimera_long_edges():
-    """The long-chunk kernel at T = L and 4L, every (use_local, use_stream)
-    pair, and d = dv 16-64 with m 16 (the 16-row stream tile alone)."""
+    """The long-chunk kernel at T = L, 3L and 4L, every (use_local,
+    use_stream) pair, at every (d, dv, m) of LONG_EDGE_WIDTHS, against the plain
+    version in float64: at T = 4L and m 16 the stream terms reach ~700
+    where a partial is ~1, and the float32 plain version's own rounding
+    takes up to 0.85 of the tolerance there."""
     worst = 0.0
-    for T in (ZOO_L, 4 * ZOO_L):
-        for mode in CHIMERA_MODES:
-            worst = max(worst, check_chimera_edge(ZOO_L, T, *mode, m=ZOO_M, d=ZOO_D))
-    for d in (16, 32, 64):
-        for T in (ZOO_L, 3 * ZOO_L):
-            worst = max(worst, check_chimera_edge(ZOO_L, T, True, True, m=16, d=d))
+    for d, dv, m in LONG_EDGE_WIDTHS:
+        for T in (ZOO_L, 3 * ZOO_L, 4 * ZOO_L):
+            for mode in CHIMERA_MODES:
+                worst = max(worst, check_chimera_edge(ZOO_L, T, *mode, m=m, d=d, exact=True,
+                                                      dv=dv))
     log("kernels", f"chimera_attention (long-chunk kernel) edge shapes (L {ZOO_L}, T = L, 3L "
-                   f"and 4L, every local/stream pair, d = dv 16-128, m 16 and 128): max abs err "
-                   f"{worst:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|)")
+                   f"and 4L, every local/stream pair, (d, dv, m) in {list(LONG_EDGE_WIDTHS)}): "
+                   f"max abs err {worst:.3e} against the plain version in float64 (tolerance "
+                   f"{ATTN_ATOL:g} + {RTOL:g}*|ref|)")
 
 
 def build_other_library(csrc_dir):
@@ -806,8 +879,9 @@ def build_other_library(csrc_dir):
 def compare_builds(others, rounds=1):
     """decode_step (the engine's shape, each fill pattern, with globals),
     flow_score (the engine's 256 lanes, one rule at 8 signature words and
-    two at the compiled program's 24), chimera_attention (the
-    train phase's shape) and window_attention (the serve phase's prefill)
+    two at the compiled program's 24), chimera_attention (the train phase's
+    shape, and the prefill shape at L 256 with its local-only and
+    stream-only parts) and window_attention (the serve phase's prefill)
     from this tree and from the trees of ``others`` (``{label: csrc
     directory}``), timed in turns on one card: each round runs this, the
     others, then the others and this again in reverse (this, other, other,
@@ -838,6 +912,15 @@ def compare_builds(others, rounds=1):
     flat = [q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1), pq.flatten(0, 1),
             pk.flatten(0, 1)]
     cases["chimera_attention"] = (lambda: cops.chimera_attention_bh(*flat, chunk_size=L), 20)
+    B, Hkv, GqL, T = LONG_SHAPE  # the long-chunk kernel at the prefill shape, and its parts
+    lq, lk, lv, lpq, lpk = chimera_inputs(B, Hkv, GqL, T, ZOO_M, SEED + 9, d=ZOO_D)
+    lflat = [lq.flatten(0, 1), lk.flatten(0, 1), lv.flatten(0, 1), lpq.flatten(0, 1),
+             lpk.flatten(0, 1)]
+    for label, mode in (("", (True, True)), (" local only", (True, False)),
+                        (" stream only", (False, True))):
+        cases[f"chimera_attention L256{label}"] = (
+            lambda mode=mode: cops.chimera_attention_bh(*lflat, chunk_size=ZOO_L,
+                                                        use_local=mode[0], use_stream=mode[1]), 5)
     sargs = score_inputs(LANES, 1, SEED + 1)
     cases["flow_score M=1"] = (lambda: sops.flow_score(*sargs), 200)
     sargs24 = score_inputs(LANES, 2, SEED + 2, W=24)  # the compiled program's layout
@@ -1717,6 +1800,174 @@ def lm_replay(cfg, params, prompts, pre, gens, max_len, sequential=False):
     return torch.stack(out, dim=1)
 
 
+# the MoE's top-2 choice of a token is a near tie where its 2nd and 3rd
+# router probabilities lie within ROUTE_MARGIN: another fp32 summation
+# order in attention flips such a choice through the bf16 residual stream.
+# route_gaps on an H100: over 4 prompt seeds, with the long-chunk kernel,
+# its previous version and the plain versions, 0 to 6 of the ragged
+# check's 5,152 choices differ between prefill and decode, at gaps up to
+# 8.6e-4 (at seed 0, the check's, up to 2.1e-4); a planted relative error
+# of 1e-3 in the prefill's attention partials flips choices at gaps up to
+# 2.0e-3 to 8.4e-3 at every seed, one of 1e-4 up to 5.5e-3 to 6.1e-3 at
+# two seeds of the four (seed 0 among them)
+ROUTE_MARGIN = 1e-3
+
+
+def lm_replay_shared_routes(cfg, params, prompts, pre, gens, max_len, margin=ROUTE_MARGIN):
+    """lm_replay of the prompts' prefill, then of the same tokens decoded
+    one at a time, the second run taking the first run's MoE experts for a
+    token wherever its own choice differs at a near tie (top-2 gap <=
+    ``margin``, in either run); a choice that differs beyond the margin
+    fails.  So the two runs are compared on the same discrete routing, and
+    every routing decision is held to the margin.  Returns (fast, seq, the
+    forced ties as (layer, slot, position, gap))."""
+    import torch
+    from repro_torch.models import moe
+
+    real, n_layers, B = moe._top_k, cfg.n_layers, prompts.shape[0]
+    calls = []
+
+    def record(probs, k):
+        vals, ids = real(probs, k)
+        calls.append((probs, ids))
+        return vals, ids
+
+    def gap(p, k):
+        top = torch.topk(p, k + 1, dim=-1).values
+        return top[..., k - 1] - top[..., k]
+
+    forced, count = [], [0]
+
+    def replay(probs, k):
+        vals, ids = real(probs, k)
+        step, layer = divmod(count[0], n_layers)
+        count[0] += 1
+        if step < pre:  # a prompt token: the prefill's call of this layer, at this position
+            pf, idf = (x.reshape(B, pre, -1)[:, step] for x in calls[layer])
+        else:  # a fed token: both runs decode it
+            pf, idf = (x.reshape(B, -1) for x in calls[n_layers * (1 + step - pre) + layer])
+        own, p = ids.reshape(B, -1), probs.reshape(B, -1)
+        same = (own.sort(-1).values == idf.sort(-1).values).all(-1)
+        if bool(same.all()):
+            return vals, ids
+        g = torch.maximum(gap(p, k), gap(pf, k))
+        for slot in (~same).nonzero().flatten().tolist():
+            if float(g[slot]) > margin:
+                fail(f"lm-chimera: layer {layer} slot {slot} position {step} routes to experts "
+                     f"{own[slot].tolist()} in decode and {idf[slot].tolist()} in the prefill "
+                     f"with a top-2 probability gap of {float(g[slot]):.3e} > {margin:g}")
+            forced.append((layer, slot, step, float(g[slot])))
+        ids = torch.where(same[:, None], own, idf).reshape(ids.shape)
+        return torch.gather(probs, -1, ids), ids
+
+    try:
+        moe._top_k = record
+        fast = lm_replay(cfg, params, prompts, pre, gens, max_len)
+        moe._top_k = replay
+        seq = lm_replay(cfg, params, prompts, pre, gens, max_len, sequential=True)
+    finally:
+        moe._top_k = real
+    return fast, seq, forced
+
+
+class planted_attention_error:
+    """Within the block, chimera_attention's partials (the prefill's) come
+    back with a planted relative error: num and den each times (1 + eps u),
+    u uniform in [-1, 1], drawn apart on the card from ``seed``."""
+
+    def __init__(self, eps, seed):
+        self.eps, self.seed = eps, seed
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.chimera_attention import ops as cops
+
+        self.saved = real = cops.chimera_attention_bh
+        g = torch.Generator(device="cuda").manual_seed(self.seed)
+
+        def attention(*a, **k):
+            num, den = real(*a, **k)
+            return tuple(x * (1 + self.eps * (2 * torch.rand(x.shape, generator=g, device=x.device,
+                                                            dtype=x.dtype) - 1))
+                         for x in (num, den))
+
+        cops.chimera_attention_bh = attention
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.chimera_attention import ops as cops
+
+        cops.chimera_attention_bh = self.saved
+
+
+def route_gaps(n_seeds=4, others=None, planted=(1e-3, 1e-4)):
+    """Readings for ROUTE_MARGIN, not part of the smoke run: phase
+    lm-chimera (c)'s ragged prefill-vs-decode replay (the same weights,
+    drop-free) for ``n_seeds`` prompt seeds, with this tree's kernels, with
+    each tree's of ``others`` ({label: csrc directory}, built by
+    build_other_library), with the plain versions, and with this tree's
+    kernels under a planted_attention_error of each eps in ``planted``.
+    Every routing choice that differs between the two runs is kept with its
+    top-2 gap, whatever the gap.  Logs, per run, their count and gaps, and
+    returns {label: [every gap over the seeds]}."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as LS
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import classifier as C
+
+    cfg = mixtral_chimera(SERVE_LAYERS)
+    ccfg = C.ClassifierConfig(arch=cfg, n_classes=2, marker_base=cfg.vocab_size)
+    params = C.init_classifier(ccfg, torch.Generator(device="cuda").manual_seed(SEED),
+                               device="cuda")
+    args = LS.parse_args(["--arch", cfg.name, "--requests", str(SERVE_SLOTS), "--slots",
+                          str(SERVE_SLOTS), "--prompt-len", str(RAGGED_T), "--max-new",
+                          str(RAGGED_NEW), "--max-len", str(SERVE_MAX_LEN), "--prefill",
+                          "--waive", "resource-ledger"])
+    params = LS.build(args, params=params, arch=cfg).engine.params
+    dcfg = dataclasses.replace(cfg, capacity_factor=float(cfg.moe_experts))
+    libs = {"this": _build.load_library()}
+    libs.update({label: build_other_library(d) for label, d in (others or {}).items()})
+    runs = [(label, label, None) for label in libs] + [("plain", "this", "plain")] + [
+        (f"planted {eps:g}", "this", eps) for eps in planted]
+    gaps = {label: [] for label, _, _ in runs}
+    pre = RAGGED_T - 1
+    for i in range(n_seeds):
+        prompts = np.random.default_rng(SEED + 60 + i).integers(0, cfg.vocab_size,
+                                                                (SERVE_SLOTS, RAGGED_T))
+        eng = ServeEngine(dcfg, params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                          device="cuda")
+        reqs = [Request(rid=j, prompt=p.tolist(), max_new_tokens=RAGGED_NEW)
+                for j, p in enumerate(prompts)]
+        eng.prefill_batch(reqs)
+        eng.run_until_done()
+        gens = np.array([r.generated for r in reqs])
+        del eng
+        for label, lib, how in runs:
+            _build._lib = libs[lib]
+            try:
+                ctx = (plain_chimera_kernels() if how == "plain" else
+                       contextlib.nullcontext() if how is None else
+                       planted_attention_error(how, SEED + 70 + i))
+                with ctx:
+                    fast, seq, ties = lm_replay_shared_routes(dcfg, params, prompts, pre, gens,
+                                                              SERVE_MAX_LEN, margin=math.inf)
+            finally:
+                _build._lib = libs["this"]
+            err = float((fast - seq).abs().max())
+            g = sorted((t[3] for t in ties), reverse=True)
+            gaps[label] += g
+            log("route-gaps", f"seed {i} {label}: {len(g)} of "
+                              f"{SERVE_SLOTS * (pre + RAGGED_NEW) * cfg.n_layers} choices differ, "
+                              f"gaps {[f'{x:.3e}' for x in g]}; logits max abs diff {err:.3e}")
+            del fast, seq
+    for label, g in gaps.items():
+        log("route-gaps", f"{label}: {len(g)} differing choices over {n_seeds} seeds, largest gap "
+                          f"{max(g) if g else 0.0:.3e}")
+    return gaps
+
+
 def hold_generations(what, gens, logits, margin):
     """Each greedy token equals the reference logits' argmax wherever their
     top-2 margin exceeds ``margin``; returns (held, total, smallest margin)."""
@@ -1859,7 +2110,9 @@ def phase_lm_chimera(recs):
     # packages (the JAX package holds its prefill to decode on drop-free
     # smoke configs), and one-token decode drops none.  So this part serves
     # the same weights with capacity_factor = E, drop-free, as smoke_config
-    # makes it; attention, the path under test, is unchanged.
+    # makes it, and routes a near tie of the router in both runs alike
+    # (lm_replay_shared_routes); attention, the path under test, is
+    # unchanged.
     dcfg = dataclasses.replace(cfg, capacity_factor=float(cfg.moe_experts))
     rengine = ServeEngine(dcfg, engine.params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                           device="cuda")
@@ -1871,9 +2124,9 @@ def phase_lm_chimera(recs):
     rengine.run_until_done()
     rgens = np.array([r.generated for r in reqs])
     pre = RAGGED_T - 1
-    fast = lm_replay(dcfg, engine.params, rprompts, pre, rgens, SERVE_MAX_LEN)
     t0 = time.perf_counter()
-    seq = lm_replay(dcfg, engine.params, rprompts, pre, rgens, SERVE_MAX_LEN, sequential=True)
+    fast, seq, ties = lm_replay_shared_routes(dcfg, engine.params, rprompts, pre, rgens,
+                                              SERVE_MAX_LEN)
     seq_s = time.perf_counter() - t0
     err = compare("lm-chimera ragged prefill vs token-by-token decode", fast, seq,
                   atol=LM_LOGIT_TOL, rtol=LM_LOGIT_TOL)
@@ -1882,7 +2135,10 @@ def phase_lm_chimera(recs):
     log("lm-chimera", f"ragged prompt of {RAGGED_T} tokens ({pre // ch.chunk_size} chunks + "
                       f"{pre % ch.chunk_size} in the ring), capacity factor "
                       f"{dcfg.capacity_factor:g} (drop-free): prefill_batch then {RAGGED_NEW} "
-                      f"tokens against token-by-token decode ({pre} steps, {seq_s:.1f} s): "
+                      f"tokens against token-by-token decode ({pre} steps, {seq_s:.1f} s; "
+                      f"the MoE's near ties (top-2 gap <= {ROUTE_MARGIN:g}) routed as in the "
+                      f"prefill: {len(ties)} of {SERVE_SLOTS * (pre + RAGGED_NEW) * cfg.n_layers}"
+                      f" choices, (layer, slot, position, gap) {ties}): "
                       f"logits max abs diff {err:.3e} (tolerance {LM_LOGIT_TOL:g} + "
                       f"{LM_LOGIT_TOL:g}*|ref|); greedy tokens equal at {held} of {total} "
                       f"positions whose top-2 margin exceeds {LM_MARGIN:g} (smallest margin "
@@ -3525,6 +3781,13 @@ CODEBOOK_DM_RTOL = REF_LOSS_RTOL
 # where the CPU's gap exceeds this is a fault
 CODE_MARGIN = 1e-4
 SMOKE_STEPS = 5  # the launcher's smoke config, card against CPU
+# (c) the card's k-means against the CPU's on the same reservoir: a
+# farthest-point pick may differ only where the CPU's largest distance
+# exceeds the next smaller one by at most this (relative; the card sums
+# each squared distance in another order), and the centroids are held
+# within KMEANS_ATOL where the picks agree
+KMEANS_TIE_RTOL = 1e-6
+KMEANS_ATOL = 1e-5
 
 
 def lm_100m():
@@ -3754,31 +4017,91 @@ def count_code_flips(calls):
     return n, flips, sure
 
 
+def farthest_gaps(x, picks):
+    """At each pick after the first of a farthest-point walk over ``x``
+    (CPU), the relative gap between the largest squared distance to the
+    picks before it and the next smaller value (duplicated rows share a
+    value and take the first index on either device)."""
+    import torch
+
+    d2 = torch.sum((x - x[picks[0]]) ** 2, dim=-1)
+    gaps = [float("inf")]
+    for p in picks[1:]:
+        top = d2.max()
+        below = d2[d2 < top]
+        gaps.append(float((top - below.max()) / top) if below.numel() else float("inf"))
+        d2 = torch.minimum(d2, torch.sum((x - x[p]) ** 2, dim=-1))
+    return gaps
+
+
+def hold_kmeans(what, samples, k, iters, key):
+    """The card's k-means against the CPU's on the same samples: the
+    farthest-point picks equal but at a near tie (KMEANS_TIE_RTOL, counted),
+    the Lloyd steps from the same picks within KMEANS_ATOL, and the whole
+    k-means within it where every pick agrees.  Returns (the first pick
+    that differs or None, its CPU gap, the largest centroid error)."""
+    import torch
+    from repro_torch.core import two_timescale as TT
+
+    x_cpu = torch.from_numpy(samples)
+    x_dev = x_cpu.to("cuda")
+    p_cpu = TT.farthest_points(x_cpu, k, key).tolist()
+    p_dev = TT.farthest_points(x_dev, k, key).cpu().tolist()
+    gaps = farthest_gaps(x_cpu, p_cpu)
+    first = next((i for i, (a, b) in enumerate(zip(p_dev, p_cpu)) if a != b), None)
+    if first is not None and gaps[first] > KMEANS_TIE_RTOL:
+        fail(f"{what}: farthest-point pick {first} is row {p_dev[first]} on the card and "
+             f"{p_cpu[first]} on the CPU, whose top two distances differ by {gaps[first]:.3e} "
+             f"(relative) > {KMEANS_TIE_RTOL:g}")
+    init = x_cpu[p_dev]
+    c_dev, _ = TT.lloyd(x_dev, init.to("cuda"), iters)
+    c_cpu, _ = TT.lloyd(x_cpu, init, iters)
+    err = compare(f"{what}: Lloyd centroids from the card's picks, card vs CPU", c_dev, c_cpu,
+                  atol=KMEANS_ATOL, rtol=0.0)
+    if first is None:
+        err = max(err, compare(f"{what}: k-means card vs CPU", TT.kmeans(x_dev, k, iters, key)[0],
+                               TT.kmeans(x_cpu, k, iters, key)[0], atol=KMEANS_ATOL, rtol=0.0))
+    return first, None if first is None else gaps[first], err
+
+
 def trainer_codebook(cops):
     """(c) the codebook map with the two-timescale controller, timed against
-    the same run without it (the controller's host k-means timed apart);
+    the same run without it (the controller's reclusters, k-means on the
+    card, timed apart; the card's k-means then held to the CPU's on the
+    same reservoirs);
     then the controller run again on the card, every assign_codes call
     recorded, and on the CPU from the same seed: losses, install history
     and installed centroids held to the CPU's, and every recorded code
-    recomputed on the CPU from the same inputs."""
+    recomputed on the CPU from the same inputs.  That card run is in
+    deterministic mode, so it is the same run every time (the embedding's
+    backward otherwise adds with atomics in any order), and the CPU run
+    clusters the card run's reservoir at each epoch: the two runs' features
+    differ by roundings, and the farthest-point walk of k-means turns such
+    a difference at a near tie into another centroid (on an H100 the
+    losses then differed by 1.3e-4 and, from the step after the second
+    install, 5.9e-4, with no code differing on the same inputs)."""
     import tempfile
+
+    import torch
 
     from repro_torch.core.two_timescale import TwoTimescaleConfig
 
     arch = codebook_arch()
     tt = TwoTimescaleConfig(t_cp_steps=CODEBOOK_T_CP)
-    runs, recluster_s = {}, []
+    runs, recluster_s, reservoirs, where = {}, [], [], set()
     for label, cfg in (("controller", tt), ("no controller", None)):
         with tempfile.TemporaryDirectory(prefix="chimera-codebook-") as tmp:
             tr = trainer_for(arch, tmp, CODEBOOK_STEPS, two_timescale=cfg)
-            if cfg is not None:  # host seconds of each recluster (k-means, delta_map)
+            if cfg is not None:  # seconds of each recluster (k-means on the card, delta_map)
                 real = tr.controller.maybe_recluster
 
-                def recluster(*a, real=real, **k):
+                def recluster(*a, real=real, ctl=tr.controller, **k):
                     t0 = time.perf_counter()
                     out = real(*a, **k)
                     if out[1] is not None:
                         recluster_s.append(time.perf_counter() - t0)
+                        reservoirs.append((np.concatenate(ctl._reservoir), a[3]))
+                        where.add(out[0].device.type)
                     return out
 
                 tr.controller.maybe_recluster = recluster
@@ -3795,10 +4118,12 @@ def trainer_codebook(cops):
     cent = tr.params["blocks"]["b0"]["attn"]["chimera"]["fm"]["centroids"]
     if not all(bool((cent[i] == cent[0]).all()) for i in range(cent.shape[0])):
         fail("trainer (c): the installed centroids differ across the layer axis")
+    if where != {"cuda"}:
+        fail(f"trainer (c): the reclusters' centroids lie on {sorted(where)}, not the card")
     ms_plain = runs["no controller"][1]
     log("trainer", f"(c) codebook map (m 256, 256 centroids), {CODEBOOK_STEPS} steps, T_cp "
                    f"{CODEBOOK_T_CP} steps: {ms:.2f} ms/step with the controller, "
-                   f"{ms_plain:.2f} without; the reclusters (host k-means and delta_map) "
+                   f"{ms_plain:.2f} without; the reclusters (k-means on the card, delta_map) "
                    + ", ".join(f"{t:.3f}" for t in recluster_s)
                    + f" s, {sum(recluster_s) / CODEBOOK_STEPS * 1e3:.2f} ms/step of the "
                    f"{ms - ms_plain:.2f} ms/step difference; installs "
@@ -3807,14 +4132,29 @@ def trainer_codebook(cops):
                    + f"; loss first {losses[0]:.5f} last {losses[-1]:.5f}; chimera_attention "
                    f"launches {launches}")
 
-    got, t_dev = {}, {}
+    got, t_dev, shared = {}, {}, {}
     for dev in ("cuda", "cpu"):
         with tempfile.TemporaryDirectory(prefix="chimera-codebook-") as tmp:
             t0 = time.perf_counter()
             tr = trainer_for(arch, tmp, CODEBOOK_STEPS, device=dev, two_timescale=tt)
+            real = tr.controller.maybe_recluster
+
+            def recluster(step, *a, real=real, ctl=tr.controller, dev=dev, **k):
+                # the card's reservoir at each epoch, clustered by both runs
+                if dev == "cuda":
+                    shared[step] = list(ctl._reservoir)
+                elif step in shared:
+                    ctl._reservoir = list(shared[step])
+                return real(step, *a, **k)
+
+            tr.controller.maybe_recluster = recluster
             if dev == "cuda":
-                with CodeRecorder() as codes:
-                    out = tr.run()
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    with CodeRecorder() as codes:
+                        out = tr.run()
+                finally:
+                    torch.use_deterministic_algorithms(False)
             else:
                 out = tr.run()
             t_dev[dev] = time.perf_counter() - t0
@@ -3822,9 +4162,13 @@ def trainer_codebook(cops):
                     tr.params["blocks"]["b0"]["attn"]["chimera"]["fm"]["centroids"])
     (lc, hc, cc), (lp, hp, cp) = got["cuda"], got["cpu"]
     calls = codes.calls
+    n, flips, sure = count_code_flips(calls)
     lerr = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
     if lerr > REF_LOSS_RTOL:
-        fail(f"trainer (c): card and CPU losses differ by {lerr:.3e} > {REF_LOSS_RTOL:g}")
+        at = next(i for i, (a, b) in enumerate(zip(lc, lp)) if abs(a - b) / abs(b) > REF_LOSS_RTOL)
+        fail(f"trainer (c): card and CPU losses differ by {lerr:.3e} > {REF_LOSS_RTOL:g}, first "
+             f"at logged step {at}; on the card's own inputs {flips} of {n} codes differ from "
+             f"the CPU's, {sure} with a top-2 gap above {CODE_MARGIN:g}")
     key = [(r.step, r.installed, r.churn_ok) for r in hc]
     if key != [(r.step, r.installed, r.churn_ok) for r in hp]:
         fail(f"trainer (c): card install history {hc} differs from the CPU's {hp}")
@@ -3833,18 +4177,29 @@ def trainer_codebook(cops):
         fail(f"trainer (c): delta_map card vs CPU differs by {dm:.3e} (relative) > "
              f"{CODEBOOK_DM_RTOL:g}: {[r.delta_map for r in hc]} vs {[r.delta_map for r in hp]}")
     cerr = compare("trainer (c) installed centroids card vs CPU", cc, cp, atol=ATTN_ATOL)
-    n, flips, sure = count_code_flips(calls)
     if sure:
         fail(f"trainer (c): {sure} of {n} codes differ between the card and the CPU on the "
              f"same inputs where the CPU's top-2 gap exceeds {CODE_MARGIN:g}")
     log("trainer", f"(c) the controller run on the card against the CPU from the same seed "
-                   f"({t_dev['cuda']:.1f} s and {t_dev['cpu']:.1f} s, recorded): losses within "
+                   f"({t_dev['cuda']:.1f} s, deterministic and recorded, and {t_dev['cpu']:.1f} "
+                   f"s, clustering the card's reservoirs): losses within "
                    f"{lerr:.3e} (tolerance {REF_LOSS_RTOL:g}); installs {key} equal; delta_map "
                    f"within {dm:.3e} (relative, tolerance {CODEBOOK_DM_RTOL:g}); installed "
                    f"centroids within {cerr:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|); "
                    f"{len(calls)} assign_codes calls on the card, {n} codes recomputed on the CPU "
                    f"from the same inputs: {flips} differ, {sure} of them with a top-2 gap above "
                    f"{CODE_MARGIN:g}")
+    n_cent, iters = tr.controller.n_centroids, tt.kmeans_iters
+    held = [hold_kmeans(f"trainer (c) recluster {i + 1}", x, n_cent, iters, key)
+            for i, (x, key) in enumerate(reservoirs)]
+    ties = [(i + 1, first, gap) for i, (first, gap, _) in enumerate(held) if first is not None]
+    log("trainer", f"(c) k-means on the card against the CPU on the controller's "
+                   f"{len(reservoirs)} reservoirs ({', '.join(str(len(x)) for x, _ in reservoirs)} "
+                   f"samples x {reservoirs[0][0].shape[1]}, {n_cent} centroids, {iters} Lloyd "
+                   f"steps): farthest-point picks equal in {len(held) - len(ties)} of "
+                   f"{len(held)}; near ties (top-2 gap <= {KMEANS_TIE_RTOL:g}, the card's pick "
+                   f"followed from there) {ties}; centroids within "
+                   f"{max(h[2] for h in held):.3e} (tolerance {KMEANS_ATOL:g})")
     return {"launches": launches + runs["no controller"][2], "ms": ms, "ms_plain": ms_plain,
             "installs": sum(r.installed for r in hist)}
 

@@ -151,26 +151,18 @@ def compile_codebook(
     kmeans_iters: int = 10,
 ) -> Params:
     """Compile a smooth feature map into a codebook table (control-plane op):
-    cluster the normalized samples with k-means (on the host, ``key`` a
-    :func:`~repro_torch.core.two_timescale.prng_key`), evaluate the base φ
-    at each centroid, and store the results as the Map table, fixed-point
-    with one scale when ``cfg.codebook_bits`` is set.  The result lies on
-    the samples' device.
-
-    A departure from the JAX package, which runs its k-means in jnp on the
-    samples' device: here the samples are copied to the host and clustered
-    by the port's CPU ``kmeans``, the one the serving loop's control-plane
-    thread needs (it makes no CUDA call), whose ``prng_key`` draw and Lloyd
-    steps follow JAX's.  The Trainer's codebook controller reclusters the
-    same way, so on the card each recluster costs a copy to the host and a
-    host k-means."""
+    cluster the normalized samples with k-means on the samples' device
+    (``key`` a :func:`~repro_torch.core.two_timescale.prng_key`, whose first
+    centroid is drawn on the host as JAX's ``randint`` draws it), evaluate
+    the base φ at each centroid, and store the results as the Map table,
+    fixed-point with one scale when ``cfg.codebook_bits`` is set.  The
+    result lies on the samples' device, as in the JAX package."""
     from repro_torch.core.quantization import quantize_per_channel
     from repro_torch.core.two_timescale import kmeans  # no cycle at import
 
     device = samples.device
     xh = _normalize(samples.reshape(-1, samples.shape[-1]), cfg.input_scale)
-    centroids, _ = kmeans(xh.float().cpu(), cfg.codebook_size, kmeans_iters, key)
-    centroids = centroids.to(device)
+    centroids, _ = kmeans(xh.float(), cfg.codebook_size, kmeans_iters, key)
     table = apply_feature_map(base_cfg, base_params, centroids)
     table_scale = torch.ones((), device=device)
     if cfg.codebook_bits:

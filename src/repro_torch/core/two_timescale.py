@@ -9,9 +9,11 @@
 * **Slow path (every T_cp)** — :class:`TwoTimescaleController`: recluster
   the harvested features with k-means, compute Δ_map, and compile an
   audited :class:`~repro_torch.compile.program.ProgramDelta` when the
-  Eq. 20 gate opens.  It runs on the host (numpy and CPU tensors): the
-  adaptation loop may run it on a thread beside the card's CUDA-graph
-  captures, which any CUDA call from that thread would abort.
+  Eq. 20 gate opens.  It clusters on the device of the centroids it is
+  given: the Trainer's lie on its device, the adaptation loop's on the
+  host (numpy and CPU tensors), since that loop may run it on a thread
+  beside the card's CUDA-graph captures, which any CUDA call from that
+  thread would abort.
 * **Install** — :func:`atomic_swap` rewrites the installed tensors in
   place, on the main thread between ticks: the fused engine's CUDA graphs
   captured their addresses, so a new tensor would never be read.  The
@@ -116,6 +118,46 @@ def occupancy_from_codes(codes: torch.Tensor, n_centroids: int) -> torch.Tensor:
 # Slow path: k-means recluster
 # --------------------------------------------------------------------------
 
+def farthest_points(x: torch.Tensor, k: int, key) -> torch.Tensor:
+    """The indices (k,) int64, on ``x``'s device, of the greedy
+    farthest-point init: the first is ``randint(key, 0, n)``, drawn on the
+    host; each next one is the argmax (first of equal maxima) of the
+    squared distance to the nearest pick so far.  The picks stay device
+    tensors, so the walk makes no host round trip."""
+    n = x.shape[0]
+    idx = torch.empty((k,), dtype=torch.long, device=x.device)
+    idx[0] = randint(key, 0, n)
+    d2 = torch.sum((x - x.index_select(0, idx[:1])) ** 2, dim=-1)
+    for i in range(1, k):
+        idx[i] = torch.argmax(d2)
+        d2 = torch.minimum(d2, torch.sum((x - x.index_select(0, idx[i:i + 1])) ** 2, dim=-1))
+    return idx
+
+
+def lloyd(
+    x: torch.Tensor,
+    cent: torch.Tensor,
+    iters: int,
+    weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``iters`` Lloyd steps from ``cent`` on ``x``'s device, in the JAX
+    package's order of operations; returns (centroids, the last step's
+    assignments)."""
+    n, k = x.shape[0], cent.shape[0]
+    w = (torch.ones((n,), device=x.device) if weights is None
+         else torch.as_tensor(weights, dtype=torch.float32, device=x.device))
+    classes = torch.arange(k, device=x.device)
+    assign = torch.zeros((n,), dtype=torch.long, device=x.device)
+    for _ in range(iters):
+        dist = torch.sum(cent * cent, dim=-1)[None, :] - 2.0 * (x @ cent.T)
+        assign = torch.argmin(dist, dim=-1)
+        oh = (assign[:, None] == classes).float() * w[:, None]
+        mass = torch.sum(oh, dim=0)
+        sums = oh.T @ x
+        cent = torch.where(mass[:, None] > 0, sums / torch.clamp(mass[:, None], min=1e-9), cent)
+    return cent, assign
+
+
 def kmeans(
     x,
     k: int,
@@ -123,28 +165,16 @@ def kmeans(
     key,
     weights: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Lloyd's algorithm with farthest-point init, on the CPU; returns
-    (centroids (k, d) float32, assignments (n,) int64).  ``key`` is a
+    """Lloyd's algorithm with farthest-point init on ``x``'s device (a
+    tensor's; a numpy array stays on the CPU); returns (centroids (k, d)
+    float32, assignments (n,) int64) there.  ``key`` is a
     :func:`prng_key`: the first centroid is ``randint(key, 0, n)``."""
-    x = torch.as_tensor(np.asarray(x, np.float32))
-    n = x.shape[0]
-    chosen = [x[randint(key, 0, n)]]
-    d2 = torch.sum((x - chosen[0]) ** 2, dim=-1)
-    for _ in range(k - 1):
-        nxt = int(torch.argmax(d2))
-        chosen.append(x[nxt])
-        d2 = torch.minimum(d2, torch.sum((x - x[nxt]) ** 2, dim=-1))
-    cent = torch.stack(chosen)
-    w = torch.ones((n,)) if weights is None else torch.as_tensor(weights, dtype=torch.float32)
-    assign = torch.zeros((n,), dtype=torch.long)
-    for _ in range(iters):
-        dist = torch.sum(cent * cent, dim=-1)[None, :] - 2.0 * (x @ cent.T)
-        assign = torch.argmin(dist, dim=-1)
-        oh = torch.nn.functional.one_hot(assign, k).float() * w[:, None]
-        mass = torch.sum(oh, dim=0)
-        sums = oh.T @ x
-        cent = torch.where(mass[:, None] > 0, sums / torch.clamp(mass[:, None], min=1e-9), cent)
-    return cent, assign
+    if isinstance(x, torch.Tensor):
+        x = x.float()
+    else:
+        x = torch.as_tensor(np.asarray(x, np.float32))
+    cent = x.index_select(0, farthest_points(x, k, key))
+    return lloyd(x, cent, iters, weights)
 
 
 def delta_map(old_centroids: torch.Tensor, new_centroids: torch.Tensor) -> float:
@@ -306,9 +336,10 @@ class InstallRecord:
 
 
 class TwoTimescaleController:
-    """Host-side slow path: owns the reservoir of sampled features and
-    decides, per control-plane epoch, whether the recluster moved enough to
-    install.  Touches no CUDA tensor (see the module docstring)."""
+    """The slow path: owns a host reservoir of sampled features and decides,
+    per control-plane epoch, whether the recluster moved enough to install.
+    k-means runs where the caller's centroids lie: with CPU centroids the
+    controller touches no CUDA tensor (see the module docstring)."""
 
     def __init__(self, cfg: TwoTimescaleConfig, n_centroids: int):
         self.cfg = cfg
@@ -342,12 +373,13 @@ class TwoTimescaleController:
         .ProgramDelta` of ``new_weights`` / ``new_ruleset`` compiled against
         it (the same audited passes as the deployment), or None when the
         Eq. 20 gate held the update back.  ``key`` is a :func:`prng_key`.
-        ``occupancy`` is accepted for the JAX package's signature; the
-        recluster is unweighted there too.
+        The reservoir is clustered on ``centroids``' device, where the new
+        centroids lie.  ``occupancy`` is accepted for the JAX package's
+        signature; the recluster is unweighted there too.
         """
         if step == 0 or step % self.cfg.t_cp_steps != 0 or not self._reservoir:
             return (centroids, None) if program is None else (centroids, None, None)
-        samples = np.concatenate(self._reservoir, axis=0)
+        samples = torch.from_numpy(np.concatenate(self._reservoir, axis=0)).to(centroids.device)
         new_cent, _ = kmeans(samples, self.n_centroids, self.cfg.kmeans_iters, key)
         dm = delta_map(centroids, new_cent)
         n_entries = self.n_centroids

@@ -33,10 +33,28 @@ __device__ __forceinline__ Split split(float x) {
   return {hi, __float_as_uint(x - __uint_as_float(hi))};
 }
 
+// The rounding split: hi is x rounded to the nearest TF32 value (on the
+// magnitude's bit pattern, halves away from zero) and lo = x - hi, exact in
+// fp32, rounded to TF32 too, so the tensor cores read both as they are.  A
+// product then errs by about 3 * 2^-24 of |a b| (the truncating split's
+// 3 * 2^-22), for two more integer instructions per operand: for products
+// of large running sums, such as a stream state against its features.
+__device__ __forceinline__ Split split_rn(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  const uint32_t lo = __float_as_uint(x - __uint_as_float(hi));
+  return {hi, (lo + 0x1000u) & 0xFFFFE000u};
+}
+
+template <bool RN>
+__device__ __forceinline__ Split split_as(float x) {
+  return RN ? split_rn(x) : split(x);
+}
+
+template <bool RN = false>
 __device__ __forceinline__ void split4(const float a[4], uint32_t hi[4], uint32_t lo[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const Split s = split(a[i]);
+    const Split s = split_as<RN>(a[i]);
     hi[i] = s.hi;
     lo[i] = s.lo;
   }
@@ -55,15 +73,15 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0
 // are independent.  a is 16 x 8 (a0 (g, t), a1 (g+8, t), a2 (g, t+4),
 // a3 (g+8, t+4)); b_j is 8 x 8 with b0 (t, g) = bv[j][0], b1 (t+4, g) =
 // bv[j][1]; c is 16 x 8 (c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
-// c3 (g+8, 2t+1)); g = lane / 4, t = lane % 4.
-template <int N>
+// c3 (g+8, 2t+1)); g = lane / 4, t = lane % 4.  RN: b split by split_rn.
+template <int N, bool RN = false>
 __device__ __forceinline__ void mma3_n(float (*c)[4], const uint32_t ahi[4], const uint32_t alo[4],
                                        const float (*bv)[2], int n = N) {
   uint32_t bh[N][2], bl[N][2];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     if (j < n) {
-      const Split s0 = split(bv[j][0]), s1 = split(bv[j][1]);
+      const Split s0 = split_as<RN>(bv[j][0]), s1 = split_as<RN>(bv[j][1]);
       bh[j][0] = s0.hi; bh[j][1] = s1.hi; bl[j][0] = s0.lo; bl[j][1] = s1.lo;
     }
   }

@@ -63,13 +63,25 @@ def _smem_bytes(d: int, dv: int, m: int, L: int, stages: int, vbufs: int) -> int
     return 4 * (ring + stages * L * sf + (ks - 1) * L * ss)
 
 
-def _long_smem_bytes(d: int, dv: int) -> int:
-    """The long-chunk kernel's shared memory (its ``Layout``), in bytes:
-    64 query rows, 32-key tiles of k, v and P, which the 16-row stream
-    tiles reuse."""
-    local = 64 * (d + 4) + 32 * (d + 4) + 32 * dv + 64 * 33
-    stream = 64 * (d + 4) + 64 * 17 + 16 * dv + 16
-    return 4 * max(local, stream)
+def _long_smem_bytes(d: int, dv: int, m: int) -> int:
+    """The long-chunk kernels' shared memory, the larger of the two, in
+    bytes: the chunk kernel's ``Layout`` (64 query rows and two 32-key
+    buffers each of k and v, whose region the stream tiles, two buffers
+    each of a 64-feature slice of 64 rows of φ_q and of the (m, dv + 8)
+    state, reuse) and the fold's two 64-key buffers of v and of a
+    128-feature slice of φ_k.  It grows with d, not with m."""
+    mf = min(m, 64)
+    local = 64 * (d + 4) * 2 + 64 * (dv + 4)
+    stream = 2 * 64 * (mf + 4) + 2 * mf * (dv + 8)
+    fold = 2 * 64 * (min(m, 128) + 8 + dv + 8)
+    return 4 * max(local, stream, fold)
+
+
+def long_state_shape(BH: int, T: int, dv: int, m: int) -> Tuple[int, int, int, int]:
+    """The long-chunk kernel's scratch: for each row and chunk c the stream
+    state before it, (m, dv + 8) with S_c in columns :dv, Z_c in column dv
+    and the rest padding (16-byte rows, conflict-free fragment reads)."""
+    return (BH, T // L_LONG, m, dv + 8)
 
 
 def contract(*, d: int, dv: int, m: int, L: int) -> Optional[str]:
@@ -85,7 +97,7 @@ def contract(*, d: int, dv: int, m: int, L: int) -> Optional[str]:
     if m <= 0 or m % 16:
         return f"m {m} is not a positive multiple of 16"
     if L == L_LONG:
-        smem = _long_smem_bytes(d, dv)
+        smem = _long_smem_bytes(d, dv, m)
     else:
         smem = _smem_bytes(d, dv, m, L, stages=2, vbufs=1)  # the shallowest plan
     if smem > SMEM_LIMIT:
@@ -183,10 +195,11 @@ def chimera_attention_bh(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flags = (1.0 / math.sqrt(d), int(bool(use_local)), int(bool(use_stream)))
     if L == L_LONG:
-        # the stream state before every chunk: (BH, T / L, m, dv + 1) scratch
+        # the stream state before every chunk (scratch)
         state = None
         if use_stream and T > L:
-            state = torch.empty((BH, T // L, m, dv + 1), dtype=torch.float32, device=q.device)
+            state = torch.empty(long_state_shape(BH, T, dv, m), dtype=torch.float32,
+                                device=q.device)
         err = lib.chimera_attention_long_launch(
             *map(_build.ptr, (q, k, v, phi_q, phi_k, num, den, state)),
             BH, Gq, T, d, dv, m, L, *flags, stream,

@@ -6,10 +6,11 @@ Per step: resumable data stream → tensors on the device → train step
 metrics.  Around it: atomic checkpoints written on a thread, heartbeat and
 straggler bookkeeping, and the paper's **two-timescale protocol** (§3.6):
 the fast path keeps an EMA of the Chimera codebook's occupancy every step;
-every ``t_cp_steps`` the control plane reclusters the codebook from a
-feature reservoir, gates the install on Δ_map > τ_map (Eq. 20) and the
-Δt_install < T_cp check (Eq. 18), and swaps the new centroids into the
-parameter tree in place (:func:`~repro_torch.core.two_timescale.atomic_swap`).
+every ``t_cp_steps`` the control plane reclusters the codebook from a host
+feature reservoir (k-means on the trainer's device), gates the install on
+Δ_map > τ_map (Eq. 20) and the Δt_install < T_cp check (Eq. 18), and swaps
+the new centroids into the parameter tree in place
+(:func:`~repro_torch.core.two_timescale.atomic_swap`).
 
 The parameters are drawn from a CPU ``torch.Generator`` seeded with
 ``TrainerConfig.seed`` and moved to the device, so the card and the CPU
@@ -180,13 +181,13 @@ class Trainer:
         codes = assign_codes(fm["centroids"][0], feats)
         occ = occupancy_from_codes(codes, self.controller.n_centroids)
         self._occupancy = ema_update(self._occupancy, occ, self.controller.cfg.eta)
-        # the controller works on the host: features and centroids cross here
+        # the reservoir is host memory (as the JAX Trainer's np.asarray copy);
+        # the controller clusters it where the centroids lie, on this device
         self.controller.observe(feats.detach().cpu().numpy())
         new_cent, rec = self.controller.maybe_recluster(
-            self.step, fm["centroids"][0].cpu(), self._occupancy, prng_key(self.step))
+            self.step, fm["centroids"][0], self._occupancy, prng_key(self.step))
         if rec is not None and rec.installed:
-            stacked = new_cent[None].expand(fm["centroids"].shape).to(fm["centroids"].device)
-            atomic_swap(fm["centroids"], stacked)
+            atomic_swap(fm["centroids"], new_cent[None].expand(fm["centroids"].shape))
 
     def _codebook_params(self) -> Optional[Dict[str, torch.Tensor]]:
         """Layer group 0's codebook (stacked over the layer axis), or None."""

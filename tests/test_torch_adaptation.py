@@ -257,12 +257,16 @@ def test_prng_key_and_blocks_match_jax():
         TT.prng_key(2**32)
 
 
+@pytest.mark.parametrize("given", ["numpy", "tensor"])
 @pytest.mark.parametrize("n,k,d,epoch", [(200, 8, 32, 1), (96, 8, 64, 2), (513, 4, 16, 7)])
-def test_kmeans_matches_jax(n, k, d, epoch):
+def test_kmeans_matches_jax(n, k, d, epoch, given):
+    """numpy samples are clustered on the CPU, a tensor's on its device."""
     g = np.random.default_rng(n + k)
     x = (g.normal(size=(n, d)) + 3.0 * g.integers(0, k, size=(n, 1))).astype(np.float32)
     jc, ja = JTT.kmeans(jnp.asarray(x), k, 8, jax.random.PRNGKey(epoch))
-    tc, ta = TT.kmeans(x, k, 8, TT.prng_key(epoch))
+    xt = torch.from_numpy(x) if given == "tensor" else x
+    tc, ta = TT.kmeans(xt, k, 8, TT.prng_key(epoch))
+    assert tc.device == ta.device == torch.device("cpu")
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5, rtol=0)
     old = np.zeros((k, d), np.float32)

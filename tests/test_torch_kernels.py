@@ -242,12 +242,23 @@ def test_every_port_config_lies_inside_every_kernel_contract(label, cfg):
     (cops.contract, dict(d=64, dv=64, m=256, L=512)),
     (cops.contract, dict(d=64, dv=64, m=24, L=64)),
     (cops.contract, dict(d=12, dv=64, m=64, L=64)),
+    # L 256: the chunk kernel's q and k tiles grow with d, 547 KB here
+    (cops.contract, dict(d=1024, dv=128, m=128, L=256)),
     (wops.contract, dict(d=256, dv=256, H=4, Hkv=2, window=8)),
     (wops.contract, dict(d=64, dv=64, H=4, Hkv=3, window=8)),
     (sops.contract, dict(d=0, K=8, W=8, M=1)),
 ])
 def test_contracts_name_what_they_refuse(contract, dims):
     assert isinstance(contract(**dims), str)
+
+
+@pytest.mark.parametrize("d,dv,m", [(128, 128, 128), (128, 128, 320), (128, 128, 1024),
+                                    (64, 128, 512), (24, 32, 16), (384, 128, 128)])
+def test_long_chunk_kernel_shared_memory_does_not_grow_with_m(d, dv, m):
+    """L 256: the readout and the fold stage m in slices, so every m % 16
+    is taken up to the shared memory that d and dv alone set."""
+    assert cops.contract(d=d, dv=dv, m=m, L=256) is None
+    assert cops._long_smem_bytes(d, dv, m) <= cops._long_smem_bytes(d, dv, 128)
 
 
 # --------------------------------------------------------------------------

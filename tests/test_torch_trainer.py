@@ -49,7 +49,13 @@ from repro_torch import bridge
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import feature_maps as TF
 from repro_torch.core import quantization as TQ
-from repro_torch.core.two_timescale import TwoTimescaleConfig, prng_key
+from repro_torch.core.two_timescale import (
+    TwoTimescaleConfig,
+    TwoTimescaleController,
+    delta_map,
+    kmeans,
+    prng_key,
+)
 from repro_torch.data.pipeline import TokenStream
 from repro_torch.launch import train as LT
 from repro_torch.optim.optimizer import AdamWConfig
@@ -317,7 +323,27 @@ def test_two_timescale_installs(tmp_path, tiny_arch):
     tr = _port_trainer(cfg, tmp_path, 25, stream_seed=3,
                        two_timescale=TwoTimescaleConfig(t_cp_steps=10, tau_map=1e-4))
     before = tr.params["blocks"]["b0"]["attn"]["chimera"]["fm"]["centroids"].clone()
+    # beside every recluster, the host path: the numpy reservoir clustered
+    # by kmeans on the CPU, and delta_map against host centroids
+    real, seen = tr.controller.maybe_recluster, []
+
+    def recluster(step, centroids, occupancy, key):
+        got = real(step, centroids, occupancy, key)
+        assert got[0].device == tr.device  # k-means on the trainer's device
+        if got[1] is not None:
+            ctl = tr.controller
+            want, _ = kmeans(np.concatenate(ctl._reservoir), ctl.n_centroids,
+                             ctl.cfg.kmeans_iters, key)
+            seen.append((got, want, delta_map(centroids.cpu(), want)))
+        return got
+
+    tr.controller.maybe_recluster = recluster
     tr.run()
+    assert len(seen) == len(tr.controller.history) == 2
+    for (cent, rec), want, dm in seen:
+        assert rec.delta_map == dm and rec.installed == (dm > 1e-4)
+        if rec.installed:
+            assert torch.equal(cent, want)
     assert tr.controller is not None
     assert len(tr.controller.history) >= 1
     assert any(r.installed for r in tr.controller.history)
@@ -325,6 +351,48 @@ def test_two_timescale_installs(tmp_path, tiny_arch):
     cent = tr.params["blocks"]["b0"]["attn"]["chimera"]["fm"]["centroids"]
     assert not torch.equal(cent, before)
     assert all(torch.equal(cent[i], cent[0]) for i in range(cent.shape[0]))  # broadcast
+
+
+def _recluster_once(device, feats, cfg):
+    ctl = TwoTimescaleController(cfg, 8)
+    for f in feats:
+        ctl.observe(f)
+    return ctl.maybe_recluster(cfg.t_cp_steps, torch.zeros((8, feats[0].shape[1]), device=device),
+                               None, prng_key(cfg.t_cp_steps))
+
+
+def test_controller_clusters_where_the_centroids_lie():
+    g = np.random.default_rng(5)
+    feats = [(g.normal(size=(40, 16)) + 2.0 * g.integers(0, 4, size=(40, 1))).astype(np.float32)
+             for _ in range(3)]
+    cfg = TwoTimescaleConfig(t_cp_steps=2, tau_map=1e-4)
+    cent, rec = _recluster_once("cpu", feats, cfg)
+    want, _ = kmeans(np.concatenate(feats), 8, cfg.kmeans_iters, prng_key(2))
+    assert cent.device == torch.device("cpu") and torch.equal(cent, want)
+    assert rec.installed and rec.delta_map == delta_map(torch.zeros((8, 16)), want)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_controller_on_the_card_matches_the_host_path(cuda):
+    """The same recluster on the card and on the CPU: centroids within 1e-5
+    (no farthest-point pick here is a near tie that another summation
+    order could flip)."""
+    g = np.random.default_rng(5)
+    feats = [(g.normal(size=(40, 16)) + 2.0 * g.integers(0, 4, size=(40, 1))).astype(np.float32)
+             for _ in range(3)]
+    cfg = TwoTimescaleConfig(t_cp_steps=2, tau_map=1e-4)
+    cent, rec = _recluster_once(cuda, feats, cfg)
+    want, host = _recluster_once("cpu", feats, cfg)
+    assert cent.device.type == "cuda" and rec.installed == host.installed
+    np.testing.assert_allclose(cent.cpu().numpy(), want.numpy(), atol=1e-5, rtol=0)
+    assert rec.delta_map == pytest.approx(host.delta_map, rel=1e-5)
 
 
 # --------------------------------------------------------------------------
