@@ -33,7 +33,8 @@ Phases, each printing its own lines:
                on the card and on the CPU (plain versions): they must agree.
 8. program   — run right after the engine phase: the int_flow_score kernel
                against its plain version bit for bit at the engine's shapes
-               (and flow_score at 24 signature words), then the compiled
+               (M 1 and 300, timed) and at its edge shapes on adversarial
+               inputs (and flow_score at 24 signature words), then the compiled
                DataplaneProgram: the paper's classifier compiled, saved,
                loaded and deployed per-round and fused, with two table
                swaps between batches, fused held to per-round after each;
@@ -57,8 +58,9 @@ Phases, each printing its own lines:
                all shards on the one card.  decode_step at the stacked width
                (4 shards x 256 lanes) against its plain version, timed;
                (a) a ShardedFlowEngine of 4 shards x 1024 slots beside a
-               FlowEngine of 4096 at the paper's width on the same batches:
-               decisions identical, packets/s of both, busy share, launches
+               FlowEngine of 4096 at the paper's width (2 of its 4 layers)
+               on the same batches: decisions identical, packets/s of both,
+               busy share, launches
                per round; (b) the elastic service through the launcher
                (reshard 2 -> 4 -> 2, checkpoints to a temporary directory),
                then a shard killed and recovered, held to a service never
@@ -72,12 +74,14 @@ Phases, each printing its own lines:
                (``csrc/chimera_attention_long.cu``) at the prefill shape and
                its edges, against their plain versions, timed; (b) the port's
                LM launcher (``repro_torch.launch.serve``'s build and serve) on
-               Mixtral-8x7B's Chimera variant at full width, 2 of 32 layers:
-               prefill_batch of 4 x 8192 tokens, 16 new tokens per slot;
-               (c) that prefill and decode against the plain versions on the
-               card, and a ragged 641-token prompt's prefill_batch against
-               token-by-token decode; (d) five configs' smoke sizes through
-               prefill_batch and decode, card against CPU.
+               Mixtral-8x7B's Chimera variant, Moonshot-v1-16B-A3B and
+               Chameleon-34B, each at full width, 2 layers: prefill_batch of
+               4 x 8192 tokens, 16 new tokens per slot; (c) that prefill and
+               decode against the plain versions on the card, and a ragged
+               641-token prompt's prefill_batch against token-by-token
+               decode; (d) seven configs' smoke sizes through prefill_batch
+               and decode, card against CPU, and the baseline chunked linear
+               attention card against CPU.
 
 12. trainer  — run after the lm-chimera phase: the ``Trainer`` on the card.
                chimera_attention at lm_100m's shape (L 128, m 64, BH 96)
@@ -108,10 +112,12 @@ without it.  It imports nothing of JAX and nothing of the JAX package.
 ``compare_builds({label: dir})`` times every kernel at its main path's
 shape from this tree against the same kernels built from other trees'
 ``csrc`` directories, in turns on one card (this, other, other, this).
-``route_gaps(n_seeds, {label: dir})`` gives the readings behind
-ROUTE_MARGIN: the top-2 gaps of the MoE choices that differ between a
-ragged prefill and token-by-token decode, with each tree's kernels, the
-plain versions and a planted attention error.
+``route_gaps(n_seeds, {label: dir}, name=...)`` gives the readings behind
+ROUTE_MARGIN: the top-k gaps of a MoE config's choices
+that differ between a ragged prefill and token-by-token decode, with each
+tree's kernels, the plain versions and a planted attention error;
+``route_flip_cause(i, name)`` which kernel and tier one seed's flips come
+from.
 """
 
 from __future__ import annotations
@@ -879,20 +885,24 @@ def build_other_library(csrc_dir):
 def compare_builds(others, rounds=1):
     """decode_step (the engine's shape, each fill pattern, with globals),
     flow_score (the engine's 256 lanes, one rule at 8 signature words and
-    two at the compiled program's 24), chimera_attention (the train phase's
-    shape, and the prefill shape at L 256 with its local-only and
+    two at the compiled program's 24), int_flow_score (the program phase's
+    cases: 256 lanes, W 24, M 1 and 300), chimera_attention (the train
+    phase's shape, and the prefill shape at L 256 with its local-only and
     stream-only parts) and window_attention (the serve phase's prefill)
     from this tree and from the trees of ``others`` (``{label: csrc
     directory}``), timed in turns on one card: each round runs this, the
     others, then the others and this again in reverse (this, other, other,
     this for one).  Prints each version's times and returns ``{kernel:
     {version: [ms, ...]}}``."""
+    import dataclasses
+
     import torch
     from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
     from repro_torch.configs.mixtral_8x7b import CONFIG as MIX
     from repro_torch.kernels import _build
     from repro_torch.kernels.chimera_attention import ops as cops
     from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.flow_ingest import int_ops
     from repro_torch.kernels.flow_ingest import ops as sops
     from repro_torch.kernels.window_attention import ops as wops
 
@@ -925,6 +935,10 @@ def compare_builds(others, rounds=1):
     cases["flow_score M=1"] = (lambda: sops.flow_score(*sargs), 200)
     sargs24 = score_inputs(LANES, 2, SEED + 2, W=24)  # the compiled program's layout
     cases["flow_score M=2 W=24"] = (lambda: sops.flow_score(*sargs24), 200)
+    ccfg, params = paper_classifier()
+    for M in (1, 300):
+        iargs = int_score_case(params, dataclasses.replace(ccfg, sig_words=24), M, SEED + 70 + M)
+        cases[f"int_flow_score M={M}"] = (lambda a=iargs: int_ops.int_flow_score(*a), 200)
     wq, wk, wv = window_inputs(SERVE_SLOTS, MIX.n_heads, MIX.n_kv_heads, SERVE_T, MIX.head_dim,
                                MIX.head_dim, SEED + 20)
     cases["window_attention"] = (
@@ -1141,9 +1155,9 @@ def phase_kernels():
 # 4. engine (the serving path)
 # --------------------------------------------------------------------------
 
-def paper_classifier(n_global=None):
+def paper_classifier(n_global=None, n_layers=None):
     """The paper's classifier with random weights from SEED (optionally with
-    another static-global set size)."""
+    another static-global set size, or cut to ``n_layers`` of its layers)."""
     import dataclasses
 
     import torch
@@ -1153,6 +1167,8 @@ def paper_classifier(n_global=None):
     arch = ARCH
     if n_global is not None:
         arch = dataclasses.replace(ARCH, chimera=dataclasses.replace(ARCH.chimera, n_global=n_global))
+    if n_layers is not None:
+        arch = dataclasses.replace(arch, n_layers=n_layers)
     ccfg = C.ClassifierConfig(arch=arch, n_classes=8, marker_base=256, sig_words=8)
     params = C.init_classifier(ccfg, torch.Generator().manual_seed(SEED))
     return ccfg, params
@@ -1712,33 +1728,61 @@ RAGGED_T, RAGGED_NEW = 641, 4
 # reference's top-2 margin exceeds twice it
 LM_LOGIT_TOL = 3e-2
 LM_MARGIN = 2 * LM_LOGIT_TOL
-SMOKE_LM = ("chimera-dataplane", "mixtral-8x7b", "codeqwen1.5-7b", "yi-9b", "qwen3-32b")
+SMOKE_LM = ("chimera-dataplane", "mixtral-8x7b", "codeqwen1.5-7b", "yi-9b", "qwen3-32b",
+            "moonshot-v1-16b-a3b", "chameleon-34b")
+# served at full width through the LM launcher, 2 layers each (m 128, L 256,
+# n_global 32, d_head 128): Mixtral-8x7B's Chimera variant (Gq 4, 8 experts
+# top-2), Moonshot-v1-16B-A3B (Gq 1, 64 experts top-6 and 2 shared experts,
+# vocabulary 163,840), Chameleon-34B (dense, Gq 8, qk-norm, d 8192)
+ZOO_LM = ("mixtral-8x7b", "moonshot-v1-16b-a3b", "chameleon-34b")
 
 
-def mixtral_chimera(n_layers):
-    """Mixtral-8x7B's registry default, the Chimera variant (m 128, L 256,
-    n_global 32, d_head 128, Gq 4), cut to ``n_layers`` of its 32 layers."""
+def zoo_chimera(name, n_layers):
+    """The registry's config of ``name`` (its Chimera default: m 128, L 256,
+    n_global 32, d_head 128), cut to ``n_layers`` of its layers."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config("mixtral-8x7b"), n_layers=n_layers)
+    return dataclasses.replace(get_config(name), n_layers=n_layers)
+
+
+def drop_free(cfg):
+    """``cfg`` with a capacity factor at which no MoE group drops a
+    selection: top-k picks k distinct experts, so an expert takes at most one
+    selection per token of its group, and a factor of ceil(E / k) gives it
+    room for the whole group (C = int(g k cf / E) >= g).  Prefill and
+    one-token decode then route alike; at the config's 1.25 a prefill drops
+    selections that decode does not (ROADMAP Queue 3)."""
+    import dataclasses
+
+    if not cfg.moe_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=float(-(-cfg.moe_experts // cfg.moe_top_k)))
 
 
 class plain_chimera_kernels:
     """Within the block, the two Chimera kernels' wrappers run their plain
     versions on the card (chimera_attention one (batch x kv-head) row at a
     time: its dense (Gq, T, T) scores are 1 GB a row at T 8192), with the
-    wrappers' own casts."""
+    wrappers' own casts.  Or part by part: ``prefill`` (chimera_attention)
+    is "plain", "kernel", "kernel local" (the local tier's partials from
+    the kernel, the stream tier's from the plain version) or "kernel
+    stream" (the other way round); ``decode`` (decode_step) is "plain" or
+    "kernel"."""
+
+    def __init__(self, prefill="plain", decode="plain"):
+        self.prefill, self.decode = prefill, decode
 
     def __enter__(self):
         import torch
         from repro_torch.kernels.chimera_attention import ops as cops
         from repro_torch.kernels.decode_step import ops as dops
 
-        self.saved = cops.chimera_attention_bh, dops.decode_step
+        self.saved = kernel_attention, kernel_decode = cops.chimera_attention_bh, dops.decode_step
 
-        def attention(q, k, v, phi_q, phi_k, *, chunk_size, use_local=True, use_stream=True):
+        def plain_attention(q, k, v, phi_q, phi_k, *, chunk_size, use_local=True,
+                            use_stream=True):
             dtype = q.dtype
             for t in (k, v, phi_q, phi_k):
                 dtype = torch.promote_types(dtype, t.dtype)
@@ -1748,15 +1792,25 @@ class plain_chimera_kernels:
             return (torch.cat([n[:, 0] for n, _ in rows]).to(dtype),
                     torch.cat([d[:, 0] for _, d in rows]).to(dtype))
 
-        def decode(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count, *, chunk_size,
-                   gamma=1e-6, gnum=None, gden=None):
+        def mixed_attention(*a, chunk_size, use_local=True, use_stream=True):
+            local, stream = ((kernel_attention, plain_attention)
+                             if self.prefill == "kernel local" else
+                             (plain_attention, kernel_attention))
+            n1, d1 = local(*a, chunk_size=chunk_size, use_local=use_local, use_stream=False)
+            n2, d2 = stream(*a, chunk_size=chunk_size, use_local=False, use_stream=use_stream)
+            return n1 + n2, d1 + d2
+
+        def plain_decode(q, k_t, v_t, phi_q, phi_buf, k_buf, v_buf, S, Z, count, *, chunk_size,
+                         gamma=1e-6, gnum=None, gden=None):
             f = [None if t is None else t.float() for t in (q, k_t, v_t, phi_q, phi_buf, gnum,
                                                             gden)]
             return dops.decode_step_plain(*f[:5], k_buf, v_buf, S, Z, count,
                                           chunk_size=chunk_size, gamma=gamma, gnum=f[5],
                                           gden=f[6])
 
-        cops.chimera_attention_bh, dops.decode_step = attention, decode
+        cops.chimera_attention_bh = {"plain": plain_attention, "kernel": kernel_attention}.get(
+            self.prefill, mixed_attention)
+        dops.decode_step = plain_decode if self.decode == "plain" else kernel_decode
         return self
 
     def __exit__(self, *exc):
@@ -1800,16 +1854,23 @@ def lm_replay(cfg, params, prompts, pre, gens, max_len, sequential=False):
     return torch.stack(out, dim=1)
 
 
-# the MoE's top-2 choice of a token is a near tie where its 2nd and 3rd
-# router probabilities lie within ROUTE_MARGIN: another fp32 summation
-# order in attention flips such a choice through the bf16 residual stream.
-# route_gaps on an H100: over 4 prompt seeds, with the long-chunk kernel,
-# its previous version and the plain versions, 0 to 6 of the ragged
-# check's 5,152 choices differ between prefill and decode, at gaps up to
-# 8.6e-4 (at seed 0, the check's, up to 2.1e-4); a planted relative error
-# of 1e-3 in the prefill's attention partials flips choices at gaps up to
-# 2.0e-3 to 8.4e-3 at every seed, one of 1e-4 up to 5.5e-3 to 6.1e-3 at
-# two seeds of the four (seed 0 among them)
+# the MoE's top-k choice of a token is a near tie where its k-th and
+# (k+1)-th router probabilities lie within ROUTE_MARGIN: another fp32
+# summation order in attention flips such a choice through the bf16
+# residual stream.  route_gaps on an H100 at Mixtral (top-2 of 8): over 4
+# prompt seeds, with the long-chunk kernel, its previous version and the
+# plain versions, 0 to 6 of the ragged check's 5,152 choices differ
+# between prefill and decode, at gaps up to 8.6e-4 (at seed 0, the
+# check's, up to 2.1e-4); a planted relative error of 1e-3 in the
+# prefill's attention partials flips choices at gaps up to 2.0e-3 to
+# 8.4e-3 at every seed, one of 1e-4 up to 5.5e-3 to 6.1e-3 at two seeds of
+# the four (seed 0 among them).  At moonshot-v1-16b-a3b (top-6 of 64) the
+# check's seed 0 differs at gaps up to 2.66e-4, plain or kernels.  Seed 1
+# differs at 1.802e-3 with the kernels (layer 1, position 4, every
+# repeat), and route_flip_cause puts that flip on the long-chunk kernel's
+# local tier in the prefill (its truncating TF32 split: num/den 2.8e-6 to
+# 3.3e-6 from float64, 3.3-7.4x the fp32 plain version's), so 1e-3 would
+# catch it there (PERF.md section 6, ROADMAP Queue 3)
 ROUTE_MARGIN = 1e-3
 
 
@@ -1900,33 +1961,19 @@ class planted_attention_error:
         cops.chimera_attention_bh = self.saved
 
 
-def route_gaps(n_seeds=4, others=None, planted=(1e-3, 1e-4)):
+def route_gaps(n_seeds=4, others=None, planted=(1e-3, 1e-4), name="mixtral-8x7b"):
     """Readings for ROUTE_MARGIN, not part of the smoke run: phase
-    lm-chimera (c)'s ragged prefill-vs-decode replay (the same weights,
-    drop-free) for ``n_seeds`` prompt seeds, with this tree's kernels, with
-    each tree's of ``others`` ({label: csrc directory}, built by
-    build_other_library), with the plain versions, and with this tree's
-    kernels under a planted_attention_error of each eps in ``planted``.
-    Every routing choice that differs between the two runs is kept with its
-    top-2 gap, whatever the gap.  Logs, per run, their count and gaps, and
+    lm-chimera (c)'s ragged prefill-vs-decode replay of the MoE config
+    ``name`` (the same weights, drop-free) for ``n_seeds`` prompt seeds,
+    with this tree's kernels, with each tree's of ``others`` ({label: csrc
+    directory}, built by build_other_library), with the plain versions, and
+    with this tree's kernels under a planted_attention_error of each eps in
+    ``planted``.  Every routing choice that differs between the two runs is
+    kept with its top-k gap, whatever the gap.  Logs, per run, their count and gaps, and
     returns {label: [every gap over the seeds]}."""
-    import dataclasses
-    import torch
     from repro_torch.kernels import _build
-    from repro_torch.launch import serve as LS
-    from repro_torch.serve.engine import Request, ServeEngine
-    from repro_torch.train import classifier as C
 
-    cfg = mixtral_chimera(SERVE_LAYERS)
-    ccfg = C.ClassifierConfig(arch=cfg, n_classes=2, marker_base=cfg.vocab_size)
-    params = C.init_classifier(ccfg, torch.Generator(device="cuda").manual_seed(SEED),
-                               device="cuda")
-    args = LS.parse_args(["--arch", cfg.name, "--requests", str(SERVE_SLOTS), "--slots",
-                          str(SERVE_SLOTS), "--prompt-len", str(RAGGED_T), "--max-new",
-                          str(RAGGED_NEW), "--max-len", str(SERVE_MAX_LEN), "--prefill",
-                          "--waive", "resource-ledger"])
-    params = LS.build(args, params=params, arch=cfg).engine.params
-    dcfg = dataclasses.replace(cfg, capacity_factor=float(cfg.moe_experts))
+    cfg, dcfg, params = route_model(name)
     libs = {"this": _build.load_library()}
     libs.update({label: build_other_library(d) for label, d in (others or {}).items()})
     runs = [(label, label, None) for label in libs] + [("plain", "this", "plain")] + [
@@ -1934,16 +1981,7 @@ def route_gaps(n_seeds=4, others=None, planted=(1e-3, 1e-4)):
     gaps = {label: [] for label, _, _ in runs}
     pre = RAGGED_T - 1
     for i in range(n_seeds):
-        prompts = np.random.default_rng(SEED + 60 + i).integers(0, cfg.vocab_size,
-                                                                (SERVE_SLOTS, RAGGED_T))
-        eng = ServeEngine(dcfg, params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
-                          device="cuda")
-        reqs = [Request(rid=j, prompt=p.tolist(), max_new_tokens=RAGGED_NEW)
-                for j, p in enumerate(prompts)]
-        eng.prefill_batch(reqs)
-        eng.run_until_done()
-        gens = np.array([r.generated for r in reqs])
-        del eng
+        prompts, gens = route_prompts(cfg, dcfg, params, i)
         for label, lib, how in runs:
             _build._lib = libs[lib]
             try:
@@ -1958,14 +1996,157 @@ def route_gaps(n_seeds=4, others=None, planted=(1e-3, 1e-4)):
             err = float((fast - seq).abs().max())
             g = sorted((t[3] for t in ties), reverse=True)
             gaps[label] += g
-            log("route-gaps", f"seed {i} {label}: {len(g)} of "
-                              f"{SERVE_SLOTS * (pre + RAGGED_NEW) * cfg.n_layers} choices differ, "
-                              f"gaps {[f'{x:.3e}' for x in g]}; logits max abs diff {err:.3e}")
+            log("route-gaps", f"{name} seed {i} {label}: {len(g)} of "
+                              f"{SERVE_SLOTS * (pre + RAGGED_NEW) * cfg.n_layers} choices differ; "
+                              f"(layer, slot, position, gap) {fmt_ties(ties)}; logits max abs "
+                              f"diff {err:.3e}")
             del fast, seq
     for label, g in gaps.items():
-        log("route-gaps", f"{label}: {len(g)} differing choices over {n_seeds} seeds, largest gap "
-                          f"{max(g) if g else 0.0:.3e}")
+        log("route-gaps", f"{name} {label}: {len(g)} differing choices over {n_seeds} seeds, "
+                          f"largest gap {max(g) if g else 0.0:.3e}")
     return gaps
+
+
+def route_model(name):
+    """The MoE config ``name`` at SERVE_LAYERS layers as route_gaps serves
+    it: (config, its drop-free copy, seed-0 weights built by the launcher)."""
+    import torch
+    from repro_torch.launch import serve as LS
+    from repro_torch.train import classifier as C
+
+    cfg = zoo_chimera(name, SERVE_LAYERS)
+    ccfg = C.ClassifierConfig(arch=cfg, n_classes=2, marker_base=cfg.vocab_size)
+    params = C.init_classifier(ccfg, torch.Generator(device="cuda").manual_seed(SEED),
+                               device="cuda")
+    args = LS.parse_args(["--arch", cfg.name, "--requests", str(SERVE_SLOTS), "--slots",
+                          str(SERVE_SLOTS), "--prompt-len", str(RAGGED_T), "--max-new",
+                          str(RAGGED_NEW), "--max-len", str(SERVE_MAX_LEN), "--prefill",
+                          "--waive", "resource-ledger"])
+    return cfg, drop_free(cfg), LS.build(args, params=params, arch=cfg).engine.params
+
+
+def route_prompts(cfg, dcfg, params, i):
+    """Prompt seed ``i`` of the ragged check (seed 0 is the check's) and the
+    tokens the engine generates for it: (prompts, gens)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    prompts = np.random.default_rng(SEED + 60 + i).integers(0, cfg.vocab_size,
+                                                            (SERVE_SLOTS, RAGGED_T))
+    eng = ServeEngine(dcfg, params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      device="cuda")
+    reqs = [Request(rid=j, prompt=p.tolist(), max_new_tokens=RAGGED_NEW)
+            for j, p in enumerate(prompts)]
+    eng.prefill_batch(reqs)
+    eng.run_until_done()
+    return prompts, np.array([r.generated for r in reqs])
+
+
+def fmt_ties(ties, n=6):
+    """The ``n`` widest of lm_replay_shared_routes' forced ties."""
+    return [(a, b, c, f"{g:.3e}") for a, b, c, g in sorted(ties, key=lambda t: -t[3])[:n]]
+
+
+# the parts that route_flip_cause swaps between kernel and plain version:
+# (prefill attention, decode_step), as plain_chimera_kernels takes them
+FLIP_RUNS = (("kernel", "kernel"), ("plain", "plain"), ("kernel", "plain"), ("plain", "kernel"),
+             ("kernel local", "kernel"), ("kernel stream", "kernel"))
+
+
+def route_flip_cause(i=1, name="moonshot-v1-16b-a3b", repeats=2):
+    """Where a routing flip of route_gaps comes from, not part of the smoke
+    run: prompt seed ``i`` of the ragged check at ``name``, replayed
+    (prefill against token-by-token decode, every differing choice kept)
+    ``repeats`` times with the kernels, then with each part of FLIP_RUNS
+    taken from the kernel or the plain version; then every prefill
+    attention call of a kernel run and every decode_step call at the
+    widest flip's position, on their recorded inputs, by the kernel and by
+    the fp32 plain version against the plain version in float64, tier by
+    tier.  Logs it all and returns {run: ties}."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+
+    cfg, dcfg, params = route_model(name)
+    prompts, gens = route_prompts(cfg, dcfg, params, i)
+    pre, found = RAGGED_T - 1, {}
+    for r, (prefill, decode) in enumerate((FLIP_RUNS[0],) * (repeats - 1) + FLIP_RUNS):
+        with plain_chimera_kernels(prefill, decode):
+            fast, seq, ties = lm_replay_shared_routes(dcfg, params, prompts, pre, gens,
+                                                      SERVE_MAX_LEN, margin=math.inf)
+        label = f"prefill {prefill}, decode {decode}" + (f" #{r + 1}" if r < repeats else "")
+        found[label] = ties
+        log("route-cause", f"{name} seed {i} {label}: {len(ties)} choices differ, (layer, slot, "
+                           f"position, gap) {fmt_ties(ties)}; logits max abs diff "
+                           f"{float((fast - seq).abs().max()):.3e}")
+        del fast, seq
+    widest = max(found["prefill kernel, decode kernel #1"], key=lambda t: t[3], default=None)
+
+    # the recorded inputs of the kernels' prefill attention and of decode_step
+    # at the widest flip's position, every layer
+    att, dec, calls = [], [], [0]
+    real_att, real_dec = cops.chimera_attention_bh, dops.decode_step
+
+    def rec_att(*a, **k):
+        att.append(([x.detach().clone() for x in a], k))
+        return real_att(*a, **k)
+
+    def rec_dec(*a, **k):
+        step = calls[0] // cfg.n_layers
+        calls[0] += 1
+        if widest is not None and step == widest[2]:
+            dec.append(([x.detach().clone() for x in a],
+                        {n: v.detach().clone() if torch.is_tensor(v) else v
+                         for n, v in k.items()}))
+        return real_dec(*a, **k)
+
+    try:
+        cops.chimera_attention_bh, dops.decode_step = rec_att, rec_dec
+        lm_replay(dcfg, params, prompts, pre, gens, SERVE_MAX_LEN)
+        cops.chimera_attention_bh = real_att
+        lm_replay(dcfg, params, prompts, pre, gens, SERVE_MAX_LEN, sequential=True)
+    finally:
+        cops.chimera_attention_bh, dops.decode_step = real_att, real_dec
+
+    def errs(got, ref):
+        return [f"{float((g.double() - r).abs().max()):.3e}" for g, r in zip(got, ref)]
+
+    def partials(xs, L, mode):  # the plain version, one row at a time, in xs' dtype
+        rows = [cops.chimera_attention_partials_plain(*(x[r:r + 1, None] for x in xs), L, *mode)
+                for r in range(xs[0].shape[0])]
+        return torch.cat([n[:, 0] for n, _ in rows]), torch.cat([d[:, 0] for _, d in rows])
+
+    with torch.no_grad():
+        for layer, (a, k) in enumerate(att):
+            L = k["chunk_size"]
+            for mode in ((True, True), (True, False), (False, True)):
+                kern = real_att(*a, chunk_size=L, use_local=mode[0], use_stream=mode[1])
+                plain = partials([x.float() for x in a], L, mode)
+                exact = partials([x.double() for x in a], L, mode)
+                ratio = [(n / (d[..., None] + 1e-6)).double() for n, d in (kern, plain)]
+                want = exact[0] / (exact[1][..., None] + 1e-6)
+                log("route-cause", f"{name} prefill attention layer {layer} (BH "
+                                   f"{a[0].shape[0]}, Gq {a[0].shape[1]}, T {a[0].shape[2]}, "
+                                   f"{a[0].dtype}) local={mode[0]} stream={mode[1]} against "
+                                   f"float64: kernel num/den {errs(kern, exact)}, fp32 plain "
+                                   f"{errs(plain, exact)}; num/den ratio kernel "
+                                   f"{float((ratio[0] - want).abs().max()):.3e}, fp32 plain "
+                                   f"{float((ratio[1] - want).abs().max()):.3e}")
+        for layer, (a, k) in enumerate(dec):
+            outs = {}
+            for label, dtype in (("kernel", None), ("fp32 plain", torch.float32),
+                                 ("float64", torch.float64)):
+                x = [t.to(dtype, copy=True) if dtype is not None and t.is_floating_point()
+                     else t.clone() for t in a]
+                kw = {n: v.to(dtype) if dtype is not None and torch.is_tensor(v) else v
+                      for n, v in k.items()}
+                fn = real_dec if dtype is None else dops.decode_step_plain
+                outs[label] = fn(*x, **kw)[0].double()
+            log("route-cause", f"{name} decode_step layer {layer} at position {widest[2]} (BH "
+                               f"{a[0].shape[0]}, Gq {a[0].shape[1]}) against float64: kernel "
+                               f"{float((outs['kernel'] - outs['float64']).abs().max()):.3e}, "
+                               f"fp32 plain "
+                               f"{float((outs['fp32 plain'] - outs['float64']).abs().max()):.3e}")
+    return found
 
 
 def hold_generations(what, gens, logits, margin):
@@ -1984,27 +2165,17 @@ def hold_generations(what, gens, logits, margin):
 
 
 def phase_lm_chimera(recs):
-    """Mixtral-8x7B's Chimera variant served on the card.  (a) decode_step
-    and chimera_attention at the zoo's widths against their plain versions,
-    timed; (b) the main path: ``launch/serve.py``'s build and serve at full
-    width, 2 of 32 layers, 4 slots x 8193-token prompts through
-    prefill_batch (T 8192 = 32 chunks of 256 through chimera_attention)
-    and 16 new tokens each (decode_step at L 256); (c) that prefill and
-    decode held against the plain versions on the card, and a ragged
-    641-token prompt's prefill against token-by-token decode; (d) the five
-    configs' smoke sizes, card against CPU."""
-    import dataclasses
-
+    """The zoo's Chimera configs served on the card.  (a) decode_step and
+    chimera_attention at the zoo's widths against their plain versions,
+    timed; then, for each config of ZOO_LM (``lm_serve_full_width``), (b)
+    the main path: ``launch/serve.py``'s build and serve at full width, 2
+    layers, 4 slots x 8193-token prompts through prefill_batch (T 8192 = 32
+    chunks of 256 through chimera_attention) and 16 new tokens each
+    (decode_step at L 256); (c) that prefill and decode held against the
+    plain versions on the card, and a ragged 641-token prompt's prefill
+    against token-by-token decode; then (d) the smoke configs of SMOKE_LM,
+    card against CPU, and the baseline linear attention card against CPU."""
     import torch
-    from repro_torch.kernels.chimera_attention import ops as cops
-    from repro_torch.kernels.decode_step import ops as dops
-    from repro_torch.kernels.flow_ingest import ops as sops
-    from repro_torch.kernels.window_attention import ops as wops
-    from repro_torch.launch import serve as LS
-    from repro_torch.models import model as M
-    from repro_torch.optim.optimizer import tree_flatten
-    from repro_torch.serve.engine import Request, ServeEngine
-    from repro_torch.train import classifier as C
 
     # (a) the kernels at the zoo's widths
     wide = check_decode_wide()
@@ -2017,8 +2188,38 @@ def phase_lm_chimera(recs):
     recs["chimera_attention"]["other_shapes"][-1]["shape"] = (
         "BH 32 Gq 4 T 8192 d=dv=m 128 L 256, chimera_attention_long.cu")
 
+    # (b), (c) each config's main path, its launches counted apart
+    zoo = {name: lm_serve_full_width(name) for name in ZOO_LM}
+    launches = {k: sum(z["launches"][k] for z in zoo.values()) for k in zoo[ZOO_LM[0]]["launches"]}
+    torch.cuda.empty_cache()
+
+    # (d) the smoke sizes, card against CPU
+    for name in SMOKE_LM:
+        lm_smoke_card_vs_cpu(name)
+    check_linear_attention()
+    return {"launches": launches, "zoo": zoo}
+
+
+def lm_serve_full_width(name):
+    """One config of ZOO_LM at full width, 2 layers: (b) the launcher's
+    build and serve, its launches counted from 0 just before and read just
+    after; one profiled prefill and decode step; (c) against the plain
+    versions on the card, and a ragged prompt's prefill against
+    token-by-token decode (drop-free, the MoE's near ties routed alike)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.flow_ingest import ops as sops
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.launch import serve as LS
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_flatten
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import classifier as C
+
     # (b) the main path through the launcher
-    cfg = mixtral_chimera(SERVE_LAYERS)
+    cfg = zoo_chimera(name, SERVE_LAYERS)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ccfg = C.ClassifierConfig(arch=cfg, n_classes=2, marker_base=cfg.vocab_size)
@@ -2027,11 +2228,14 @@ def phase_lm_chimera(recs):
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])
     ch = cfg.chimera
-    log("lm-chimera", f"{cfg.name} Chimera variant, {cfg.n_layers} of 32 layers at full width "
-                      f"(d {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv-heads, "
-                      f"head_dim {cfg.head_dim}, m {ch.feature_map.m}, L {ch.chunk_size}, "
-                      f"n_global {ch.n_global}, {cfg.moe_experts} experts top-{cfg.moe_top_k}, "
-                      f"dtype {cfg.dtype}): {nbytes // 4} fp32 parameters drawn on the card in "
+    mlp = (f"{cfg.moe_experts} experts of d_ff {cfg.moe_d_ff or cfg.d_ff} top-{cfg.moe_top_k}"
+           f" + {cfg.moe_shared_experts} shared" if cfg.moe_experts else f"dense d_ff {cfg.d_ff}")
+    log("lm-chimera", f"{cfg.name} (Chimera), {cfg.n_layers} of {get_config(name).n_layers} "
+                      f"layers at full width (d {cfg.d_model}, {cfg.n_heads} heads / "
+                      f"{cfg.n_kv_heads} kv-heads, head_dim {cfg.head_dim}, qk-norm "
+                      f"{cfg.qk_norm}, m {ch.feature_map.m}, L {ch.chunk_size}, n_global "
+                      f"{ch.n_global}, {mlp}, vocab {cfg.vocab_size}, dtype {cfg.dtype}): "
+                      f"{nbytes // 4} fp32 parameters drawn on the card in "
                       f"{time.perf_counter() - t0:.2f} s")
     args = LS.parse_args(["--arch", cfg.name, "--requests", str(SERVE_SLOTS), "--slots",
                           str(SERVE_SLOTS), "--prompt-len", str(SERVE_T + 1), "--max-new",
@@ -2044,7 +2248,7 @@ def phase_lm_chimera(recs):
     warm = lm_replay(cfg, engine.params, prompts, SERVE_T, np.zeros((SERVE_SLOTS, 1), np.int64),
                      SERVE_MAX_LEN)
     if not torch.isfinite(warm).all():
-        fail("lm-chimera: non-finite logits after the warm-up prefill")
+        fail(f"lm-chimera {name}: non-finite logits after the warm-up prefill")
     torch.cuda.reset_peak_memory_stats()
     wops.launches = cops.launches = dops.launches = sops.launches = 0
     res = LS.serve(dep)
@@ -2053,14 +2257,15 @@ def phase_lm_chimera(recs):
     peak = torch.cuda.max_memory_allocated()
     decode_s = res.seconds - res.prefill_seconds
     want = {"chimera_attention": cfg.n_layers, "decode_step": cfg.n_layers * res.ticks}
-    for name, n in want.items():
-        if launches[name] != n:
-            fail(f"lm-chimera: {name} launched {launches[name]} times, want {n}: {launches}")
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"lm-chimera {cfg.name}: {k} launched {launches[k]} times, want {n}: {launches}")
     gens = np.array([r.generated for r in res.requests])
     if gens.shape != (SERVE_SLOTS, SERVE_NEW) or gens.min() < 0 or gens.max() >= cfg.vocab_size:
-        fail(f"lm-chimera: generations of shape {gens.shape}, ids {gens.min()}..{gens.max()}")
+        fail(f"lm-chimera {name}: generations of shape {gens.shape}, ids "
+             f"{gens.min()}..{gens.max()}")
     if [r.prompt for r in res.requests] != prompts.tolist():
-        fail("lm-chimera: the launcher's prompts are not the replays' prompts")
+        fail(f"lm-chimera {name}: the launcher's prompts are not the replays' prompts")
     n_prefill = SERVE_SLOTS * SERVE_T
     log("lm-chimera", LS.summary(dep, res))
     log("lm-chimera", f"prefill_batch {SERVE_SLOTS} x {SERVE_T} tokens: "
@@ -2069,9 +2274,8 @@ def phase_lm_chimera(recs):
                       f"{decode_s * 1e3:.1f} ms: {decode_s / res.ticks * 1e3:.2f} ms per tick")
     log("lm-chimera", f"launches in the main-path run: {launches} (chimera_attention = "
                       f"{cfg.n_layers} layers x 1 prefill of 32 chunks; decode_step = "
-                      f"{cfg.n_layers} layers x {res.ticks} ticks); "
-                      f"{cfg.n_layers * long['ms']:.1f} ms of chimera_attention device time per "
-                      f"prefill (part (a)'s ms per launch); max_memory_allocated {peak} B")
+                      f"{cfg.n_layers} layers x {res.ticks} ticks); max_memory_allocated "
+                      f"{peak} B")
     log("lm-chimera", "greedy generations (first 8 ids): "
                       + "; ".join(f"{r.rid}: {r.generated[:8]}" for r in res.requests))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -2081,7 +2285,17 @@ def phase_lm_chimera(recs):
         M.prefill_with_caches(cfg, engine.params, tokens, max_len=SERVE_MAX_LEN)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, wall, f"one Chimera prefill of {SERVE_SLOTS} x {SERVE_T} tokens")
+    _, rows = report_profile(prof, wall, f"one {name} prefill of {SERVE_SLOTS} x {SERVE_T} "
+                                         "tokens")
+    long_ms = sum(ms for key, (ms, _) in rows.items() if any(x in key for x in LONG_KERNELS))
+    Gq = cfg.n_heads // cfg.n_kv_heads
+    nbytes, flops = chimera_cost(SERVE_SLOTS, cfg.n_kv_heads, Gq, SERVE_T, cfg.head_dim,
+                                 cfg.head_dim, ch.feature_map.m, ch.chunk_size)
+    bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+    log("lm-chimera", f"{name}: the long-chunk kernel's three launches per layer take "
+                      f"{long_ms:.2f} ms of that prefill's device time ({cfg.n_layers} layers, "
+                      f"BH {SERVE_SLOTS * cfg.n_kv_heads}, Gq {Gq}); bound {bound_ms:.4f} ms a "
+                      f"layer by {bound_by} ({nbytes} B, {flops} flop x{TF32_PASSES} in TF32)")
     tok = torch.from_numpy(gens[:, -1]).to("cuda")
     pos = torch.full((SERVE_SLOTS,), SERVE_T + SERVE_NEW, dtype=torch.int32, device="cuda")
     with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
@@ -2089,7 +2303,7 @@ def phase_lm_chimera(recs):
         M.decode_step(cfg, engine.params, tok, pos, engine.caches)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, wall, f"one Chimera decode_step of {SERVE_SLOTS} slots (no engine "
+    report_profile(prof, wall, f"one {name} decode_step of {SERVE_SLOTS} slots (no engine "
                                "bookkeeping)")
     del tokens
 
@@ -2097,9 +2311,10 @@ def phase_lm_chimera(recs):
     got = lm_replay(cfg, engine.params, prompts, SERVE_T, gens, SERVE_MAX_LEN)
     with plain_chimera_kernels():
         ref = lm_replay(cfg, engine.params, prompts, SERVE_T, gens, SERVE_MAX_LEN)
-    err = compare("lm-chimera logits, kernels vs plain versions", got, ref, atol=LM_LOGIT_TOL,
-                  rtol=LM_LOGIT_TOL)
-    held, total, gap = hold_generations("lm-chimera kernels vs plain", gens, ref, LM_MARGIN)
+    err = compare(f"lm-chimera {name} logits, kernels vs plain versions", got, ref,
+                  atol=LM_LOGIT_TOL, rtol=LM_LOGIT_TOL)
+    held, total, gap = hold_generations(f"lm-chimera {name} kernels vs plain", gens, ref,
+                                        LM_MARGIN)
     log("lm-chimera", f"prefill + {SERVE_NEW} decode steps, kernels against the plain versions "
                       f"on the card: logits max abs diff {err:.3e} (tolerance {LM_LOGIT_TOL:g} + "
                       f"{LM_LOGIT_TOL:g}*|ref|); greedy tokens equal at {held} of {total} "
@@ -2109,11 +2324,10 @@ def phase_lm_chimera(recs):
     # capacity factor 1.25 a prefill of 4 x 640 tokens drops some, in both
     # packages (the JAX package holds its prefill to decode on drop-free
     # smoke configs), and one-token decode drops none.  So this part serves
-    # the same weights with capacity_factor = E, drop-free, as smoke_config
-    # makes it, and routes a near tie of the router in both runs alike
-    # (lm_replay_shared_routes); attention, the path under test, is
-    # unchanged.
-    dcfg = dataclasses.replace(cfg, capacity_factor=float(cfg.moe_experts))
+    # the same weights drop-free, and routes a near tie of the router in
+    # both runs alike (lm_replay_shared_routes); attention, the path under
+    # test, is unchanged.
+    dcfg = drop_free(cfg)
     rengine = ServeEngine(dcfg, engine.params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                           device="cuda")
     rprompts = np.random.default_rng(SEED + 60).integers(0, cfg.vocab_size,
@@ -2128,29 +2342,61 @@ def phase_lm_chimera(recs):
     fast, seq, ties = lm_replay_shared_routes(dcfg, engine.params, rprompts, pre, rgens,
                                               SERVE_MAX_LEN)
     seq_s = time.perf_counter() - t0
-    err = compare("lm-chimera ragged prefill vs token-by-token decode", fast, seq,
+    err = compare(f"lm-chimera {name} ragged prefill vs token-by-token decode", fast, seq,
                   atol=LM_LOGIT_TOL, rtol=LM_LOGIT_TOL)
-    held, total, gap = hold_generations("lm-chimera ragged prefill_batch vs token-by-token",
-                                        rgens, seq, LM_MARGIN)
-    log("lm-chimera", f"ragged prompt of {RAGGED_T} tokens ({pre // ch.chunk_size} chunks + "
-                      f"{pre % ch.chunk_size} in the ring), capacity factor "
-                      f"{dcfg.capacity_factor:g} (drop-free): prefill_batch then {RAGGED_NEW} "
-                      f"tokens against token-by-token decode ({pre} steps, {seq_s:.1f} s; "
-                      f"the MoE's near ties (top-2 gap <= {ROUTE_MARGIN:g}) routed as in the "
-                      f"prefill: {len(ties)} of {SERVE_SLOTS * (pre + RAGGED_NEW) * cfg.n_layers}"
-                      f" choices, (layer, slot, position, gap) {ties}): "
+    held, total, gap = hold_generations(f"lm-chimera {name} ragged prefill_batch vs "
+                                        "token-by-token", rgens, seq, LM_MARGIN)
+    routing = (f"capacity factor {dcfg.capacity_factor:g} (drop-free); the MoE's near ties "
+               f"(top-k gap <= {ROUTE_MARGIN:g}) routed as in the prefill: {len(ties)} of "
+               f"{SERVE_SLOTS * (pre + RAGGED_NEW) * cfg.n_layers} choices, (layer, slot, "
+               f"position, gap) {ties}" if cfg.moe_experts else "dense MLP")
+    log("lm-chimera", f"{name}: ragged prompt of {RAGGED_T} tokens ({pre // ch.chunk_size} "
+                      f"chunks + {pre % ch.chunk_size} in the ring), prefill_batch then "
+                      f"{RAGGED_NEW} tokens against token-by-token decode ({pre} steps, "
+                      f"{seq_s:.1f} s; {routing}): "
                       f"logits max abs diff {err:.3e} (tolerance {LM_LOGIT_TOL:g} + "
                       f"{LM_LOGIT_TOL:g}*|ref|); greedy tokens equal at {held} of {total} "
                       f"positions whose top-2 margin exceeds {LM_MARGIN:g} (smallest margin "
                       f"{gap:.3e})")
     del dep, engine, rengine, params, got, ref, fast, seq, warm
     torch.cuda.empty_cache()
-
-    # (d) the smoke sizes, card against CPU
-    for name in SMOKE_LM:
-        lm_smoke_card_vs_cpu(name)
     return {"launches": launches, "prefill_s": res.prefill_seconds, "decode_s": decode_s,
-            "ticks": res.ticks}
+            "ticks": res.ticks, "tokens_per_s": n_prefill / res.prefill_seconds,
+            "ms_per_tick": decode_s / res.ticks * 1e3, "peak": peak, "long_ms": long_ms,
+            "long_bound_ms": bound_ms}
+
+
+# the baseline linear attention (Eqs. 5-10): card against CPU, fp32 sums of
+# up to T products of ~1 taken in other orders (cuBLAS against MKL)
+LA_SHAPE = (2, 4, 1024, 64, 64, 128)  # (B, H, T, m, dv, chunk)
+
+
+def check_linear_attention():
+    """``core/linear_attention.py``'s chunked form on the card against the
+    CPU on the same inputs (numpy, seeded; phi = elu + 1 of a normal draw),
+    and against the recurrent form on the card over its first 256 tokens."""
+    import torch
+    from repro_torch.core import linear_attention as la
+
+    B, H, T, m, dv, chunk = LA_SHAPE
+    rng = np.random.default_rng(SEED + 90)
+    elu1 = lambda x: np.where(x > 0, x + 1, np.exp(x)).astype(np.float32)  # noqa: E731
+    host = [torch.from_numpy(elu1(rng.standard_normal((B, H, T, m)))) for _ in range(2)]
+    host.append(torch.from_numpy(rng.standard_normal((B, H, T, dv)).astype(np.float32)))
+    card = [x.cuda() for x in host]
+    out_g, (S_g, Z_g) = la.chunked_linear_attention(*card, chunk_size=chunk)
+    out_c, (S_c, Z_c) = la.chunked_linear_attention(*host, chunk_size=chunk)
+    err = max(compare("linear attention out, card vs CPU", out_g, out_c, atol=ATTN_ATOL),
+              compare("linear attention S, card vs CPU", S_g, S_c, atol=ATTN_ATOL),
+              compare("linear attention Z, card vs CPU", Z_g, Z_c, atol=ATTN_ATOL))
+    n = 256
+    rec, _ = la.recurrent_linear_attention(*(x[:, :, :n] for x in card))
+    err_r = compare("linear attention chunked vs recurrent on the card", out_g[:, :, :n], rec,
+                    atol=ATTN_ATOL)
+    log("lm-chimera", f"chunked_linear_attention B={B} H={H} T={T} m={m} dv={dv} chunk={chunk}: "
+                      f"card against CPU max abs err {err:.3e}, against the recurrent form on "
+                      f"the card (first {n} tokens) {err_r:.3e} (tolerance {ATTN_ATOL:g} + "
+                      f"{RTOL:g}*|ref|)")
 
 
 def lm_smoke_card_vs_cpu(name):
@@ -2597,7 +2843,8 @@ def int_score_cost(plan, tables, rules, hs, sig):
 
 def check_int_score(M, timed, params, ccfg):
     """``int_flow_score.cu`` against its plain version on the card, bit for
-    bit, at the engine's 256 lanes with the plan of ``params``."""
+    bit, at the engine's 256 lanes with the plan of ``params``, on the
+    kernel's fast path; timed."""
     import torch
     from repro_torch.compile import int_lowering as il
     from repro_torch.kernels.flow_ingest import int_ops
@@ -2610,8 +2857,10 @@ def check_int_score(M, timed, params, ccfg):
         compare(f"int_flow_score {k}", out_k[k], out_p[k])  # exact: integer outputs
     compare("int_flow_score sticky", st_k, st_p)
     B, d = hs.shape
-    W = sig.shape[1]
-    log("program", f"int_flow_score B={B} d={d} K={tables['cls_w'].shape[1]} W={W} M={M}: "
+    K, W = tables["cls_w"].shape[1], sig.shape[1]
+    if not int_ops.fast_path(tables, rules, sig):
+        fail(f"int_flow_score M={M}: the engine's shape left the kernel's fast path")
+    log("program", f"int_flow_score B={B} d={d} K={K} W={W} M={M} (the fast path): "
                    f"bit-identical to the plain version ({int(out_p['hard_hit'].sum())} vetoed "
                    f"lanes, trust_q in [{int(out_p['trust_q'].min())}, "
                    f"{int(out_p['trust_q'].max())}], plan f_h {plan.feature_frac}, shifts "
@@ -2619,8 +2868,10 @@ def check_int_score(M, timed, params, ccfg):
                    f"{plan.lut_shift})")
     rec = {"max_abs_err": 0.0}
     if timed:
-        ms, call_ms = cuda_ms(
-            lambda: int_ops.int_flow_score(plan, tables, rules, hs, count, sig, sticky), iters=200)
+        def kernel():
+            return int_ops.int_flow_score(plan, tables, rules, hs, count, sig, sticky)
+
+        ms, call_ms = cuda_ms(kernel, iters=200)
         plain_ms, plain_call_ms = cuda_ms(
             lambda: il.int_flow_score(plan, tables, rules, hs, count, sig, sticky), iters=50)
         floor_ms = launch_floor_ms(B)
@@ -2629,24 +2880,131 @@ def check_int_score(M, timed, params, ccfg):
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    floor_ms=floor_ms, bytes=nbytes, ops=ops, call_ms=call_ms,
                    plain_call_ms=plain_call_ms, library_ms=None)
-        log("program", f"int_flow_score device time: kernel {ms:.5f} ms, launch floor (an empty "
-                       f"kernel on the same grid) {floor_ms:.5f} ms, plain {plain_ms:.4f} ms, "
-                       f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B, {ops} int32 ops); "
-                       f"per call from Python: kernel {call_ms:.4f} ms, plain "
+        log("program", f"int_flow_score M={M} device time: kernel {ms:.5f} ms, launch floor "
+                       f"(an empty kernel on flow_score's grid) {floor_ms:.5f} ms, plain "
+                       f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B, "
+                       f"{ops} int32 ops); per call from Python: kernel {call_ms:.4f} ms, plain "
                        f"{plain_call_ms:.4f} ms")
-        # does the card's matrix product take int32 (the head MACs)?
-        x = torch.div(hs, torch.clamp(count, min=1)[:, None], rounding_mode="floor")
-        try:
-            y = x @ tables["cls_w"]
-        except RuntimeError as e:  # the probe's answer, not a fallback: nothing uses it
-            log("program", f"int32 matmul on the card: refused ({str(e).splitlines()[0]})")
-        else:
-            compare("int32 matmul", y, il.int_mac(x, tables["cls_w"]))
-            mm_ms = cuda_ms(lambda: x @ tables["cls_w"], iters=200)[0]
-            rec["int32_matmul_ms"] = mm_ms
-            log("program", f"int32 matmul on the card: exact, {mm_ms:.5f} ms for the class "
-                           f"head's (256, {d}) @ ({d}, 8)")
+        if M == 1:
+            # does the card's matrix product take int32 (the head MACs)?
+            x = torch.div(hs, torch.clamp(count, min=1)[:, None], rounding_mode="floor")
+            try:
+                y = x @ tables["cls_w"]
+            except RuntimeError as e:  # the probe's answer, not a fallback: nothing uses it
+                log("program", f"int32 matmul on the card: refused ({str(e).splitlines()[0]})")
+            else:
+                compare("int32 matmul", y, il.int_mac(x, tables["cls_w"]))
+                mm_ms = cuda_ms(lambda: x @ tables["cls_w"], iters=200)[0]
+                rec["int32_matmul_ms"] = mm_ms
+                log("program", f"int32 matmul on the card: exact, {mm_ms:.5f} ms for the class "
+                               f"head's (256, {d}) @ ({d}, 8)")
     return rec
+
+
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+# the int kernel's two paths, as a profiler names them
+INT_KERNELS = ("int_flow_score_fast", "int_flow_score_generic")
+# divisors max(count, 1) that strain the floor division: 0, 1 and negative
+# counts (divisor 1), powers of two and their neighbours, the largest int32
+INT_COUNTS = (0, 1, -5, 2, 3, 7, 641, 2**16 - 1, 2**16, 2**16 + 1, 2**30, 2**30 + 1,
+              INT32_MAX - 1, INT32_MAX)
+# (B, d, K, W, M, n_lut, lut_shift) of the kernel's edge cases: its fast
+# path (K 8, W 24 or 8; the LUT staged, or too long or ragged to stage; odd
+# B; d 32 and 64; rules past the first 32), then its generic path (W 12,
+# d % 32 != 0, d > 256, K != 8, M 0)
+INT_EDGES = ((256, 256, 8, 24, 1, 1024, 4), (255, 256, 8, 24, 40, 1024, -3),
+             (33, 64, 8, 24, 1, 2048, 0), (7, 32, 8, 24, 65, 6, 31),
+             (256, 256, 8, 8, 3, 1024, 4), (17, 64, 8, 8, 70, 1024, 5),
+             (48, 64, 8, 12, 5, 1024, 4), (64, 200, 8, 24, 1, 1024, 2),
+             (64, 288, 8, 24, 2, 1024, 4), (64, 256, 5, 24, 3, 1024, 4),
+             (65, 96, 12, 24, 33, 512, -1), (16, 32, 8, 24, 0, 1024, 4))
+INT_EDGE_FAST = 6  # the first six take the fast path, the rest the generic one
+
+
+def int_adversarial_case(B, d, K, W, M, n_lut, lut_shift, seed, device):
+    """An IntScorePlan and inputs, made with numpy from ``seed``, that
+    strain int_flow_score's arithmetic: full-range int32 weights, biases and
+    hidden sums (products and sums wrap), INT32_MIN, INT32_MAX, -1 and
+    multiples of the divisor +-1 among the sums, every divisor of
+    INT_COUNTS, shifts of 0 and 31 among the plan's, rules that hit lanes,
+    vetoed lanes.  Returns ``(plan, tables, rules, hs, count, sig, sticky)``
+    as tensors on ``device``."""
+    import torch
+    from repro_torch.compile import int_lowering as il
+    from repro_torch.core.symbolic import RuleSet
+
+    rng = np.random.default_rng(seed)
+
+    def full(*shape):
+        return rng.integers(INT32_MIN, INT32_MAX, shape, dtype=np.int64, endpoint=True).astype(
+            np.int32)
+
+    shifts = rng.choice([0, 1, 5, 13, 31], 3)
+    plan = il.IntScorePlan(
+        feature_bits=16, feature_frac=8, feature_range=8.0, weight_bits=12, cls_frac=10,
+        anom_frac=10, rule_frac=10, score_frac=10, nn_shift=int(shifts[0]),
+        sym_shift=int(shifts[1]), fusion_frac=int(shifts[2]), trust_frac=14, one_q=1 << 14,
+        n_lut=n_lut, lut_shift=lut_shift, lut_range=8.0, u_min_q=int(full(1)[0]) // 4,
+        horizon=1, has_cls_bias=bool(seed % 2), has_anom_bias=bool(seed % 3), divergence=0.0)
+    tables = {"cls_w": full(d, K), "anom_w": full(d, 1), "rule_w": full(M),
+              "alpha": full(), "beta": full(), "lut": full(n_lut)}
+    if plan.has_cls_bias:
+        tables["cls_b"] = full(K)
+    if plan.has_anom_bias:
+        tables["anom_b"] = full(1)
+    count = rng.choice(np.array(INT_COUNTS, np.int64), B).astype(np.int32)
+    count[: min(B, len(INT_COUNTS))] = INT_COUNTS[:B]
+    hs = full(B, d)
+    c = np.maximum(count, 1).astype(np.int64)[:, None]
+    k = rng.integers(-3, 4, (B, d))
+    near = np.clip(c * k + rng.integers(-1, 2, (B, d)), INT32_MIN, INT32_MAX).astype(np.int32)
+    pick = rng.random((B, d))
+    hs = np.where(pick < 0.3, near, hs)
+    hs[:, 0], hs[:, -1] = INT32_MIN, INT32_MAX
+    if d > 2:
+        hs[:, 1] = -1
+    sig = full(B, W)
+    masks = full(M, W) & full(M, W)
+    values = sig[rng.integers(0, B, M)].copy()  # rule r hits (at least) one lane
+    values[np.arange(M) % 3 == 2] ^= masks[np.arange(M) % 3 == 2]  # these hit by chance only
+    rules = RuleSet(values=torch.from_numpy(values), masks=torch.from_numpy(masks),
+                    weights=torch.from_numpy(rng.standard_normal(M).astype(np.float32)),
+                    hard=torch.from_numpy(rng.random(M) < 0.3)).to(device)
+    sticky = rng.random(B) < 0.1
+    to = lambda x: torch.from_numpy(np.array(x)).to(device)  # noqa: E731
+    return (plan, {name: to(t) for name, t in tables.items()}, rules, to(hs), to(count), to(sig),
+            to(sticky))
+
+
+def check_int_score_edges():
+    """int_flow_score.cu at INT_EDGES on adversarial inputs, bit for bit
+    against its plain version on the CPU (the same inputs), the first
+    INT_EDGE_FAST on the launcher's fast path and the rest on its generic
+    one."""
+    import torch
+    from repro_torch.compile import int_lowering as il
+    from repro_torch.kernels.flow_ingest import int_ops
+
+    paths = []
+    for i, (B, d, K, W, M, n_lut, lut_shift) in enumerate(INT_EDGES):
+        case = int_adversarial_case(B, d, K, W, M, n_lut, lut_shift, SEED + 80 + i, "cuda")
+        plan, tables, rules, *xs = case
+        what = f"int_flow_score edge B={B} d={d} K={K} W={W} M={M} n_lut={n_lut}"
+        path = "fast" if int_ops.fast_path(tables, rules, xs[2]) else "generic"
+        if path != ("fast" if i < INT_EDGE_FAST else "generic"):
+            fail(f"{what}: the launcher takes its {path} path")
+        out_k, st_k = int_ops.int_flow_score(plan, tables, rules, *xs)
+        out_p, st_p = il.int_flow_score(plan, {k: t.cpu() for k, t in tables.items()},
+                                        rules.to("cpu"), *(x.cpu() for x in xs))
+        torch.cuda.synchronize()
+        for k in out_p:
+            compare(f"{what} {k}", out_k[k], out_p[k])
+        compare(f"{what} sticky", st_k, st_p)
+        paths.append(f"{B}x{d} K{K} W{W} M{M} n_lut {n_lut}: {path} "
+                     f"({int(out_p['hard_hit'].sum())} vetoed)")
+    log("program", f"int_flow_score edge shapes on adversarial inputs (full-range int32 "
+                   f"weights and sums, INT32_MIN/MAX, divisors {list(INT_COUNTS)}), bit-identical "
+                   f"to the plain version on the CPU: " + "; ".join(paths))
 
 
 def program_signature():
@@ -2754,7 +3112,11 @@ def phase_program():
     ccfg, params = paper_classifier()
     ccfg24 = dataclasses.replace(ccfg, sig_words=24)  # the layout the compile gives
     recs["int_flow_score"] = check_int_score(1, True, params, ccfg24)
-    check_int_score(300, False, params, ccfg24)
+    r300 = check_int_score(300, True, params, ccfg24)
+    recs["int_flow_score"]["other_shapes"] = [dict(
+        {k: r300[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        shape="B 256 d 256 K 8 W 24 M 300")]
+    check_int_score_edges()
     recs["flow_score_w24"] = check_score(2, True, W=24)
 
     counted = ("decode_step", "flow_score", "int_flow_score")
@@ -2938,6 +3300,17 @@ def phase_program():
         fail(f"program: a kernel was never launched on the program's main path: {launched}")
     log("program", f"launches on the program's main path: {launched}")
     recs["launches"] = launched
+    # the kernel's device time per launch inside the fused engine's graphs
+    # (the smoke width: lanes 16, d 64), from a profiler trace of 5 ingests
+    # after the main path's launches were read
+    fe = ieng["cuda", True]
+    traced = profiled_kernel_ms(lambda: fe.ingest(batches[-1]["flow_ids"],
+                                                  batches[-1]["tokens"]), INT_KERNELS, iters=5)
+    recs["int_fused"] = traced
+    log("program", f"int_flow_score per launch in the fused int-emulation graphs (lanes "
+                   f"{fe.fcfg.lanes}, d {arch.d_model}, a profiler trace of 5 ingests): " +
+                   ", ".join(f"{x} {fmt_ms(t and t[0])} over {t and t[1]} launches"
+                             for x, t in traced.items()))
     return recs
 
 
@@ -3339,10 +3712,17 @@ SHARDS = 4  # logical shards of the paper-width sharded engine
 # floats of one launch over S x lanes rows against launches over lanes rows
 # (cuBLAS picks its kernels by row count).  Set between the sound readings
 # of (a) and its control, the same stacked launch with TF32 matmuls
-# allowed, which the limit must catch: on an H100 80GB HBM3 at 700 W, up
-# to 3.8e-05 sound and 6.3e-02 under TF32 (both s_nn; PERF.md section 6)
+# allowed, which the limit must catch (the phase fails if it does not): on
+# an H100 80GB HBM3 at 700 W, at SHARD_LAYERS 2, up to 4.5e-05 sound and
+# 1.5e-02 under TF32 (both s_nn; at 4 layers 3.8e-05 and 6.3e-02; PERF.md
+# section 6)
 SHARD_TOL = 1e-4
 N_TIMED = 4  # protocol-mix batches timed in (a), the two engines taking turns first
+# (a) runs the paper's width at 2 of its 4 layers, so that the whole run
+# stays within 900 s (on an H100 it took 925.3 s with 4, once two more LM
+# configs were served; PERF.md section 6): sharded and single engines are
+# compared layer for layer alike, at half the host-bound per-round time
+SHARD_LAYERS = 2
 ELASTIC_ARGS = ["--elastic", "--num-shards", "2", "--reshard", "4:4,8:2", "--batches", "12",
                 "--scenario", "rule-violating", "--packets", "64", "--pkt-len", str(PKT_LEN),
                 "--capacity", "1024", "--lanes", str(LANES)]
@@ -3352,8 +3732,8 @@ def shard_paper_width():
     """(a) A ShardedFlowEngine of SHARDS logical shards x CAPACITY / SHARDS
     slots (lanes 256 per shard) beside a per-round FlowEngine (capacity
     CAPACITY, lanes 256), both on the card with the paper classifier's
-    seed-0 weights, on the same protocol-mix and rule-violating batches,
-    held to each other within SHARD_TOL.  Then the control: the sharded
+    seed-0 weights at SHARD_LAYERS of its layers, on the same protocol-mix
+    and rule-violating batches, held to each other within SHARD_TOL.  Then the control: the sharded
     engine, reset, takes the first two batches again with TF32 matmuls
     allowed, and its distance from the single engine is read."""
     import torch
@@ -3363,7 +3743,7 @@ def shard_paper_width():
     from repro_torch.serve.sharded_flow_engine import ShardedFlowEngine
     from repro_torch.train import classifier as C
 
-    ccfg, params = paper_classifier()
+    ccfg, params = paper_classifier(n_layers=SHARD_LAYERS)
     mix = FlowScenario(kind="protocol-mix", pkt_len=PKT_LEN, packets_per_batch=256, seed=SEED)
     bad = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=256,
                        seed=SEED, fid_base=1 << 32)
@@ -3471,10 +3851,11 @@ def shard_paper_width():
             flips += int((got["vetoed"] != want["vetoed"]).sum())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+    if max(control.values()) <= SHARD_TOL:
+        fail(f"shard (a): the TF32 control stays within SHARD_TOL {SHARD_TOL:g}: {control}")
     log("shard", f"(a) control, the first 2 batches again with TF32 matmuls allowed: max diffs "
                  f"sharded vs single " + ", ".join(f"{k} {v:.3e}" for k, v in control.items())
-                 + f", {flips} veto flips; the limit {SHARD_TOL:g} "
-                 + ("catches it" if max(control.values()) > SHARD_TOL else "does NOT catch it"))
+                 + f", {flips} veto flips; the limit {SHARD_TOL:g} catches it")
     return {"pps": pps, "ratios": ratios, "worst": worst, "control": control,
             "per_round": per_round, "counts": counts,
             "busy": None if busy is None else busy / prof_wall / 1e3}
@@ -4387,8 +4768,11 @@ def main():
     launches = timed("engine", phase_engine, recs)["launches"]
     program = timed("program", phase_program)
     recs["int_flow_score"] = program["int_flow_score"]
-    launches["int_flow_score"] = program["launches"]["int_flow_score"]
-    timed("adapt", phase_adapt)
+    launches["int_flow_score"] = 0
+    for name, n in program["launches"].items():
+        launches[name] += n
+    for name, n in timed("adapt", phase_adapt)["launches"].items():
+        launches[name] += n
     for name, n in timed("shard", phase_shard)["launches"].items():
         launches[name] += n
     launches["chimera_attention"] = timed("train", phase_train, recs)["launches"][

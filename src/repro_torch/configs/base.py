@@ -20,7 +20,7 @@ from repro_torch.core.feature_maps import FeatureMapConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # "dense" or "moe" are ported
+    family: str  # "dense", "moe" and "vlm" (a stack of attention blocks) are ported
     n_layers: int
     d_model: int
     n_heads: int

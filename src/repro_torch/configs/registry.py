@@ -10,9 +10,11 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.configs import (
+    chameleon_34b,
     chimera_dataplane,
     codeqwen15_7b,
     mixtral_8x7b,
+    moonshot_v1_16b_a3b,
     qwen3_32b,
     yi_9b,
 )
@@ -23,6 +25,8 @@ ARCHS = {
     "yi-9b": yi_9b.CONFIG,
     "qwen3-32b": qwen3_32b.CONFIG,
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
+    "chameleon-34b": chameleon_34b.CONFIG,
     "chimera-dataplane": chimera_dataplane.CONFIG,
 }
 

@@ -37,6 +37,7 @@ SIGNATURES = {
     "decode_step_launch": [_P] * 14 + [_I] * 7 + [_F, _P],
     "flow_score_launch": [_P] * 18 + [_I] * 6 + [_P],
     "int_flow_score_launch": [_P] * 20 + [_I] * 12 + [_P],
+    "int_flow_score_fast_path": [_P] * 4 + [_I] * 4,
     "chimera_attention_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
     "chimera_attention_long_launch": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
     "window_attention_launch": [_P] * 4 + [_I] * 7 + [_F] + [_I] + [_P],

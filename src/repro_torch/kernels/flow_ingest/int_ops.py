@@ -45,6 +45,19 @@ def contract(*, d: int, K: int, W: int, M: int, plan: il.IntScorePlan) -> Option
     return None
 
 
+def fast_path(tables: Dict[str, torch.Tensor], rules: symbolic.RuleSet,
+              sig: torch.Tensor) -> bool:
+    """Whether the kernel's launcher takes its fast path (every load issued
+    before the first use) for these CUDA tensors, as the launcher itself
+    decides (csrc/int_flow_score.cu), or else its generic loops."""
+    if sig.device.type != "cuda":
+        raise ValueError(f"int_flow_score: no kernel path for device {sig.device}")
+    d, K = tables["cls_w"].shape
+    M, W = rules.values.shape
+    return bool(_build.load_library().int_flow_score_fast_path(
+        *map(_build.ptr, (tables["cls_w"], sig, rules.values, rules.masks)), d, K, W, M))
+
+
 Outputs = Dict[str, torch.Tensor]
 
 

@@ -43,10 +43,12 @@ Params = Dict[str, Any]
 def _require_ported(cfg: ArchConfig) -> None:
     """The stacks the port has: attention blocks only (no Mamba / xLSTM, no
     encoder), Chimera attention or softmax sliding-window attention, dense
-    or MoE MLPs."""
-    if any(kind != "attn" for kind in cfg.pattern) or cfg.family not in ("dense", "moe"):
+    or MoE MLPs.  ``family`` is a label (the JAX package's dryrun prints
+    it): a "vlm" such as Chameleon, whose image tokens are vocabulary ids,
+    is such a stack."""
+    if any(kind != "attn" for kind in cfg.pattern) or cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only stacks of attention blocks (family dense or moe) are ported")
+            f"{cfg.name}: only stacks of attention blocks (family dense, moe or vlm) are ported")
     attn.require_ported(cfg)
 
 

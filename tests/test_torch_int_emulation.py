@@ -335,6 +335,53 @@ def test_int_wrapper_checks_shapes_and_devices(tiny_classifier_cfg):
     assert "out of range" in int_ops.contract(d=256, K=8, W=24, M=1, plan=bad)
 
 
+N_INT_EDGES = 12  # len(chip_smoke.INT_EDGES)
+
+
+def test_int_fast_path_asks_the_launcher_for_cuda_tensors_only():
+    """``fast_path`` reports the C launcher's own choice, so it has nothing
+    to say about CPU tensors (the plain version runs there)."""
+    c = _chip_smoke()
+    plan, tables, rules, hs, count, sig, sticky = c.int_adversarial_case(
+        *c.INT_EDGES[0], c.SEED + 80, "cpu")
+    with pytest.raises(ValueError, match="no kernel path"):
+        int_ops.fast_path(tables, rules, sig)
+
+
+@pytest.mark.parametrize("i", range(N_INT_EDGES))
+def test_int_flow_score_adversarial_inputs_plain_is_bit_identical_to_jax(i):
+    """chip_smoke's adversarial int cases (full-range int32 weights and sums,
+    INT32_MIN/MAX, divisors 0 to 2^31 - 1, shifts 0 and 31, a negative LUT
+    shift), which the card's kernel is held to through the plain version:
+    the plain version equals JAX's int_flow_score bit for bit, and the
+    wrapper on CPU tensors is the plain version."""
+    c = _chip_smoke()
+    assert len(c.INT_EDGES) == N_INT_EDGES and 0 < c.INT_EDGE_FAST < N_INT_EDGES
+    edge = c.INT_EDGES[i]
+    plan, tables, rules, hs, count, sig, sticky = c.int_adversarial_case(
+        *edge, c.SEED + 80 + i, "cpu")
+    B, d, K, W, M, n_lut, _ = edge
+    assert int_ops.contract(d=d, K=K, W=W, M=M, plan=plan) is None
+    before = int_ops.launches
+    tout, tst = int_ops.int_flow_score(plan, tables, rules, hs, count, sig, sticky)
+    assert int_ops.launches == before
+    jrules = jsym.RuleSet(values=jnp.asarray(rules.values.numpy().view(np.uint32)),
+                          masks=jnp.asarray(rules.masks.numpy().view(np.uint32)),
+                          weights=jnp.asarray(rules.weights.numpy()),
+                          hard=jnp.asarray(rules.hard.numpy()))
+    jout, jst = jil.int_flow_score(
+        jil.IntScorePlan(**dataclasses.asdict(plan)),
+        {k: jnp.asarray(v.numpy()) for k, v in tables.items()}, jrules, jnp.asarray(hs.numpy()),
+        jnp.asarray(count.numpy()), jnp.asarray(sig.numpy().view(np.uint32)),
+        jnp.asarray(sticky.numpy()))
+    for k in jout:
+        np.testing.assert_array_equal(tout[k].numpy(), np.asarray(jout[k]), err_msg=k)
+    np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
+    assert (hs.numpy() == np.iinfo(np.int32).min).any() and (count.numpy() == 0).any()
+    if M:
+        assert tout["hard_hit"].any() and (tout["s_sym_q"] != 0).any()
+
+
 # --------------------------------------------------------------------------
 # the int-emulation engines against JAX's
 # --------------------------------------------------------------------------
@@ -547,6 +594,13 @@ def test_int_kernel_on_card_is_bit_identical_to_plain(cuda, M):
     c = _chip_smoke()
     ccfg, params = c.paper_classifier()
     c.check_int_score(M, False, params, dataclasses.replace(ccfg, sig_words=24))
+
+
+@pytest.mark.cuda
+def test_int_kernel_edges_on_card_are_bit_identical_to_plain(cuda):
+    """``int_flow_score.cu``'s fast and generic paths at chip_smoke's edge
+    shapes, on adversarial inputs, against the plain version on the CPU."""
+    _chip_smoke().check_int_score_edges()
 
 
 @pytest.mark.cuda

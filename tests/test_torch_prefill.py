@@ -45,7 +45,8 @@ from repro_torch.train import classifier as TC
 STATE_TOL = 1e-5  # attention outputs and the decode state
 LOGIT_TOL = 1e-4  # logits (test_fast_prefill.py's bar)
 MARGIN = 1e-4  # a top-2 logit margin at or below it is a near-tie
-ARCHS = ("chimera-dataplane", "mixtral-8x7b", "codeqwen1.5-7b", "yi-9b", "qwen3-32b")
+ARCHS = ("chimera-dataplane", "mixtral-8x7b", "codeqwen1.5-7b", "yi-9b", "qwen3-32b",
+         "moonshot-v1-16b-a3b", "chameleon-34b")
 KEY = jax.random.PRNGKey(0)
 
 
@@ -218,7 +219,8 @@ def _hold_greedy(cfg, params, prompt, got, want):
     assert float(top[0] - top[1]) <= MARGIN, (got, want, i)
 
 
-@pytest.mark.parametrize("name", ["chimera-dataplane", "mixtral-8x7b", "qwen3-32b"])
+@pytest.mark.parametrize("name", ["chimera-dataplane", "mixtral-8x7b", "qwen3-32b",
+                                  "moonshot-v1-16b-a3b", "chameleon-34b"])
 def test_serve_engine_prefill_batch_matches_jax_and_teacher_forcing(name):
     """Ragged prompts (41, 36, 48 tokens: a 35-token prefill of 2 chunks and
     a 3-token tail) through prefill_batch, then 6 greedy tokens: the same as
@@ -368,7 +370,8 @@ def test_chimera_attention_casts_bfloat16_inputs_and_promotes_like_jnp():
     assert all(g.dtype == torch.float32 and torch.equal(g, w) for g, w in zip(mixed, want))
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "yi-9b", "qwen3-32b", "codeqwen1.5-7b"])
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "yi-9b", "qwen3-32b", "codeqwen1.5-7b",
+                                  "moonshot-v1-16b-a3b", "chameleon-34b"])
 def test_the_zoo_widths_lie_inside_both_chimera_contracts(name):
     cfg = get_config(name)
     dh, m, L = cfg.head_dim, cfg.chimera.feature_map.m, cfg.chimera.chunk_size

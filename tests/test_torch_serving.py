@@ -221,6 +221,26 @@ def test_moe_layer_matches_jax(cf, shared):
     assert (drops > 0) == (cf == 1.0), drops  # capacity factor 1.0 drops selections
 
 
+@pytest.mark.parametrize("cf", [64.0, 11.0, 1.25])
+def test_moe_layer_at_moonshot_routing_matches_jax(cf):
+    """moonshot-v1-16b-a3b's routing at d 64: 64 experts, top-6, 2 shared
+    experts, drop-free (capacity factor E as smoke_config sets it, and
+    ceil(E / k) = 11, at which chip_smoke's prefill-vs-decode checks run)
+    and at the config's 1.25, which drops selections."""
+    jcfg = dataclasses.replace(j_smoke("moonshot-v1-16b-a3b"), moe_experts=64, moe_top_k=6,
+                               moe_shared_experts=2, capacity_factor=cf)
+    assert (jcfg.d_model, jcfg.moe_experts, jcfg.moe_top_k) == (64, 64, 6)
+    p, _ = JMoE.init_moe(jcfg, jax.random.PRNGKey(4))
+    x = np.random.default_rng(2).standard_normal((2, 96, jcfg.d_model)).astype(np.float32)
+    out_j, aux_j = JMoE.moe_layer(jcfg, p, jnp.asarray(x))
+    out_t, aux_t = TMoE.moe_layer(bridge.arch_from_reference(jcfg),
+                                  bridge.params_from_jax(_np(p), device="cpu"), _t(x))
+    _close(out_t, out_j)
+    _close(aux_t, aux_j)
+    drops = _drops(jcfg, np.asarray(p["router"]["w"]), x)
+    assert (drops > 0) == (cf < 11.0), drops
+
+
 def test_moe_init_layout_matches_jax():
     jcfg = _swa_cfg(moe_shared_experts=1)
     pj, _ = JMoE.init_moe(jcfg, jax.random.PRNGKey(0))
@@ -457,7 +477,8 @@ def _leaves(tree, prefix=()):
 
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "chimera-dataplane", "yi-9b", "qwen3-32b",
-                                  "codeqwen1.5-7b", "chimera-dataplane+codebook"])
+                                  "codeqwen1.5-7b", "moonshot-v1-16b-a3b", "chameleon-34b",
+                                  "chimera-dataplane+codebook"])
 def test_configs_match_jax(name):
     from repro.configs import get_config as j_get
     from repro.core.feature_maps import FeatureMapConfig as JFeatureMapConfig
