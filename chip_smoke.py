@@ -28,7 +28,8 @@ Phases, each printing its own lines:
                4 x 8192 tokens through the window_attention kernel, then 16
                new tokens per slot over the ring KV cache; one profiled
                prefill.
-7. reference — the engine on a small table, 3 classifier training steps of
+7. reference — the engine on a small table (2 of the paper model's 4
+               layers), 3 classifier training steps of
                a small model, and serving of a small softmax-SWA MoE model,
                on the card and on the CPU (plain versions): they must agree.
 8. program   — run right after the engine phase: the int_flow_score kernel
@@ -81,7 +82,8 @@ Phases, each printing its own lines:
                641-token prompt's prefill_batch against token-by-token
                decode; (d) seven configs' smoke sizes through prefill_batch
                and decode, card against CPU, and the baseline chunked linear
-               attention card against CPU.
+               attention card against CPU; (d) also MiniCPM3-4B's smoke
+               config, and its and Yi-9B's full-causal softmax variants.
 
 12. trainer  — run after the lm-chimera phase: the ``Trainer`` on the card.
                chimera_attention at lm_100m's shape (L 128, m 64, BH 96)
@@ -101,9 +103,24 @@ Phases, each printing its own lines:
                deployed on the card and on the CPU; (d) examples/train_lm.py's
                lm_100m through the Trainer (1 + 20 steps) and one profiled step.
 
-Phases 4, 5, 6, 8, 9, 10, 11 and 12 are the main paths: the kernels' launch
-counters are zeroed just before each (each part of phases 10 and 12) and
-read just after, and each fails if one of its kernels never launched.  Then
+13. lm-mla   — run after the lm-chimera phase: MiniCPM3-4B's multi-head
+               latent attention and full-causal softmax attention.  (a)
+               decode_step and chimera_attention_long.cu at MLA's widths (4
+               slots x 40 heads, Gq 1, d 96, dv 64, m 128, L 256; T 8192),
+               both at MLA's smoke widths, and window_attention at W = T =
+               8192 for MiniCPM3-4B's and Yi-9B's softmax variants, against
+               their plain versions, timed; (b) MiniCPM3-4B through the LM
+               launcher at full width, 2 of 62 layers with phase 11's (c)
+               checks, then all 62 layers, timed (prefill tokens/s, ms per
+               tick, busy share, peak memory); (c) the softmax variants of
+               MiniCPM3-4B (MLA latent cache) and Yi-9B (GQA, Gq 8) at full
+               width, 2 layers, T 8192: against the plain version on the card
+               and a ragged 641-token prompt against token-by-token decode.
+
+Phases 4, 5, 6, 8, 9, 10, 11, 12 and 13 are the main paths: the kernels'
+launch counters are zeroed just before each (each part of phases 10, 12 and
+13) and read just after, and each fails if one of its kernels never
+launched.  Then
 a JSON line with every kernel's numbers, a JSON line ``{"phases": {...}}``
 with every phase's seconds (and the run's total), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -753,19 +770,20 @@ def fmt_ms(x):
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def check_chimera_long(timed):
-    """csrc/chimera_attention_long.cu against the plain version at the
-    prefill shape; timed, beside its local-only and stream-only parts and
-    the device time of each of its three kernels in a profiler trace of
+def check_chimera_long(timed, shape=None):
+    """csrc/chimera_attention_long.cu against the plain version at ``shape``
+    = (B, Hkv, Gq, T, d, dv), the Mixtral prefill shape (LONG_SHAPE, d = dv
+    128) unless given; timed, beside its local-only and stream-only parts
+    and the device time of each of its three kernels in a profiler trace of
     the whole call."""
     import torch
     from repro_torch.kernels.chimera_attention import ops
 
-    B, Hkv, Gq, T = LONG_SHAPE
-    L, m, d = ZOO_L, ZOO_M, ZOO_D
-    q, k, v, pq, pk = chimera_inputs(B, Hkv, Gq, T, m, SEED + 9, d=d)
+    B, Hkv, Gq, T, d, dv = shape or LONG_SHAPE + (ZOO_D, ZOO_D)
+    L, m = ZOO_L, ZOO_M
+    q, k, v, pq, pk = chimera_inputs(B, Hkv, Gq, T, m, SEED + 9, d=d, dv=dv)
     BH = B * Hkv
-    flat = [q.reshape(BH, Gq, T, d), k.reshape(BH, T, d), v.reshape(BH, T, d),
+    flat = [q.reshape(BH, Gq, T, d), k.reshape(BH, T, d), v.reshape(BH, T, dv),
             pq.reshape(BH, Gq, T, m), pk.reshape(BH, T, m)]
     with torch.no_grad():
         num_k, den_k = ops.chimera_attention_bh(*flat, chunk_size=L)
@@ -773,9 +791,10 @@ def check_chimera_long(timed):
     torch.cuda.synchronize()
     err = max(compare("chimera_attention L256 num", num_k, num_p, atol=LONG_ATOL),
               compare("chimera_attention L256 den", den_k, den_p, atol=LONG_ATOL))
-    rec = {"max_abs_err": err}
-    log("kernels", f"chimera_attention (long-chunk kernel) BH={BH} Gq={Gq} T={T} d={d} m={m} "
-                   f"L={L}: max abs err {err:.3e} (tolerance {LONG_ATOL:g} + {RTOL:g}*|ref|; "
+    rec = {"max_abs_err": err,
+           "shape": f"BH {BH} Gq {Gq} T {T} d {d} dv {dv} m {m} L {L}, chimera_attention_long.cu"}
+    log("kernels", f"chimera_attention (long-chunk kernel) BH={BH} Gq={Gq} T={T} d={d} dv={dv} "
+                   f"m={m} L={L}: max abs err {err:.3e} (tolerance {LONG_ATOL:g} + {RTOL:g}*|ref|; "
                    f"|den| up to {float(den_p.max()):.1f}, |num| up to "
                    f"{float(num_p.abs().max()):.1f})")
     del num_p, den_p
@@ -794,14 +813,15 @@ def check_chimera_long(timed):
                                         LONG_KERNELS)
         fold_ms, prefix_ms, chunk_ms = (traced[x] and traced[x][0] for x in LONG_KERNELS)
         held = [traced[x] and traced[x][1] for x in LONG_KERNELS]
-        nbytes, flops = chimera_cost(B, Hkv, Gq, T, d, d, m, L)
+        nbytes, flops = chimera_cost(B, Hkv, Gq, T, d, dv, m, L)
         bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
         fp32_ms = flops / FP32_FLOPS * 1e3
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes=nbytes, flops=flops, call_ms=call_ms, local_ms=parts[True, False],
                    stream_ms=parts[False, True], fold_ms=fold_ms, prefix_ms=prefix_ms,
                    chunk_ms=chunk_ms)
-        log("kernels", f"chimera_attention L256 device time: kernel {ms:.4f} ms (local only "
+        log("kernels", f"chimera_attention L256 BH={BH} Gq={Gq} d={d} dv={dv} device time: "
+                       f"kernel {ms:.4f} ms (local only "
                        f"{parts[True, False]:.4f} ms, stream only {parts[False, True]:.4f} ms; "
                        f"in a profiler trace of 20 calls, per launch: fold {fmt_ms(fold_ms)}, "
                        f"prefix {fmt_ms(prefix_ms)}, chunk kernel {fmt_ms(chunk_ms)}; launches "
@@ -819,12 +839,12 @@ def check_chimera_long(timed):
 # takes, at m 16 (one m-tile: the fold's single-tile pair) and m 128 (the
 # zoo's); m 144 (a second fold slice of one m-tile, a readout slice of
 # 16); m 320 (five readout slices, a second fold slice of 64 features);
-# d != dv (d 64, dv 128), and d % 16
+# d != dv (d 64, dv 128; MLA's d 96, dv 64), and d % 16
 # == 8 (the score loop's odd tail: d 24 at dv 32 with m 16, d 40 at dv 64
-# with m 48, three m-tiles), both on the kernel's runtime-d instantiation
+# with m 48, three m-tiles), all on the kernel's runtime-d instantiation
 LONG_EDGE_WIDTHS = (tuple((d, d, m) for d in (16, 32, 64, 128) for m in (16, 128))
                     + ((128, 128, 144), (128, 128, 320), (64, 128, 128), (24, 32, 16),
-                       (40, 64, 48)))
+                       (40, 64, 48), (96, 64, 128)))
 
 
 def check_chimera_long_edges():
@@ -1017,31 +1037,37 @@ def window_cost(B, H, Hkv, T, W, d, dv):
     return nbytes, B * H * pairs * (2 * d + 2 * dv)
 
 
-# (T, W, dtype, H, Hkv) of the edge shapes, each at d = dv = 64 and 128 and
-# at the smoke configs' 16 and 32 (B 2): ragged T, W below a tile, W > T, a
-# tile boundary (T 128, W 64), W a multiple of the tile with T not, and 1,
-# 2 and 4 kv-heads
-WINDOW_SMOKE_DIMS = (16, 32)
+# (T, W, dtype, H, Hkv) of the edge shapes, each at every (d, dv) of
+# WINDOW_EDGE_DIMS (B 2): ragged T, W below a tile, W > T, W = T and T + 1
+# (full-causal attention: blockwise_softmax_attention's route), a tile
+# boundary (T 128, W 64), W a multiple of the tile with T not, and 1, 2 and
+# 4 kv-heads
 WINDOW_EDGES = (
     (200, 48, "float32", 4, 1), (200, 300, "float32", 4, 1), (77, 13, "float32", 2, 2),
     (200, 48, "bfloat16", 4, 1), (200, 48, "float32", 8, 4), (128, 64, "float32", 4, 2),
-    (200, 128, "float32", 4, 2), (200, 128, "bfloat16", 8, 4),
+    (200, 128, "float32", 4, 2), (200, 128, "bfloat16", 8, 4), (200, 200, "float32", 4, 1),
+    (200, 201, "float32", 4, 2), (77, 77, "bfloat16", 2, 2),
 )
+# the (d, dv) of the edge shapes: the zoo's 64 and 128, the smoke configs'
+# 16 and 32, and MLA's (96, 64) at full width and (24, 16) at the smoke size
+WINDOW_EDGE_DIMS = ((64, 64), (128, 128), (16, 16), (32, 32), (96, 64), (24, 16))
 
 
-def check_window_edge(T, W, dtype, H, Hkv, d, seed):
-    """The kernel against its plain version at one edge shape (B 2, d = dv);
-    fp32 within ATOL + RTOL * |ref|, bf16 within WIN_BF16_TOL of the plain
-    version's fp32 result rounded to bf16.  Returns the max abs error."""
+def check_window_edge(T, W, dtype, H, Hkv, d, seed, dv=None):
+    """The kernel against its plain version at one edge shape (B 2, dv = d
+    unless given); fp32 within ATOL + RTOL * |ref|, bf16 within WIN_BF16_TOL
+    of the plain version's fp32 result rounded to bf16.  Returns the max abs
+    error."""
     import torch
     from repro_torch.kernels.window_attention import ops
 
     dt = getattr(torch, dtype)
-    xs = window_inputs(2, H, Hkv, T, d, d, seed, dt)
+    dv = dv or d
+    xs = window_inputs(2, H, Hkv, T, d, dv, seed, dt)
     with torch.no_grad():
         got = ops.sliding_window_attention(*xs, W)
         want = ops.sliding_window_attention_plain(*(x.float() for x in xs), W)
-    name = f"window_attention T {T} W {W} d {d} {dt}"
+    name = f"window_attention T {T} W {W} d {d} dv {dv} {dt}"
     if dt == torch.bfloat16:
         if got.dtype != torch.bfloat16:
             fail(f"{name}: output dtype {got.dtype}")
@@ -1054,18 +1080,19 @@ def check_window_edge(T, W, dtype, H, Hkv, d, seed):
     return e
 
 
-def check_window(timed):
-    """The kernel against its plain version at the serve phase's prefill shape
-    (the plain version run over slices of WIN_PLAIN_HEADS query heads), and at
-    ragged shapes; timed at the prefill shape."""
+def check_window(timed, shape=None):
+    """The kernel against its plain version at ``shape`` = (B, H, Hkv, T, W,
+    d, dv), the serve phase's prefill shape unless given (the plain version
+    run over slices of WIN_PLAIN_HEADS query heads); with the default, also
+    at the edge shapes; timed at ``shape``."""
     import torch
     from repro_torch.configs.mixtral_8x7b import CONFIG as MIX
     from repro_torch.kernels.window_attention import ops
 
-    B, H, Hkv, d, W, T = (SERVE_SLOTS, MIX.n_heads, MIX.n_kv_heads, MIX.head_dim,
-                          MIX.sliding_window, SERVE_T)
+    B, H, Hkv, T, W, d, dv = shape or (SERVE_SLOTS, MIX.n_heads, MIX.n_kv_heads, SERVE_T,
+                                       MIX.sliding_window, MIX.head_dim, MIX.head_dim)
     G = H // Hkv
-    q, k, v = window_inputs(B, H, Hkv, T, d, d, SEED + 20)
+    q, k, v = window_inputs(B, H, Hkv, T, d, dv, SEED + 20)
     slices = [(b, h0) for b in range(B) for h0 in range(0, H, WIN_PLAIN_HEADS)]
 
     def plain(b, h0):
@@ -1078,19 +1105,22 @@ def check_window(timed):
         err = max(compare(f"window_attention b {b} heads {h0}..{h0 + WIN_PLAIN_HEADS - 1}",
                           out[b:b + 1, h0:h0 + WIN_PLAIN_HEADS], plain(b, h0))
                   for b, h0 in slices)
-    rec = {"max_abs_err": err}
-    log("kernels", f"window_attention B {B} x H {H} (Hkv {Hkv}) T {T} W {W} d {d}: max abs err "
-                   f"{err:.3e} (tolerance {ATOL:g} + {RTOL:g}*|ref|) against the plain version "
-                   f"over {len(slices)} slices of {WIN_PLAIN_HEADS} heads")
-    for i, edge in enumerate(WINDOW_EDGES):
-        for dr in (64, 128) + WINDOW_SMOKE_DIMS:
-            check_window_edge(*edge, dr, SEED + 21 + i)
+    rec = {"max_abs_err": err,
+           "shape": f"B {B} x H {H} (Hkv {Hkv}) T {T} W {W} d {d} dv {dv}"}
+    log("kernels", f"window_attention B {B} x H {H} (Hkv {Hkv}) T {T} W {W} d {d} dv {dv}: max "
+                   f"abs err {err:.3e} (tolerance {ATOL:g} + {RTOL:g}*|ref|) against the plain "
+                   f"version over {len(slices)} slices of {WIN_PLAIN_HEADS} heads")
+    if shape is None:
+        for i, edge in enumerate(WINDOW_EDGES):
+            for dk, dvk in WINDOW_EDGE_DIMS:
+                check_window_edge(*edge, dk, SEED + 21 + i, dv=dvk)
     if timed:
         with torch.no_grad():
             ms, call_ms = cuda_ms(lambda: ops.sliding_window_attention(q, k, v, W), iters=2)
             plain_ms, _ = cuda_ms(lambda: [plain(b, h0) for b, h0 in slices], iters=1)
             # the yardstick: one PyTorch call on the same function, K and V
-            # repeated to the query heads, the band as a boolean mask
+            # repeated to the query heads, the band as a boolean mask (none
+            # where W >= T: causal)
             idx = torch.arange(T, device="cuda")
             band = ((idx[:, None] - idx[None, :]) >= 0) & ((idx[:, None] - idx[None, :]) < W)
             ke, ve = (x.repeat_interleave(G, dim=1) for x in (k, v))
@@ -1098,24 +1128,34 @@ def check_window(timed):
 
             def sdpa():  # the memory-efficient backend: the math one forms (BH, T, T)
                 with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    if W >= T:
+                        return torch.nn.functional.scaled_dot_product_attention(
+                            q, ke, ve, is_causal=True)
                     return torch.nn.functional.scaled_dot_product_attention(
                         q, ke, ve, attn_mask=band)
 
-            lib_err = float((sdpa() - out).abs().max())
-            library_ms, _ = cuda_ms(sdpa, iters=1)
+            try:
+                lib_err = float((sdpa() - out).abs().max())
+                library_ms, _ = cuda_ms(sdpa, iters=1)
+            except RuntimeError as e:  # no backend of that list takes these widths
+                log("kernels", f"window_attention: scaled_dot_product_attention refused "
+                               f"d {d} dv {dv}: {str(e)[:200]}")
+                lib_err = library_ms = None
         del ke, ve
-        nbytes, flops = window_cost(B, H, Hkv, T, W, d, d)
+        nbytes, flops = window_cost(B, H, Hkv, T, W, d, dv)
         bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
         fp32_ms = flops / FP32_FLOPS * 1e3
         rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms, bytes=nbytes, flops=flops, call_ms=call_ms)
         log("kernels", f"window_attention device time at B {B} x H {H} (Hkv {Hkv}) T {T} W {W} "
-                       f"d {d}: kernel {ms:.4f} ms (per call from Python {call_ms:.4f} ms), bound "
+                       f"d {d} dv {dv}: kernel {ms:.4f} ms (per call from Python "
+                       f"{call_ms:.4f} ms), bound "
                        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B; {flops} flop, "
                        f"x{TF32_PASSES} in TF32 on the tensor cores; on the fp32 CUDA cores "
                        f"they would take {fp32_ms:.4f} ms); "
-                       f"scaled_dot_product_attention with a band mask {library_ms:.4f} ms "
-                       f"(max abs diff to the kernel {lib_err:.3e}); plain version {plain_ms:.4f} "
+                       f"scaled_dot_product_attention (memory-efficient backend) "
+                       f"{fmt_ms(library_ms)} (max abs diff to the kernel {lib_err}); plain "
+                       f"version {plain_ms:.4f} "
                        f"ms over its {len(slices)} slices of {WIN_PLAIN_HEADS} heads (it forms "
                        f"(BH, T, T) fp32 scores)")
     del q, k, v, out
@@ -1729,12 +1769,31 @@ RAGGED_T, RAGGED_NEW = 641, 4
 LM_LOGIT_TOL = 3e-2
 LM_MARGIN = 2 * LM_LOGIT_TOL
 SMOKE_LM = ("chimera-dataplane", "mixtral-8x7b", "codeqwen1.5-7b", "yi-9b", "qwen3-32b",
-            "moonshot-v1-16b-a3b", "chameleon-34b")
+            "moonshot-v1-16b-a3b", "chameleon-34b", "minicpm3-4b")
+# and these configs' full-causal softmax variants (MiniCPM3-4B's MLA with its
+# latent cache, Yi-9B's GQA), card against CPU at the smoke size and held at
+# full width, 2 layers, in the lm-mla phase
+SOFTMAX_LM = ("minicpm3-4b", "yi-9b")
 # served at full width through the LM launcher, 2 layers each (m 128, L 256,
 # n_global 32, d_head 128): Mixtral-8x7B's Chimera variant (Gq 4, 8 experts
 # top-2), Moonshot-v1-16B-A3B (Gq 1, 64 experts top-6 and 2 shared experts,
 # vocabulary 163,840), Chameleon-34B (dense, Gq 8, qk-norm, d 8192)
 ZOO_LM = ("mixtral-8x7b", "moonshot-v1-16b-a3b", "chameleon-34b")
+
+
+def attn_widths(cfg):
+    """(kv-heads, Gq, q/k width, v width) of the heads the attention kernels
+    see: MLA's materialized heads (H of them, Gq 1), else the GQA heads."""
+    if cfg.attention_kind == "mla":
+        return cfg.n_heads, 1, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim or cfg.head_dim
+    return cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.head_dim
+
+
+def attn_label(cfg):
+    if cfg.attention_kind == "mla":
+        return (f"MLA q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} heads of q/k width "
+                f"{cfg.qk_nope_dim} + {cfg.qk_rope_dim} and v width {cfg.v_head_dim}")
+    return f"head_dim {cfg.head_dim}"
 
 
 def zoo_chimera(name, n_layers):
@@ -1866,11 +1925,12 @@ def lm_replay(cfg, params, prompts, pre, gens, max_len, sequential=False):
 # 8.4e-3 at every seed, one of 1e-4 up to 5.5e-3 to 6.1e-3 at two seeds of
 # the four (seed 0 among them).  At moonshot-v1-16b-a3b (top-6 of 64) the
 # check's seed 0 differs at gaps up to 2.66e-4, plain or kernels.  Seed 1
-# differs at 1.802e-3 with the kernels (layer 1, position 4, every
-# repeat), and route_flip_cause puts that flip on the long-chunk kernel's
-# local tier in the prefill (its truncating TF32 split: num/den 2.8e-6 to
-# 3.3e-6 from float64, 3.3-7.4x the fp32 plain version's), so 1e-3 would
-# catch it there (PERF.md section 6, ROADMAP Queue 3)
+# differed at 1.802e-3 with the long-chunk kernel's local tier on a
+# truncating TF32 split (route_flip_cause: its num/den 3.3-7.4x the fp32
+# plain version's error from float64); with split_rn there every seed's
+# widest flip is 2.80e-4 (plain versions 2.71e-4), and a planted 1e-3
+# error still flips choices at 1.80e-3 to 2.59e-3 at every seed (PERF.md
+# section 6, ROADMAP Queue 3)
 ROUTE_MARGIN = 1e-3
 
 
@@ -2181,12 +2241,9 @@ def phase_lm_chimera(recs):
     wide = check_decode_wide()
     check_chimera_long_edges()
     long = check_chimera_long(timed=True)
+    wide["spread"]["shape"] = "BH 32 Gq 4 d=dv=m 128 L 256, tiled ring"
     for name, r in (("decode_step", wide["spread"]), ("chimera_attention", long)):
-        recs[name].setdefault("other_shapes", []).append(
-            {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
-    recs["decode_step"]["other_shapes"][-1]["shape"] = "BH 32 Gq 4 d=dv=m 128 L 256, tiled ring"
-    recs["chimera_attention"]["other_shapes"][-1]["shape"] = (
-        "BH 32 Gq 4 T 8192 d=dv=m 128 L 256, chimera_attention_long.cu")
+        other_shape(recs, name, r)
 
     # (b), (c) each config's main path, its launches counted apart
     zoo = {name: lm_serve_full_width(name) for name in ZOO_LM}
@@ -2196,6 +2253,8 @@ def phase_lm_chimera(recs):
     # (d) the smoke sizes, card against CPU
     for name in SMOKE_LM:
         lm_smoke_card_vs_cpu(name)
+    for name in SOFTMAX_LM:
+        lm_smoke_card_vs_cpu(name, use_chimera=False)
     check_linear_attention()
     return {"launches": launches, "zoo": zoo}
 
@@ -2208,40 +2267,22 @@ def lm_serve_full_width(name):
     token-by-token decode (drop-free, the MoE's near ties routed alike)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.chimera_attention import ops as cops
-    from repro_torch.kernels.decode_step import ops as dops
-    from repro_torch.kernels.flow_ingest import ops as sops
-    from repro_torch.kernels.window_attention import ops as wops
     from repro_torch.launch import serve as LS
     from repro_torch.models import model as M
-    from repro_torch.optim.optimizer import tree_flatten
     from repro_torch.serve.engine import Request, ServeEngine
-    from repro_torch.train import classifier as C
 
     # (b) the main path through the launcher
     cfg = zoo_chimera(name, SERVE_LAYERS)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ccfg = C.ClassifierConfig(arch=cfg, n_classes=2, marker_base=cfg.vocab_size)
-    params = C.init_classifier(ccfg, torch.Generator(device="cuda").manual_seed(SEED),
-                               device="cuda")
-    torch.cuda.synchronize()
-    nbytes = sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])
+    dep, nbytes, draw_s = launcher(cfg)
     ch = cfg.chimera
     mlp = (f"{cfg.moe_experts} experts of d_ff {cfg.moe_d_ff or cfg.d_ff} top-{cfg.moe_top_k}"
            f" + {cfg.moe_shared_experts} shared" if cfg.moe_experts else f"dense d_ff {cfg.d_ff}")
     log("lm-chimera", f"{cfg.name} (Chimera), {cfg.n_layers} of {get_config(name).n_layers} "
                       f"layers at full width (d {cfg.d_model}, {cfg.n_heads} heads / "
-                      f"{cfg.n_kv_heads} kv-heads, head_dim {cfg.head_dim}, qk-norm "
+                      f"{cfg.n_kv_heads} kv-heads, {attn_label(cfg)}, qk-norm "
                       f"{cfg.qk_norm}, m {ch.feature_map.m}, L {ch.chunk_size}, n_global "
                       f"{ch.n_global}, {mlp}, vocab {cfg.vocab_size}, dtype {cfg.dtype}): "
-                      f"{nbytes // 4} fp32 parameters drawn on the card in "
-                      f"{time.perf_counter() - t0:.2f} s")
-    args = LS.parse_args(["--arch", cfg.name, "--requests", str(SERVE_SLOTS), "--slots",
-                          str(SERVE_SLOTS), "--prompt-len", str(SERVE_T + 1), "--max-new",
-                          str(SERVE_NEW), "--max-len", str(SERVE_MAX_LEN), "--prefill",
-                          "--waive", "resource-ledger"])
-    dep = LS.build(args, params=params, arch=cfg)
+                      f"{nbytes // 4} fp32 parameters drawn on the card in {draw_s:.2f} s")
     engine = dep.engine
     # warm-up at the main path's shapes (cuBLAS picks its kernels on a first call)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_T + 1))
@@ -2249,21 +2290,10 @@ def lm_serve_full_width(name):
                      SERVE_MAX_LEN)
     if not torch.isfinite(warm).all():
         fail(f"lm-chimera {name}: non-finite logits after the warm-up prefill")
-    torch.cuda.reset_peak_memory_stats()
-    wops.launches = cops.launches = dops.launches = sops.launches = 0
-    res = LS.serve(dep)
-    launches = {"chimera_attention": cops.launches, "decode_step": dops.launches,
-                "window_attention": wops.launches, "flow_score": sops.launches}
-    peak = torch.cuda.max_memory_allocated()
+    res, launches, peak = serve_counted(dep, lambda ticks: {
+        "chimera_attention": cfg.n_layers, "decode_step": cfg.n_layers * ticks}, "lm-chimera")
     decode_s = res.seconds - res.prefill_seconds
-    want = {"chimera_attention": cfg.n_layers, "decode_step": cfg.n_layers * res.ticks}
-    for k, n in want.items():
-        if launches[k] != n:
-            fail(f"lm-chimera {cfg.name}: {k} launched {launches[k]} times, want {n}: {launches}")
     gens = np.array([r.generated for r in res.requests])
-    if gens.shape != (SERVE_SLOTS, SERVE_NEW) or gens.min() < 0 or gens.max() >= cfg.vocab_size:
-        fail(f"lm-chimera {name}: generations of shape {gens.shape}, ids "
-             f"{gens.min()}..{gens.max()}")
     if [r.prompt for r in res.requests] != prompts.tolist():
         fail(f"lm-chimera {name}: the launcher's prompts are not the replays' prompts")
     n_prefill = SERVE_SLOTS * SERVE_T
@@ -2288,13 +2318,13 @@ def lm_serve_full_width(name):
     _, rows = report_profile(prof, wall, f"one {name} prefill of {SERVE_SLOTS} x {SERVE_T} "
                                          "tokens")
     long_ms = sum(ms for key, (ms, _) in rows.items() if any(x in key for x in LONG_KERNELS))
-    Gq = cfg.n_heads // cfg.n_kv_heads
-    nbytes, flops = chimera_cost(SERVE_SLOTS, cfg.n_kv_heads, Gq, SERVE_T, cfg.head_dim,
-                                 cfg.head_dim, ch.feature_map.m, ch.chunk_size)
+    kv, Gq, d, dv = attn_widths(cfg)
+    nbytes, flops = chimera_cost(SERVE_SLOTS, kv, Gq, SERVE_T, d, dv, ch.feature_map.m,
+                                 ch.chunk_size)
     bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
     log("lm-chimera", f"{name}: the long-chunk kernel's three launches per layer take "
                       f"{long_ms:.2f} ms of that prefill's device time ({cfg.n_layers} layers, "
-                      f"BH {SERVE_SLOTS * cfg.n_kv_heads}, Gq {Gq}); bound {bound_ms:.4f} ms a "
+                      f"BH {SERVE_SLOTS * kv}, Gq {Gq}, d {d}, dv {dv}); bound {bound_ms:.4f} ms a "
                       f"layer by {bound_by} ({nbytes} B, {flops} flop x{TF32_PASSES} in TF32)")
     tok = torch.from_numpy(gens[:, -1]).to("cuda")
     pos = torch.full((SERVE_SLOTS,), SERVE_T + SERVE_NEW, dtype=torch.int32, device="cuda")
@@ -2358,7 +2388,7 @@ def lm_serve_full_width(name):
                       f"{LM_LOGIT_TOL:g}*|ref|); greedy tokens equal at {held} of {total} "
                       f"positions whose top-2 margin exceeds {LM_MARGIN:g} (smallest margin "
                       f"{gap:.3e})")
-    del dep, engine, rengine, params, got, ref, fast, seq, warm
+    del dep, engine, rengine, got, ref, fast, seq, warm
     torch.cuda.empty_cache()
     return {"launches": launches, "prefill_s": res.prefill_seconds, "decode_s": decode_s,
             "ticks": res.ticks, "tokens_per_s": n_prefill / res.prefill_seconds,
@@ -2399,26 +2429,29 @@ def check_linear_attention():
                       f"{RTOL:g}*|ref|)")
 
 
-def lm_smoke_card_vs_cpu(name):
-    """``smoke_config(name)`` (fp32, L 16) through the launcher's engine on
-    the card and on the CPU: prefill_batch of ragged prompts, 6 greedy
-    tokens each; generations identical and the prefill's next-token logits
-    within REF_LOGIT_TOL."""
+def lm_smoke_card_vs_cpu(name, use_chimera=True):
+    """``smoke_config(name)`` (fp32, L 16), or its softmax variant, through
+    the launcher's engine on the card and on the CPU: prefill_batch of
+    ragged prompts, 6 greedy tokens each; generations identical and the
+    prefill's next-token logits within REF_LOGIT_TOL."""
+    import dataclasses
+
     import torch
     from repro_torch.configs.registry import smoke_config
     from repro_torch.kernels.chimera_attention import ops as cops
     from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.window_attention import ops as wops
     from repro_torch.models import model as M
     from repro_torch.optim.optimizer import tree_map
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = smoke_config(name)
+    cfg = dataclasses.replace(smoke_config(name), use_chimera=use_chimera)
     params = M.init_model(cfg, torch.Generator().manual_seed(SEED + 61), device="cpu")
     rng = np.random.default_rng(SEED + 62)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 37, 45)]
     runs = {}
     for dev in ("cuda", "cpu"):
-        before = cops.launches + dops.launches
+        before = cops.launches + dops.launches + wops.launches
         p = tree_map(lambda t: t.to(dev), params)
         engine = ServeEngine(cfg, p, batch_slots=4, max_len=64, device=dev)
         reqs = [Request(rid=i, prompt=pr, max_new_tokens=6) for i, pr in enumerate(prompts)]
@@ -2427,7 +2460,7 @@ def lm_smoke_card_vs_cpu(name):
         with torch.no_grad():
             logits, _ = M.prefill_with_caches(
                 cfg, p, torch.tensor([pr[:36] for pr in prompts], device=dev), max_len=64)
-        if (cops.launches + dops.launches > before) != (dev == "cuda"):
+        if (cops.launches + dops.launches + wops.launches > before) != (dev == "cuda"):
             fail(f"lm-chimera smoke {name}: kernel launches on {dev}")
         runs[dev] = ([r.generated for r in reqs], logits.cpu())
     (gen_g, lg), (gen_c, lc) = runs["cuda"], runs["cpu"]
@@ -2435,17 +2468,326 @@ def lm_smoke_card_vs_cpu(name):
         fail(f"lm-chimera smoke {name}: greedy generations differ: card {gen_g} vs CPU {gen_c}")
     err = compare(f"lm-chimera smoke {name} logits", lg, lc, atol=REF_LOGIT_TOL,
                   rtol=REF_LOGIT_TOL)
-    log("lm-chimera", f"{name} smoke (d_head 16, m 16, L 16): prefill_batch of "
+    mode = "Chimera (m 16, L 16)" if use_chimera else "full-causal softmax"
+    log("lm-chimera", f"{name} smoke ({mode}, d_head {cfg.head_dim}): prefill_batch of "
                       f"{[len(p) for p in prompts]} tokens + 6 greedy tokens, card and CPU "
                       f"generations identical; next-token logits after 36 tokens max abs diff "
                       f"{err:.3e} (tolerance {REF_LOGIT_TOL:g} + {REF_LOGIT_TOL:g}*|ref|)")
 
 
 # --------------------------------------------------------------------------
+# 13. lm-mla (MiniCPM3-4B's MLA and full-causal softmax attention)
+# --------------------------------------------------------------------------
+
+MLA_LM = "minicpm3-4b"
+
+
+def other_shape(recs, name, r):
+    """``r``'s numbers as one more shape of kernel ``name`` in the kernels
+    line; returns that entry."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    recs[name].setdefault("other_shapes", []).append({k: r.get(k) for k in keys})
+    return recs[name]["other_shapes"][-1]
+
+
+def check_lm_mla_kernels(recs):
+    """(a) decode_step and the long-chunk kernel at MLA's Chimera widths
+    (4 slots x 40 heads, Gq 1, d 96, dv 64, m 128, L 256; decode_step under
+    every fill pattern, with and without the globals), the short-chunk
+    kernel and decode_step at MLA's smoke widths (d 24, dv 16, m 16, L 16),
+    and window_attention at W = T = 8192 for each softmax variant of
+    SOFTMAX_LM, against their plain versions, timed against their bounds.
+    Returns each timed shape's entry of the kernels line, by kernel (the
+    window's by config)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_step import ops as dops
+
+    cfg = get_config(MLA_LM)
+    kv, Gq, d, dv = attn_widths(cfg)
+    m, L = cfg.chimera.feature_map.m, cfg.chimera.chunk_size
+    entries = {}
+    for fill in ZOO_FILLS:
+        for with_global in (False, True):
+            timed = with_global and fill == "spread"
+            r = check_decode(with_global, timed, fill=fill, B=SERVE_SLOTS, Gq=Gq, d=d, dv=dv,
+                             m=m, L=L, heads=kv)
+            if timed:
+                r["shape"] = (f"BH {SERVE_SLOTS * kv} Gq {Gq} d {d} dv {dv} m {m} L {L}, "
+                              f"{dops.layout(Gq, d, dv, m, L)[0]} ring")
+                entries["decode_step"] = other_shape(recs, "decode_step", r)
+    for fill in DECODE_FILLS:
+        for with_global in (False, True):
+            check_decode(with_global, False, fill=fill, B=64, Gq=1, d=24, dv=16, m=16, L=16)
+    worst = max(check_chimera_edge(16, T, *mode, m=16, d=24, dv=16)
+                for T in (16, 64) for mode in CHIMERA_MODES)
+    log("kernels", f"chimera_attention at MLA's smoke widths (L 16, m 16, d 24, dv 16, T = L and "
+                   f"4L, every local/stream pair): max abs err {worst:.3e} (tolerance "
+                   f"{ATTN_ATOL:g} + {RTOL:g}*|ref|)")
+    entries["chimera_attention"] = other_shape(
+        recs, "chimera_attention", check_chimera_long(True, shape=(SERVE_SLOTS, kv, Gq, SERVE_T,
+                                                                   d, dv)))
+    for name in SOFTMAX_LM:
+        kv, Gq, d, dv = attn_widths(get_config(name))
+        r = check_window(True, shape=(SERVE_SLOTS, kv * Gq, kv, SERVE_T, SERVE_T, d, dv))
+        r["shape"] = f"{name} softmax: " + r["shape"]
+        entries[name] = other_shape(recs, "window_attention", r)
+    return entries
+
+
+class plain_softmax_attention:
+    """Within the block, blockwise_softmax_attention (the full-causal
+    softmax prefill) runs its plain version on the card, one slot at a
+    time: its kv blocks of ``softmax_blk`` keys form (Hkv, Gq, T, blk)
+    fp32 scores, 1.3 GB a slot at MiniCPM3-4B's width."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import attention as A
+
+        self.saved = A.blockwise_softmax_attention
+
+        def plain(q, k, v, blk=1024, causal=True):
+            return torch.cat([A.blockwise_softmax_attention_plain(q[b:b + 1], k[b:b + 1],
+                                                                  v[b:b + 1], blk)
+                              for b in range(q.shape[0])])
+
+        A.blockwise_softmax_attention = plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+
+        A.blockwise_softmax_attention = self.saved
+
+
+def launcher(cfg, prompt_len=SERVE_T + 1):
+    """The LM launcher's build for ``cfg`` (served as ``cfg.name``) at full
+    width: seed-0 weights drawn on the card, 4 slots x ``prompt_len``-token
+    prompts, 16 new tokens, ``--prefill``, the resource ledger waived.
+    Returns (deployment, parameter bytes, seconds to draw them)."""
+    import torch
+    from repro_torch.launch import serve as LS
+    from repro_torch.optim.optimizer import tree_flatten
+    from repro_torch.train import classifier as C
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ccfg = C.ClassifierConfig(arch=cfg, n_classes=2, marker_base=cfg.vocab_size)
+    params = C.init_classifier(ccfg, torch.Generator(device="cuda").manual_seed(SEED),
+                               device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])
+    args = LS.parse_args(["--arch", cfg.name, "--requests", str(SERVE_SLOTS), "--slots",
+                          str(SERVE_SLOTS), "--prompt-len", str(prompt_len), "--max-new",
+                          str(SERVE_NEW), "--max-len", str(SERVE_MAX_LEN), "--prefill",
+                          "--waive", "resource-ledger"])
+    return LS.build(args, params=params, arch=cfg), nbytes, draw_s
+
+
+def serve_counted(dep, want, phase="lm-mla"):
+    """``launch/serve.py``'s serve of ``dep`` with every kernel's launch count
+    zeroed just before and read just after, those ``want(ticks)`` names held
+    to its counts, and the generations to the vocabulary; returns (result,
+    launches, peak bytes)."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.flow_ingest import ops as sops
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.launch import serve as LS
+
+    name = dep.args.arch
+    torch.cuda.reset_peak_memory_stats()
+    wops.launches = cops.launches = dops.launches = sops.launches = 0
+    res = LS.serve(dep)
+    launches = {"chimera_attention": cops.launches, "decode_step": dops.launches,
+                "window_attention": wops.launches, "flow_score": sops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for k, n in want(res.ticks).items():
+        if launches[k] != n:
+            fail(f"{phase} {name}: {k} launched {launches[k]} times, want {n}: {launches}")
+    vocab = dep.program.ccfg.arch.vocab_size
+    gens = np.array([r.generated for r in res.requests])
+    if gens.shape != (SERVE_SLOTS, SERVE_NEW) or gens.min() < 0 or gens.max() >= vocab:
+        fail(f"{phase} {name}: generations of shape {gens.shape}, ids {gens.min()}..{gens.max()}")
+    return res, launches, peak
+
+
+def timing_line(res):
+    n = SERVE_SLOTS * SERVE_T
+    decode_s = res.seconds - res.prefill_seconds
+    return (f"prefill_batch {SERVE_SLOTS} x {SERVE_T} tokens: {res.prefill_seconds * 1e3:.1f} ms, "
+            f"{n / res.prefill_seconds:.0f} tokens/s; decode: {res.ticks} ticks ({SERVE_SLOTS} "
+            f"slots) in {decode_s * 1e3:.1f} ms: {decode_s / res.ticks * 1e3:.2f} ms per tick")
+
+
+def lm_serve_full_depth(name):
+    """(b) ``name`` at full width and all its layers through the launcher
+    (4 slots x 8193-token prompts, 16 new tokens each), timed, after the
+    2-layer run of the same widths (cuBLAS has picked its kernels); its
+    launches counted; then one profiled prefill (logits finite, of the
+    padded vocabulary) and decode step for the device's busy share."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    dep, nbytes, draw_s = launcher(cfg)
+    log("lm-mla", f"{name} (Chimera) at full depth and width: {cfg.n_layers} layers, d "
+                  f"{cfg.d_model}, {cfg.n_heads} heads, {attn_label(cfg)}, dense d_ff "
+                  f"{cfg.d_ff}, vocab {cfg.vocab_size}, dtype {cfg.dtype}: {nbytes // 4} fp32 "
+                  f"parameters ({nbytes} B) drawn on the card in {draw_s:.2f} s")
+    res, launches, peak = serve_counted(dep, lambda ticks: {
+        "chimera_attention": cfg.n_layers, "decode_step": cfg.n_layers * ticks,
+        "window_attention": 0})
+    decode_s = res.seconds - res.prefill_seconds
+    log("lm-mla", f"{name} {cfg.n_layers} layers: {timing_line(res)}; launches {launches}; "
+                  f"max_memory_allocated {peak} B")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prompts = np.array([r.prompt for r in res.requests])
+    tokens = torch.from_numpy(prompts[:, :SERVE_T]).to("cuda")
+    engine = dep.engine
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, _ = M.prefill_with_caches(cfg, engine.params, tokens, max_len=SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms, _ = report_profile(prof, wall, f"one {name} prefill of {SERVE_SLOTS} x {SERVE_T} "
+                                            f"tokens, {cfg.n_layers} layers")
+    if tuple(logits.shape) != (SERVE_SLOTS, cfg.padded_vocab) or not torch.isfinite(logits).all():
+        fail(f"lm-mla {name}: prefill logits of shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    tok = torch.from_numpy(np.array([r.generated[-1] for r in res.requests])).to("cuda")
+    pos = torch.full((SERVE_SLOTS,), SERVE_T + SERVE_NEW, dtype=torch.int32, device="cuda")
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        M.decode_step(cfg, engine.params, tok, pos, engine.caches)
+        torch.cuda.synchronize()
+        tick_wall = time.perf_counter() - t0
+    tick_busy_ms, _ = report_profile(prof, tick_wall, f"one {name} decode_step of {SERVE_SLOTS} "
+                                                      f"slots, {cfg.n_layers} layers")
+    del dep, engine, tokens
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": res.prefill_seconds, "ticks": res.ticks,
+            "tokens_per_s": SERVE_SLOTS * SERVE_T / res.prefill_seconds,
+            "ms_per_tick": decode_s / res.ticks * 1e3, "peak": peak,
+            "busy": busy_ms and busy_ms / (wall * 1e3),
+            "tick_busy": tick_busy_ms and tick_busy_ms / (tick_wall * 1e3)}
+
+
+def lm_softmax_full_width(name):
+    """(c) the full-causal softmax variant of ``name`` (``--no-chimera``) at
+    full width, 2 layers, through the launcher: 4 slots x 8193-token prompts
+    (the prefill through window_attention at W = T = 8192) and 16 new
+    tokens; that prefill and decode against the plain version on the card,
+    and a ragged 641-token prompt's prefill_batch against token-by-token
+    decode."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config(name), use_chimera=False, n_layers=SERVE_LAYERS)
+    dep, nbytes, draw_s = launcher(cfg)
+    engine = dep.engine
+    kv, Gq, d, dv = attn_widths(cfg)
+    log("lm-mla", f"{name} softmax (full-causal), {cfg.n_layers} of {get_config(name).n_layers} "
+                  f"layers at full width (d {cfg.d_model}, {cfg.n_heads} heads / {kv} kv-heads, "
+                  f"{attn_label(cfg)}, vocab {cfg.vocab_size}, dtype {cfg.dtype}): {nbytes // 4} "
+                  f"fp32 parameters drawn on the card in {draw_s:.2f} s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (SERVE_SLOTS, SERVE_T + 1))
+    warm = lm_replay(cfg, engine.params, prompts, SERVE_T, np.zeros((SERVE_SLOTS, 1), np.int64),
+                     SERVE_MAX_LEN)
+    if not torch.isfinite(warm).all():
+        fail(f"lm-mla {name} softmax: non-finite logits after the warm-up prefill")
+    res, launches, peak = serve_counted(dep, lambda ticks: {
+        "window_attention": cfg.n_layers, "chimera_attention": 0, "decode_step": 0})
+    if [r.prompt for r in res.requests] != prompts.tolist():
+        fail(f"lm-mla {name}: the launcher's prompts are not the replays' prompts")
+    log("lm-mla", f"{name} softmax: {timing_line(res)}; launches {launches} (window_attention "
+                  f"= {cfg.n_layers} layers x 1 prefill at W = T {SERVE_T}, d {d}, dv {dv}); "
+                  f"max_memory_allocated {peak} B")
+    gens = np.array([r.generated for r in res.requests])
+    got = lm_replay(cfg, engine.params, prompts, SERVE_T, gens, SERVE_MAX_LEN)
+    with plain_softmax_attention():
+        ref = lm_replay(cfg, engine.params, prompts, SERVE_T, gens, SERVE_MAX_LEN)
+    err = compare(f"lm-mla {name} softmax logits, kernel vs plain version", got, ref,
+                  atol=LM_LOGIT_TOL, rtol=LM_LOGIT_TOL)
+    held, total, gap = hold_generations(f"lm-mla {name} softmax kernel vs plain", gens, ref,
+                                        LM_MARGIN)
+    log("lm-mla", f"{name} softmax: prefill + {SERVE_NEW} decode steps, window_attention "
+                  f"against blockwise_softmax_attention_plain on the card: logits max abs diff "
+                  f"{err:.3e} (tolerance {LM_LOGIT_TOL:g} + {LM_LOGIT_TOL:g}*|ref|); greedy tokens "
+                  f"equal at {held} of {total} positions whose top-2 margin exceeds {LM_MARGIN:g} "
+                  f"(smallest margin {gap:.3e})")
+    rprompts = np.random.default_rng(SEED + 60).integers(0, cfg.vocab_size,
+                                                         (SERVE_SLOTS, RAGGED_T))
+    rengine = ServeEngine(cfg, engine.params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                          device="cuda")
+    reqs = [Request(rid=i, prompt=p.tolist(), max_new_tokens=RAGGED_NEW)
+            for i, p in enumerate(rprompts)]
+    rengine.prefill_batch(reqs)
+    rengine.run_until_done()
+    rgens = np.array([r.generated for r in reqs])
+    pre = RAGGED_T - 1
+    t0 = time.perf_counter()
+    fast = lm_replay(cfg, engine.params, rprompts, pre, rgens, SERVE_MAX_LEN)
+    seq = lm_replay(cfg, engine.params, rprompts, pre, rgens, SERVE_MAX_LEN, sequential=True)
+    seq_s = time.perf_counter() - t0
+    err = compare(f"lm-mla {name} softmax ragged prefill vs token-by-token decode", fast, seq,
+                  atol=LM_LOGIT_TOL, rtol=LM_LOGIT_TOL)
+    held, total, gap = hold_generations(f"lm-mla {name} softmax ragged prefill_batch vs "
+                                        "token-by-token", rgens, seq, LM_MARGIN)
+    log("lm-mla", f"{name} softmax: ragged prompt of {RAGGED_T} tokens, prefill_batch then "
+                  f"{RAGGED_NEW} tokens against token-by-token decode ({pre} steps, {seq_s:.1f} "
+                  f"s): logits max abs diff {err:.3e} (tolerance {LM_LOGIT_TOL:g} + "
+                  f"{LM_LOGIT_TOL:g}*|ref|); greedy tokens equal at {held} of {total} positions "
+                  f"whose top-2 margin exceeds {LM_MARGIN:g} (smallest margin {gap:.3e})")
+    del dep, engine, rengine, got, ref, fast, seq, warm
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_s": res.prefill_seconds,
+            "tokens_per_s": SERVE_SLOTS * SERVE_T / res.prefill_seconds,
+            "ms_per_tick": (res.seconds - res.prefill_seconds) / res.ticks * 1e3, "peak": peak}
+
+
+def phase_lm_mla(recs):
+    """MiniCPM3-4B's MLA and full-causal softmax attention served on the
+    card.  (a) check_lm_mla_kernels; (b) MiniCPM3-4B (Chimera) through the
+    launcher at full width, 2 of 62 layers with lm_serve_full_width's checks
+    (c) (the plain versions, a ragged prompt against token-by-token
+    decode), then at all 62 layers, timed; (c) the softmax variants of
+    SOFTMAX_LM at full width, 2 layers.  The smoke configs of both modes run
+    card against CPU in phase lm-chimera (d)."""
+    import torch
+
+    entries = check_lm_mla_kernels(recs)
+    runs = {"2 layers": lm_serve_full_width(MLA_LM),
+            "62 layers": lm_serve_full_depth(MLA_LM)}
+    runs.update({f"{name} softmax": lm_softmax_full_width(name) for name in SOFTMAX_LM})
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["2 layers"]["launches"]}
+    # each new shape's launches on this phase's main paths, in the kernels line
+    for kernel in ("decode_step", "chimera_attention"):
+        entries[kernel]["launches"] = sum(runs[n]["launches"][kernel]
+                                          for n in ("2 layers", "62 layers"))
+    for name in SOFTMAX_LM:
+        entries[name]["launches"] = runs[f"{name} softmax"]["launches"]["window_attention"]
+    torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs}
+
+
+# --------------------------------------------------------------------------
 # 7. reference: the card against the plain versions on the CPU
 # --------------------------------------------------------------------------
 
-# card vs CPU, fp32 on both sides with other summation orders, through 4
+# the engine phases card against CPU run REFERENCE_LAYERS of the paper
+# model's 4 layers: the CPU engines' host time grows with the layers, and
+# the cut keeps the whole run within its time (each layer is the same code)
+REFERENCE_LAYERS = 2
+# card vs CPU, fp32 on both sides with other summation orders, through the
 # layers and up to 3 x 16 decode steps per flow.  Without the static-global
 # tier every float agrees within 2e-4.  With it, a sign-LSH bit
 # (x . proj > 0) of a query whose dot product is within rounding of 0 can
@@ -2478,7 +2820,8 @@ def hold_outputs(what, got, want, tol, margins=None):
 
 
 def phase_reference(n_global):
-    """The engine on a small table (capacity 24, lanes 16, idle_timeout 2),
+    """The engine at the paper's width, REFERENCE_LAYERS of its layers, on a
+    small table (capacity 24, lanes 16, idle_timeout 2),
     3 rule-violating batches through five engines: per-round on the card
     and on the CPU, fused on the card (graphs) and on the CPU (eager), and
     fused on the card run eagerly (the same step without graphs).  Held: the
@@ -2492,7 +2835,7 @@ def phase_reference(n_global):
     from repro_torch.serve.flow_engine import FlowEngine, FlowEngineConfig, make_fused_ingest
     from repro_torch.train import classifier as C
 
-    ccfg, params = paper_classifier(n_global)
+    ccfg, params = paper_classifier(n_global, n_layers=REFERENCE_LAYERS)
     sc = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=48, seed=SEED + 1)
     batches = [sc.next_batch() for _ in range(3)]
     rules = C.default_rules(ccfg, sc.anomaly_signature)
@@ -4779,6 +5122,8 @@ def main():
         "chimera_attention"]
     launches["window_attention"] = timed("serve", phase_serve, recs)["launches"]["window_attention"]
     for name, n in timed("lm-chimera", phase_lm_chimera, recs)["launches"].items():
+        launches[name] += n
+    for name, n in timed("lm-mla", phase_lm_mla, recs)["launches"].items():
         launches[name] += n
     for name, n in timed("trainer", phase_trainer, recs)["launches"].items():
         launches[name] += n

@@ -24,20 +24,25 @@ from repro_torch.train.classifier import ClassifierConfig
 
 def arch_from_reference(ref) -> ArchConfig:
     """The port's ArchConfig from the JAX package's (read by attribute, so
-    no import of the JAX package is needed).  ``swa_backend`` is dropped:
-    the device of the tensors chooses the kernel or its plain version."""
+    no import of the JAX package is needed), MLA widths and ``softmax_blk``
+    included.  ``swa_backend`` is dropped: the device of the tensors
+    chooses the kernel or its plain version."""
     ch, fm = ref.chimera, ref.chimera.feature_map
     if ref.use_chimera and (not (ch.use_local and ch.use_stream) or ch.expand_kv):
         raise NotImplementedError("the port runs Chimera with local + stream, no expand_kv")
     if ref.encoder_layers:
-        raise NotImplementedError("the encoder-decoder path is not ported")
+        raise NotImplementedError("the encoder-decoder path is not ported (ROADMAP Queue 1 "
+                                  "item 3: whisper-tiny)")
     return ArchConfig(
         name=ref.name, family=ref.family, n_layers=ref.n_layers, d_model=ref.d_model,
         n_heads=ref.n_heads, n_kv_heads=ref.n_kv_heads, d_ff=ref.d_ff,
         vocab_size=ref.vocab_size, d_head=ref.d_head,
         vocab_pad_multiple=ref.vocab_pad_multiple, attention_kind=ref.attention_kind,
         qk_norm=ref.qk_norm, qkv_bias=ref.qkv_bias, sliding_window=ref.sliding_window,
-        rope_theta=ref.rope_theta, moe_experts=ref.moe_experts, moe_top_k=ref.moe_top_k,
+        rope_theta=ref.rope_theta, q_lora_rank=ref.q_lora_rank,
+        kv_lora_rank=ref.kv_lora_rank, qk_nope_dim=ref.qk_nope_dim,
+        qk_rope_dim=ref.qk_rope_dim, v_head_dim=ref.v_head_dim, moe_experts=ref.moe_experts,
+        moe_top_k=ref.moe_top_k,
         moe_every=ref.moe_every, moe_shared_experts=ref.moe_shared_experts,
         moe_d_ff=ref.moe_d_ff, moe_first_dense=ref.moe_first_dense,
         capacity_factor=ref.capacity_factor,
@@ -52,6 +57,7 @@ def arch_from_reference(ref) -> ArchConfig:
             match_hamming=ch.match_hamming, gamma=ch.gamma,
         ),
         norm_type=ref.norm_type, tie_embeddings=ref.tie_embeddings, dtype=ref.dtype,
+        softmax_blk=ref.softmax_blk,
     )
 
 
@@ -68,8 +74,10 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     without a GPU it raises): float leaves as float32, signed integer leaves
     (a fixed-point codebook table, an optimizer's step) in their own dtype.
     Every leaf is converted, the MoE tree's stacked expert tensors and its
-    0-d ``_moe`` marker included; a leaf that is not an array, or of
-    another dtype, raises, so nothing is silently dropped."""
+    0-d ``_moe`` marker included, and an MLA block's ``q_down``,
+    ``q_norm``, ``q_up``, ``kv_down``, ``kv_norm``, ``k_up``, ``v_up``,
+    ``wo`` and ``chimera`` under their own names; a leaf that is not an
+    array, or of another dtype, raises, so nothing is silently dropped."""
     device = resolve_device(device, "params_from_jax")
 
     def conv(t):

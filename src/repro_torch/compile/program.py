@@ -325,15 +325,14 @@ def compile_delta(
 # choice is honoured whatever its value (the device of the tensors picks a
 # kernel or its plain version; the port has no scan or remat switch):
 _EXECUTION = {
-    "arch": ("swa_backend", "scan_layers", "remat", "softmax_blk"),
+    "arch": ("swa_backend", "scan_layers", "remat"),
     "chimera": ("use_pallas", "backend"),
     "feature_map": (),
 }
 # a feature the port does not have is honoured only at the value that
 # leaves it off:
 _OFF = {
-    "arch": {"q_lora_rank": 0, "kv_lora_rank": 0, "qk_nope_dim": 0, "qk_rope_dim": 0,
-             "v_head_dim": 0, "encoder_layers": 0},
+    "arch": {"encoder_layers": 0},
     "chimera": {"use_local": True, "use_stream": True, "expand_kv": False},
     "feature_map": {},
 }

@@ -1,11 +1,13 @@
 """Architecture configuration: the fields of ``repro.configs.base.ArchConfig``
-that the ported paths read, with the same names and defaults: the dense
-Chimera stack (decode and training) and the softmax sliding-window (SWA)
-MoE stack of Mixtral (serving).
+that the ported paths read, with the same names and defaults: stacks of
+attention blocks (GQA, SWA or MLA attention, Chimera or softmax, dense or
+MoE MLP), for decode, prefill and training.
 
-SSM, MLA and enc-dec are not ported yet, so their fields are absent here,
-and so is ``swa_backend``: the device of the tensors chooses between a
-kernel and its plain version.
+Mamba, xLSTM and the encoder-decoder path are not ported yet (ROADMAP
+Queue 1 item 3), so their fields are absent here, and so are
+``swa_backend``, ``scan_layers`` and ``remat``: the device of the tensors
+chooses between a kernel and its plain version, and the port has no scan
+or remat switch.
 """
 
 from __future__ import annotations
@@ -31,11 +33,18 @@ class ArchConfig:
     vocab_pad_multiple: int = 256
 
     # attention
-    attention_kind: str = "gqa"  # gqa | swa (mla is not ported)
+    attention_kind: str = "gqa"  # gqa | swa | mla
     qk_norm: bool = False
     qkv_bias: bool = False
     sliding_window: int = 0  # swa only
     rope_theta: float = 1e4
+
+    # MLA (MiniCPM3 / DeepSeek style)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
 
     # MoE
     moe_experts: int = 0
@@ -60,6 +69,8 @@ class ArchConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
 
+    softmax_blk: int = 1024  # kv-block size of blockwise_softmax_attention's plain version
+
     @property
     def head_dim(self) -> int:
         return self.d_head if self.d_head else self.d_model // self.n_heads
@@ -82,9 +93,47 @@ class ArchConfig:
     def n_groups(self) -> int:
         return self.n_layers // len(self.block_pattern)
 
+    def layer_kind(self, layer_idx: int) -> str:
+        return self.block_pattern[layer_idx % len(self.block_pattern)]
+
     def layer_is_moe(self, layer_idx: int) -> bool:
         if self.moe_experts == 0:
             return False
         if layer_idx < self.moe_first_dense:
             return False
         return (layer_idx - self.moe_first_dense) % self.moe_every == 0
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks + head), the JAX
+        package's formula for stacks of attention blocks (GQA, SWA or MLA);
+        the Mamba and xLSTM terms come with those blocks."""
+        d, dff, V = self.d_model, self.d_ff, self.padded_vocab
+        n_attn_params = 0
+        n_mlp = 0
+        for i in range(self.n_layers):
+            kind = self.layer_kind(i)
+            if kind != "attn":
+                raise NotImplementedError(f"{self.name}: param_count of {kind!r} blocks is not "
+                                          "ported (ROADMAP Queue 1 item 3)")
+            if self.attention_kind == "mla":
+                dn, dr = self.qk_nope_dim, self.qk_rope_dim
+                dv = self.v_head_dim or self.head_dim
+                r = self.kv_lora_rank
+                qin = self.q_lora_rank or d
+                n_attn_params += d * (self.q_lora_rank or 0)
+                n_attn_params += qin * self.n_heads * (dn + dr)
+                n_attn_params += d * (r + dr) + r * self.n_heads * (dn + dv)
+                n_attn_params += self.n_heads * dv * d
+            else:
+                hd = self.head_dim
+                n_attn_params += d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                n_attn_params += self.n_heads * hd * d
+            if self.layer_is_moe(i):
+                e_ff = self.moe_d_ff or dff
+                n_mlp += self.moe_experts * 3 * d * e_ff
+                n_mlp += self.moe_shared_experts * 3 * d * e_ff
+                n_mlp += d * self.moe_experts
+            elif dff:
+                n_mlp += 3 * d * dff
+        n_embed = V * d * (1 if self.tie_embeddings else 2)
+        return n_embed + n_attn_params + n_mlp

@@ -1,8 +1,8 @@
 """Registry of the configurations the port has (port of
 ``repro.configs.registry``: ``get_config`` and ``smoke_config`` :49-89).
 
-``smoke_config``'s reductions are the JAX package's; its MLA, enc-dec and
-Mamba branches are left out with those families.
+``smoke_config``'s reductions are the JAX package's; its enc-dec and Mamba
+branches wait for whisper-tiny and jamba-1.5-large (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from repro_torch.configs import (
     chameleon_34b,
     chimera_dataplane,
     codeqwen15_7b,
+    minicpm3_4b,
     mixtral_8x7b,
     moonshot_v1_16b_a3b,
     qwen3_32b,
@@ -23,6 +24,7 @@ from repro_torch.configs.base import ArchConfig
 ARCHS = {
     "codeqwen1.5-7b": codeqwen15_7b.CONFIG,
     "yi-9b": yi_9b.CONFIG,
+    "minicpm3-4b": minicpm3_4b.CONFIG,
     "qwen3-32b": qwen3_32b.CONFIG,
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
@@ -52,6 +54,7 @@ def smoke_config(name: str) -> ArchConfig:
         vocab_size=256,
         vocab_pad_multiple=32,
         dtype="float32",
+        softmax_blk=64,
         chimera=dataclasses.replace(
             cfg.chimera,
             feature_map=dataclasses.replace(cfg.chimera.feature_map, m=16),
@@ -69,4 +72,7 @@ def smoke_config(name: str) -> ArchConfig:
             moe_shared_experts=min(cfg.moe_shared_experts, 1),
             capacity_factor=4.0,
         )
+    if cfg.attention_kind == "mla":
+        replace.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
+                       v_head_dim=16)
     return dataclasses.replace(cfg, **replace)

@@ -57,20 +57,25 @@
 //      (2t, 2t + 1), S_c at dv + 8 (= 8 mod 16).  The local and stream
 //      tiles share one region (~102 KB at the prefill shape), so two blocks
 //      fit an SM.  Neither kernel's shared memory grows with m.
-//   The fold and the readout split their operands by split_rn (hi and lo
-//   rounded to nearest): their products are of running sums, up to ~700
-//   where a partial is ~1 at T = 4L, m 16.  The local term keeps the
-//   truncating split: on an H100 it measured 0.45 ms faster at the
-//   prefill shape, and either split kept every edge shape within 0.39 of
-//   the tolerance against the float64 partials.
+//   Every product splits its operands by split_rn (hi and lo rounded to
+//   nearest).  The fold's and the readout's are of running sums, up to
+//   ~700 where a partial is ~1 at T = 4L, m 16.  The local term's too:
+//   with the truncating split its num/den erred 3.3-7.4x the fp32 plain
+//   version's from float64 on a MoE prefill's inputs, enough to flip a
+//   top-6 expert choice at a router gap of 1.8e-3; rounded, 1.2-2.6x, and
+//   no flip wider than the plain versions' (chip_smoke.route_gaps and
+//   route_flip_cause on an H100 80GB HBM3 at 700 W), for 0.62-0.65 ms at
+//   the prefill shape (compare_builds, 3.32-3.36 ms against 2.70-2.71).
 // What holds it back (an H100 at the prefill shape, removing one part at
-// a time in variants of this source): 2.69 ms in all, 1.75 ms the local
-// term alone, 1.01 ms the stream term alone, of which 0.26 ms the fold and
-// the prefix.  With one TF32 pass instead of three, the local term takes
-// 1.11 ms and the stream term 0.69 ms; with the split instructions removed
-// (three passes kept) 1.56 and 0.86 ms.  So mma.sync issue and the splits
-// take most of the time, at 8 warps an SM (~240 registers a thread), and
-// the readout and the local term of a block run one after the other.
+// a time in variants of this source, with the local term's truncating
+// split): 2.69 ms in all, 1.75 ms the local term alone, 1.01 ms the stream
+// term alone, of which 0.26 ms the fold and the prefix.  With one TF32
+// pass instead of three, the local term takes 1.11 ms and the stream term
+// 0.69 ms; with the split instructions removed (three passes kept) 1.56
+// and 0.86 ms.  So mma.sync issue and the splits take most of the time, at
+// 8 warps an SM (~240 registers a thread), and the readout and the local
+// term of a block run one after the other; the rounding split adds 0.50
+// ms to the local term (2.24-2.26 ms alone).
 //
 // Contract (all float32, contiguous, 16-byte aligned; BH = batch * kv-heads):
 //   q (BH,Gq,T,d) k (BH,T,d) v (BH,T,dv) phi_q (BH,Gq,T,m) phi_k (BH,T,m)
@@ -463,11 +468,11 @@ __global__ void __launch_bounds__(kChunkThreads, 2) chimera_chunk_kernel(
         };
         auto product = [&](const float* au, const float (*bu)[2]) {
           uint32_t ahi[4], alo[4];
-          split4(au, ahi, alo);
+          split4<true>(au, ahi, alo);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             if (j < nb) {
-              const Split b0 = split(bu[j][0]), b1 = split(bu[j][1]);
+              const Split b0 = split_rn(bu[j][0]), b1 = split_rn(bu[j][1]);
               mma(sl[j], alo, b0.hi, b1.hi);
               mma(sl[j], ahi, b0.lo, b1.lo);
               mma(s[j], ahi, b0.hi, b1.hi);
@@ -505,8 +510,8 @@ __global__ void __launch_bounds__(kChunkThreads, 2) chimera_chunk_kernel(
             // P as the A operand with keys permuted: column t -> key 2t, t + 4 -> 2t + 1
             const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
             uint32_t ahi[4], alo[4];
-            split4(pa, ahi, alo);
-            mma_b<NT>(tacc, ahi, alo, vr + 8 * j * SV, SV);
+            split4<true>(pa, ahi, alo);
+            mma_b<NT, true>(tacc, ahi, alo, vr + 8 * j * SV, SV);
           }
         }
         flush();

@@ -64,14 +64,21 @@
 // rescale when no row's max moved, and extra fp32 flushes inside QK^T were
 // each measured and were no faster.
 //
+// Full-causal softmax attention (models/attention.py's
+// blockwise_softmax_attention, which JAX computes in jnp) runs here too, at
+// W = T: with W >= T the band start max(0, i0 - W + 1) is 0, no tile is
+// skipped for the window and every tile below the diagonal is "full".
+//
 // Contract (q, k, v, o contiguous and 16-byte aligned, all float32 or all
 // bfloat16):
 //   q (B*H, T, d), k (B*Hkv, T, d), v (B*Hkv, T, dv) -> o (B*H, T, dv)
-// Takes H % Hkv == 0, W >= 1, any T, and (d, dv) with d and dv in {64, 128},
-// or d = dv in {16, 32} (the smoke configs' head widths: QK^T runs two or
-// four k-steps, and PV one fresh accumulator of 2 or 4 n-tiles); anything
-// else (dv 256 among them: its O accumulator alone would take 128 registers
-// a thread) is cudaErrorInvalidValue.
+// Takes H % Hkv == 0, W >= 1 (W > T included), any T, and (d, dv) with d
+// and dv in {64, 128}, d = dv in {16, 32} (the smoke configs' head widths:
+// QK^T runs two or four k-steps, and PV one fresh accumulator of 2 or 4
+// n-tiles), (96, 64) (MLA's materialized heads: qk_nope 64 + qk_rope 32,
+// v 64; twelve k-steps of QK^T) or (24, 16) (MLA's smoke widths: three
+// k-steps); anything else (dv 256 among them: its O accumulator alone
+// would take 128 registers a thread) is cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -336,6 +343,8 @@ int launch_dims(const void* q, const void* k, const void* v, void* o, int BH, in
     return launch<T, 128, 128>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
   if (d == 16 && dv == 16) return launch<T, 16, 16>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
   if (d == 32 && dv == 32) return launch<T, 32, 32>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+  if (d == 96 && dv == 64) return launch<T, 96, 64>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+  if (d == 24 && dv == 16) return launch<T, 24, 16>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,9 @@ plain version.
 
 Replaces ``repro/kernels/window_attention/kernel.py::window_attention_pallas``
 with ``csrc/window_attention.cu`` (the SWA prefill of Mixtral's softmax
-variant).  Row i attends to the keys j with 0 <= i - j < W, scale 1/sqrt(d);
-the output is in q's dtype.
+variant, and at W = T the full-causal softmax prefill of
+``models/attention.py``'s ``blockwise_softmax_attention``).  Row i attends to
+the keys j with 0 <= i - j < W, scale 1/sqrt(d); the output is in q's dtype.
 
 * :func:`window_attention_plain` — the port of
   ``repro/kernels/window_attention/ref.py``, with dense (T, T) masks, on the
@@ -36,8 +37,9 @@ from repro_torch.kernels import _build
 launches = 0
 
 # the launcher's contract (csrc/window_attention.cu): the (d, dv) pairs it
-# is built for
-DIMS_TAKEN = ((64, 64), (64, 128), (128, 64), (128, 128), (16, 16), (32, 32))
+# is built for; (96, 64) and (24, 16) are MLA's heads at full and smoke width
+DIMS_TAKEN = ((64, 64), (64, 128), (128, 64), (128, 128), (16, 16), (32, 32), (96, 64),
+              (24, 16))
 
 
 def contract(*, d: int, dv: int, H: int, Hkv: int, window: int) -> Optional[str]:

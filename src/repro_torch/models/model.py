@@ -3,14 +3,16 @@
 ``_scan_groups`` :205, ``forward`` :221, ``_head`` :241, ``loss_fn`` :264,
 ``init_caches`` :300, ``_block_decode`` :309, ``decode_hidden_step`` :335,
 ``decode_step`` :363, ``_block_prefill`` :500 and ``prefill_with_caches``
-:526).
+:526; the MLA dispatch of ``_init_block`` :66, ``_block_forward`` :100,
+``_init_block_cache`` :288, ``_block_decode`` :312 and ``_block_prefill``
+:503).
 
 The parameter layout is the JAX package's: per-group block parameters are
 stacked on a leading "layers" axis under ``params["blocks"]["b<j>"]``, and
 the caches likewise.  The JAX ``scan`` over groups becomes a Python loop
-over that axis; the caches are updated in place.  Two stacks are ported,
-both of attention blocks only: the Chimera stack (dense or MoE MLP) and the
-softmax sliding-window stack (Mixtral: SWA attention, MoE MLP).  The
+over that axis; the caches are updated in place.  Stacks of attention
+blocks are ported: GQA, SWA or MLA attention, Chimera or softmax (banded
+or full-causal), with dense or MoE MLPs.  The
 residual stream is in ``cfg.dtype``: the embedding is cast to it, and every
 block's output is cast back to it before the residual add, as in JAX.
 """
@@ -41,15 +43,23 @@ Params = Dict[str, Any]
 
 
 def _require_ported(cfg: ArchConfig) -> None:
-    """The stacks the port has: attention blocks only (no Mamba / xLSTM, no
-    encoder), Chimera attention or softmax sliding-window attention, dense
-    or MoE MLPs.  ``family`` is a label (the JAX package's dryrun prints
-    it): a "vlm" such as Chameleon, whose image tokens are vocabulary ids,
-    is such a stack."""
+    """The stacks the port has: attention blocks (GQA, SWA or MLA; Chimera
+    or softmax) with dense or MoE MLPs.  Mamba (jamba-1.5-large), xLSTM
+    (xlstm-125m) and the encoder-decoder stack (whisper-tiny, family
+    "audio") are refused: they wait for ROADMAP Queue 1 item 3.
+    ``family`` is a label (the JAX package's dryrun prints it): a "vlm"
+    such as Chameleon, whose image tokens are vocabulary ids, is a stack of
+    attention blocks."""
     if any(kind != "attn" for kind in cfg.pattern) or cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only stacks of attention blocks (family dense, moe or vlm) are ported")
+            f"{cfg.name}: Mamba, xLSTM and encoder-decoder stacks are not ported (ROADMAP "
+            "Queue 1 item 3); the port has stacks of attention blocks (family dense, moe or "
+            "vlm)")
     attn.require_ported(cfg)
+
+
+def _is_mla(cfg: ArchConfig) -> bool:
+    return cfg.attention_kind == "mla"
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -57,7 +67,8 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def _init_block(cfg: ArchConfig, pos_in_pattern: int, g: torch.Generator, device) -> Params:
-    p = {"ln1": init_norm(cfg.d_model, device), "attn": attn.init_attention(cfg, g, device)}
+    init = attn.init_mla if _is_mla(cfg) else attn.init_attention
+    p = {"ln1": init_norm(cfg.d_model, device), "attn": init(cfg, g, device)}
     if cfg.d_ff or cfg.moe_experts:
         p["ln2"] = init_norm(cfg.d_model, device)
         if cfg.layer_is_moe(pos_in_pattern):
@@ -116,7 +127,10 @@ def _block_forward(cfg: ArchConfig, bp: Params, x, positions, causal: bool = Tru
     """Returns ``(x, aux)``: aux is the MoE balance loss (0 without MoE)."""
     aux = torch.zeros((), device=x.device)
     h = apply_norm(bp["ln1"], x, cfg.norm_type)
-    y = attn.attention_layer(cfg, bp["attn"], h, positions, causal=causal)
+    if _is_mla(cfg):
+        y = attn.mla_attention_layer(cfg, bp["attn"], h, positions)
+    else:
+        y = attn.attention_layer(cfg, bp["attn"], h, positions, causal=causal)
     x = x + y.to(x.dtype)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
@@ -185,16 +199,17 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int = 0, dtype=None, device=None):
-    """Zero decode caches, stacked on the layer axis: Chimera states, or ring
-    KV caches of ``min(max_len, window)`` tokens for softmax SWA.  ``dtype``
-    defaults to ``cfg.dtype``.  ``device=None`` means ``"cuda"``; without a
-    GPU it raises."""
+    """Zero decode caches, stacked on the layer axis: Chimera states, or
+    softmax KV caches of ``max_len`` tokens (a ring of ``min(max_len,
+    window)`` for SWA; MLA's latent cache).  ``dtype`` defaults to
+    ``cfg.dtype``.  ``device=None`` means ``"cuda"``; without a GPU it
+    raises."""
     _require_ported(cfg)
     device = resolve_device(device, "init_caches")
     dtype = dtype or _dtype(cfg)
+    init = attn.init_mla_cache if _is_mla(cfg) else attn.init_attention_cache
     return {
-        f"b{j}": attn.init_attention_cache(cfg, batch, max_len, dtype, device,
-                                           lead=(cfg.n_groups,))
+        f"b{j}": init(cfg, batch, max_len, dtype, device, lead=(cfg.n_groups,))
         for j in range(len(cfg.pattern))
     }
 
@@ -209,7 +224,8 @@ def _layer_cache(c, gi: int):
 
 def _block_decode(cfg: ArchConfig, bp: Params, x_t, position, cache):
     h = apply_norm(bp["ln1"], x_t, cfg.norm_type)
-    y = attn.attention_decode(cfg, bp["attn"], h, position, cache)
+    decode = attn.mla_decode if _is_mla(cfg) else attn.attention_decode
+    y = decode(cfg, bp["attn"], h, position, cache)
     x_t = x_t + y.to(x_t.dtype)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x_t, cfg.norm_type)
@@ -248,7 +264,8 @@ def decode_step(cfg: ArchConfig, params: Params, token, position, caches) -> tor
 
 def _block_prefill(cfg: ArchConfig, bp: Params, x, positions, max_len: int):
     h = apply_norm(bp["ln1"], x, cfg.norm_type)
-    y, cache = attn.attention_prefill(cfg, bp["attn"], h, positions, max_len)
+    prefill = attn.mla_prefill if _is_mla(cfg) else attn.attention_prefill
+    y, cache = prefill(cfg, bp["attn"], h, positions, max_len)
     x = x + y.to(x.dtype)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x, cfg.norm_type)

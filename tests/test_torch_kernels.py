@@ -192,39 +192,48 @@ def test_flow_score_plain_matches_jax(tiny_classifier_cfg, M):
 
 def _port_configs():
     """``(label, cfg)`` for every configuration the port runs: each registry
-    config at full width and as ``smoke_config``, the SWA configs (Mixtral-
-    8x7B) also as their softmax variant.  The full widths are the model zoo's
-    default Chimera widths (L 256, m 128, d_head 128, Gq 1, 4 and 8), which
-    ``decode_step`` takes with its ring tiled and ``chimera_attention``
-    through its long-chunk kernel."""
+    config at full width and as ``smoke_config``, each also as its softmax
+    variant (``launch/dryrun.py --no-chimera``: banded for SWA, full-causal
+    otherwise).  The full widths are the model zoo's default Chimera widths
+    (L 256, m 128, d_head 128, Gq 1, 4 and 8; MiniCPM3-4B's MLA heads at q/k
+    width 96 and v width 64), which ``decode_step`` takes with its ring
+    tiled and ``chimera_attention`` through its long-chunk kernel."""
     out = []
     for name in sorted(registry.ARCHS):
         for size, cfg in (("full", registry.get_config(name)),
                           ("smoke", registry.smoke_config(name))):
             out.append((f"{name} {size}", cfg))
-            if cfg.attention_kind == "swa":
-                out.append((f"{name} {size} softmax",
-                            dataclasses.replace(cfg, use_chimera=False)))
+            out.append((f"{name} {size} softmax", dataclasses.replace(cfg, use_chimera=False)))
     return out
+
+
+# the full-causal softmax prefill runs window_attention with the window at
+# the prompt's length: any length the launcher serves
+FULL_CAUSAL_T = 8192
 
 
 def _kernel_calls(cfg):
     """``(kernel, contract(...))`` for each kernel the config's paths launch:
     the Chimera stack's decode_step (flow ingest, LM decode), flow_score
     (flow ingest, the classifier's 8 classes over 8 signature words) and
-    chimera_attention (training); the softmax SWA stack's window_attention
-    (LM prefill)."""
-    dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    chimera_attention (training); the softmax stack's window_attention (LM
+    prefill, banded or at W = T).  MLA's heads are its materialized ones:
+    H heads of q/k width qk_nope + qk_rope and v width v_head_dim."""
+    H, Hkv, d, dv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim
+    if cfg.attention_kind == "mla":
+        Hkv, d, dv = H, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim or cfg.head_dim
     if cfg.use_chimera:
         ch = cfg.chimera
-        m, L = ch.feature_map.feature_dim(dh), ch.chunk_size
+        m, L = ch.feature_map.feature_dim(d), ch.chunk_size
         return [
-            ("decode_step", dops.contract(Gq=H // Hkv, d=dh, dv=dh, m=m, L=L)),
+            ("decode_step", dops.contract(Gq=H // Hkv, d=d, dv=dv, m=m, L=L)),
             ("flow_score", sops.contract(d=cfg.d_model, K=8, W=8, M=1)),
-            ("chimera_attention", cops.contract(d=dh, dv=dh, m=m, L=L)),
+            ("chimera_attention", cops.contract(d=d, dv=dv, m=m, L=L)),
         ]
-    return [("window_attention",
-             wops.contract(d=dh, dv=dh, H=H, Hkv=Hkv, window=cfg.sliding_window))]
+    swa = cfg.attention_kind == "swa" and cfg.sliding_window
+    return [("window_attention", wops.contract(d=d, dv=dv, H=H, Hkv=Hkv,
+                                               window=cfg.sliding_window if swa
+                                               else FULL_CAUSAL_T))]
 
 
 @pytest.mark.parametrize("label,cfg", _port_configs(), ids=[c[0] for c in _port_configs()])

@@ -360,7 +360,7 @@ def test_config_reader_refuses_what_the_port_cannot_honor(models):
     ok["arch"].update(remat="none", scan_layers=False, swa_backend="pallas-tpu")
     ok["arch"]["chimera"].update(use_pallas=True, backend="pallas-tpu")
     assert _ccfg_from_dict(ok) == _ccfg_from_dict(base)
-    for path, value, match in ((("arch", "q_lora_rank"), 8, "not supported"),
+    for path, value, match in ((("arch", "encoder_layers"), 2, "not supported"),
                                (("arch", "chimera", "use_local"), False, "not supported"),
                                (("arch", "chimera", "feature_map", "kind"), "codebook", None),
                                (("arch", "block_pattern"), ["attn", "mamba"], "attention only"),
