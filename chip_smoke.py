@@ -28,8 +28,8 @@ Phases, each printing its own lines:
                4 x 8192 tokens through the window_attention kernel, then 16
                new tokens per slot over the ring KV cache; one profiled
                prefill.
-7. reference — the engine on a small table (2 of the paper model's 4
-               layers), 3 classifier training steps of
+7. reference — the engine on a small table (REFERENCE_LAYERS 1 of the
+               paper model's 4 layers), 3 classifier training steps of
                a small model, and serving of a small softmax-SWA MoE model,
                on the card and on the CPU (plain versions): they must agree.
 8. program   — run right after the engine phase: the int_flow_score kernel
@@ -59,7 +59,7 @@ Phases, each printing its own lines:
                all shards on the one card.  decode_step at the stacked width
                (4 shards x 256 lanes) against its plain version, timed;
                (a) a ShardedFlowEngine of 4 shards x 1024 slots beside a
-               FlowEngine of 4096 at the paper's width (2 of its 4 layers)
+               FlowEngine of 4096 at the paper's width (SHARD_LAYERS 2 of its 4 layers)
                on the same batches: decisions identical, packets/s of both,
                busy share, launches
                per round; (b) the elastic service through the launcher
@@ -117,10 +117,26 @@ Phases, each printing its own lines:
                width, 2 layers, T 8192: against the plain version on the card
                and a ragged 641-token prompt against token-by-token decode.
 
-Phases 4, 5, 6, 8, 9, 10, 11, 12 and 13 are the main paths: the kernels'
-launch counters are zeroed just before each (each part of phases 10, 12 and
-13) and read just after, and each fails if one of its kernels never
-launched.  Then
+14. train-softmax — run after the lm-mla phase, before the trainer phase:
+               softmax attention trained on the card.  (a) the window
+               kernels' backward (csrc/window_attention_bwd.cu, three
+               launches) against window_attention_bwd_plain at Mixtral-8x7B's
+               training shape (B 1 x H 32 over 8, T 8192, W 4096, d = dv =
+               128) and MiniCPM3-4B's W = T = 8192 (H = Hkv 40, d 96, dv 64),
+               bf16 and fp32, and at every edge shape; two launches bit for
+               bit equal; timed with the forward + backward and
+               scaled_dot_product_attention's; (b) Mixtral-8x7B's softmax SWA
+               variant and (c) MiniCPM3-4B's full-causal variant through the
+               Trainer at full width, 2 layers, B 1 x 8192, remat "full": 1 +
+               5 AdamW steps (ms/step, tokens/s, peak memory), one profiled
+               step, and the whole step's loss and gradients against the
+               plain route on the card (fp32, seq 2048); (d) both smoke
+               configs' softmax variants, 10 Trainer steps, card against CPU.
+
+Phases 4, 5, 6, 8, 9, 10, 11, 12, 13 and 14 are the main paths: the
+kernels' launch counters are zeroed just before each (each part of phases
+10, 12, 13 and 14) and read just after, and each fails if one of its
+kernels never launched.  Then
 a JSON line with every kernel's numbers, a JSON line ``{"phases": {...}}``
 with every phase's seconds (and the run's total), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -156,6 +172,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # float32 outside the tensor cores (decode_step, flow_score)
 TF32_FLOPS = 495e12  # TF32 on the tensor cores (chimera_attention, window_attention)
+BF16_FLOPS = 989e12  # bf16 on the tensor cores, fp32 accumulation (bf16 window backward)
 # chimera_attention and window_attention run each fp32 product as three
 # TF32 products (split fp32)
 TF32_PASSES = 3
@@ -1040,13 +1057,15 @@ def window_cost(B, H, Hkv, T, W, d, dv):
 # (T, W, dtype, H, Hkv) of the edge shapes, each at every (d, dv) of
 # WINDOW_EDGE_DIMS (B 2): ragged T, W below a tile, W > T, W = T and T + 1
 # (full-causal attention: blockwise_softmax_attention's route), a tile
-# boundary (T 128, W 64), W a multiple of the tile with T not, and 1, 2 and
-# 4 kv-heads
+# boundary (T 128, W 64), W a multiple of the tile with T not, W = 1 (the
+# diagonal alone), T = W + 1 over a tile boundary, and 1, 2 and 4 kv-heads;
+# the backward runs each in fp32 and bf16
 WINDOW_EDGES = (
     (200, 48, "float32", 4, 1), (200, 300, "float32", 4, 1), (77, 13, "float32", 2, 2),
     (200, 48, "bfloat16", 4, 1), (200, 48, "float32", 8, 4), (128, 64, "float32", 4, 2),
     (200, 128, "float32", 4, 2), (200, 128, "bfloat16", 8, 4), (200, 200, "float32", 4, 1),
-    (200, 201, "float32", 4, 2), (77, 77, "bfloat16", 2, 2),
+    (200, 201, "float32", 4, 2), (77, 77, "bfloat16", 2, 2), (77, 1, "float32", 4, 2),
+    (129, 128, "bfloat16", 4, 1),
 )
 # the (d, dv) of the edge shapes: the zoo's 64 and 128, the smoke configs'
 # 16 and 32, and MLA's (96, 64) at full width and (24, 16) at the smoke size
@@ -2780,13 +2799,481 @@ def phase_lm_mla(recs):
 
 
 # --------------------------------------------------------------------------
+# 14. train-softmax (softmax attention trained on the card)
+# --------------------------------------------------------------------------
+
+# the backward kernels against window_attention_bwd_plain on the same (q, k,
+# v, o, lse, do), per tensor: fp32 sums over up to G x W terms in other
+# orders, within WIN_BWD_ATOL * max|ref| + WIN_BWD_RTOL * |ref|; bf16: each
+# side rounds its fp32 result to bf16 once (one bf16 ulp apart at most,
+# 2^-7 relative), within WIN_BWD_BF16_ATOL * max|ref| + WIN_BF16_TOL * |ref|;
+# max|ref| is the largest of dq, dk and dv of a slice.
+# The forward's lse against window_attention_lse_plain: ATOL + RTOL * |ref|.
+WIN_BWD_ATOL, WIN_BWD_RTOL = 1e-5, 1e-4
+WIN_BWD_BF16_ATOL = 1e-4
+# (b) and (c): full width, 2 layers, B 1 x seq 8192, 1 warm-up + 5 timed
+# AdamW steps through the Trainer (remat "full", the configs' default)
+SOFTMAX_TRAIN = ("mixtral-8x7b", "minicpm3-4b")
+SOFTMAX_TRAIN_LAYERS, SOFTMAX_TRAIN_T, SOFTMAX_TRAIN_STEPS = 2, 8192, 5
+# the whole step, kernel route against plain route on the card, fp32, 2
+# layers at seq 2048 (Mixtral's window cut to 1024, so the band still cuts):
+# the plain route's dense (T, T) scores fit there.  Loss and gradient norm
+# within REF_LOSS_RTOL; every leaf's ||g_kernel - g_plain|| / ||g_plain||
+# within STEP_GRAD_RTOL (fp32 sums in other orders through attention, the
+# MoE and the head: ~1e-6 expected)
+STEP_CMP_T, STEP_CMP_W = 2048, 1024
+STEP_GRAD_RTOL = 1e-3
+SOFTMAX_SMOKE_STEPS, SOFTMAX_SMOKE_WINDOW = 10, 8  # (d): the smoke configs, card against CPU
+
+
+def event_ms(fn, iters, warmup=1):
+    """Milliseconds per call from CUDA events around ``iters`` calls issued
+    from Python (no CUDA graph: autograd's backward is among the calls
+    timed).  For calls of milliseconds and more, where the launch overhead
+    is noise."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def window_bwd_cost(B, H, Hkv, T, W, d, dv, esize):
+    """Bytes and flops of the backward: q, o, do and lse (fp32) read once,
+    k and v per kv-head, dq, dk and dv written once; five products over the
+    in-band pairs (S = q k^T and dq, dk: 2 d flop a pair each; dP = do v^T
+    and dv: 2 dv each)."""
+    n1 = min(T, W)
+    pairs = n1 * (n1 + 1) // 2 + (T - n1) * W
+    rows, kv_rows = B * H * T, B * Hkv * T
+    nbytes = esize * (2 * rows * (d + 2 * dv) + 2 * kv_rows * (d + dv)) + 4 * rows
+    return nbytes, B * H * pairs * (6 * d + 4 * dv)
+
+
+def check_window_bwd(shape, dtype, seed, slice_heads=WIN_PLAIN_HEADS, timed=False):
+    """The backward at ``shape`` = (B, H, Hkv, T, W, d, dv) in ``dtype``:
+    the forward kernel's lse against the plain one; dq, dk, dv through the
+    autograd Function (the forward and backward kernels) against
+    window_attention_bwd_plain on the kernel's own o and lse, over slices of
+    ``slice_heads`` query heads; a second backward launch on the same inputs
+    bit for bit equal to the first.  ``timed``: the backward alone, forward +
+    backward, the plain version over all slices and
+    ``scaled_dot_product_attention`` forward + backward, against the bound.
+    Returns the record."""
+    import torch
+    from repro_torch.kernels.window_attention import ops
+
+    B, H, Hkv, T, W, d, dv = shape
+    G = H // Hkv
+    dt = getattr(torch, dtype)
+    q, k, v = window_inputs(B, H, Hkv, T, d, dv, seed, dt)
+    g = torch.Generator().manual_seed(seed + 1000)
+    do = torch.randn((B, H, T, dv), generator=g).to("cuda", dt)
+    o, lse = ops.window_attention_fwd(q, k, v, W)
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = ops.sliding_window_attention(*xs, W)
+    if not torch.equal(out.detach(), o):
+        fail(f"window_attention backward {shape} {dtype}: the Function's forward differs from "
+             "the forward kernel's")
+    got = torch.autograd.grad(out, xs, do)
+    del out, xs
+    again = ops.window_attention_bwd(q, k, v, o, lse, do, W)
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if a.dtype != dt or not torch.equal(a, b):
+            fail(f"window_attention backward {shape} {dtype}: {name} of two launches on the same "
+                 f"inputs differ (or dtype {a.dtype})")
+    del again
+    hs = max(G, slice_heads // G * G)  # whole kv-heads per slice
+    slices = [(b, h0) for b in range(B) for h0 in range(0, H, hs)]
+
+    def plain(b, h0):
+        kv = slice(h0 // G, (h0 + hs) // G)
+        f = [x.float() for x in (q[b, h0:h0 + hs], k[b, kv], v[b, kv], o[b, h0:h0 + hs],
+                                 do[b, h0:h0 + hs])]
+        return ops.window_attention_bwd_plain(f[0], f[1], f[2], f[3], lse[b, h0:h0 + hs], f[4],
+                                              W)
+
+    errs = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    bf16 = dt == torch.bfloat16
+    atol, rtol = (WIN_BWD_BF16_ATOL, WIN_BF16_TOL) if bf16 else (WIN_BWD_ATOL, WIN_BWD_RTOL)
+    label = f"window_attention backward B {B} x H {H} (Hkv {Hkv}) T {T} W {W} d {d} dv {dv} {dtype}"
+    with torch.no_grad():
+        for b, h0 in slices:
+            kv = slice(h0 // G, (h0 + hs) // G)
+            kf = k[b, kv].float().repeat_interleave(G, dim=0)
+            want = ops.window_attention_lse_plain(q[b, h0:h0 + hs].float(), kf, W)
+            errs["lse"] = max(errs["lse"], compare(f"{label} lse", lse[b, h0:h0 + hs], want))
+            del kf, want
+            wants = plain(b, h0)
+            # the floor scales with the largest gradient of the slice: where W = 1
+            # dq and dk are 0 but for roundings of dP - D on both sides
+            scale = max(float(w.abs().max()) for w in wants)
+            for name, a, w in zip(("dq", "dk", "dv"),
+                                  (got[0][b, h0:h0 + hs], got[1][b, kv], got[2][b, kv]), wants):
+                if bf16:
+                    w = w.to(dt).float()
+                e = compare(f"{label} {name} b {b} heads {h0}..{h0 + hs - 1}", a.float(), w,
+                            atol=atol * scale, rtol=rtol)
+                errs[name] = max(errs[name], e)
+            del wants
+            torch.cuda.empty_cache()
+    log("train-softmax", f"{label}: max abs err lse {errs['lse']:.3e}, dq {errs['dq']:.3e}, dk "
+                         f"{errs['dk']:.3e}, dv {errs['dv']:.3e} against the plain version over "
+                         f"{len(slices)} slices of {hs} heads (tolerance {atol:g}*max|ref of "
+                         f"dq, dk, dv| + "
+                         f"{rtol:g}*|ref|; lse {ATOL:g} + {RTOL:g}*|ref|); two launches bit for bit "
+                         f"equal")
+    rec = {"max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")), "errs": errs,
+           "shape": f"B {B} x H {H} (Hkv {Hkv}) T {T} W {W} d {d} dv {dv} {dtype}"}
+    if timed:
+        with torch.no_grad():
+            ms = event_ms(lambda: ops.window_attention_bwd(q, k, v, o, lse, do, W), iters=3)
+            fwd_ms = event_ms(lambda: ops.window_attention_fwd(q, k, v, W), iters=3)
+            fb_ms = event_ms(lambda: ops.window_attention_bwd(
+                q, k, v, *ops.window_attention_fwd(q, k, v, W), do, W), iters=3)
+            plain_ms = event_ms(lambda: [plain(b, h0) for b, h0 in slices], iters=1)
+        library_ms = sdpa_fwd_bwd_ms(q, k, v, do, W)
+        nbytes, flops = window_bwd_cost(B, H, Hkv, T, W, d, dv, q.element_size())
+        if bf16:  # bf16 operands take the bf16 tensor cores whole, no split
+            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+            rate = "in bf16 on the tensor cores"
+        else:
+            bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+            rate = f"x{TF32_PASSES} in TF32 on the tensor cores"
+        fp32_ms = flops / FP32_FLOPS * 1e3
+        rec.update(ms=ms, fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms, library_of="forward + backward",
+                   bytes=nbytes, flops=flops)
+        log("train-softmax", f"{label} device time: backward {ms:.4f} ms (3 launches), forward "
+                             f"with lse {fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms; bound "
+                             f"of the backward {bound_ms:.4f} ms by {bound_by} ({nbytes} B; "
+                             f"{flops} flop, {rate}; on the fp32 CUDA cores, where this kernel "
+                             f"runs them, {fp32_ms:.4f} ms); "
+                             f"scaled_dot_product_attention forward + backward "
+                             f"{fmt_ms(library_ms)}; plain backward {plain_ms:.4f} ms over its "
+                             f"{len(slices)} slices")
+    del q, k, v, o, lse, do, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sdpa_fwd_bwd_ms(q, k, v, do, W):
+    """``scaled_dot_product_attention`` forward + backward (the
+    memory-efficient backend; K and V repeated to the query heads, the band
+    as a boolean mask, causal where W >= T): the library column."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    T, G = q.shape[2], q.shape[1] // k.shape[1]
+    idx = torch.arange(T, device="cuda")
+    band = ((idx[:, None] - idx[None, :]) >= 0) & ((idx[:, None] - idx[None, :]) < W)
+    xs = [q.detach().requires_grad_(True)] + [
+        x.repeat_interleave(G, dim=1).detach().requires_grad_(True) for x in (k, v)]
+
+    def fwd_bwd():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            if W >= T:
+                out = torch.nn.functional.scaled_dot_product_attention(*xs, is_causal=True)
+            else:
+                out = torch.nn.functional.scaled_dot_product_attention(*xs, attn_mask=band)
+        return torch.autograd.grad(out, xs, do)
+
+    try:
+        return event_ms(fwd_bwd, iters=2)
+    except RuntimeError as e:  # the library column is part of the kernels line
+        fail(f"scaled_dot_product_attention forward + backward refused the main path's "
+             f"shape: {str(e)[:200]}")
+    finally:
+        del xs, band
+        torch.cuda.empty_cache()
+
+
+def check_window_bwd_kernels(recs):
+    """(a) The backward at Mixtral-8x7B's training shape (B 1 x H 32 over 8,
+    T 8192, W 4096, d = dv = 128) in bf16 (the main path's type, timed) and
+    fp32, at MiniCPM3-4B's W = T = 8192 (H = Hkv 40, d 96, dv 64; bf16 timed,
+    fp32), and at every edge shape, fp32 and bf16.  Returns the kernels
+    line's record (Mixtral's shape) with MiniCPM3-4B's as another shape."""
+    from repro_torch.configs import get_config
+
+    mix = get_config("mixtral-8x7b")
+    kv, Gq, d, dv = attn_widths(mix)
+    shape = (1, kv * Gq, kv, SOFTMAX_TRAIN_T, mix.sliding_window, d, dv)
+    rec = check_window_bwd(shape, "bfloat16", SEED + 80, timed=True)
+    check_window_bwd(shape, "float32", SEED + 81)
+    kv, Gq, d, dv = attn_widths(get_config(MLA_LM))
+    mla = (1, kv * Gq, kv, SOFTMAX_TRAIN_T, SOFTMAX_TRAIN_T, d, dv)
+    other = check_window_bwd(mla, "bfloat16", SEED + 82, timed=True)
+    check_window_bwd(mla, "float32", SEED + 83)
+    other["shape"] = f"{MLA_LM} softmax: " + other["shape"]
+    rec["other_shapes"] = [{k: other.get(k) for k in (
+        "shape", "max_abs_err", "ms", "fwd_bwd_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}]
+    worst = 0.0
+    for i, (T, W, _, H, Hkv) in enumerate(WINDOW_EDGES):
+        for dk, dvk in WINDOW_EDGE_DIMS:
+            for dtype in ("float32", "bfloat16"):
+                r = check_window_bwd((2, H, Hkv, T, W, dk, dvk), dtype, SEED + 84 + i,
+                                     slice_heads=H)
+                worst = max(worst, r["max_abs_err"])
+    log("train-softmax", f"window_attention backward at {len(WINDOW_EDGES)} edge shapes x "
+                         f"{len(WINDOW_EDGE_DIMS)} (d, dv) x fp32 and bf16: max abs err "
+                         f"{worst:.3e}, all within tolerance, every pair of launches bit for bit "
+                         f"equal")
+    recs["window_attention_bwd"] = rec
+    return rec
+
+
+class plain_window_attention:
+    """Within the block the model's attention runs the plain banded softmax
+    (``sliding_window_attention_plain``, dense (T, T) scores,
+    differentiated by autograd) on the card: the SWA route and the
+    full-causal one (``blockwise_softmax_attention`` on the card calls the
+    window wrapper at W = T)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.window_attention import ops
+        from repro_torch.models import attention as A
+
+        self.saved = A.sliding_window_attention
+        A.sliding_window_attention = ops.sliding_window_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+
+        A.sliding_window_attention = self.saved
+
+
+def softmax_train_cfg(name, n_layers=SOFTMAX_TRAIN_LAYERS, **replace):
+    """``name``'s softmax variant (``use_chimera=False``, as the serve paths
+    build it; remat "full", the config's default) cut to ``n_layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), use_chimera=False, n_layers=n_layers, **replace)
+
+
+def run_steps(tr, steps):
+    """``tr.run(steps)`` between synchronizes with its checkpoints off (at
+    full width one save writes ~38 GB of parameters and moments to the
+    host); returns ``(out, seconds)``."""
+    import torch
+
+    tr.save = lambda blocking=False: None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tr.run(steps)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        del tr.save
+
+
+def softmax_step_vs_plain(name):
+    """The whole step's loss and gradients, kernel route against plain
+    route on the card: fp32, full width, 2 layers, B 1 x STEP_CMP_T, the
+    window cut to STEP_CMP_W, the same weights and batch."""
+    import torch
+    from repro_torch.checkpoint.checkpointer import flatten_with_names
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import global_norm, tree_flatten
+    from repro_torch.train import classifier as C
+    from repro_torch.train.train_step import value_and_grad
+
+    cfg = softmax_train_cfg(name, dtype="float32")
+    if cfg.sliding_window:
+        cfg = softmax_train_cfg(name, dtype="float32", sliding_window=STEP_CMP_W)
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED + 90), "cuda")
+    batch = C.batch_to_device(TokenStream(vocab_size=cfg.vocab_size, batch_size=1,
+                                          seq_len=STEP_CMP_T + 1, seed=SEED + 91).next_batch(),
+                              "cuda")
+    runs = {}
+    for route in ("kernel", "plain"):
+        before = wops.launches
+        ctx = plain_window_attention() if route == "plain" else contextlib.nullcontext()
+        with ctx:
+            (loss, metrics), grads = value_and_grad(lambda p: M.loss_fn(cfg, p, batch), params)
+        if (wops.launches > before) != (route == "kernel"):
+            fail(f"train-softmax {name}: window_attention launches {wops.launches - before} on "
+                 f"the {route} route")
+        runs[route] = (loss, metrics, tree_flatten(grads)[0], global_norm(grads))
+        del grads
+        torch.cuda.empty_cache()
+    (lk, mk, gk, nk), (lp, mp, gp, np_) = runs["kernel"], runs["plain"]
+    rel = {k: abs(float(a) - float(b)) / abs(float(b))
+           for k, a, b in (("loss", lk, lp), ("nll", mk["nll"], mp["nll"]),
+                           ("grad_norm", nk, np_))}
+    names = flatten_with_names(params)[0]  # tree_flatten's order (sorted keys)
+    leaf = [float(torch.linalg.vector_norm(a - b) /
+                  torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+            for a, b in zip(gk, gp)]
+    worst = max(range(len(leaf)), key=leaf.__getitem__)
+    if not all(math.isfinite(float(x)) for x in (lk, lp, nk, np_)):
+        fail(f"train-softmax {name}: non-finite loss or gradient norm")
+    if max(rel.values()) > REF_LOSS_RTOL or leaf[worst] > STEP_GRAD_RTOL:
+        fail(f"train-softmax {name}: kernel route against plain route: {rel}, worst leaf "
+             f"{names[worst]} relative error {leaf[worst]:.3e}")
+    log("train-softmax", f"{name} softmax, whole step at B 1 x {STEP_CMP_T}"
+                         f"{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}, fp32, "
+                         f"{cfg.n_layers} layers at full width, kernel route against the plain "
+                         f"route on the card: loss {float(lk):.6f} / {float(lp):.6f} (relative "
+                         f"{rel['loss']:.3e}), nll {rel['nll']:.3e}, gradient norm "
+                         f"{float(nk):.6f} / {float(np_):.6f} ({rel['grad_norm']:.3e}; tolerance "
+                         f"{REF_LOSS_RTOL:g}); {len(leaf)} leaves, worst relative gradient error "
+                         f"{leaf[worst]:.3e} at {names[worst]} (tolerance {STEP_GRAD_RTOL:g}), "
+                         f"median {sorted(leaf)[len(leaf) // 2]:.3e}")
+    del params, runs, gk, gp
+    torch.cuda.empty_cache()
+    return {"rel": rel, "leaf_worst": leaf[worst]}
+
+
+def train_softmax_full_width(name):
+    """(b) / (c): ``name``'s softmax variant at full width, 2 layers,
+    through the Trainer (launch/train.py's build via trainer_for, weights
+    drawn on the card): 1 warm-up + SOFTMAX_TRAIN_STEPS timed AdamW steps at
+    B 1 x SOFTMAX_TRAIN_T (ms/step, tokens/s, peak memory, the window
+    kernels' launches), one profiled step (busy share, the window kernels'
+    share); then the whole step against the plain route."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_flatten
+
+    cfg = softmax_train_cfg(name)
+    if cfg.remat != "full":
+        fail(f"train-softmax {name}: remat {cfg.remat!r}, want the config's default 'full'")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    kv, Gq, d, dv = attn_widths(cfg)
+    W = cfg.sliding_window or SOFTMAX_TRAIN_T
+    steps = 1 + SOFTMAX_TRAIN_STEPS
+    with tempfile.TemporaryDirectory(prefix="chimera-softmax-") as tmp:
+        tr = trainer_for(cfg, tmp, steps + 1, warmup=2, batch=1, seq=SOFTMAX_TRAIN_T,
+                         params=params)
+        del params
+        _, warm_s = run_steps(tr, 1)
+        torch.cuda.reset_peak_memory_stats()
+        wops.launches = wops.bwd_launches = 0
+        out, loop_s = run_steps(tr, steps)
+        fwd, bwd = wops.launches - wops.bwd_launches, wops.bwd_launches
+        peak = torch.cuda.max_memory_allocated()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, prof_s = run_steps(tr, steps + 1)
+        busy_ms, rows = report_profile(prof, prof_s, f"one {name} softmax training step")
+        losses = logged_losses(f"train-softmax {name}", out)  # the log holds every step
+        del tr, prof
+    torch.cuda.empty_cache()
+    # per layer and step: the forward, its rerun in the backward (remat), and
+    # the backward's three launches
+    want_fwd, want_bwd = 2 * cfg.n_layers * SOFTMAX_TRAIN_STEPS, 3 * cfg.n_layers * SOFTMAX_TRAIN_STEPS
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        fail(f"train-softmax {name}: window_attention launches forward {fwd}, backward {bwd}; "
+             f"want {want_fwd} and {want_bwd} (layers x steps x (2 forward, 3 backward))")
+    ms = loop_s / SOFTMAX_TRAIN_STEPS * 1e3
+    win_ms = sum(t for key, (t, _) in rows.items() if "window" in key)
+    share = f"{win_ms / busy_ms:.3f}" if busy_ms else "not measured"
+    busy = f"{busy_ms / (prof_s * 1e3):.3f}" if busy_ms else "not measured"
+    log("train-softmax", f"{name} softmax ({'SWA, window ' + str(W) if cfg.sliding_window else 'full-causal'}"
+                         f", {cfg.attention_kind}), {cfg.n_layers} layers at full width (d "
+                         f"{cfg.d_model}, {cfg.n_heads} heads / {kv} kv-heads, d {d}, dv {dv}, "
+                         f"vocab {cfg.vocab_size}, dtype {cfg.dtype}, remat {cfg.remat}): "
+                         f"{n_params} fp32 parameters drawn on the card in {draw_s:.2f} s; B 1 x "
+                         f"{SOFTMAX_TRAIN_T}, AdamW (fp32 moments): step 1 {warm_s * 1e3:.1f} ms; "
+                         f"steps 2-{steps} {ms:.2f} ms/step, {SOFTMAX_TRAIN_T / (ms / 1e3):.0f} "
+                         f"tokens/s; losses {[round(x, 5) for x in losses]}; max_memory_allocated "
+                         f"{peak} B ({peak - base} above the {base} B held before); "
+                         f"window_attention launches forward {fwd}, backward {bwd}; profiled "
+                         f"step {prof_s * 1e3:.1f} ms, busy share {busy}, window kernels "
+                         f"{win_ms:.1f} ms of it (share of kernel time {share})")
+    cmp = softmax_step_vs_plain(name)
+    return {"fwd": fwd, "bwd": bwd, "ms": ms, "tokens_per_s": SOFTMAX_TRAIN_T / (ms / 1e3),
+            "peak": peak, "busy": busy, "window_share": share, "cmp": cmp}
+
+
+def train_softmax_smoke(name):
+    """(d) ``smoke_config(name)``'s softmax variant (Mixtral's window cut to
+    SOFTMAX_SMOKE_WINDOW) through the Trainer, SOFTMAX_SMOKE_STEPS steps on
+    the card and on the CPU from the same seeded weights: losses within
+    REF_LOSS_RTOL."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels.window_attention import ops as wops
+
+    cfg = dataclasses.replace(smoke_config(name), use_chimera=False)
+    if cfg.sliding_window:
+        cfg = dataclasses.replace(cfg, sliding_window=SOFTMAX_SMOKE_WINDOW)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        before = wops.bwd_launches
+        with tempfile.TemporaryDirectory(prefix="chimera-softmax-smoke-") as tmp:
+            tr = trainer_for(cfg, tmp, SOFTMAX_SMOKE_STEPS, lr=1e-3, warmup=2, device=dev)
+            losses[dev] = logged_losses(f"train-softmax smoke {name} {dev}", tr.run())
+        if (wops.bwd_launches > before) != (dev == "cuda"):
+            fail(f"train-softmax smoke {name}: backward kernel launches on {dev}: "
+                 f"{wops.bwd_launches - before}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if err > REF_LOSS_RTOL:
+        fail(f"train-softmax smoke {name}: card and CPU losses differ by {err:.3e} > "
+             f"{REF_LOSS_RTOL:g}")
+    log("train-softmax", f"{name} smoke softmax ({cfg.attention_kind}, window "
+                         f"{cfg.sliding_window or 'T'}, d_head {cfg.head_dim}, remat {cfg.remat}), "
+                         f"{SOFTMAX_SMOKE_STEPS} Trainer steps at batch 8 x 128, card (kernels) vs "
+                         f"CPU (plain): losses max relative diff {err:.3e} (tolerance "
+                         f"{REF_LOSS_RTOL:g}); card losses {[round(x, 5) for x in losses['cuda']]}")
+    return err
+
+
+def phase_train_softmax(recs):
+    """Softmax attention trained on the card.  (a) check_window_bwd_kernels;
+    (b) Mixtral-8x7B's softmax SWA variant and (c) MiniCPM3-4B's full-causal
+    (MLA) variant through the Trainer at full width, 2 layers, B 1 x 8192,
+    each with its whole step against the plain route; (d) both smoke
+    configs, card against CPU.  The window kernels' counters are zeroed
+    just before each main-path run and read just after."""
+    check_window_bwd_kernels(recs)
+    runs = {name: train_softmax_full_width(name) for name in SOFTMAX_TRAIN}
+    for name in SOFTMAX_TRAIN:
+        train_softmax_smoke(name)
+    launches = {"window_attention": sum(r["fwd"] for r in runs.values()),
+                "window_attention_bwd": sum(r["bwd"] for r in runs.values())}
+    log("train-softmax", f"launches on the phase's main paths: {launches} ("
+                         + ", ".join(f"{n}: forward {r['fwd']}, backward {r['bwd']}"
+                                     for n, r in runs.items()) + ")")
+    return {"launches": launches, "runs": runs}
+
+
+# --------------------------------------------------------------------------
 # 7. reference: the card against the plain versions on the CPU
 # --------------------------------------------------------------------------
 
 # the engine phases card against CPU run REFERENCE_LAYERS of the paper
 # model's 4 layers: the CPU engines' host time grows with the layers, and
-# the cut keeps the whole run within its time (each layer is the same code)
-REFERENCE_LAYERS = 2
+# the cut keeps the whole run within its time (each layer is the same code;
+# 2 until the train-softmax phase took the whole run to 940.0 s on an H100
+# 80GB HBM3 at 700 W whose host-bound phases ran slow)
+REFERENCE_LAYERS = 1
 # card vs CPU, fp32 on both sides with other summation orders, through the
 # layers and up to 3 x 16 decode steps per flow.  Without the static-global
 # tier every float agrees within 2e-4.  With it, a sign-LSH bit
@@ -4056,13 +4543,12 @@ SHARDS = 4  # logical shards of the paper-width sharded engine
 # (cuBLAS picks its kernels by row count).  Set between the sound readings
 # of (a) and its control, the same stacked launch with TF32 matmuls
 # allowed, which the limit must catch (the phase fails if it does not): on
-# an H100 80GB HBM3 at 700 W, at SHARD_LAYERS 2, up to 4.5e-05 sound and
-# 1.5e-02 under TF32 (both s_nn; at 4 layers 3.8e-05 and 6.3e-02; PERF.md
-# section 6)
+# an H100 80GB HBM3 at 700 W, at 2 layers up to 4.5e-05 sound and 1.5e-02
+# under TF32 (both s_nn; at 4 layers 3.8e-05 and 6.3e-02; PERF.md section 6)
 SHARD_TOL = 1e-4
 N_TIMED = 4  # protocol-mix batches timed in (a), the two engines taking turns first
 # (a) runs the paper's width at 2 of its 4 layers, so that the whole run
-# stays within 900 s (on an H100 it took 925.3 s with 4, once two more LM
+# stays within ~925 s (on an H100 it took 925.3 s with 4, once two more LM
 # configs were served; PERF.md section 6): sharded and single engines are
 # compared layer for layer alike, at half the host-bound per-round time
 SHARD_LAYERS = 2
@@ -4542,18 +5028,20 @@ def codebook_arch(bits=0):
     return dataclasses.replace(ARCH, chimera=dataclasses.replace(ARCH.chimera, feature_map=fm))
 
 
-def trainer_for(arch, directory, steps, seed=SEED, lr=3e-4, warmup=100, device="cuda", **tcfg):
+def trainer_for(arch, directory, steps, seed=SEED, lr=3e-4, warmup=100, device="cuda",
+                batch=8, seq=128, params=None, **tcfg):
     """A Trainer (on the card unless told) over launch/train.py's stream
-    (batch 8 x 128)."""
+    (batch 8 x 128 unless given), from ``params`` if given."""
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.optim.optimizer import AdamWConfig
     from repro_torch.train import Trainer, TrainerConfig
 
     tcfg = {"log_every": 1, "ckpt_every": 1000, **tcfg}
     return Trainer(arch, TrainerConfig(total_steps=steps, ckpt_dir=directory, **tcfg),
-                   TokenStream(vocab_size=arch.vocab_size, batch_size=8, seq_len=129, seed=seed),
+                   TokenStream(vocab_size=arch.vocab_size, batch_size=batch, seq_len=seq + 1,
+                               seed=seed),
                    opt_cfg=AdamWConfig(lr=lr, warmup_steps=warmup, total_steps=steps),
-                   device=device)
+                   device=device, params=params)
 
 
 def timed_run(tr, steps):
@@ -5125,6 +5613,8 @@ def main():
         launches[name] += n
     for name, n in timed("lm-mla", phase_lm_mla, recs)["launches"].items():
         launches[name] += n
+    for name, n in timed("train-softmax", phase_train_softmax, recs)["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     for name, n in timed("trainer", phase_trainer, recs)["launches"].items():
         launches[name] += n
     timed("reference n_global=0", phase_reference, 0)
@@ -5155,6 +5645,9 @@ def kernel_lines(recs, launches):
                               "src/repro/kernels/chimera_attention/kernel.py:104"),
         "window_attention": ("src/repro_torch/csrc/window_attention.cu",
                              "src/repro/kernels/window_attention/kernel.py:89"),
+        "window_attention_bwd": ("src/repro_torch/csrc/window_attention_bwd.cu",
+                                 "src/repro/kernels/window_attention/ops.py:37 (the custom_vjp "
+                                 "backward, jnp autodiff of ref.py)"),
     }
     lines = []
     for name, (source, replaces) in info.items():
@@ -5165,8 +5658,9 @@ def kernel_lines(recs, launches):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         })
-        if "other_shapes" in r:
-            lines[-1]["other_shapes"] = r["other_shapes"]
+        for key in ("library_of", "fwd_bwd_ms", "other_shapes"):
+            if key in r:
+                lines[-1][key] = r[key]
     return lines
 
 

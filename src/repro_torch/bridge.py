@@ -24,8 +24,8 @@ from repro_torch.train.classifier import ClassifierConfig
 
 def arch_from_reference(ref) -> ArchConfig:
     """The port's ArchConfig from the JAX package's (read by attribute, so
-    no import of the JAX package is needed), MLA widths and ``softmax_blk``
-    included.  ``swa_backend`` is dropped: the device of the tensors
+    no import of the JAX package is needed), MLA widths, ``remat`` and
+    ``softmax_blk`` included.  ``swa_backend`` is dropped: the device of the tensors
     chooses the kernel or its plain version."""
     ch, fm = ref.chimera, ref.chimera.feature_map
     if ref.use_chimera and (not (ch.use_local and ch.use_stream) or ch.expand_kv):
@@ -57,7 +57,7 @@ def arch_from_reference(ref) -> ArchConfig:
             match_hamming=ch.match_hamming, gamma=ch.gamma,
         ),
         norm_type=ref.norm_type, tie_embeddings=ref.tie_embeddings, dtype=ref.dtype,
-        softmax_blk=ref.softmax_blk,
+        remat=ref.remat, softmax_blk=ref.softmax_blk,
     )
 
 

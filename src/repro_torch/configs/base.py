@@ -5,9 +5,12 @@ MoE MLP), for decode, prefill and training.
 
 Mamba, xLSTM and the encoder-decoder path are not ported yet (ROADMAP
 Queue 1 item 3), so their fields are absent here, and so are
-``swa_backend``, ``scan_layers`` and ``remat``: the device of the tensors
-chooses between a kernel and its plain version, and the port has no scan
-or remat switch.
+``swa_backend`` and ``scan_layers``: the device of the tensors chooses
+between a kernel and its plain version, and the port loops over the layer
+groups.  ``remat`` is JAX's: ``"full"`` (the default) recomputes each layer
+group's forward in the backward pass (``torch.utils.checkpoint``, as
+``jax.checkpoint`` around the scan body), ``"none"`` saves every layer's
+activations.
 """
 
 from __future__ import annotations
@@ -69,6 +72,8 @@ class ArchConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
 
+    # execution
+    remat: str = "full"  # none | full
     softmax_blk: int = 1024  # kv-block size of blockwise_softmax_attention's plain version
 
     @property

@@ -28,4 +28,5 @@ CONFIG = ArchConfig(
         match_hamming=24,
     ),
     dtype="float32",
+    remat="none",
 )

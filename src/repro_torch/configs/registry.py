@@ -54,6 +54,7 @@ def smoke_config(name: str) -> ArchConfig:
         vocab_size=256,
         vocab_pad_multiple=32,
         dtype="float32",
+        remat="none",
         softmax_blk=64,
         chimera=dataclasses.replace(
             cfg.chimera,

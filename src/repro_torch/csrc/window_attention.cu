@@ -5,7 +5,11 @@
 // (pallas_call at :111, body _kernel at :35).  Row i of a (batch x head)
 // attends to the keys j with 0 <= i - j < W, with scale 1/sqrt(d), an
 // online softmax (running max, sum and accumulator) in fp32, and the output
-// in the inputs' type: the function of window_attention/ref.py.  K and V
+// in the inputs' type: the function of window_attention/ref.py.  When the
+// caller passes an lse pointer (training), each row's log-sum-exp of its
+// scaled scores, log sum_j exp(q_i k_j / sqrt(d)), is written there in fp32
+// once the row is done: the backward (window_attention_bwd.cu) recomputes
+// the probabilities from it.  Serving passes null and writes nothing.  K and V
 // are read per kv-head (kv-head = head / (H / Hkv)) instead of the
 // reference's jnp.repeat to the query-head count (models/attention.py:
 // 116-118): the same function, with a quarter of the K/V bytes at
@@ -69,9 +73,10 @@
 // W = T: with W >= T the band start max(0, i0 - W + 1) is 0, no tile is
 // skipped for the window and every tile below the diagonal is "full".
 //
-// Contract (q, k, v, o contiguous and 16-byte aligned, all float32 or all
-// bfloat16):
+// Contract (q, k, v, o and a non-null lse contiguous and 16-byte aligned;
+// q, k, v, o all float32 or all bfloat16, lse float32):
 //   q (B*H, T, d), k (B*Hkv, T, d), v (B*Hkv, T, dv) -> o (B*H, T, dv)
+//   and, if lse is not null, lse (B*H, T)
 // Takes H % Hkv == 0, W >= 1 (W > T included), any T, and (d, dv) with d
 // and dv in {64, 128}, d = dv in {16, 32} (the smoke configs' head widths:
 // QK^T runs two or four k-steps, and PV one fresh accumulator of 2 or 4
@@ -97,6 +102,7 @@ constexpr int kBk = 64;           // keys per tile
 constexpr int kStages = 2;        // K/V ring
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -130,7 +136,8 @@ struct Layout {
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int BH, int H, int Hkv, int n, int window, float sc) {
+    T* __restrict__ o, float* __restrict__ lse, int BH, int H, int Hkv, int n, int window,
+    float sc) {
   using Lay = Layout<T, D, DV>;
   constexpr int SQ = Lay::SQ, SV = Lay::SV;
   constexpr int NT = DV / 8;                 // n-tiles of O
@@ -308,6 +315,13 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  // the row's log-sum-exp: m is its max in the log2 domain, l its sum of
+  // exp2(s sc - m); every lane of a quad holds both
+  if (lse != nullptr && t4 == 0) {
+    float* lb = lse + (size_t)bh * n;
+    if (ra < n) lb[ra] = (m[0] + log2f(l[0])) * kLn2;
+    if (rbw < n) lb[rbw] = (m[1] + log2f(l[1])) * kLn2;
+  }
   const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
   T* ob = o + (size_t)bh * n * DV + 2 * t4;
 #pragma unroll
@@ -318,8 +332,8 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
 }
 
 template <typename T, int D, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int H, int Hkv, int n,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int H,
+           int Hkv, int n, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<T, D, DV>::bytes;
   static_assert(smem <= 227 * 1024, "shared memory beyond what a block may use");
   cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<T, D, DV>,
@@ -329,37 +343,41 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int H, 
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   window_attention_kernel<T, D, DV><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), BH, H, Hkv, n, window, scale * kLog2e);
+      static_cast<T*>(o), lse, BH, H, Hkv, n, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dims(const void* q, const void* k, const void* v, void* o, int BH, int H, int Hkv,
-                int n, int d, int dv, int window, float scale, cudaStream_t s) {
-  if (d == 64 && dv == 64) return launch<T, 64, 64>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
-  if (d == 64 && dv == 128) return launch<T, 64, 128>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
-  if (d == 128 && dv == 64) return launch<T, 128, 64>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
-  if (d == 128 && dv == 128)
-    return launch<T, 128, 128>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
-  if (d == 16 && dv == 16) return launch<T, 16, 16>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
-  if (d == 32 && dv == 32) return launch<T, 32, 32>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
-  if (d == 96 && dv == 64) return launch<T, 96, 64>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
-  if (d == 24 && dv == 16) return launch<T, 24, 16>(q, k, v, o, BH, H, Hkv, n, window, scale, s);
+int launch_dims(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int H,
+                int Hkv, int n, int d, int dv, int window, float scale, cudaStream_t s) {
+#define WA_DIMS(D, DV) \
+  if (d == D && dv == DV) return launch<T, D, DV>(q, k, v, o, lse, BH, H, Hkv, n, window, scale, s);
+  WA_DIMS(64, 64)
+  WA_DIMS(64, 128)
+  WA_DIMS(128, 64)
+  WA_DIMS(128, 128)
+  WA_DIMS(16, 16)
+  WA_DIMS(32, 32)
+  WA_DIMS(96, 64)
+  WA_DIMS(24, 16)
+#undef WA_DIMS
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int window_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                       int BH, int H, int Hkv, int n, int d, int dv,
+                                       void* lse, int BH, int H, int Hkv, int n, int d, int dv,
                                        int window, float scale, int bf16, void* stream) {
   if (BH <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || n <= 0 || window <= 0)
     return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {q, k, v, o};
+  const void* ptrs[] = {q, k, v, o, lse};
   for (const void* p : ptrs)
-    if ((uintptr_t)p & 15) return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)p & 15) return (int)cudaErrorInvalidValue;  // null passes: lse is optional
+  if (!q || !k || !v || !o) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   if (bf16)
-    return launch_dims<__nv_bfloat16>(q, k, v, o, BH, H, Hkv, n, d, dv, window, scale, s);
-  return launch_dims<float>(q, k, v, o, BH, H, Hkv, n, d, dv, window, scale, s);
+    return launch_dims<__nv_bfloat16>(q, k, v, o, l, BH, H, Hkv, n, d, dv, window, scale, s);
+  return launch_dims<float>(q, k, v, o, l, BH, H, Hkv, n, d, dv, window, scale, s);
 }

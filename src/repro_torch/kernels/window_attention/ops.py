@@ -1,28 +1,43 @@
-"""Causal sliding-window softmax attention: the CUDA kernel's wrapper and its
-plain version.
+"""Causal sliding-window softmax attention: the CUDA kernels' wrappers, the
+autograd Function around them, and their plain versions.
 
 Replaces ``repro/kernels/window_attention/kernel.py::window_attention_pallas``
 with ``csrc/window_attention.cu`` (the SWA prefill of Mixtral's softmax
 variant, and at W = T the full-causal softmax prefill of
-``models/attention.py``'s ``blockwise_softmax_attention``).  Row i attends to
-the keys j with 0 <= i - j < W, scale 1/sqrt(d); the output is in q's dtype.
+``models/attention.py``'s ``blockwise_softmax_attention``), and the backward
+of the JAX op's ``custom_vjp`` (``repro/kernels/window_attention/ops.py``
+``_bwd`` :37-40, autodiff of the jnp reference) with
+``csrc/window_attention_bwd.cu``.  Row i attends to the keys j with
+0 <= i - j < W, scale 1/sqrt(d); the output is in q's dtype.
 
 * :func:`window_attention_plain` — the port of
   ``repro/kernels/window_attention/ref.py``, with dense (T, T) masks, on the
-  flattened (batch × head) layout.
+  flattened (batch × head) layout; :func:`window_attention_lse_plain` its
+  rows' log-sum-exp and :func:`window_attention_bwd_plain` its backward on
+  the same layout (the tests and the card's checks use them; no main path
+  does).
 * :func:`sliding_window_attention` — the wrapper on the (B, H, T, d) layout,
-  like the JAX package's ``ops.sliding_window_attention``.  K and V keep
-  their kv-heads (``Hkv`` dividing ``H``); the kernel reads kv-head
-  ``h // (H / Hkv)`` for query head h, where the reference repeats K and V to
-  ``H`` heads first.  It launches the kernel for CUDA tensors, for any T and
-  W and the head widths of :data:`DIMS_TAKEN` (split fp32 on the tensor
-  cores; :func:`contract` mirrors the launcher's checks, and the wrapper
-  raises ``ValueError`` before any launch on a shape outside them), and
-  runs the plain version for CPU tensors; any other device raises.
-  ``launches`` counts kernel launches (never plain calls).
-
-Forward only: the JAX ``custom_vjp`` backward (``ops.py:27-46``) comes with
-Mixtral training.
+  like the JAX package's ``ops.sliding_window_attention``, differentiable.
+  K and V keep their kv-heads (``Hkv`` dividing ``H``); the kernels read
+  kv-head ``h // (H / Hkv)`` for query head h, where the reference repeats
+  K and V to ``H`` heads first.  For CUDA tensors it launches the forward
+  kernel; when an input needs a gradient, through :class:`_WindowAttention`,
+  whose forward also writes each row's log-sum-exp and saves (q, k, v, o,
+  lse), and whose backward launches the three kernels of
+  :func:`window_attention_bwd` (D = rowsum(dO o); dK and dV a block per
+  kv-head and key tile, the kv-head's query heads summed inside it; dQ).
+  For CPU tensors it runs the plain version, which autograd differentiates;
+  any other device raises.  :func:`window_attention_fwd` and
+  :func:`window_attention_bwd`, the Function's two halves, take CUDA
+  tensors only.  The kernels take any T and W and the head
+  widths of :data:`DIMS_TAKEN`, in float32 or bfloat16 (fp32 accumulation,
+  results in the inputs' type); :func:`contract` mirrors the launchers'
+  checks for the forward and the backward alike, and the wrappers raise
+  ``ValueError`` before any launch on a shape outside them.  No wrapper
+  falls back to the plain version when a build or a launch fails.
+* ``launches`` counts every kernel launch of the module, forward and
+  backward (never plain calls); ``bwd_launches`` the backward's alone
+  (three per backward).
 """
 
 from __future__ import annotations
@@ -31,10 +46,12 @@ import math
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
 
-launches = 0
+launches = 0  # forward and backward kernel launches
+bwd_launches = 0  # the backward's kernel launches alone (three per backward)
 
 # the launcher's contract (csrc/window_attention.cu): the (d, dv) pairs it
 # is built for; (96, 64) and (24, 16) are MLA's heads at full and smoke width
@@ -43,9 +60,10 @@ DIMS_TAKEN = ((64, 64), (64, 128), (128, 64), (128, 128), (16, 16), (32, 32), (9
 
 
 def contract(*, d: int, dv: int, H: int, Hkv: int, window: int) -> Optional[str]:
-    """``None`` if the kernel takes these widths, else what it refuses: the
-    launcher's checks, mirrored so that a shape outside them raises here
-    rather than as a CUDA error code."""
+    """``None`` if the kernels take these widths, else what they refuse: the
+    forward and backward launchers' checks (the same for both), mirrored so
+    that a shape outside them raises here rather than as a CUDA error
+    code."""
     if (d, dv) not in DIMS_TAKEN:
         return f"(d, dv) = ({d}, {dv}) not in {DIMS_TAKEN}"
     if Hkv <= 0 or H % Hkv:
@@ -53,6 +71,12 @@ def contract(*, d: int, dv: int, H: int, Hkv: int, window: int) -> Optional[str]
     if window < 1:
         return f"window {window} < 1"
     return None
+
+
+def _band(T: int, window: int, device) -> torch.Tensor:
+    idx = torch.arange(T, device=device)
+    delta = idx[:, None] - idx[None, :]
+    return (delta >= 0) & (delta < window)
 
 
 def window_attention_plain(
@@ -63,10 +87,7 @@ def window_attention_plain(
 ) -> torch.Tensor:
     T, d = q.shape[-2], q.shape[-1]
     scores = torch.einsum("bid,bjd->bij", q, k) / math.sqrt(d)
-    idx = torch.arange(T, device=q.device)
-    delta = idx[:, None] - idx[None, :]
-    band = (delta >= 0) & (delta < window)
-    scores = torch.where(band[None], scores, float("-inf"))
+    scores = torch.where(_band(T, window, q.device)[None], scores, float("-inf"))
     w = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
     w = w / torch.sum(w, dim=-1, keepdim=True)
     return torch.einsum("bij,bjd->bid", w, v)
@@ -80,6 +101,56 @@ def sliding_window_attention_plain(q, k, v, window: int) -> torch.Tensor:
     k = k.repeat_interleave(G, dim=1).reshape(B * H, T, d)
     v = v.repeat_interleave(G, dim=1).reshape(B * H, T, v.shape[-1])
     return window_attention_plain(q.reshape(B * H, T, d), k, v, window).reshape(B, H, T, -1)
+
+
+def window_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, window: int) -> torch.Tensor:
+    """Each row's log-sum-exp of its in-band scaled scores, log sum_j
+    exp(q_i k_j / sqrt(d)): (BH, T) in float32 (float64 for float64 inputs),
+    from q (BH, T, d) and k (BH, T, d)."""
+    T, d = q.shape[-2], q.shape[-1]
+    ft = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bid,bjd->bij", q.to(ft), k.to(ft)) / math.sqrt(d)
+    scores = torch.where(_band(T, window, q.device)[None], scores, float("-inf"))
+    return torch.logsumexp(scores, dim=-1)
+
+
+def window_attention_bwd_plain(
+    q: torch.Tensor,  # (B*H, T, d)
+    k: torch.Tensor,  # (B*Hkv, T, d)
+    v: torch.Tensor,  # (B*Hkv, T, dv)
+    o: torch.Tensor,  # (B*H, T, dv), the forward's output
+    lse: torch.Tensor,  # (B*H, T), the forward's log-sum-exp
+    do: torch.Tensor,  # (B*H, T, dv)
+    window: int,
+):
+    """``(dq, dk, dv)`` of the banded softmax attention in plain tensor code,
+    the kernels' function on their flattened layout: query head h of a batch
+    row reads kv-head h // G (G = q rows / k rows; G 1 for K and V repeated
+    to the query heads), and dk, dv sum over each kv-head's G query heads.
+    P = exp(q k^T / sqrt(d) - lse) in the band, D = rowsum(do o),
+    dS = P (do v^T - D), dq = dS k / sqrt(d), dk = dS^T q / sqrt(d),
+    dv = P^T do; float32 arithmetic (float64 for float64 inputs), results
+    in q's dtype.  Dense (T, T) intermediates: for tests and checks."""
+    BH, T, d = q.shape
+    BHkv, dv = k.shape[0], v.shape[-1]
+    G = BH // BHkv
+    ft = torch.promote_types(q.dtype, torch.float32)
+    qg = q.to(ft).reshape(BHkv, G, T, d)
+    og = o.to(ft).reshape(BHkv, G, T, dv)
+    dog = do.to(ft).reshape(BHkv, G, T, dv)
+    kf, vf = k.to(ft), v.to(ft)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("kgid,kjd->kgij", qg, kf) * scale
+    band = _band(T, window, q.device)
+    p = torch.where(band, torch.exp(s - lse.to(ft).reshape(BHkv, G, T)[..., None]), 0.0)
+    dp = torch.einsum("kgic,kjc->kgij", dog, vf)
+    delta = torch.sum(dog * og, dim=-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("kgij,kjd->kgid", ds, kf) * scale
+    dk = torch.einsum("kgij,kgid->kjd", ds, qg) * scale
+    dvv = torch.einsum("kgij,kgic->kjc", p, dog)
+    out = q.dtype
+    return dq.reshape(BH, T, d).to(out), dk.to(out), dvv.to(out)
 
 
 def _check(q, k, v, window):
@@ -102,22 +173,12 @@ def _check(q, k, v, window):
     return B, H, Hkv, T, d, dv
 
 
-def sliding_window_attention(
-    q: torch.Tensor,  # (B, H, T, d)
-    k: torch.Tensor,  # (B, Hkv, T, d)
-    v: torch.Tensor,  # (B, Hkv, T, dv)
-    window: int,
-) -> torch.Tensor:
-    """Returns (B, H, T, dv) in q's dtype."""
-    global launches
+def _kernel_shapes(q, k, v, window):
+    """The checks every launch makes before it launches: device, dtype,
+    contiguity and the launchers' contract."""
     B, H, Hkv, T, d, dv = _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return sliding_window_attention_plain(q, k, v, window)
     if q.device.type != "cuda":
         raise RuntimeError(f"window_attention: no kernel for device {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("window_attention: the kernel is forward only; its backward "
-                                  "comes with Mixtral training (ROADMAP Queue 2)")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"window_attention: the kernel takes float32 or bfloat16, got {q.dtype}")
     for t in (q, k, v):
@@ -126,15 +187,98 @@ def sliding_window_attention(
     refused = contract(d=d, dv=dv, H=H, Hkv=Hkv, window=window)
     if refused:
         raise ValueError(f"window_attention: outside the kernel's contract: {refused}")
+    return B, H, Hkv, T, d, dv
+
+
+def _launch_forward(q, k, v, window: int, with_lse: bool):
+    """The forward kernel: ``(o, lse)``, lse (B, H, T) float32 or None."""
+    global launches
+    B, H, Hkv, T, d, dv = _kernel_shapes(q, k, v, window)
     # the launcher checks alignment and the grid too, and returns
     # cudaErrorInvalidValue for what it does not take
     lib = _build.load_library()
     o = torch.empty((B, H, T, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if with_lse else None
     err = lib.window_attention_launch(
-        *map(_build.ptr, (q, k, v, o)), B * H, H, Hkv, T, d, dv, int(window),
+        *map(_build.ptr, (q, k, v, o, lse)), B * H, H, Hkv, T, d, dv, int(window),
         1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "window_attention")
     launches += 1
-    return o
+    return o, lse
+
+
+def window_attention_fwd(q, k, v, window: int):
+    """``(o (B, H, T, dv), lse (B, H, T) float32)``: the forward kernel with
+    each row's log-sum-exp, as the autograd Function runs it (CUDA tensors
+    only; the plain counterpart is :func:`window_attention_lse_plain`)."""
+    return _launch_forward(q, k, v, window, with_lse=True)
+
+
+def window_attention_bwd(q, k, v, o, lse, do, window: int):
+    """``(dq, dk, dv)`` on the wrapper's layout (dk, dv per kv-head) from the
+    forward's o and lse and the output's gradient do: the three backward
+    kernels (CUDA tensors only; the plain counterpart is
+    :func:`window_attention_bwd_plain`)."""
+    global launches, bwd_launches
+    B, H, Hkv, T, d, dv = _check(q, k, v, window)
+    if tuple(o.shape) != (B, H, T, dv) or tuple(do.shape) != (B, H, T, dv) \
+            or tuple(lse.shape) != (B, H, T):
+        raise ValueError(f"window_attention backward: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)} and lse {tuple(lse.shape)} do not fit "
+                         f"(B, H, T, dv) / (B, H, T)")
+    _kernel_shapes(q, k, v, window)
+    for name, t in (("o", o), ("do", do)):
+        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"window_attention backward: {name} must be contiguous "
+                             f"{q.dtype} on {q.device}")
+    if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("window_attention backward: lse must be contiguous float32 on "
+                         f"{q.device}")
+    lib = _build.load_library()
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)  # D = rowsum(do o)
+    err = lib.window_attention_bwd_launch(
+        *map(_build.ptr, (q, k, v, o, lse, do, dq, dk, dvv, delta)), B * H, H, Hkv, T, d, dv,
+        int(window), 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "window_attention backward")
+    launches += 3
+    bwd_launches += 3
+    return dq, dk, dvv
+
+
+class _WindowAttention(torch.autograd.Function):
+    """The forward kernel with lse, and the backward kernels (CUDA only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        o, lse = _launch_forward(q, k, v, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = window_attention_bwd(q, k, v, o, lse, do.to(q.dtype).contiguous(),
+                                          ctx.window)
+        return dq, dk, dv, None
+
+
+def sliding_window_attention(
+    q: torch.Tensor,  # (B, H, T, d)
+    k: torch.Tensor,  # (B, Hkv, T, d)
+    v: torch.Tensor,  # (B, Hkv, T, dv)
+    window: int,
+) -> torch.Tensor:
+    """Returns (B, H, T, dv) in q's dtype; differentiable on both routes."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return sliding_window_attention_plain(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _WindowAttention.apply(q, k, v, window)
+    return _launch_forward(q, k, v, window, with_lse=False)[0]

@@ -10,7 +10,8 @@
 The parameter layout is the JAX package's: per-group block parameters are
 stacked on a leading "layers" axis under ``params["blocks"]["b<j>"]``, and
 the caches likewise.  The JAX ``scan`` over groups becomes a Python loop
-over that axis; the caches are updated in place.  Stacks of attention
+over that axis, each group checkpointed when ``cfg.remat`` is "full" (as
+JAX's scan body); the caches are updated in place.  Stacks of attention
 blocks are ported: GQA, SWA or MLA attention, Chimera or softmax (banded
 or full-causal), with dense or MoE MLPs.  The
 residual stream is in ``cfg.dtype``: the embedding is cast to it, and every
@@ -22,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -151,10 +153,19 @@ def _group_forward(cfg: ArchConfig, gp: Params, x, positions, causal: bool = Tru
 
 def _scan_groups(cfg: ArchConfig, stacked: Params, x, positions, causal: bool = True):
     """The JAX scan over groups as a loop over the stacked layer axis.
+    With ``cfg.remat != "none"`` and gradients on, each group's forward runs
+    under ``torch.utils.checkpoint`` (``jax.checkpoint`` around the scan
+    body): only its input is kept, and the backward runs the forward again.
     Returns ``(x, aux)``."""
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
     for gi in range(cfg.n_groups):
-        x, a = _group_forward(cfg, index_params(stacked, gi), x, positions, causal)
+        gp = index_params(stacked, gi)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(_group_forward, cfg, gp, x, positions,
+                                                     causal, use_reentrant=False)
+        else:
+            x, a = _group_forward(cfg, gp, x, positions, causal)
         aux = aux + a
     return x, aux
 

@@ -4,7 +4,8 @@
 Parameters are nested dicts of tensors; the optimizer state mirrors them
 (m, v in fp32) plus an int32 step counter.  Updates are functional, as in
 the JAX package: :func:`adamw_update` returns new trees and leaves its
-inputs untouched.  Leaves are visited in sorted-key order, the order of
+inputs untouched, unless the caller donates them (``donate=True``, the
+Trainer's step).  Leaves are visited in sorted-key order, the order of
 ``jax.tree_util`` for dicts, so that sums over leaves add in the same order.
 """
 
@@ -25,15 +26,26 @@ def tree_flatten(tree: Any) -> Tuple[List[torch.Tensor], Callable[[List[Any]], A
     keys = sorted(tree)
     parts = [tree_flatten(tree[k]) for k in keys]
     leaves = [leaf for ls, _ in parts for leaf in ls]
+    # the rebuilder keeps the nesting, not the leaves (a donated tree's
+    # leaves must be free to go)
+    sizes, uns = [len(ls) for ls, _ in parts], [un for _, un in parts]
 
     def unflatten(xs):
         out, i = {}, 0
-        for k, (ls, un) in zip(keys, parts):
-            out[k] = un(xs[i:i + len(ls)])
-            i += len(ls)
+        for k, n, un in zip(keys, sizes, uns):
+            out[k] = un(xs[i:i + n])
+            i += n
         return out
 
     return leaves, unflatten
+
+
+def _clear(tree: Any) -> None:
+    """Empty a nested dict in place, so that it no longer holds its leaves."""
+    if isinstance(tree, dict):
+        for sub in tree.values():
+            _clear(sub)
+        tree.clear()
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -85,11 +97,17 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 def adamw_update(
-    cfg: AdamWConfig, params: Any, grads: Any, state: Dict[str, Any]
+    cfg: AdamWConfig, params: Any, grads: Any, state: Dict[str, Any], donate: bool = False
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: clip by global norm, decoupled weight decay on
     matrices only (``ndim >= 2``).  Every leaf needs a gradient (zeros for
-    leaves with no path to the loss, which are still decayed)."""
+    leaves with no path to the loss, which are still decayed).
+
+    ``donate`` hands the input trees over, as ``jax.jit``'s buffer donation
+    does: ``params``, ``grads`` and the moments are emptied, and each old
+    leaf is released as soon as its new value is made, so the old and the
+    new trees never coexist whole (at Mixtral's full width they would take
+    2 x 38 GB).  The caller must hold no other reference to those leaves."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -112,7 +130,14 @@ def adamw_update(
     flat_g, flat_m, flat_v = (tree_flatten(t)[0] for t in (grads, state["m"], state["v"]))
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("adamw_update: params, grads and moments differ in structure")
-    out = [upd(*x) for x in zip(flat_p, flat_g, flat_m, flat_v)]
+    if donate:
+        for t in (params, grads, state["m"], state["v"]):
+            _clear(t)
+    out = []
+    for i in range(len(flat_p)):
+        out.append(upd(flat_p[i], flat_g[i], flat_m[i], flat_v[i]))
+        if donate:
+            flat_p[i] = flat_g[i] = flat_m[i] = flat_v[i] = None
     new_p, new_m, new_v = (unflatten([o[i] for o in out]) for i in range(3))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, {"m": new_m, "v": new_v, "step": step}, metrics

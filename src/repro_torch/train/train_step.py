@@ -50,16 +50,18 @@ def cast_for_compute(cfg: ArchConfig, params: Any) -> Any:
     )
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig):
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, donate: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the LM loss (:func:`repro_torch.models.model.loss_fn`), its
-    gradients and one AdamW update."""
+    gradients and one AdamW update.  With ``donate`` the step takes over
+    ``params`` and ``opt_state`` (see :func:`adamw_update`): the caller
+    keeps only what the step returns."""
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
         (loss, metrics), grads = value_and_grad(
             lambda p: M.loss_fn(cfg, cast_for_compute(cfg, p), batch), params
         )
-        new_params, new_opt, om = adamw_update(opt_cfg, params, grads, opt_state)
+        new_params, new_opt, om = adamw_update(opt_cfg, params, grads, opt_state, donate=donate)
         return new_params, new_opt, {**metrics, **om, "loss": loss}
 
     return train_step

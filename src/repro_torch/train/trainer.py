@@ -14,7 +14,12 @@ the new centroids into the parameter tree in place
 
 The parameters are drawn from a CPU ``torch.Generator`` seeded with
 ``TrainerConfig.seed`` and moved to the device, so the card and the CPU
-start from the same weights.  They are not the JAX package's draws: to
+start from the same weights, unless the caller gives them (``params=``, a
+tree on the device: a full-width model is drawn on the card, where its
+billions of host normals would take minutes).  Each step donates the old
+parameters and optimizer state to the update (``adamw_update(...,
+donate=True)``), which releases them leaf by leaf: the old and the new
+trees never coexist whole.  They are not the JAX package's draws: to
 start from those, assign ``params_from_jax``'s tree (and, for a JAX
 optimizer state, its ``m``, ``v`` and ``step``) to ``tr.params`` and
 ``tr.opt_state`` before :meth:`Trainer.run`.  Checkpoints are the JAX
@@ -68,9 +73,10 @@ class TrainerConfig:
 
 
 class Trainer:
-    """``Trainer(arch, tcfg, stream, opt_cfg=None, loss_fn=None, device=None)``:
-    ``loss_fn(params, batch) -> (loss, metrics)`` replaces the LM objective;
-    ``device=None`` means ``"cuda"`` and raises without a GPU.  Resumes
+    """``Trainer(arch, tcfg, stream, opt_cfg=None, loss_fn=None, device=None,
+    params=None)``: ``loss_fn(params, batch) -> (loss, metrics)`` replaces
+    the LM objective; ``device=None`` means ``"cuda"`` and raises without a
+    GPU; ``params`` (on the device) replaces the seeded draw.  Resumes
     from the latest checkpoint in ``tcfg.ckpt_dir`` unless
     ``tcfg.resume`` is off."""
 
@@ -82,13 +88,16 @@ class Trainer:
         opt_cfg: Optional[AdamWConfig] = None,
         loss_fn: Optional[Callable] = None,
         device=None,
+        params=None,
     ):
         self.arch = arch
         self.tcfg = tcfg
         self.stream = stream
         self.device = resolve_device(device, "Trainer")
         self.opt_cfg = opt_cfg or AdamWConfig(total_steps=tcfg.total_steps)
-        self.params = M.init_model(arch, torch.Generator().manual_seed(tcfg.seed), self.device)
+        if params is None:
+            params = M.init_model(arch, torch.Generator().manual_seed(tcfg.seed), self.device)
+        self.params = params
         self.opt_state = init_optimizer(self.params, self.opt_cfg)
         self.step = 0
         self.ckpt = Checkpointer(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
@@ -97,12 +106,13 @@ class Trainer:
         self.metrics_log: list = []
 
         if loss_fn is None:
-            self._step_fn = make_train_step(arch, self.opt_cfg)
+            self._step_fn = make_train_step(arch, self.opt_cfg, donate=True)
         else:
             def step_fn(params, opt_state, batch):
                 (loss, metrics), grads = value_and_grad(
                     lambda p: loss_fn(cast_for_compute(arch, p), batch), params)
-                new_p, new_o, om = adamw_update(self.opt_cfg, params, grads, opt_state)
+                new_p, new_o, om = adamw_update(self.opt_cfg, params, grads, opt_state,
+                                                donate=True)
                 return new_p, new_o, {**metrics, **om, "loss": loss}
 
             self._step_fn = step_fn

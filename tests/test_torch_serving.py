@@ -574,10 +574,13 @@ def test_window_attention_kernel_matches_plain_on_card(cuda):
     import chip_smoke
 
     chip_smoke.check_window(timed=False)
+    # an input that needs a gradient goes through the autograd Function: the
+    # forward kernel with lse, then the three backward kernels
     q = torch.zeros((1, 2, 8, 64), device=cuda, requires_grad=True)
     kv = torch.zeros((1, 1, 8, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        wops.sliding_window_attention(q, kv, kv, 4)
+    before = wops.bwd_launches
+    wops.sliding_window_attention(q, kv, kv, 4).sum().backward()
+    assert wops.bwd_launches == before + 3 and torch.equal(q.grad, torch.zeros_like(q))
 
 
 @pytest.mark.cuda
