@@ -28,7 +28,7 @@ Phases, each printing its own lines:
                4 x 8192 tokens through the window_attention kernel, then 16
                new tokens per slot over the ring KV cache; one profiled
                prefill.
-7. reference — the engine on a small table (REFERENCE_LAYERS 1 of the
+7. reference — the engine on a small table (REFERENCE_LAYERS 2 of the
                paper model's 4 layers), 3 classifier training steps of
                a small model, and serving of a small softmax-SWA MoE model,
                on the card and on the CPU (plain versions): they must agree.
@@ -115,7 +115,9 @@ Phases, each printing its own lines:
                tick, busy share, peak memory); (c) the softmax variants of
                MiniCPM3-4B (MLA latent cache) and Yi-9B (GQA, Gq 8) at full
                width, 2 layers, T 8192: against the plain version on the card
-               and a ragged 641-token prompt against token-by-token decode.
+               (also with float32 activations on both routes, where no bf16
+               rounding of the residual stream stands between them) and a
+               ragged 641-token prompt against token-by-token decode.
 
 14. train-softmax — run after the lm-mla phase, before the trainer phase:
                softmax attention trained on the card.  (a) the window
@@ -123,9 +125,12 @@ Phases, each printing its own lines:
                launches) against window_attention_bwd_plain at Mixtral-8x7B's
                training shape (B 1 x H 32 over 8, T 8192, W 4096, d = dv =
                128) and MiniCPM3-4B's W = T = 8192 (H = Hkv 40, d 96, dv 64),
-               bf16 and fp32, and at every edge shape; two launches bit for
-               bit equal; timed with the forward + backward and
-               scaled_dot_product_attention's; (b) Mixtral-8x7B's softmax SWA
+               bf16 (the tensor-core route) and fp32, and at every edge
+               shape at every (d, dv) of the contract; two launches bit for
+               bit equal; timed with the forward (against its own bound),
+               forward + backward, the three kernels' split from a profiler
+               trace, and scaled_dot_product_attention's backward alone and
+               forward + backward; (b) Mixtral-8x7B's softmax SWA
                variant and (c) MiniCPM3-4B's full-causal variant through the
                Trainer at full width, 2 layers, B 1 x 8192, remat "full": 1 +
                5 AdamW steps (ms/step, tokens/s, peak memory), one profiled
@@ -919,18 +924,20 @@ def build_other_library(csrc_dir):
     return lib
 
 
-def compare_builds(others, rounds=1):
+def compare_builds(others, rounds=1, only=None):
     """decode_step (the engine's shape, each fill pattern, with globals),
     flow_score (the engine's 256 lanes, one rule at 8 signature words and
     two at the compiled program's 24), int_flow_score (the program phase's
     cases: 256 lanes, W 24, M 1 and 300), chimera_attention (the train
     phase's shape, and the prefill shape at L 256 with its local-only and
-    stream-only parts) and window_attention (the serve phase's prefill)
-    from this tree and from the trees of ``others`` (``{label: csrc
-    directory}``), timed in turns on one card: each round runs this, the
-    others, then the others and this again in reverse (this, other, other,
-    this for one).  Prints each version's times and returns ``{kernel:
-    {version: [ms, ...]}}``."""
+    stream-only parts), window_attention (the serve phase's prefill) and
+    its backward (bf16, at the train-softmax phase's two training shapes,
+    on o and lse from this tree's forward) from this tree and from the
+    trees of ``others`` (``{label: csrc directory}``), timed in turns on one
+    card: each round runs this, the others, then the others and this again
+    in reverse (this, other, other, this for one).  ``only``: the case
+    names' prefixes to time (all if None).  Prints each version's times and
+    returns ``{kernel: {version: [ms, ...]}}``."""
     import dataclasses
 
     import torch
@@ -980,6 +987,16 @@ def compare_builds(others, rounds=1):
                                MIX.head_dim, SEED + 20)
     cases["window_attention"] = (
         lambda: wops.sliding_window_attention(wq, wk, wv, MIX.sliding_window), 2)
+    for shape, seed in zip(window_bwd_shapes(), (SEED + 80, SEED + 82)):
+        B, H, Hkv, T, W, d, dv = shape
+        bq, bk, bv = window_inputs(B, H, Hkv, T, d, dv, seed, torch.bfloat16)
+        bdo = torch.randn((B, H, T, dv), generator=torch.Generator().manual_seed(seed + 1000))
+        bo, blse = wops.window_attention_fwd(bq, bk, bv, W)
+        cases[f"window_attention_bwd H {H} (Hkv {Hkv}) W {W} d {d} dv {dv} bf16"] = (
+            lambda a=(bq, bk, bv, bo, blse, bdo.to("cuda", torch.bfloat16), W):
+            wops.window_attention_bwd(*a), 2)
+    if only is not None:
+        cases = {name: c for name, c in cases.items() if name.startswith(tuple(only))}
     times = {name: {ver: [] for ver in libs} for name in cases}
     try:
         for ver in (list(libs) + list(libs)[::-1]) * rounds:
@@ -1044,13 +1061,14 @@ def window_inputs(B, H, Hkv, T, d, dv, seed, dtype=None):
             for shape in ((B, H, T, d), (B, Hkv, T, d), (B, Hkv, T, dv))]
 
 
-def window_cost(B, H, Hkv, T, W, d, dv):
-    """Bytes and flops of the windowed attention in fp32: each of q, k, v
-    (per kv-head, as the kernel takes them) read once and o written once;
-    QK^T and PV over the in-band pairs only (min(i + 1, W) keys for row i)."""
+def window_cost(B, H, Hkv, T, W, d, dv, esize=4):
+    """Bytes and flops of the windowed attention with elements of ``esize``
+    bytes (fp32 unless given): each of q, k, v (per kv-head, as the kernel
+    takes them) read once and o written once; QK^T and PV over the in-band
+    pairs only (min(i + 1, W) keys for row i)."""
     n1 = min(T, W)
     pairs = n1 * (n1 + 1) // 2 + (T - n1) * W
-    nbytes = 4 * (B * H * T * (d + dv) + B * Hkv * T * (d + dv))
+    nbytes = esize * (B * H * T * (d + dv) + B * Hkv * T * (d + dv))
     return nbytes, B * H * pairs * (2 * d + 2 * dv)
 
 
@@ -1782,11 +1800,24 @@ RAGGED_T, RAGGED_NEW = 641, 4
 # against token-by-token decode, differ in fp32 summation orders, which can
 # move the bf16 residual stream by one rounding (2^-8 relative) at some
 # entries; logits are held within LM_LOGIT_TOL (abs, + the same relative;
-# measured 8.7e-3 and 1.3e-2 on an H100, against 3.4 where the MoE drops
-# tokens in one run and not the other), and a greedy token wherever the
-# reference's top-2 margin exceeds twice it
+# measured 8.7e-3 to 1.4e-2 on an H100 for the Chimera variants, against
+# 3.4 where the MoE drops tokens in one run and not the other), and a
+# greedy token wherever the reference's top-2 margin exceeds twice it.  The
+# full-causal softmax variants read 3.38e-2 and 3.32e-2, within it only by
+# its relative term; with float32 activations on both routes the same
+# comparison reads 2.9e-6 and 3.6e-6 (softmax_logits_fp32, on an H100
+# 80GB HBM3 at 700 W), so the bf16 residual stream, not window_attention,
+# is the cause of that gap
 LM_LOGIT_TOL = 3e-2
 LM_MARGIN = 2 * LM_LOGIT_TOL
+# the softmax variants' kernel against plain version again with float32
+# activations on both routes (the same weights, prompts, generations and
+# depth), so that no bf16 rounding of the residual stream stands between
+# them: fp32 sums in other orders (the kernel's split-TF32 products against
+# cuBLAS fp32), ~1e-5 expected, within LM_LOGIT_FP32_TOL (abs, + the same
+# relative).  An attention error of one bf16 rounding (2^-9 relative) at
+# every entry would move the logits by ~1e-2, as the bf16 runs' are moved.
+LM_LOGIT_FP32_TOL = 1e-3
 SMOKE_LM = ("chimera-dataplane", "mixtral-8x7b", "codeqwen1.5-7b", "yi-9b", "qwen3-32b",
             "moonshot-v1-16b-a3b", "chameleon-34b", "minicpm3-4b")
 # and these configs' full-causal softmax variants (MiniCPM3-4B's MLA with its
@@ -2742,6 +2773,7 @@ def lm_softmax_full_width(name):
                   f"{err:.3e} (tolerance {LM_LOGIT_TOL:g} + {LM_LOGIT_TOL:g}*|ref|); greedy tokens "
                   f"equal at {held} of {total} positions whose top-2 margin exceeds {LM_MARGIN:g} "
                   f"(smallest margin {gap:.3e})")
+    softmax_logits_fp32(cfg, engine.params, prompts, gens)
     rprompts = np.random.default_rng(SEED + 60).integers(0, cfg.vocab_size,
                                                          (SERVE_SLOTS, RAGGED_T))
     rengine = ServeEngine(cfg, engine.params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
@@ -2770,6 +2802,36 @@ def lm_softmax_full_width(name):
     return {"launches": launches, "prefill_s": res.prefill_seconds,
             "tokens_per_s": SERVE_SLOTS * SERVE_T / res.prefill_seconds,
             "ms_per_tick": (res.seconds - res.prefill_seconds) / res.ticks * 1e3, "peak": peak}
+
+
+def softmax_logits_fp32(cfg, params, prompts, gens):
+    """The kernel-vs-plain logit comparison of lm_softmax_full_width with
+    ``cfg``'s dtype float32 on both routes (the same weights, prompts,
+    teacher-forced generations and depth): within LM_LOGIT_FP32_TOL."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.window_attention import ops as wops
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    logits = {}
+    for route in ("kernel", "plain"):
+        before = wops.launches
+        ctx = plain_softmax_attention() if route == "plain" else contextlib.nullcontext()
+        with ctx:
+            logits[route] = lm_replay(cfg32, params, prompts, SERVE_T, gens, SERVE_MAX_LEN)
+        if (wops.launches > before) != (route == "kernel"):
+            fail(f"lm-mla {cfg.name} softmax fp32: window_attention launches "
+                 f"{wops.launches - before} on the {route} route")
+        torch.cuda.empty_cache()
+    err = compare(f"lm-mla {cfg.name} softmax logits in float32, kernel vs plain version",
+                  logits["kernel"], logits["plain"], atol=LM_LOGIT_FP32_TOL,
+                  rtol=LM_LOGIT_FP32_TOL)
+    log("lm-mla", f"{cfg.name} softmax, float32 activations on both routes (T {SERVE_T}, "
+                  f"{cfg.n_layers} layers, the same prompts and teacher-forced generations): "
+                  f"logits max abs diff {err:.3e}, max |ref| "
+                  f"{float(logits['plain'].abs().max()):.3e} (tolerance {LM_LOGIT_FP32_TOL:g} + "
+                  f"{LM_LOGIT_FP32_TOL:g}*|ref|)")
 
 
 def phase_lm_mla(recs):
@@ -2863,10 +2925,11 @@ def check_window_bwd(shape, dtype, seed, slice_heads=WIN_PLAIN_HEADS, timed=Fals
     autograd Function (the forward and backward kernels) against
     window_attention_bwd_plain on the kernel's own o and lse, over slices of
     ``slice_heads`` query heads; a second backward launch on the same inputs
-    bit for bit equal to the first.  ``timed``: the backward alone, forward +
-    backward, the plain version over all slices and
-    ``scaled_dot_product_attention`` forward + backward, against the bound.
-    Returns the record."""
+    bit for bit equal to the first.  ``timed``: the backward alone, the
+    forward with lse (against its own bound at the inputs' type), forward +
+    backward, the plain version over all slices, and
+    ``scaled_dot_product_attention``'s backward alone (the library column)
+    and forward + backward, against the bound.  Returns the record."""
     import torch
     from repro_torch.kernels.window_attention import ops
 
@@ -2939,35 +3002,53 @@ def check_window_bwd(shape, dtype, seed, slice_heads=WIN_PLAIN_HEADS, timed=Fals
             fb_ms = event_ms(lambda: ops.window_attention_bwd(
                 q, k, v, *ops.window_attention_fwd(q, k, v, W), do, W), iters=3)
             plain_ms = event_ms(lambda: [plain(b, h0) for b, h0 in slices], iters=1)
-        library_ms = sdpa_fwd_bwd_ms(q, k, v, do, W)
+        library_ms, lib_fb_ms = sdpa_bwd_ms(q, k, v, do, W)
         nbytes, flops = window_bwd_cost(B, H, Hkv, T, W, d, dv, q.element_size())
+        fwd_bytes, fwd_flops = window_cost(B, H, Hkv, T, W, d, dv, q.element_size())
+        fwd_bytes += 4 * B * H * T  # the lse
         if bf16:  # bf16 operands take the bf16 tensor cores whole, no split
             bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+            fwd_bound_ms, fwd_bound_by = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
             rate = "in bf16 on the tensor cores"
         else:
             bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+            fwd_bound_ms, fwd_bound_by = bound(fwd_bytes, TF32_PASSES * fwd_flops, TF32_FLOPS)
             rate = f"x{TF32_PASSES} in TF32 on the tensor cores"
         fp32_ms = flops / FP32_FLOPS * 1e3
+        split = profiled_kernel_ms(lambda: ops.window_attention_bwd(q, k, v, o, lse, do, W),
+                                   WIN_BWD_KERNELS, iters=5)
         rec.update(ms=ms, fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms, library_of="forward + backward",
-                   bytes=nbytes, flops=flops)
+                   bound_by=bound_by, library_ms=library_ms,
+                   library_of="backward alone (its forward outside the timed window)",
+                   library_fwd_bwd_ms=lib_fb_ms, fwd_bound_ms=fwd_bound_ms, bytes=nbytes,
+                   flops=flops)
         log("train-softmax", f"{label} device time: backward {ms:.4f} ms (3 launches), forward "
-                             f"with lse {fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms; bound "
-                             f"of the backward {bound_ms:.4f} ms by {bound_by} ({nbytes} B; "
-                             f"{flops} flop, {rate}; on the fp32 CUDA cores, where this kernel "
-                             f"runs them, {fp32_ms:.4f} ms); "
-                             f"scaled_dot_product_attention forward + backward "
-                             f"{fmt_ms(library_ms)}; plain backward {plain_ms:.4f} ms over its "
-                             f"{len(slices)} slices")
+                             f"with lse {fwd_ms:.4f} ms (bound {fwd_bound_ms:.4f} ms by "
+                             f"{fwd_bound_by}: {fwd_bytes} B; {fwd_flops} flop, {rate}), forward "
+                             f"+ backward {fb_ms:.4f} ms; bound of the backward {bound_ms:.4f} ms "
+                             f"by {bound_by} ({nbytes} B; {flops} flop, {rate}; on the fp32 CUDA "
+                             f"cores {fp32_ms:.4f} ms); scaled_dot_product_attention backward "
+                             f"alone {fmt_ms(library_ms)}, forward + backward {fmt_ms(lib_fb_ms)}; "
+                             f"plain backward {plain_ms:.4f} ms over its {len(slices)} slices; "
+                             f"in a profiler trace (ms a launch, launches) "
+                             + ", ".join(f"{x} {fmt_ms(t and t[0])} ({t and t[1]})"
+                                         for x, t in split.items()))
     del q, k, v, o, lse, do, got
     torch.cuda.empty_cache()
     return rec
 
 
-def sdpa_fwd_bwd_ms(q, k, v, do, W):
-    """``scaled_dot_product_attention`` forward + backward (the
-    memory-efficient backend; K and V repeated to the query heads, the band
-    as a boolean mask, causal where W >= T): the library column."""
+# the backward's three kernels, as a profiler names them
+WIN_BWD_KERNELS = ("window_bwd_rowdot", "window_bwd_dkdv", "window_bwd_dq")
+
+
+def sdpa_bwd_ms(q, k, v, do, W):
+    """``(backward alone, forward + backward)`` of
+    ``scaled_dot_product_attention`` (the memory-efficient backend; K and V
+    repeated to the query heads, the band as a boolean mask, causal where W
+    >= T).  The backward alone is the library column: its forward runs once
+    outside the timed window, and ``torch.autograd.grad(...,
+    retain_graph=True)`` is timed."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -2977,54 +3058,64 @@ def sdpa_fwd_bwd_ms(q, k, v, do, W):
     xs = [q.detach().requires_grad_(True)] + [
         x.repeat_interleave(G, dim=1).detach().requires_grad_(True) for x in (k, v)]
 
-    def fwd_bwd():
+    def fwd():
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             if W >= T:
-                out = torch.nn.functional.scaled_dot_product_attention(*xs, is_causal=True)
-            else:
-                out = torch.nn.functional.scaled_dot_product_attention(*xs, attn_mask=band)
-        return torch.autograd.grad(out, xs, do)
+                return torch.nn.functional.scaled_dot_product_attention(*xs, is_causal=True)
+            return torch.nn.functional.scaled_dot_product_attention(*xs, attn_mask=band)
 
     try:
-        return event_ms(fwd_bwd, iters=2)
+        fb_ms = event_ms(lambda: torch.autograd.grad(fwd(), xs, do), iters=2)
+        out = fwd()
+        bwd_ms = event_ms(lambda: torch.autograd.grad(out, xs, do, retain_graph=True), iters=2)
+        return bwd_ms, fb_ms
     except RuntimeError as e:  # the library column is part of the kernels line
         fail(f"scaled_dot_product_attention forward + backward refused the main path's "
              f"shape: {str(e)[:200]}")
     finally:
+        out = None
         del xs, band
         torch.cuda.empty_cache()
+
+
+def window_bwd_shapes():
+    """(B, H, Hkv, T, W, d, dv) of the backward at Mixtral-8x7B's training
+    shape and at MiniCPM3-4B's (W = T)."""
+    from repro_torch.configs import get_config
+
+    kv, Gq, d, dv = attn_widths(get_config("mixtral-8x7b"))
+    mix = (1, kv * Gq, kv, SOFTMAX_TRAIN_T, get_config("mixtral-8x7b").sliding_window, d, dv)
+    kv, Gq, d, dv = attn_widths(get_config(MLA_LM))
+    return mix, (1, kv * Gq, kv, SOFTMAX_TRAIN_T, SOFTMAX_TRAIN_T, d, dv)
 
 
 def check_window_bwd_kernels(recs):
     """(a) The backward at Mixtral-8x7B's training shape (B 1 x H 32 over 8,
     T 8192, W 4096, d = dv = 128) in bf16 (the main path's type, timed) and
     fp32, at MiniCPM3-4B's W = T = 8192 (H = Hkv 40, d 96, dv 64; bf16 timed,
-    fp32), and at every edge shape, fp32 and bf16.  Returns the kernels
-    line's record (Mixtral's shape) with MiniCPM3-4B's as another shape."""
-    from repro_torch.configs import get_config
+    fp32), and at every edge shape at every (d, dv) the kernels take, fp32
+    and bf16.  Returns the kernels line's record (Mixtral's shape) with
+    MiniCPM3-4B's as another shape."""
+    from repro_torch.kernels.window_attention import ops
 
-    mix = get_config("mixtral-8x7b")
-    kv, Gq, d, dv = attn_widths(mix)
-    shape = (1, kv * Gq, kv, SOFTMAX_TRAIN_T, mix.sliding_window, d, dv)
+    shape, mla = window_bwd_shapes()
     rec = check_window_bwd(shape, "bfloat16", SEED + 80, timed=True)
     check_window_bwd(shape, "float32", SEED + 81)
-    kv, Gq, d, dv = attn_widths(get_config(MLA_LM))
-    mla = (1, kv * Gq, kv, SOFTMAX_TRAIN_T, SOFTMAX_TRAIN_T, d, dv)
     other = check_window_bwd(mla, "bfloat16", SEED + 82, timed=True)
     check_window_bwd(mla, "float32", SEED + 83)
     other["shape"] = f"{MLA_LM} softmax: " + other["shape"]
     rec["other_shapes"] = [{k: other.get(k) for k in (
-        "shape", "max_abs_err", "ms", "fwd_bwd_ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}]
+        "shape", "max_abs_err", "ms", "fwd_ms", "fwd_bound_ms", "fwd_bwd_ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "library_fwd_bwd_ms")}]
     worst = 0.0
     for i, (T, W, _, H, Hkv) in enumerate(WINDOW_EDGES):
-        for dk, dvk in WINDOW_EDGE_DIMS:
+        for dk, dvk in ops.DIMS_TAKEN:
             for dtype in ("float32", "bfloat16"):
                 r = check_window_bwd((2, H, Hkv, T, W, dk, dvk), dtype, SEED + 84 + i,
                                      slice_heads=H)
                 worst = max(worst, r["max_abs_err"])
     log("train-softmax", f"window_attention backward at {len(WINDOW_EDGES)} edge shapes x "
-                         f"{len(WINDOW_EDGE_DIMS)} (d, dv) x fp32 and bf16: max abs err "
+                         f"{len(ops.DIMS_TAKEN)} (d, dv) x fp32 and bf16: max abs err "
                          f"{worst:.3e}, all within tolerance, every pair of launches bit for bit "
                          f"equal")
     recs["window_attention_bwd"] = rec
@@ -3269,11 +3360,12 @@ def phase_train_softmax(recs):
 # --------------------------------------------------------------------------
 
 # the engine phases card against CPU run REFERENCE_LAYERS of the paper
-# model's 4 layers: the CPU engines' host time grows with the layers, and
-# the cut keeps the whole run within its time (each layer is the same code;
-# 2 until the train-softmax phase took the whole run to 940.0 s on an H100
-# 80GB HBM3 at 700 W whose host-bound phases ran slow)
-REFERENCE_LAYERS = 1
+# model's 4 layers: the CPU engines' host time grows with the layers (each
+# layer is the same code), and 2 keep the whole run within its time: on
+# an H100 80GB HBM3 at 700 W the reference phases took 33.0 s at 2 layers
+# in a whole run of 899.0 s on a slow host, 9.8 s at 1 in a run of 627.3 s
+# on a fast one
+REFERENCE_LAYERS = 2
 # card vs CPU, fp32 on both sides with other summation orders, through the
 # layers and up to 3 x 16 decode steps per flow.  Without the static-global
 # tier every float agrees within 2e-4.  With it, a sign-LSH bit
@@ -5658,7 +5750,8 @@ def kernel_lines(recs, launches):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
         })
-        for key in ("library_of", "fwd_bwd_ms", "other_shapes"):
+        for key in ("library_of", "fwd_ms", "fwd_bound_ms", "fwd_bwd_ms", "library_fwd_bwd_ms",
+                    "other_shapes"):
             if key in r:
                 lines[-1][key] = r[key]
     return lines

@@ -25,7 +25,8 @@ of the JAX op's ``custom_vjp`` (``repro/kernels/window_attention/ops.py``
   whose forward also writes each row's log-sum-exp and saves (q, k, v, o,
   lse), and whose backward launches the three kernels of
   :func:`window_attention_bwd` (D = rowsum(dO o); dK and dV a block per
-  kv-head and key tile, the kv-head's query heads summed inside it; dQ).
+  kv-head and key tile, the kv-head's query heads summed inside it; dQ;
+  bf16 products on the tensor cores, fp32 ones on the CUDA cores).
   For CPU tensors it runs the plain version, which autograd differentiates;
   any other device raises.  :func:`window_attention_fwd` and
   :func:`window_attention_bwd`, the Function's two halves, take CUDA

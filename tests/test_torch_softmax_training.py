@@ -11,6 +11,10 @@
   the query heads, so its dk and dv are summed over each kv-head's heads.
 * ``window_attention_bwd_plain`` against autograd of
   ``window_attention_plain``.
+* The bf16 backward kernels' rounding (``csrc/window_attention_bwd.cu``: P
+  and dS fed to the tensor cores as bf16 hi + lo) emulated in torch, held
+  to ``window_attention_bwd_plain`` in float64 under ``chip_smoke``'s bf16
+  rule at its edge shapes; one rounding of P and dS is beyond that rule.
 * ``remat="full"`` against ``"none"``: the same loss and gradients, and each
   layer group's forward run twice.
 * ``make_train_step`` on the smoke Mixtral-8x7B (softmax, window cut to 8 at
@@ -171,6 +175,114 @@ def test_window_attention_backward_refuses_mismatched_shapes():
         wops.window_attention_bwd(q, kv, kv, o, lse, o, 4)
     assert wops.contract(d=16, dv=16, H=2, Hkv=1, window=4) is None
     assert "not in" in wops.contract(d=256, dv=256, H=2, Hkv=1, window=4)
+
+
+# --------------------------------------------------------------------------
+# the bf16 backward kernels' arithmetic, emulated
+# --------------------------------------------------------------------------
+
+N_WINDOW_EDGES = 13  # len(chip_smoke.WINDOW_EDGES)
+# (T, W, H, Hkv) beside the edge shapes: G 4 over a 64-row tile boundary
+# with W a multiple of the tile, W = 1 (the diagonal alone), W > T
+BF16_EXTRA = {"G=4": (256, 128, 8, 2), "W=1": (100, 1, 4, 2), "W>T": (64, 200, 4, 1)}
+LOG2E = 1.4426950408889634
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _bwd_bf16_emulated(q, k, v, o, lse, do, window, split=True):
+    """``(dq, dk, dv)`` in bf16 as ``csrc/window_attention_bwd.cu``'s bf16
+    kernels round: bf16 q, k, v, dO and o; S = q k^T and dP = dO v^T with
+    fp32 sums; P = exp2(S scale log2(e) - lse log2(e)) in the band, D =
+    rowsum(dO o) and dS = P (dP - D) in fp32; P and dS enter dV = P^T dO, dK
+    = dS^T q scale and dQ = dS k scale as hi = bf16(x) and lo = bf16(x - hi)
+    (``split``) or as hi alone, with fp32 sums; each result rounded to bf16
+    once.  On the kernels' flattened layout (K and V per kv-head)."""
+    BH, T, d = q.shape
+    BHkv, dv = k.shape[0], v.shape[-1]
+    G = BH // BHkv
+    qg = q.float().reshape(BHkv, G, T, d)
+    og, dog = (x.float().reshape(BHkv, G, T, dv) for x in (o, do))
+    kf, vf = k.float(), v.float()
+    scale = 1.0 / np.sqrt(d)
+    s = torch.einsum("kgid,kjd->kgij", qg, kf)
+    l2 = (lse.float().reshape(BHkv, G, T) * LOG2E)[..., None]
+    p = torch.where(wops._band(T, window, "cpu"), torch.exp2(s * (scale * LOG2E) - l2), 0.0)
+    dp = torch.einsum("kgic,kjc->kgij", dog, vf)
+    ds = p * (dp - torch.sum(dog * og, dim=-1)[..., None])
+
+    def terms(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+    dvv = sum(torch.einsum("kgij,kgic->kjc", t, dog) for t in terms(p))
+    dk = sum(torch.einsum("kgij,kgid->kjd", t, qg) for t in terms(ds)) * scale
+    dq = sum(torch.einsum("kgij,kjd->kgid", t, kf) for t in terms(ds)) * scale
+    return tuple(x.bfloat16() for x in (dq.reshape(BH, T, d), dk, dvv))
+
+
+def _bf16_excess(T, W, H, Hkv, d, dv, seed, split=True):
+    """The emulated bf16 backward against ``window_attention_bwd_plain`` in
+    float64 rounded to bf16 once, at B 2, on bf16 inputs from ``seed`` and
+    the forward's o (bf16) and lse (fp32): the largest ratio of an entry's
+    error to ``chip_smoke``'s bf16 tolerance, WIN_BWD_BF16_ATOL * max|ref of
+    dq, dk, dv| + WIN_BF16_TOL * |ref| (<= 1 within it)."""
+    c = _chip_smoke()
+    rng = np.random.default_rng(seed)
+    B, G = 2, H // Hkv
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+                   for s in ((B * H, T, d), (B * Hkv, T, d), (B * Hkv, T, dv), (B * H, T, dv)))
+    kr, vr = (x.float().repeat_interleave(G, 0) for x in (k, v))
+    o = wops.window_attention_plain(q.float(), kr, vr, W).bfloat16()
+    lse = wops.window_attention_lse_plain(q.float(), kr, W)
+    got = _bwd_bf16_emulated(q, k, v, o, lse, do, W, split=split)
+    ref = wops.window_attention_bwd_plain(*(x.double() for x in (q, k, v, o)), lse.double(),
+                                          do.double(), W)
+    floor = c.WIN_BWD_BF16_ATOL * max(float(r.abs().max()) for r in ref)
+    worst = 0.0
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape
+        r = r.bfloat16().double()
+        worst = max(worst, float(((a.double() - r).abs() / (floor + c.WIN_BF16_TOL * r.abs()))
+                                 .max()))
+    return worst
+
+
+def test_bf16_emulation_covers_chip_smokes_edge_shapes():
+    assert len(_chip_smoke().WINDOW_EDGES) == N_WINDOW_EDGES
+
+
+@pytest.mark.parametrize("d,dv", [(128, 128), (96, 64), (24, 16)])
+@pytest.mark.parametrize("case", [f"edge {i}" for i in range(N_WINDOW_EDGES)] + list(BF16_EXTRA))
+def test_window_attention_bwd_bf16_arithmetic_within_chip_smoke_tolerance(case, d, dv):
+    """The bf16 kernels' rounding (P and dS split hi + lo) holds chip_smoke's
+    bf16 rule at every edge shape of its backward check and at G 4, W 1 and
+    W > T: within it on the CPU before the card's check."""
+    if case in BF16_EXTRA:
+        T_, W, H, Hkv = BF16_EXTRA[case]
+        seed = T_ + W
+    else:
+        i = int(case.split()[1])
+        T_, W, _, H, Hkv = _chip_smoke().WINDOW_EDGES[i]
+        seed = 100 + i
+    assert _bf16_excess(T_, W, H, Hkv, d, dv, seed) <= 1.0
+
+
+def test_single_bf16_rounding_of_p_and_ds_is_beyond_the_tolerance():
+    """Why the kernels split P and dS: rounded to bf16 once (2^-9 of each
+    entry) they put entries whose reference is near 0 beyond the 1e-4 *
+    max|ref| floor, at a G 4 edge shape at d = dv = 128."""
+    assert _bf16_excess(200, 48, 4, 1, 128, 128, 100, split=False) > 1.0
 
 
 # --------------------------------------------------------------------------

@@ -34,6 +34,7 @@ def chip_smoke():
     (77, 1, 4, 2, 64, 64),       # the diagonal alone
     (129, 128, 4, 1, 96, 64),    # T = W + 1 over a tile boundary, MLA's widths
     (200, 200, 4, 2, 24, 16),    # W = T (full-causal), MLA's smoke widths
+    (200, 128, 8, 2, 128, 128),  # Gq 4 at the zoo's widths, W a multiple of the tile, T ragged
 ])
 def test_window_backward_kernels_on_card(chip_smoke, T, W, H, Hkv, d, dv, dtype):
     chip_smoke.check_window_bwd((2, H, Hkv, T, W, d, dv), dtype, seed=T + W, slice_heads=H)
