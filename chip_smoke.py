@@ -14,7 +14,7 @@ Phases, each printing its own lines:
                patterns: no flow folding, the spread the kernels line
                reports, every flow folding) and at the edge shapes of its
                contract, and times both; checks the gradients of the
-               chimera_attention Function.
+               chimera_attention Function (its forward and backward kernels).
 4. engine    — the serving path: a ``FlowEngine`` at the paper's full width
                (chimera-dataplane: 4 layers, d 256, m 256, L 64, n_global
                64; capacity 4096, lanes 256) with random weights from a
@@ -138,9 +138,28 @@ Phases, each printing its own lines:
                plain route on the card (fp32, seq 2048); (d) both smoke
                configs' softmax variants, 10 Trainer steps, card against CPU.
 
-Phases 4, 5, 6, 8, 9, 10, 11, 12, 13 and 14 are the main paths: the
+15. train-chimera — run after the train-softmax phase, before the trainer
+               phase: Chimera attention trained on the card.  (a) the
+               backward kernels (csrc/chimera_attention_bwd.cu: fold, prefix,
+               dK/dV, dQ) against chimera_attention_bwd_plain in float64 at
+               Mixtral-8x7B's Chimera training shape (B 1 x Hkv 8, Gq 4, T
+               8192, d = dv = m 128, L 256) and MiniCPM3-4B's MLA Chimera
+               shape (H = Hkv 40, d 96, dv 64), from fp32 and bf16-rounded
+               inputs, and at every chunk of the contract x T in {L, 3L} x
+               three flag pairs x eight (d, dv, m); two launches bit for bit
+               equal; timed beside the forward, with the kernels' split from
+               a profiler trace; (b) Mixtral-8x7B's Chimera variant and (c)
+               MiniCPM3-4B's Chimera MLA variant through the Trainer at full
+               width, 2 layers, B 1 x 8192, remat "full": 1 + 5 AdamW steps,
+               one profiled step, the whole step against the plain route on
+               the card (fp32, seq 2048); (d) both smoke configs' Chimera
+               variants, 10 Trainer steps, card against CPU.  The train and
+               trainer phases' Chimera training runs the backward kernels
+               too.
+
+Phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14 and 15 are the main paths: the
 kernels' launch counters are zeroed just before each (each part of phases
-10, 12, 13 and 14) and read just after, and each fails if one of its
+10, 12, 13, 14 and 15) and read just after, and each fails if one of its
 kernels never launched.  Then
 a JSON line with every kernel's numbers, a JSON line ``{"phases": {...}}``
 with every phase's seconds (and the run's total), and as the last line
@@ -1013,9 +1032,9 @@ def compare_builds(others, rounds=1, only=None):
 
 
 def check_chimera_grads(B=2, Hkv=2, Gq=2, T=128, m=64, L=64):
-    """The autograd Function (kernel forward, plain backward) against
-    autograd through the plain version, at a small shape with Gq 2 unless
-    given another."""
+    """The autograd Function (the forward kernel, then the backward kernels
+    of csrc/chimera_attention_bwd.cu) against autograd through the plain
+    version, at a small shape with Gq 2 unless given another."""
     import torch
     from repro_torch.kernels.chimera_attention import ops
 
@@ -1023,22 +1042,25 @@ def check_chimera_grads(B=2, Hkv=2, Gq=2, T=128, m=64, L=64):
     g = torch.Generator().manual_seed(SEED + 7)
     w_num = torch.randn(xs[0].shape[:-1] + (xs[2].shape[-1],), generator=g).to("cuda")
     w_den = torch.randn(xs[0].shape[:-1], generator=g).to("cuda")
-    before = ops.launches
+    before, bwd_before = ops.launches, ops.bwd_launches
     outs = []
     for fn in (ops.chimera_attention_partials, ops.chimera_attention_partials_plain):
         num, den = fn(*xs, L)
         loss = (num * w_num).sum() + (den * w_den).sum()
         outs.append((num, den, torch.autograd.grad(loss, xs)))
-    if ops.launches == before:
-        fail("chimera_attention gradient check: the Function did not launch the kernel")
+    want = ops.bwd_kernel_launches(T, L)
+    if ops.launches == before or ops.bwd_launches - bwd_before != want:
+        fail(f"chimera_attention gradient check: the Function launched {ops.launches - before} "
+             f"forward and {ops.bwd_launches - bwd_before} backward kernels (want >= 1 and "
+             f"{want})")
     err = max(compare("chimera_attention fwd num", outs[0][0], outs[1][0], atol=ATTN_ATOL),
               compare("chimera_attention fwd den", outs[0][1], outs[1][1], atol=ATTN_ATOL))
     gerr = max(compare(f"chimera_attention grad {n}", a, b, atol=ATTN_ATOL)
                for n, a, b in zip(("q", "k", "v", "phi_q", "phi_k"), outs[0][2], outs[1][2]))
     log("kernels", f"chimera_attention Function (B {B}, Hkv {Hkv}, Gq {Gq}, T {T}, m {m}, L "
                    f"{L}): forward max "
-                   f"abs err {err:.3e}, gradients of q, k, v, phi_q, phi_k max abs err {gerr:.3e} "
-                   f"against autograd through the plain version")
+                   f"abs err {err:.3e}, gradients of q, k, v, phi_q, phi_k (the backward kernels) "
+                   f"max abs err {gerr:.3e} against autograd through the plain version")
 
 
 # window_attention outputs are convex combinations of rows of v (|v| ~ 1):
@@ -1602,7 +1624,7 @@ def phase_train(recs):
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: counters zeroed just before, read just after
-    dops.launches = sops.launches = cops.launches = 0
+    dops.launches = sops.launches = cops.launches = cops.bwd_launches = 0
     # the classifier objective (benchmarks/common.py's loop)
     C.train_classifier(ccfg, packet_stream(SEED + 100), params, steps=TRAIN_WARMUP)
     torch.cuda.synchronize()
@@ -1612,9 +1634,10 @@ def phase_train(recs):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"decode_step": dops.launches, "flow_score": sops.launches,
-                "chimera_attention": cops.launches}
-    if launches["chimera_attention"] == 0:
-        fail(f"train: chimera_attention was never launched on the training path: {launches}")
+                "chimera_attention": cops.launches, "chimera_attention_bwd": cops.bwd_launches}
+    if launches["chimera_attention"] == 0 or launches["chimera_attention_bwd"] == 0:
+        fail(f"train: chimera_attention's forward or backward was never launched on the "
+             f"training path: {launches}")
     losses = check_losses("train classifier", losses)
     # held-out batches of the same traffic, far past the training steps
     ev = C.eval_classifier(ccfg, trained, rules, packet_stream(SEED, step=1000),
@@ -1846,14 +1869,14 @@ def attn_label(cfg):
     return f"head_dim {cfg.head_dim}"
 
 
-def zoo_chimera(name, n_layers):
+def zoo_chimera(name, n_layers, **replace):
     """The registry's config of ``name`` (its Chimera default: m 128, L 256,
     n_global 32, d_head 128), cut to ``n_layers`` of its layers."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(name), n_layers=n_layers)
+    return dataclasses.replace(get_config(name), n_layers=n_layers, **replace)
 
 
 def drop_free(cfg):
@@ -1873,12 +1896,13 @@ def drop_free(cfg):
 class plain_chimera_kernels:
     """Within the block, the two Chimera kernels' wrappers run their plain
     versions on the card (chimera_attention one (batch x kv-head) row at a
-    time: its dense (Gq, T, T) scores are 1 GB a row at T 8192), with the
-    wrappers' own casts.  Or part by part: ``prefill`` (chimera_attention)
-    is "plain", "kernel", "kernel local" (the local tier's partials from
-    the kernel, the stream tier's from the plain version) or "kernel
-    stream" (the other way round); ``decode`` (decode_step) is "plain" or
-    "kernel"."""
+    time: its dense (Gq, T, T) scores are 1 GB a row at T 8192, and with
+    ``prefill`` "plain" its backward too, chimera_attention_bwd_plain a row
+    at a time), with the wrappers' own casts.  Or part by part: ``prefill``
+    (chimera_attention) is "plain", "kernel", "kernel local" (the local
+    tier's partials from the kernel, the stream tier's from the plain
+    version) or "kernel stream" (the other way round); ``decode``
+    (decode_step) is "plain" or "kernel"."""
 
     def __init__(self, prefill="plain", decode="plain"):
         self.prefill, self.decode = prefill, decode
@@ -1888,7 +1912,8 @@ class plain_chimera_kernels:
         from repro_torch.kernels.chimera_attention import ops as cops
         from repro_torch.kernels.decode_step import ops as dops
 
-        self.saved = kernel_attention, kernel_decode = cops.chimera_attention_bh, dops.decode_step
+        self.saved = kernel_attention, kernel_decode, kernel_bwd = (
+            cops.chimera_attention_bh, dops.decode_step, cops.chimera_attention_bwd_bh)
 
         def plain_attention(q, k, v, phi_q, phi_k, *, chunk_size, use_local=True,
                             use_stream=True):
@@ -1900,6 +1925,12 @@ class plain_chimera_kernels:
                 chunk_size, use_local, use_stream) for i in range(q.shape[0])]
             return (torch.cat([n[:, 0] for n, _ in rows]).to(dtype),
                     torch.cat([d[:, 0] for _, d in rows]).to(dtype))
+
+        def plain_bwd(*xs, chunk_size, use_local=True, use_stream=True):
+            rows = [cops.chimera_attention_bwd_plain(
+                *(x[i:i + 1, None].float() for x in xs), chunk_size, use_local, use_stream)
+                for i in range(xs[0].shape[0])]
+            return tuple(torch.cat([r[j][:, 0] for r in rows]) for j in range(5))
 
         def mixed_attention(*a, chunk_size, use_local=True, use_stream=True):
             local, stream = ((kernel_attention, plain_attention)
@@ -1920,13 +1951,14 @@ class plain_chimera_kernels:
         cops.chimera_attention_bh = {"plain": plain_attention, "kernel": kernel_attention}.get(
             self.prefill, mixed_attention)
         dops.decode_step = plain_decode if self.decode == "plain" else kernel_decode
+        cops.chimera_attention_bwd_bh = plain_bwd if self.prefill == "plain" else kernel_bwd
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels.chimera_attention import ops as cops
         from repro_torch.kernels.decode_step import ops as dops
 
-        cops.chimera_attention_bh, dops.decode_step = self.saved
+        cops.chimera_attention_bh, dops.decode_step, cops.chimera_attention_bwd_bh = self.saved
 
 
 def lm_replay(cfg, params, prompts, pre, gens, max_len, sequential=False):
@@ -2886,6 +2918,7 @@ SOFTMAX_TRAIN_LAYERS, SOFTMAX_TRAIN_T, SOFTMAX_TRAIN_STEPS = 2, 8192, 5
 STEP_CMP_T, STEP_CMP_W = 2048, 1024
 STEP_GRAD_RTOL = 1e-3
 SOFTMAX_SMOKE_STEPS, SOFTMAX_SMOKE_WINDOW = 10, 8  # (d): the smoke configs, card against CPU
+PEAK_LIMIT = 80e9  # bytes: the card's 80 GB, which a full-width training run stays below
 
 
 def event_ms(fn, iters, warmup=1):
@@ -3170,35 +3203,34 @@ def run_steps(tr, steps):
         del tr.save
 
 
-def softmax_step_vs_plain(name):
-    """The whole step's loss and gradients, kernel route against plain
-    route on the card: fp32, full width, 2 layers, B 1 x STEP_CMP_T, the
-    window cut to STEP_CMP_W, the same weights and batch."""
+def step_vs_plain(phase, label, cfg, plain_route, counted, seed):
+    """The whole step's loss and gradients, kernel route against plain route
+    on the card: ``cfg`` (fp32, full width, 2 layers) at B 1 x STEP_CMP_T,
+    the same weights and batch on both.  ``plain_route()`` is the context in
+    which the attention runs its plain version; ``counted`` the kernels'
+    launch counters as (module, attribute) pairs, which must all move on the
+    kernel route and none on the plain one."""
     import torch
     from repro_torch.checkpoint.checkpointer import flatten_with_names
     from repro_torch.data.pipeline import TokenStream
-    from repro_torch.kernels.window_attention import ops as wops
     from repro_torch.models import model as M
     from repro_torch.optim.optimizer import global_norm, tree_flatten
     from repro_torch.train import classifier as C
     from repro_torch.train.train_step import value_and_grad
 
-    cfg = softmax_train_cfg(name, dtype="float32")
-    if cfg.sliding_window:
-        cfg = softmax_train_cfg(name, dtype="float32", sliding_window=STEP_CMP_W)
-    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED + 90), "cuda")
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
     batch = C.batch_to_device(TokenStream(vocab_size=cfg.vocab_size, batch_size=1,
-                                          seq_len=STEP_CMP_T + 1, seed=SEED + 91).next_batch(),
+                                          seq_len=STEP_CMP_T + 1, seed=seed + 1).next_batch(),
                               "cuda")
     runs = {}
     for route in ("kernel", "plain"):
-        before = wops.launches
-        ctx = plain_window_attention() if route == "plain" else contextlib.nullcontext()
+        before = [getattr(mod, attr) for mod, attr in counted]
+        ctx = plain_route() if route == "plain" else contextlib.nullcontext()
         with ctx:
             (loss, metrics), grads = value_and_grad(lambda p: M.loss_fn(cfg, p, batch), params)
-        if (wops.launches > before) != (route == "kernel"):
-            fail(f"train-softmax {name}: window_attention launches {wops.launches - before} on "
-                 f"the {route} route")
+        moved = [getattr(mod, attr) - n for (mod, attr), n in zip(counted, before)]
+        if not (all(moved) if route == "kernel" else not any(moved)):
+            fail(f"{phase} {label}: kernel launches {moved} on the {route} route")
         runs[route] = (loss, metrics, tree_flatten(grads)[0], global_norm(grads))
         del grads
         torch.cuda.empty_cache()
@@ -3212,41 +3244,52 @@ def softmax_step_vs_plain(name):
             for a, b in zip(gk, gp)]
     worst = max(range(len(leaf)), key=leaf.__getitem__)
     if not all(math.isfinite(float(x)) for x in (lk, lp, nk, np_)):
-        fail(f"train-softmax {name}: non-finite loss or gradient norm")
+        fail(f"{phase} {label}: non-finite loss or gradient norm")
     if max(rel.values()) > REF_LOSS_RTOL or leaf[worst] > STEP_GRAD_RTOL:
-        fail(f"train-softmax {name}: kernel route against plain route: {rel}, worst leaf "
+        fail(f"{phase} {label}: kernel route against plain route: {rel}, worst leaf "
              f"{names[worst]} relative error {leaf[worst]:.3e}")
-    log("train-softmax", f"{name} softmax, whole step at B 1 x {STEP_CMP_T}"
-                         f"{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}, fp32, "
-                         f"{cfg.n_layers} layers at full width, kernel route against the plain "
-                         f"route on the card: loss {float(lk):.6f} / {float(lp):.6f} (relative "
-                         f"{rel['loss']:.3e}), nll {rel['nll']:.3e}, gradient norm "
-                         f"{float(nk):.6f} / {float(np_):.6f} ({rel['grad_norm']:.3e}; tolerance "
-                         f"{REF_LOSS_RTOL:g}); {len(leaf)} leaves, worst relative gradient error "
-                         f"{leaf[worst]:.3e} at {names[worst]} (tolerance {STEP_GRAD_RTOL:g}), "
-                         f"median {sorted(leaf)[len(leaf) // 2]:.3e}")
+    log(phase, f"{label}, whole step at B 1 x {STEP_CMP_T}, fp32, {cfg.n_layers} layers at full "
+               f"width, kernel route against the plain route on the card: loss {float(lk):.6f} / "
+               f"{float(lp):.6f} (relative {rel['loss']:.3e}), nll {rel['nll']:.3e}, gradient "
+               f"norm {float(nk):.6f} / {float(np_):.6f} ({rel['grad_norm']:.3e}; tolerance "
+               f"{REF_LOSS_RTOL:g}); {len(leaf)} leaves, worst relative gradient error "
+               f"{leaf[worst]:.3e} at {names[worst]} (tolerance {STEP_GRAD_RTOL:g}), median "
+               f"{sorted(leaf)[len(leaf) // 2]:.3e}")
     del params, runs, gk, gp
     torch.cuda.empty_cache()
     return {"rel": rel, "leaf_worst": leaf[worst]}
 
 
-def train_softmax_full_width(name):
-    """(b) / (c): ``name``'s softmax variant at full width, 2 layers,
-    through the Trainer (launch/train.py's build via trainer_for, weights
-    drawn on the card): 1 warm-up + SOFTMAX_TRAIN_STEPS timed AdamW steps at
-    B 1 x SOFTMAX_TRAIN_T (ms/step, tokens/s, peak memory, the window
-    kernels' launches), one profiled step (busy share, the window kernels'
-    share); then the whole step against the plain route."""
+def softmax_step_vs_plain(name):
+    """The softmax variant's whole step against the plain route (the window
+    cut to STEP_CMP_W where the config has one)."""
+    from repro_torch.kernels.window_attention import ops as wops
+
+    cfg = softmax_train_cfg(name, dtype="float32")
+    label = f"{name} softmax"
+    if cfg.sliding_window:
+        cfg = softmax_train_cfg(name, dtype="float32", sliding_window=STEP_CMP_W)
+        label += f", window {STEP_CMP_W}"
+    return step_vs_plain("train-softmax", label, cfg, plain_window_attention,
+                         ((wops, "launches"),), SEED + 90)
+
+
+def full_width_steps(phase, label, cfg, counted, kernel_key, steps, seq):
+    """``cfg`` through the Trainer at B 1 x ``seq`` (launch/train.py's build
+    via trainer_for, weights drawn on the card, checkpoints off): 1 warm-up
+    step, ``steps`` timed AdamW steps with the launch counters ``counted``
+    ({name: (module, attribute)}) zeroed just before and read just after,
+    then one profiled step.  Returns the record: the launches, ms/step,
+    tokens/s, peak memory, the busy share and the share of kernel time of
+    the kernels whose names hold ``kernel_key``."""
     import tempfile
 
     import torch
-    from repro_torch.kernels.window_attention import ops as wops
     from repro_torch.models import model as M
     from repro_torch.optim.optimizer import tree_flatten
 
-    cfg = softmax_train_cfg(name)
     if cfg.remat != "full":
-        fail(f"train-softmax {name}: remat {cfg.remat!r}, want the config's default 'full'")
+        fail(f"{phase} {label}: remat {cfg.remat!r}, want the config's default 'full'")
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()  # what earlier phases still hold
     t0 = time.perf_counter()
@@ -3254,51 +3297,97 @@ def train_softmax_full_width(name):
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_flatten(params)[0])
-    kv, Gq, d, dv = attn_widths(cfg)
-    W = cfg.sliding_window or SOFTMAX_TRAIN_T
-    steps = 1 + SOFTMAX_TRAIN_STEPS
-    with tempfile.TemporaryDirectory(prefix="chimera-softmax-") as tmp:
-        tr = trainer_for(cfg, tmp, steps + 1, warmup=2, batch=1, seq=SOFTMAX_TRAIN_T,
-                         params=params)
+    total = 1 + steps
+    with tempfile.TemporaryDirectory(prefix="chimera-full-width-") as tmp:
+        tr = trainer_for(cfg, tmp, total + 1, warmup=2, batch=1, seq=seq, params=params)
         del params
         _, warm_s = run_steps(tr, 1)
         torch.cuda.reset_peak_memory_stats()
-        wops.launches = wops.bwd_launches = 0
-        out, loop_s = run_steps(tr, steps)
-        fwd, bwd = wops.launches - wops.bwd_launches, wops.bwd_launches
+        for mod, attr in counted.values():
+            setattr(mod, attr, 0)
+        out, loop_s = run_steps(tr, total)
+        launches = {name: getattr(mod, attr) for name, (mod, attr) in counted.items()}
         peak = torch.cuda.max_memory_allocated()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            _, prof_s = run_steps(tr, steps + 1)
-        busy_ms, rows = report_profile(prof, prof_s, f"one {name} softmax training step")
-        losses = logged_losses(f"train-softmax {name}", out)  # the log holds every step
+            _, prof_s = run_steps(tr, total + 1)
+        busy_ms, rows = report_profile(prof, prof_s, f"one {label} training step")
+        losses = logged_losses(f"{phase} {label}", out)  # the log holds every step
         del tr, prof
     torch.cuda.empty_cache()
+    ms = loop_s / steps * 1e3
+    kernel_ms = sum(t for key, (t, _) in rows.items() if kernel_key in key)
+    share = f"{kernel_ms / busy_ms:.3f}" if busy_ms else "not measured"
+    busy = f"{busy_ms / (prof_s * 1e3):.3f}" if busy_ms else "not measured"
+    log(phase, f"{label}: {n_params} fp32 parameters drawn on the card in {draw_s:.2f} s; B 1 x "
+               f"{seq}, AdamW (fp32 moments): step 1 {warm_s * 1e3:.1f} ms; steps 2-{total} "
+               f"{ms:.2f} ms/step, {seq / (ms / 1e3):.0f} tokens/s; losses "
+               f"{[round(x, 5) for x in losses]}; max_memory_allocated {peak} B ({peak - base} "
+               f"above the {base} B held before); launches {launches}; profiled step "
+               f"{prof_s * 1e3:.1f} ms, busy share {busy}, {kernel_key} kernels "
+               f"{kernel_ms:.1f} ms of it (share of kernel time {share})")
+    if peak >= PEAK_LIMIT:
+        fail(f"{phase} {label}: peak memory {peak} B >= {PEAK_LIMIT:.0f}")
+    return {"launches": launches, "ms": ms, "tokens_per_s": seq / (ms / 1e3), "peak": peak,
+            "busy": busy, "share": share}
+
+
+def train_softmax_full_width(name):
+    """(b) / (c): ``name``'s softmax variant at full width, 2 layers,
+    through the Trainer (full_width_steps: 1 warm-up + SOFTMAX_TRAIN_STEPS
+    timed AdamW steps at B 1 x SOFTMAX_TRAIN_T, one profiled step, the
+    window kernels' launches and share); then the whole step against the
+    plain route."""
+    from repro_torch.kernels.window_attention import ops as wops
+
+    cfg = softmax_train_cfg(name)
+    kv, Gq, d, dv = attn_widths(cfg)
+    W = cfg.sliding_window or SOFTMAX_TRAIN_T
+    label = (f"{name} softmax ({'SWA, window ' + str(W) if cfg.sliding_window else 'full-causal'}"
+             f", {cfg.attention_kind}), {cfg.n_layers} layers at full width (d {cfg.d_model}, "
+             f"{cfg.n_heads} heads / {kv} kv-heads, d {d}, dv {dv}, vocab {cfg.vocab_size}, "
+             f"dtype {cfg.dtype}, remat {cfg.remat})")
+    r = full_width_steps("train-softmax", label, cfg,
+                         {"all": (wops, "launches"), "bwd": (wops, "bwd_launches")}, "window",
+                         SOFTMAX_TRAIN_STEPS, SOFTMAX_TRAIN_T)
+    fwd, bwd = r["launches"]["all"] - r["launches"]["bwd"], r["launches"]["bwd"]
     # per layer and step: the forward, its rerun in the backward (remat), and
     # the backward's three launches
     want_fwd, want_bwd = 2 * cfg.n_layers * SOFTMAX_TRAIN_STEPS, 3 * cfg.n_layers * SOFTMAX_TRAIN_STEPS
     if (fwd, bwd) != (want_fwd, want_bwd):
         fail(f"train-softmax {name}: window_attention launches forward {fwd}, backward {bwd}; "
              f"want {want_fwd} and {want_bwd} (layers x steps x (2 forward, 3 backward))")
-    ms = loop_s / SOFTMAX_TRAIN_STEPS * 1e3
-    win_ms = sum(t for key, (t, _) in rows.items() if "window" in key)
-    share = f"{win_ms / busy_ms:.3f}" if busy_ms else "not measured"
-    busy = f"{busy_ms / (prof_s * 1e3):.3f}" if busy_ms else "not measured"
-    log("train-softmax", f"{name} softmax ({'SWA, window ' + str(W) if cfg.sliding_window else 'full-causal'}"
-                         f", {cfg.attention_kind}), {cfg.n_layers} layers at full width (d "
-                         f"{cfg.d_model}, {cfg.n_heads} heads / {kv} kv-heads, d {d}, dv {dv}, "
-                         f"vocab {cfg.vocab_size}, dtype {cfg.dtype}, remat {cfg.remat}): "
-                         f"{n_params} fp32 parameters drawn on the card in {draw_s:.2f} s; B 1 x "
-                         f"{SOFTMAX_TRAIN_T}, AdamW (fp32 moments): step 1 {warm_s * 1e3:.1f} ms; "
-                         f"steps 2-{steps} {ms:.2f} ms/step, {SOFTMAX_TRAIN_T / (ms / 1e3):.0f} "
-                         f"tokens/s; losses {[round(x, 5) for x in losses]}; max_memory_allocated "
-                         f"{peak} B ({peak - base} above the {base} B held before); "
-                         f"window_attention launches forward {fwd}, backward {bwd}; profiled "
-                         f"step {prof_s * 1e3:.1f} ms, busy share {busy}, window kernels "
-                         f"{win_ms:.1f} ms of it (share of kernel time {share})")
     cmp = softmax_step_vs_plain(name)
-    return {"fwd": fwd, "bwd": bwd, "ms": ms, "tokens_per_s": SOFTMAX_TRAIN_T / (ms / 1e3),
-            "peak": peak, "busy": busy, "window_share": share, "cmp": cmp}
+    return {"fwd": fwd, "bwd": bwd, "ms": r["ms"], "tokens_per_s": r["tokens_per_s"],
+            "peak": r["peak"], "busy": r["busy"], "window_share": r["share"], "cmp": cmp}
+
+
+def smoke_card_vs_cpu(phase, label, cfg, counter, steps):
+    """``cfg`` (a smoke config) through the Trainer, ``steps`` steps on the
+    card and on the CPU from the same seeded weights: losses within
+    REF_LOSS_RTOL; the backward counter ``counter`` ((module, attribute))
+    must move on the card and not on the CPU."""
+    import tempfile
+
+    mod, attr = counter
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        before = getattr(mod, attr)
+        with tempfile.TemporaryDirectory(prefix="chimera-smoke-train-") as tmp:
+            tr = trainer_for(cfg, tmp, steps, lr=1e-3, warmup=2, device=dev)
+            losses[dev] = logged_losses(f"{phase} smoke {label} {dev}", tr.run())
+        if (getattr(mod, attr) > before) != (dev == "cuda"):
+            fail(f"{phase} smoke {label}: backward kernel launches on {dev}: "
+                 f"{getattr(mod, attr) - before}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if err > REF_LOSS_RTOL:
+        fail(f"{phase} smoke {label}: card and CPU losses differ by {err:.3e} > "
+             f"{REF_LOSS_RTOL:g}")
+    log(phase, f"{label} smoke ({cfg.attention_kind}, d_head {cfg.head_dim}, remat "
+               f"{cfg.remat}), {steps} Trainer steps at batch 8 x 128, card (kernels) vs CPU "
+               f"(plain): losses max relative diff {err:.3e} (tolerance {REF_LOSS_RTOL:g}); card "
+               f"losses {[round(x, 5) for x in losses['cuda']]}")
+    return err
 
 
 def train_softmax_smoke(name):
@@ -3307,33 +3396,17 @@ def train_softmax_smoke(name):
     the card and on the CPU from the same seeded weights: losses within
     REF_LOSS_RTOL."""
     import dataclasses
-    import tempfile
 
     from repro_torch.configs.registry import smoke_config
     from repro_torch.kernels.window_attention import ops as wops
 
     cfg = dataclasses.replace(smoke_config(name), use_chimera=False)
+    label = f"{name} softmax"
     if cfg.sliding_window:
         cfg = dataclasses.replace(cfg, sliding_window=SOFTMAX_SMOKE_WINDOW)
-    losses = {}
-    for dev in ("cuda", "cpu"):
-        before = wops.bwd_launches
-        with tempfile.TemporaryDirectory(prefix="chimera-softmax-smoke-") as tmp:
-            tr = trainer_for(cfg, tmp, SOFTMAX_SMOKE_STEPS, lr=1e-3, warmup=2, device=dev)
-            losses[dev] = logged_losses(f"train-softmax smoke {name} {dev}", tr.run())
-        if (wops.bwd_launches > before) != (dev == "cuda"):
-            fail(f"train-softmax smoke {name}: backward kernel launches on {dev}: "
-                 f"{wops.bwd_launches - before}")
-    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    if err > REF_LOSS_RTOL:
-        fail(f"train-softmax smoke {name}: card and CPU losses differ by {err:.3e} > "
-             f"{REF_LOSS_RTOL:g}")
-    log("train-softmax", f"{name} smoke softmax ({cfg.attention_kind}, window "
-                         f"{cfg.sliding_window or 'T'}, d_head {cfg.head_dim}, remat {cfg.remat}), "
-                         f"{SOFTMAX_SMOKE_STEPS} Trainer steps at batch 8 x 128, card (kernels) vs "
-                         f"CPU (plain): losses max relative diff {err:.3e} (tolerance "
-                         f"{REF_LOSS_RTOL:g}); card losses {[round(x, 5) for x in losses['cuda']]}")
-    return err
+        label += f", window {SOFTMAX_SMOKE_WINDOW}"
+    return smoke_card_vs_cpu("train-softmax", label, cfg, (wops, "bwd_launches"),
+                             SOFTMAX_SMOKE_STEPS)
 
 
 def phase_train_softmax(recs):
@@ -3352,6 +3425,272 @@ def phase_train_softmax(recs):
     log("train-softmax", f"launches on the phase's main paths: {launches} ("
                          + ", ".join(f"{n}: forward {r['fwd']}, backward {r['bwd']}"
                                      for n, r in runs.items()) + ")")
+    return {"launches": launches, "runs": runs}
+
+
+# --------------------------------------------------------------------------
+# 15. train-chimera: chimera_attention's backward on the card, and the
+#     Chimera variants trained at full width
+# --------------------------------------------------------------------------
+
+# the backward kernels (csrc/chimera_attention_bwd.cu) against
+# chimera_attention_bwd_plain evaluated in float64 on the same inputs (the
+# fp32 ones, or the bf16-rounded ones that a bf16 model's wrapper casts to
+# fp32), so that the tolerance measures the kernels' rounding alone: fp32
+# sums in another order, of up to Gq x T terms in the stream tier (dphi_k
+# and dv sum over every later chunk's queries), so each gradient is held
+# within CHIMERA_BWD_ATOL x its largest entry + CHIMERA_BWD_RTOL x |ref|
+CHIMERA_BWD_ATOL, CHIMERA_BWD_RTOL = 1e-5, 1e-4
+# (b) and (c): the configs' default Chimera variants (m 128, L 256, n_global
+# 32) at full width, 2 layers, B 1 x seq 8192, 1 warm-up + 5 timed steps
+CHIMERA_TRAIN = ("mixtral-8x7b", "minicpm3-4b")
+CHIMERA_TRAIN_LAYERS, CHIMERA_TRAIN_T, CHIMERA_TRAIN_STEPS = 2, 8192, 5
+CHIMERA_SMOKE_STEPS = 10  # (d): the smoke configs, card against CPU
+# (d, dv, m) of the backward's edge shapes: d = dv at every dv it takes,
+# MLA's (96, 64) and its smoke widths (24, 16), d < dv, d % 16 == 8 (40),
+# and m off the 64-feature block (16, 48, 144)
+CHIMERA_BWD_WIDTHS = ((16, 16, 16), (32, 32, 32), (64, 64, 64), (128, 128, 128), (96, 64, 128),
+                      (24, 16, 16), (64, 128, 48), (40, 64, 144))
+CHIMERA_BWD_MODES = CHIMERA_MODES[:3]  # (use_local, use_stream): both, local only, stream only
+# the backward's four kernels, as a profiler names them
+CHIMERA_BWD_KERNELS = ("chimera_bwd_fold", "chimera_bwd_prefix", "chimera_bwd_dkdv",
+                       "chimera_bwd_dq")
+
+
+def chimera_bwd_cost(BH, Gq, T, d, dv, m, L, use_local=True, use_stream=True):
+    """Bytes and flops of the backward: q, k, v, phi_q, phi_k, g_num and
+    g_den read once and the five gradients written once (fp32); in the
+    local tier five products over each chunk's causal pairs (S, dq, dk: 2 d
+    flop a pair; dP, dv: 2 dv); in the stream tier the state's fold over the
+    keys of chunks ..n-2 and G's over the queries of chunks 1.. (2 m (dv +
+    1) flop a row), dphi_q over those queries and dphi_k over those keys
+    (the same), dv's term (2 m dv).  Returns (bytes, flops, local flops)."""
+    n = T // L
+    rows, keys = BH * Gq * T, BH * T
+    reads = rows * (d + dv + m + 1) + keys * (d + dv + m)
+    writes = rows * (d + m) + keys * (d + dv + m)
+    local = BH * Gq * n * (L * (L + 1) // 2) * (6 * d + 4 * dv) if use_local else 0
+    stream = 0
+    if use_stream and n > 1:
+        q_rows, k_rows = BH * Gq * (n - 1) * L, BH * (n - 1) * L
+        stream = (2 * q_rows + 2 * k_rows) * 2 * m * (dv + 1) + k_rows * 2 * m * dv
+    return 4 * (reads + writes), local + stream, local
+
+
+def chimera_bwd_inputs(B, Hkv, Gq, T, d, dv, m, seed):
+    """chimera_inputs and random gradients of the partials, on the card."""
+    import torch
+
+    xs = chimera_inputs(B, Hkv, Gq, T, m, seed, d=d, dv=dv)
+    g = torch.Generator().manual_seed(seed + 1000)
+    return xs + [torch.randn((B, Hkv, Gq, T, dv), generator=g).to("cuda"),
+                 torch.randn((B, Hkv, Gq, T), generator=g).to("cuda")]
+
+
+def check_chimera_bwd(shape, L, seed, dtype="float32", modes=((True, True),), timed=False,
+                      quiet=False):
+    """The backward kernels at ``shape`` = (B, Hkv, Gq, T, d, dv, m) and
+    chunk L against chimera_attention_bwd_plain in float64 on the same
+    inputs (``dtype`` "bfloat16": the inputs rounded to bf16 first) at each
+    (use_local, use_stream) of ``modes``, and a second launch bit for bit
+    equal to the first.  ``timed``: the backward, the forward, forward +
+    backward, the plain version (float32), the four kernels' split from a
+    profiler trace, against the bound.  Returns the record."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops
+
+    B, Hkv, Gq, T, d, dv, m = shape
+    BH = B * Hkv
+    xs = chimera_bwd_inputs(B, Hkv, Gq, T, d, dv, m, seed)
+    if dtype == "bfloat16":
+        xs = [x.bfloat16() for x in xs]
+    flat = [x.flatten(0, 1).contiguous() for x in xs]
+    label = (f"chimera_attention backward BH {BH} Gq {Gq} T {T} d {d} dv {dv} m {m} L {L} "
+             f"{dtype}")
+    worst = 0.0
+    for use_local, use_stream in modes:
+        kw = dict(chunk_size=L, use_local=use_local, use_stream=use_stream)
+        with torch.no_grad():
+            got = ops.chimera_attention_bwd_bh(*flat, **kw)
+            again = ops.chimera_attention_bwd_bh(*flat, **kw)
+            want = ops.chimera_attention_bwd_plain(*(x.double() for x in xs), L, use_local,
+                                                   use_stream)
+        for name, a, b, w in zip(("dq", "dk", "dv", "dphi_q", "dphi_k"), got, again, want):
+            if a.dtype != torch.float32 or not torch.equal(a, b):
+                fail(f"{label} local={use_local} stream={use_stream}: {name} of two launches on "
+                     f"the same inputs differ (or dtype {a.dtype})")
+            scale = float(w.abs().max())
+            worst = max(worst, compare(f"{label} local={use_local} stream={use_stream} {name}",
+                                       a, w.reshape(a.shape), atol=CHIMERA_BWD_ATOL * scale,
+                                       rtol=CHIMERA_BWD_RTOL) / max(scale, 1e-30))
+        del got, again, want
+    if not quiet:
+        log("train-chimera", f"{label}, (use_local, use_stream) in {list(modes)}: max abs err "
+                             f"{worst:.3e} of each gradient's largest entry against the plain "
+                             f"version in float64 (tolerance {CHIMERA_BWD_ATOL:g} x max|ref| + "
+                             f"{CHIMERA_BWD_RTOL:g} x |ref|); two launches bit for bit equal")
+    rec = {"max_abs_err": worst, "shape": f"B {B} x Hkv {Hkv}, Gq {Gq}, T {T}, d {d}, dv {dv}, "
+                                          f"m {m}, L {L}, {dtype}",
+           "max_abs_err_of": "relative to each gradient's largest entry"}
+    if timed:
+        with torch.no_grad():
+            run = lambda: ops.chimera_attention_bwd_bh(*flat, chunk_size=L)  # noqa: E731
+            fwd = lambda: ops.chimera_attention_bh(*flat[:5], chunk_size=L)  # noqa: E731
+            ms = event_ms(run, iters=5)
+            fwd_ms = event_ms(fwd, iters=5)
+            fb_ms = event_ms(lambda: (fwd(), run()), iters=3)
+            plain_ms = event_ms(lambda: ops.chimera_attention_bwd_plain(
+                *(x.float() for x in xs), L), iters=1)
+        split = profiled_kernel_ms(run, CHIMERA_BWD_KERNELS, iters=5)
+        nbytes, flops, local = chimera_bwd_cost(BH, Gq, T, d, dv, m, L)
+        bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+        fp32_ms = flops / FP32_FLOPS * 1e3
+        per_call = ops.bwd_kernel_launches(T, L)
+        rec.update(ms=ms, fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, fp32_cores_ms=fp32_ms, library_ms=None,
+                   library_of="none: no PyTorch call computes the partials' gradients",
+                   bytes=nbytes, flops=flops, local_flops=local,
+                   split={x: t and t[0] for x, t in split.items()})
+        log("train-chimera", f"{label} device time: backward {ms:.4f} ms ({per_call} launches), "
+                             f"forward {fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms; plain "
+                             f"backward (float32) {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+                             f"{bound_by} ({nbytes} B; {flops} flop, {local} of them the local "
+                             f"tier, x{TF32_PASSES} in TF32 on the tensor cores; on the fp32 CUDA "
+                             f"cores {fp32_ms:.4f} ms); library call: none; in a "
+                             f"profiler trace (ms a launch, launches) "
+                             + ", ".join(f"{x} {fmt_ms(t and t[0])} ({t and t[1]})"
+                                         for x, t in split.items()))
+    del xs, flat
+    torch.cuda.empty_cache()
+    return rec
+
+
+def chimera_bwd_shapes():
+    """(B, Hkv, Gq, T, d, dv, m) of the backward at Mixtral-8x7B's Chimera
+    training shape and at MiniCPM3-4B's MLA Chimera shape (H = Hkv 40)."""
+    out = []
+    for name in CHIMERA_TRAIN:
+        cfg = zoo_chimera(name, CHIMERA_TRAIN_LAYERS)
+        kv, Gq, d, dv = attn_widths(cfg)
+        out.append((1, kv, Gq, CHIMERA_TRAIN_T, d, dv, cfg.chimera.feature_map.feature_dim(d)))
+    return out
+
+
+def check_chimera_bwd_kernels(recs):
+    """(a) The backward at both training shapes from fp32 inputs (timed)
+    and bf16-rounded ones, and at every chunk L of the contract x T in {L,
+    3L} x the three flag pairs x CHIMERA_BWD_WIDTHS (B 2 x Hkv 2, Gq 2).
+    Returns the kernels line's record (Mixtral's shape) with MiniCPM3-4B's
+    as another shape."""
+    from repro_torch.kernels.chimera_attention import ops
+
+    mix, mla = chimera_bwd_shapes()
+    rec = check_chimera_bwd(mix, ZOO_L, SEED + 110, timed=True)
+    check_chimera_bwd(mix, ZOO_L, SEED + 110, dtype="bfloat16")
+    other = check_chimera_bwd(mla, ZOO_L, SEED + 111, timed=True)
+    check_chimera_bwd(mla, ZOO_L, SEED + 111, dtype="bfloat16")
+    other["shape"] = f"{MLA_LM} Chimera MLA: " + other["shape"]
+    rec["other_shapes"] = [{k: other.get(k) for k in (
+        "shape", "max_abs_err", "ms", "fwd_ms", "fwd_bwd_ms", "plain_ms", "bound_ms", "bound_by",
+        "fp32_cores_ms", "library_ms", "split")}]
+    worst, n, refused = 0.0, 0, []
+    for i, (d, dv, m) in enumerate(CHIMERA_BWD_WIDTHS):
+        for L in ops.L_TAKEN:
+            if ops.contract(d=d, dv=dv, m=m, L=L):  # the forward refuses it: no Function call
+                refused.append((d, dv, m, L))
+                continue
+            for T in (L, 3 * L):
+                r = check_chimera_bwd((2, 2, 2, T, d, dv, m), L, SEED + 120 + i + L + T,
+                                      modes=CHIMERA_BWD_MODES, quiet=True)
+                worst, n = max(worst, r["max_abs_err"]), n + 1
+    log("train-chimera", f"chimera_attention backward at {n} edge shapes (L in {ops.L_TAKEN}, T = "
+                         f"L and 3L, (d, dv, m) in {list(CHIMERA_BWD_WIDTHS)}, B 2 x Hkv 2, Gq 2; "
+                         f"outside the forward's contract and skipped, (d, dv, m, L) {refused}) "
+                         f"x every (use_local, use_stream) of {list(CHIMERA_BWD_MODES)}: max abs "
+                         f"err {worst:.3e} of each gradient's largest entry, all within "
+                         f"tolerance, every pair of launches bit for bit equal")
+    recs["chimera_attention_bwd"] = rec
+    return rec
+
+
+def chimera_step_vs_plain(name):
+    """The Chimera variant's whole step against the plain route
+    (plain_chimera_kernels: the forward and backward plain a row at a
+    time)."""
+    from repro_torch.kernels.chimera_attention import ops as cops
+
+    return step_vs_plain("train-chimera", f"{name} Chimera",
+                         zoo_chimera(name, CHIMERA_TRAIN_LAYERS, dtype="float32"),
+                         plain_chimera_kernels, ((cops, "launches"), (cops, "bwd_launches")),
+                         SEED + 92)
+
+
+def train_chimera_full_width(name):
+    """(b) / (c): ``name``'s Chimera variant at full width, 2 layers,
+    through the Trainer (full_width_steps: 1 warm-up + CHIMERA_TRAIN_STEPS
+    timed AdamW steps at B 1 x CHIMERA_TRAIN_T, one profiled step); the
+    forward kernel launches twice a layer and step (remat), the backward's
+    kernels bwd_kernel_launches times; then the whole step against the
+    plain route."""
+    from repro_torch.kernels.chimera_attention import ops as cops
+
+    cfg = zoo_chimera(name, CHIMERA_TRAIN_LAYERS)
+    if not cfg.use_chimera:
+        fail(f"train-chimera {name}: the config's default is not its Chimera variant")
+    kv, Gq, d, dv = attn_widths(cfg)
+    ch = cfg.chimera
+    label = (f"{name} Chimera ({cfg.attention_kind}, m {ch.feature_map.feature_dim(d)}, L "
+             f"{ch.chunk_size}, n_global {ch.n_global}), {cfg.n_layers} layers at full width (d "
+             f"{cfg.d_model}, {cfg.n_heads} heads / {kv} kv-heads, d {d}, dv {dv}, vocab "
+             f"{cfg.vocab_size}, dtype {cfg.dtype}, remat {cfg.remat})")
+    r = full_width_steps("train-chimera", label, cfg,
+                         {"fwd": (cops, "launches"), "bwd": (cops, "bwd_launches")}, "chimera",
+                         CHIMERA_TRAIN_STEPS, CHIMERA_TRAIN_T)
+    fwd, bwd = r["launches"]["fwd"], r["launches"]["bwd"]
+    per_call = cops.bwd_kernel_launches(CHIMERA_TRAIN_T, ch.chunk_size)
+    want_fwd = 2 * cfg.n_layers * CHIMERA_TRAIN_STEPS
+    want_bwd = per_call * cfg.n_layers * CHIMERA_TRAIN_STEPS
+    if (fwd, bwd) != (want_fwd, want_bwd):
+        fail(f"train-chimera {name}: chimera_attention launches forward {fwd}, backward {bwd}; "
+             f"want {want_fwd} and {want_bwd} (layers x steps x (2 forward, {per_call} backward))")
+    cmp = chimera_step_vs_plain(name)
+    return {"fwd": fwd, "bwd": bwd, "ms": r["ms"], "tokens_per_s": r["tokens_per_s"],
+            "peak": r["peak"], "busy": r["busy"], "chimera_share": r["share"], "cmp": cmp}
+
+
+def train_chimera_smoke(name):
+    """(d) ``smoke_config(name)``'s Chimera variant (its default) through
+    the Trainer, CHIMERA_SMOKE_STEPS steps on the card and on the CPU from
+    the same seeded weights: losses within REF_LOSS_RTOL."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels.chimera_attention import ops as cops
+
+    cfg = smoke_config(name)
+    if not cfg.use_chimera:
+        fail(f"train-chimera smoke {name}: the smoke config is not the Chimera variant")
+    return smoke_card_vs_cpu("train-chimera", f"{name} Chimera", cfg, (cops, "bwd_launches"),
+                             CHIMERA_SMOKE_STEPS)
+
+
+def phase_train_chimera(recs):
+    """Chimera attention trained on the card.  (a) check_chimera_bwd_kernels;
+    (b) Mixtral-8x7B's Chimera variant and (c) MiniCPM3-4B's Chimera MLA
+    variant through the Trainer at full width, 2 layers, B 1 x 8192, each
+    with its whole step against the plain route; (d) both smoke configs'
+    Chimera variants, card against CPU.  The chimera_attention counters are
+    zeroed just before each main-path run and read just after."""
+    t0 = time.perf_counter()
+    check_chimera_bwd_kernels(recs)
+    checks_s = time.perf_counter() - t0
+    runs = {name: train_chimera_full_width(name) for name in CHIMERA_TRAIN}
+    for name in CHIMERA_TRAIN:
+        train_chimera_smoke(name)
+    launches = {"chimera_attention": sum(r["fwd"] for r in runs.values()),
+                "chimera_attention_bwd": sum(r["bwd"] for r in runs.values())}
+    log("train-chimera", f"launches on the phase's main paths: {launches} ("
+                         + ", ".join(f"{n}: forward {r['fwd']}, backward {r['bwd']}"
+                                     for n, r in runs.items())
+                         + f"); the kernel checks of (a) took {checks_s:.1f} s")
     return {"launches": launches, "runs": runs}
 
 
@@ -5187,13 +5526,13 @@ def trainer_launcher(cops):
         base = torch.cuda.memory_allocated()  # what earlier phases still hold
         tr = LT.build(LT.parse_args(["--arch", "chimera-dataplane", "--ckpt-dir", tmp]))
         torch.cuda.reset_peak_memory_stats()
-        cops.launches = 0
+        cops.launches = cops.bwd_launches = 0
         warm, warm_s, _ = timed_run(tr, 1)
         out, loop_s, save_s = timed_run(tr, TRAINER_STEPS)
-        launches = cops.launches
+        launches, bwd = cops.launches, cops.bwd_launches
         peak = torch.cuda.max_memory_allocated()
-        if launches == 0:
-            fail("trainer (a): chimera_attention was never launched")
+        if launches == 0 or bwd == 0:
+            fail(f"trainer (a): chimera_attention launched forward {launches}, backward {bwd}")
         t0 = time.perf_counter()
         tr.restore()
         torch.cuda.synchronize()
@@ -5210,10 +5549,10 @@ def trainer_launcher(cops):
                    f"{out['log'][0]['step']} {losses[0]:.5f}, step {out['log'][-1]['step']} "
                    f"{losses[-1]:.5f}; final save {save_s:.3f} s, restore {restore_s:.3f} s; "
                    f"chimera_attention launches {launches} ({launches / TRAINER_STEPS:.1f} per "
-                   f"step); max_memory_allocated {peak}, {peak - base} above the {base} B "
-                   f"allocated before the part")
-    return {"launches": launches, "ms": ms, "loss": (losses[0], losses[-1]), "save_s": save_s,
-            "restore_s": restore_s, "peak": peak - base}
+                   f"step), its backward's {bwd}; max_memory_allocated {peak}, {peak - base} "
+                   f"above the {base} B allocated before the part")
+    return {"launches": launches, "bwd": bwd, "ms": ms, "loss": (losses[0], losses[-1]),
+            "save_s": save_s, "restore_s": restore_s, "peak": peak - base}
 
 
 def trainer_card_vs_cpu():
@@ -5246,7 +5585,7 @@ def trainer_resume(cops):
     from repro_torch.configs.chimera_dataplane import CONFIG as ARCH
 
     torch.use_deterministic_algorithms(True)  # cuBLAS's workspace is fixed in main()
-    cops.launches = 0
+    cops.launches = cops.bwd_launches = 0
     try:
         with tempfile.TemporaryDirectory(prefix="chimera-resume-") as tmp:
             kw = dict(lr=1e-3, warmup=2, seed=SEED + 1, ckpt_every=5)
@@ -5260,9 +5599,9 @@ def trainer_resume(cops):
             resumed.run()
     finally:
         torch.use_deterministic_algorithms(False)
-    launches = cops.launches
-    if launches == 0:
-        fail("trainer (b): chimera_attention was never launched")
+    launches, bwd = cops.launches, cops.bwd_launches
+    if launches == 0 or bwd == 0:
+        fail(f"trainer (b): chimera_attention launched forward {launches}, backward {bwd}")
     diff = param_diff(direct.params, resumed.params)
     odiff = param_diff(direct.opt_state, resumed.opt_state)
     if diff > RESUME_TOL or odiff > RESUME_TOL:
@@ -5272,8 +5611,9 @@ def trainer_resume(cops):
                    f"steps direct vs {RESUME_STEPS // 2} + {RESUME_STEPS // 2} through a "
                    f"checkpoint (the new Trainer reported step {RESUME_STEPS // 2}): final "
                    f"parameters max abs diff {diff:.3e}, optimizer state {odiff:.3e} (tolerance "
-                   f"{RESUME_TOL:g}); chimera_attention launches {launches}")
-    return {"launches": launches, "diff": diff}
+                   f"{RESUME_TOL:g}); chimera_attention launches {launches}, its backward's "
+                   f"{bwd}")
+    return {"launches": launches, "bwd": bwd, "diff": diff}
 
 
 class CodeRecorder:
@@ -5338,6 +5678,84 @@ def farthest_gaps(x, picks):
     return gaps
 
 
+def follow_card_walk(what, x, card, key):
+    """The CPU's farthest-point walk over ``x`` (CPU, the arithmetic of
+    ``two_timescale.farthest_points``) beside the card's picks ``card`` on
+    the same samples: where its own pick is another row, it follows the
+    card's if the CPU's distance to it is within KMEANS_TIE_RTOL (relative)
+    of its largest, and fails beyond that.  Returns (the picks (k,) int64,
+    the CPU's top-2 gap at each pick (relative; inf at the first), the
+    followed ties as (pick, CPU row, card row, gap))."""
+    import torch
+    from repro_torch.core import two_timescale as TT
+
+    first = TT.randint(key, 0, x.shape[0])
+    if first != card[0]:
+        fail(f"{what}: the first farthest-point pick is row {card[0]} on the card and {first} on "
+             f"the CPU (both drawn from the same key)")
+    picks, gaps, ties = [first], [float("inf")], []
+    d2 = torch.sum((x - x.index_select(0, torch.tensor([first]))) ** 2, dim=-1)
+    for i in range(1, len(card)):
+        own = int(torch.argmax(d2))
+        top = float(d2[own])
+        below = d2[d2 < d2[own]]
+        gaps.append((top - float(below.max())) / top if below.numel() else float("inf"))
+        pick = own
+        if own != card[i]:
+            gap = (top - float(d2[card[i]])) / top
+            if gap > KMEANS_TIE_RTOL:
+                fail(f"{what}: farthest-point pick {i} is row {card[i]} on the card and {own} on "
+                     f"the CPU, whose distances to them differ by {gap:.3e} (relative) > "
+                     f"{KMEANS_TIE_RTOL:g}")
+            ties.append((i, own, card[i], gap))
+            pick = card[i]
+        picks.append(pick)
+        d2 = torch.minimum(d2, torch.sum((x - x.index_select(0, torch.tensor([pick]))) ** 2,
+                                         dim=-1))
+    return torch.tensor(picks, dtype=torch.long), gaps, ties
+
+
+class KmeansProbe:
+    """Within the block, each k-means of the two-timescale controller
+    records, under the recluster's step (``step``, set by the caller before
+    each recluster), its farthest-point picks and its centroids in ``rec``.
+    Given ``card`` (the card run's record), the walk is the CPU's own,
+    following the card's picks at near ties (``follow_card_walk``), and
+    ``rec`` also holds its gaps and ties."""
+
+    def __init__(self, rec, card=None):
+        self.rec, self.card, self.step = rec, card, None
+
+    def __enter__(self):
+        from repro_torch.core import two_timescale as TT
+
+        self.saved = real_walk, real_kmeans = TT.farthest_points, TT.kmeans
+
+        def walk(x, k, key):
+            if self.card is None:
+                picks = real_walk(x, k, key)
+                self.rec[self.step] = {"picks": picks.cpu().tolist()}
+                return picks
+            picks, gaps, ties = follow_card_walk(
+                f"trainer (c) recluster at step {self.step}", x.cpu(),
+                self.card[self.step]["picks"], key)
+            self.rec[self.step] = {"picks": picks.tolist(), "gaps": gaps, "ties": ties}
+            return picks.to(x.device)
+
+        def kmeans(*a, **kw):
+            out = real_kmeans(*a, **kw)
+            self.rec[self.step]["centroids"] = out[0].detach().cpu()
+            return out
+
+        TT.farthest_points, TT.kmeans = walk, kmeans
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import two_timescale as TT
+
+        TT.farthest_points, TT.kmeans = self.saved
+
+
 def hold_kmeans(what, samples, k, iters, key):
     """The card's k-means against the CPU's on the same samples: the
     farthest-point picks equal but at a near tie (KMEANS_TIE_RTOL, counted),
@@ -5383,7 +5801,13 @@ def trainer_codebook(cops):
     differ by roundings, and the farthest-point walk of k-means turns such
     a difference at a near tie into another centroid (on an H100 the
     losses then differed by 1.3e-4 and, from the step after the second
-    install, 5.9e-4, with no code differing on the same inputs)."""
+    install, 5.9e-4, with no code differing on the same inputs).  The CPU's
+    own k-means arithmetic can still resolve a near tie of the walk the
+    other way on the same reservoir, so its walk follows the card's pick
+    where the two differ within KMEANS_TIE_RTOL and fails beyond it
+    (KmeansProbe); every recluster's gaps, followed ties and centroid
+    difference are logged, and a loss beyond REF_LOSS_RTOL names the first
+    recluster whose picks or centroids differ."""
     import tempfile
 
     import torch
@@ -5409,13 +5833,14 @@ def trainer_codebook(cops):
                     return out
 
                 tr.controller.maybe_recluster = recluster
-            cops.launches = 0
+            cops.launches = cops.bwd_launches = 0
             out, loop_s, _ = timed_run(tr, CODEBOOK_STEPS)
-            if cops.launches == 0:
-                fail(f"trainer (c) {label}: chimera_attention was never launched")
-            runs[label] = (tr, loop_s / CODEBOOK_STEPS * 1e3, cops.launches,
+            if cops.launches == 0 or cops.bwd_launches == 0:
+                fail(f"trainer (c) {label}: chimera_attention launched forward {cops.launches}, "
+                     f"backward {cops.bwd_launches}")
+            runs[label] = (tr, loop_s / CODEBOOK_STEPS * 1e3, cops.launches, cops.bwd_launches,
                            logged_losses(f"trainer (c) {label}", out))
-    tr, ms, launches, losses = runs["controller"]
+    tr, ms, launches, bwd, losses = runs["controller"]
     hist = tr.controller.history
     if not any(r.installed for r in hist) or not all(r.churn_ok for r in hist):
         fail(f"trainer (c): install records {hist}")
@@ -5424,7 +5849,7 @@ def trainer_codebook(cops):
         fail("trainer (c): the installed centroids differ across the layer axis")
     if where != {"cuda"}:
         fail(f"trainer (c): the reclusters' centroids lie on {sorted(where)}, not the card")
-    ms_plain = runs["no controller"][1]
+    ms_plain, bwd = runs["no controller"][1], bwd + runs["no controller"][3]
     log("trainer", f"(c) codebook map (m 256, 256 centroids), {CODEBOOK_STEPS} steps, T_cp "
                    f"{CODEBOOK_T_CP} steps: {ms:.2f} ms/step with the controller, "
                    f"{ms_plain:.2f} without; the reclusters (k-means on the card, delta_map) "
@@ -5434,45 +5859,65 @@ def trainer_codebook(cops):
                    + ", ".join(f"step {r.step} delta_map {r.delta_map:.4f} installed "
                                f"{r.installed} churn_ok {r.churn_ok}" for r in hist)
                    + f"; loss first {losses[0]:.5f} last {losses[-1]:.5f}; chimera_attention "
-                   f"launches {launches}")
+                   f"launches {launches} with the controller, backward {bwd} in both runs")
 
-    got, t_dev, shared = {}, {}, {}
+    got, t_dev, shared, walks = {}, {}, {}, {"cuda": {}, "cpu": {}}
     for dev in ("cuda", "cpu"):
         with tempfile.TemporaryDirectory(prefix="chimera-codebook-") as tmp:
             t0 = time.perf_counter()
             tr = trainer_for(arch, tmp, CODEBOOK_STEPS, device=dev, two_timescale=tt)
             real = tr.controller.maybe_recluster
+            probe = KmeansProbe(walks[dev], card=walks["cuda"] if dev == "cpu" else None)
 
-            def recluster(step, *a, real=real, ctl=tr.controller, dev=dev, **k):
-                # the card's reservoir at each epoch, clustered by both runs
+            def recluster(step, *a, real=real, ctl=tr.controller, dev=dev, probe=probe, **k):
+                # the card's reservoir at each epoch, clustered by both runs;
+                # the CPU's farthest-point walk follows the card's at near ties
                 if dev == "cuda":
                     shared[step] = list(ctl._reservoir)
                 elif step in shared:
                     ctl._reservoir = list(shared[step])
+                probe.step = step
                 return real(step, *a, **k)
 
             tr.controller.maybe_recluster = recluster
             if dev == "cuda":
                 torch.use_deterministic_algorithms(True, warn_only=True)
                 try:
-                    with CodeRecorder() as codes:
+                    with CodeRecorder() as codes, probe:
                         out = tr.run()
                 finally:
                     torch.use_deterministic_algorithms(False)
             else:
-                out = tr.run()
+                with probe:
+                    out = tr.run()
             t_dev[dev] = time.perf_counter() - t0
         got[dev] = (logged_losses(f"trainer (c) {dev}", out), tr.controller.history,
                     tr.params["blocks"]["b0"]["attn"]["chimera"]["fm"]["centroids"])
     (lc, hc, cc), (lp, hp, cp) = got["cuda"], got["cpu"]
     calls = codes.calls
     n, flips, sure = count_code_flips(calls)
+    # each recluster: the CPU walk's smallest top-2 gap, the card's picks it
+    # followed, and the k-means centroids' largest difference, card vs CPU
+    epochs = []
+    for step in sorted(walks["cpu"]):
+        c_rec, p_rec = walks["cuda"][step], walks["cpu"][step]
+        epochs.append((step, min(p_rec["gaps"]), p_rec["ties"],
+                       float((c_rec["centroids"] - p_rec["centroids"]).abs().max())))
+    log("trainer", "(c) the CPU run's farthest-point walks on the card's reservoirs: " + "; ".join(
+        f"recluster at step {step}: smallest top-2 gap {gap:.3e}, {len(ties)} near ties followed "
+        f"{[(i, a, b, f'{g:.2e}') for i, a, b, g in ties]}, k-means centroids card vs CPU within "
+        f"{err:.3e}" for step, gap, ties, err in epochs))
     lerr = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
     if lerr > REF_LOSS_RTOL:
         at = next(i for i, (a, b) in enumerate(zip(lc, lp)) if abs(a - b) / abs(b) > REF_LOSS_RTOL)
+        moved = next((e for e in epochs if e[2] or e[3] > KMEANS_ATOL), None)
         fail(f"trainer (c): card and CPU losses differ by {lerr:.3e} > {REF_LOSS_RTOL:g}, first "
              f"at logged step {at}; on the card's own inputs {flips} of {n} codes differ from "
-             f"the CPU's, {sure} with a top-2 gap above {CODE_MARGIN:g}")
+             f"the CPU's, {sure} with a top-2 gap above {CODE_MARGIN:g}; the first recluster "
+             f"whose picks or centroids differ: " + (
+                 "none" if moved is None else
+                 f"step {moved[0]} ({len(moved[2])} near ties followed, centroids within "
+                 f"{moved[3]:.3e}, KMEANS_ATOL {KMEANS_ATOL:g})"))
     key = [(r.step, r.installed, r.churn_ok) for r in hc]
     if key != [(r.step, r.installed, r.churn_ok) for r in hp]:
         fail(f"trainer (c): card install history {hc} differs from the CPU's {hp}")
@@ -5504,8 +5949,8 @@ def trainer_codebook(cops):
                    f"{len(held)}; near ties (top-2 gap <= {KMEANS_TIE_RTOL:g}, the card's pick "
                    f"followed from there) {ties}; centroids within "
                    f"{max(h[2] for h in held):.3e} (tolerance {KMEANS_ATOL:g})")
-    return {"launches": launches + runs["no controller"][2], "ms": ms, "ms_plain": ms_plain,
-            "installs": sum(r.installed for r in hist)}
+    return {"launches": launches + runs["no controller"][2], "bwd": bwd, "ms": ms,
+            "ms_plain": ms_plain, "installs": sum(r.installed for r in hist)}
 
 
 def codebook_program():
@@ -5606,12 +6051,12 @@ def trainer_lm100m(cops):
         n_params = sum(t.numel() for t in tree_flatten(tr.params)[0])
         timed_run(tr, 1)
         torch.cuda.reset_peak_memory_stats()
-        cops.launches = 0
+        cops.launches = cops.bwd_launches = 0
         out, loop_s, save_s = timed_run(tr, LM100M_STEPS + 1)
-        launches = cops.launches
+        launches, bwd = cops.launches, cops.bwd_launches
         peak = torch.cuda.max_memory_allocated()
-    if launches == 0:
-        fail("trainer (d): chimera_attention was never launched")
+    if launches == 0 or bwd == 0:
+        fail(f"trainer (d): chimera_attention launched forward {launches}, backward {bwd}")
     losses = logged_losses("trainer (d)", out)
     ms = loop_s / LM100M_STEPS * 1e3
     log("trainer", f"(d) {cfg.name} ({n_params} parameters; 12 layers, d 768, d_head 64, d_ff "
@@ -5620,7 +6065,8 @@ def trainer_lm100m(cops):
                    f"{8 * 128 / (ms / 1e3):.0f} tokens/s; loss step {out['log'][0]['step']} "
                    f"{losses[0]:.5f}, step {out['log'][-1]['step']} {losses[-1]:.5f}; "
                    f"chimera_attention launches {launches} "
-                   f"({launches / LM100M_STEPS:.1f} per step); final save {save_s:.3f} s; "
+                   f"({launches / LM100M_STEPS:.1f} per step), its backward's {bwd}; final save "
+                   f"{save_s:.3f} s; "
                    f"max_memory_allocated {peak}, {peak - base} above the {base} B allocated "
                    f"before the part")
     step = make_train_step(cfg, tr.opt_cfg)
@@ -5634,7 +6080,7 @@ def trainer_lm100m(cops):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report_profile(prof, wall, f"one {cfg.name} step (forward, backward, AdamW)")
-    return {"launches": launches, "ms": ms, "peak": peak - base}
+    return {"launches": launches, "bwd": bwd, "ms": ms, "peak": peak - base}
 
 
 def phase_trainer(recs):
@@ -5644,8 +6090,8 @@ def phase_trainer(recs):
     smoke config card against CPU; (b) a resumed run against a direct one;
     (c) the codebook map with the two-timescale controller, and a codebook
     program deployed on the card and the CPU; (d) lm_100m.  The
-    chimera_attention counter is zeroed before each part's run and read
-    after it."""
+    chimera_attention counters (forward and backward) are zeroed before each
+    part's run and read after it."""
     from repro_torch.kernels.chimera_attention import ops as cops
 
     rec = check_chimera(True, shape=(8, 12, 1, 128, 64, 128), seed=SEED + 13)
@@ -5658,9 +6104,11 @@ def phase_trainer(recs):
     parts["c"] = trainer_codebook(cops)
     program = codebook_program()
     parts["d"] = trainer_lm100m(cops)
-    launches = {"chimera_attention": sum(p["launches"] for p in parts.values()), **program}
+    launches = {"chimera_attention": sum(p["launches"] for p in parts.values()),
+                "chimera_attention_bwd": sum(p["bwd"] for p in parts.values()), **program}
     log("trainer", f"launches on the trainer phase's paths: chimera_attention "
                    + ", ".join(f"({k}) {p['launches']}" for k, p in parts.items())
+                   + ", its backward " + ", ".join(f"({k}) {p['bwd']}" for k, p in parts.items())
                    + f"; the codebook program's engine {program}")
     return {"launches": launches}
 
@@ -5698,8 +6146,9 @@ def main():
         launches[name] += n
     for name, n in timed("shard", phase_shard)["launches"].items():
         launches[name] += n
-    launches["chimera_attention"] = timed("train", phase_train, recs)["launches"][
-        "chimera_attention"]
+    train = timed("train", phase_train, recs)["launches"]
+    for name in ("chimera_attention", "chimera_attention_bwd"):
+        launches[name] = train[name]
     launches["window_attention"] = timed("serve", phase_serve, recs)["launches"]["window_attention"]
     for name, n in timed("lm-chimera", phase_lm_chimera, recs)["launches"].items():
         launches[name] += n
@@ -5707,6 +6156,8 @@ def main():
         launches[name] += n
     for name, n in timed("train-softmax", phase_train_softmax, recs)["launches"].items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in timed("train-chimera", phase_train_chimera, recs)["launches"].items():
+        launches[name] += n
     for name, n in timed("trainer", phase_trainer, recs)["launches"].items():
         launches[name] += n
     timed("reference n_global=0", phase_reference, 0)
@@ -5740,6 +6191,9 @@ def kernel_lines(recs, launches):
         "window_attention_bwd": ("src/repro_torch/csrc/window_attention_bwd.cu",
                                  "src/repro/kernels/window_attention/ops.py:37 (the custom_vjp "
                                  "backward, jnp autodiff of ref.py)"),
+        "chimera_attention_bwd": ("src/repro_torch/csrc/chimera_attention_bwd.cu",
+                                  "src/repro/kernels/chimera_attention/ops.py:52 (the "
+                                  "custom_vjp backward, jax.vjp of ref.py)"),
     }
     lines = []
     for name, (source, replaces) in info.items():
@@ -5751,7 +6205,7 @@ def kernel_lines(recs, launches):
             "library_ms": r.get("library_ms"),
         })
         for key in ("library_of", "fwd_ms", "fwd_bound_ms", "fwd_bwd_ms", "library_fwd_bwd_ms",
-                    "other_shapes"):
+                    "max_abs_err_of", "fp32_cores_ms", "split", "other_shapes"):
             if key in r:
                 lines[-1][key] = r[key]
     return lines

@@ -15,8 +15,10 @@ space are summed and normalized (Eqs. 6, 9-10, 14):
 Train/prefill (:func:`chimera_attention`) computes the local and stream
 partials of whole chunked sequences with
 :func:`repro_torch.kernels.chimera_attention.ops.chimera_attention_partials`
-(the Hopper kernel on a CUDA tensor, differentiable through its plain
-formulation), as the JAX package's ``use_pallas`` branch does.
+(the Hopper kernels on a CUDA tensor, forward and backward; the plain
+versions on a CPU tensor: the chunked backward never forms a (T, T)
+tensor, as the JAX package's default scan path does not), as the JAX
+package's ``use_pallas`` branch does.
 
 Serving prefill (:func:`chimera_prefill`) runs the prompt's full chunks
 through the same partials (the kernel on the card), computes the ragged
@@ -103,7 +105,10 @@ def _global_partials(
     sig_k = ks.make_signature(kg, params["sig_proj"])  # (Hkv,G,W)
     match = ks.ternary_match_mask(sig_q, sig_k[None, :, None], cfg.match_hamming)
     scores = torch.einsum("bhgtm,hcm->bhgtc", phi_q, phi_kg) * match
-    num = torch.einsum("bhgtc,hcd->bhgtd", scores, vg)
+    # in the common type, as jnp promotes it: the float32 mask makes a
+    # bfloat16 model's scores float32, against its bfloat16 values
+    dt = torch.promote_types(scores.dtype, vg.dtype)
+    num = torch.einsum("bhgtc,hcd->bhgtd", scores.to(dt), vg.to(dt))
     den = torch.sum(scores, dim=-1)
     return num, den
 

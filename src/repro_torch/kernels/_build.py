@@ -40,6 +40,7 @@ SIGNATURES = {
     "int_flow_score_fast_path": [_P] * 4 + [_I] * 4,
     "chimera_attention_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
     "chimera_attention_long_launch": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
+    "chimera_attention_bwd_launch": [_P] * 14 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
     "window_attention_launch": [_P] * 5 + [_I] * 7 + [_F] + [_I] + [_P],
     "window_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_F] + [_I] + [_P],
     "empty_launch": [_I, _P],

@@ -21,10 +21,21 @@ static-global term before dividing.
   float32 explicitly before either route, and the partials are cast to the
   inputs' common type after it (bfloat16 where all five are; the float32
   features of a bfloat16 model make it float32, as in jnp).
+* :func:`chimera_attention_bwd_plain` — the partials' gradients chunk by
+  chunk (the local tier per chunk, the stream tier through the carried
+  state and its reverse prefix), never a (T, T) tensor: the CPU route of the
+  backward and the yardstick of its kernel.
+* :func:`chimera_attention_bwd_bh` — the backward's wrapper on the
+  flattened layout: it launches ``csrc/chimera_attention_bwd.cu`` (which
+  replaces ``repro/kernels/chimera_attention/ops.py::_bwd``, ``jax.vjp`` of
+  the dense reference) for CUDA tensors and runs the plain version for CPU
+  tensors; any other device raises, and a failed build or launch raises.
+  ``bwd_launches`` counts its launches (:func:`bwd_kernel_launches` a call).
 * :func:`chimera_attention_partials` — the port of the JAX ``custom_vjp``
-  (``repro/kernels/chimera_attention/ops.py``): the forward takes the
-  wrapper's route, the backward recomputes the plain formulation and
-  differentiates it, as ``_bwd`` does with ``jax.vjp`` of the reference.
+  (``repro/kernels/chimera_attention/ops.py``): the forward takes
+  :func:`chimera_attention_bh`'s route, the backward
+  :func:`chimera_attention_bwd_bh`'s.  Autograd of the dense plain version
+  is left to the tests.
 """
 
 from __future__ import annotations
@@ -33,10 +44,12 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
 
-launches = 0
+launches = 0  # forward kernel launches
+bwd_launches = 0  # the backward's kernel launches (bwd_kernel_launches per call)
 
 # the launchers' contract (csrc/chimera_attention.cu for L up to 128,
 # csrc/chimera_attention_long.cu for L 256)
@@ -135,6 +148,81 @@ def chimera_attention_partials_plain(
     return num, den
 
 
+def _exclusive_prefix(x: torch.Tensor, dim: int, reverse: bool = False) -> torch.Tensor:
+    """Sum of the entries before each one along ``dim`` (after it where
+    ``reverse``), summed directly rather than as a difference of cumsums."""
+    if reverse:
+        return _exclusive_prefix(x.flip(dim), dim).flip(dim)
+    head = torch.zeros_like(x.narrow(dim, 0, 1))
+    return torch.cat([head, torch.cumsum(x.narrow(dim, 0, x.shape[dim] - 1), dim)], dim)
+
+
+def chimera_attention_bwd_plain(
+    q: torch.Tensor,  # (B, Hkv, Gq, T, d) normalized queries
+    k: torch.Tensor,  # (B, Hkv, T, d) normalized keys
+    v: torch.Tensor,  # (B, Hkv, T, dv)
+    phi_q: torch.Tensor,  # (B, Hkv, Gq, T, m)
+    phi_k: torch.Tensor,  # (B, Hkv, T, m)
+    g_num: torch.Tensor,  # (B, Hkv, Gq, T, dv) the gradient of num
+    g_den: torch.Tensor,  # (B, Hkv, Gq, T) the gradient of den
+    chunk_size: int,
+    use_local: bool = True,
+    use_stream: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv, dphi_q, dphi_k)`` of :func:`chimera_attention_partials_plain`
+    chunk by chunk, in the inputs' common type, without a (T, T) tensor.
+
+    Local tier, per chunk (keys j <= i of query i's chunk): s_ij =
+    exp(q_i.k_j / sqrt(d)), dP_ij = g_num_i.v_j + g_den_i, dS = s dP /
+    sqrt(d); dq = dS k, dk = dS^T q, dv = s^T g_num (unnormalized: no lse,
+    no rowsum term).  Stream tier: S_c, Z_c the state before chunk c (the
+    exclusive prefix of phi_k^T [v | 1] over the chunks, as the forward
+    carries it); dphi_q = S_c g_num + Z_c g_den; G_c = sum over chunk c's
+    queries of phi_q [g_num | g_den]^T, R_c its exclusive prefix from the
+    end; dphi_k_j = R_c [v_j | 1] and dv_j += R_c[:, :dv]^T phi_k_j."""
+    B, H, Gq, T, d = q.shape
+    dv, m, L = v.shape[-1], phi_q.shape[-1], chunk_size
+    n = T // L
+    qc = q.reshape(B, H, Gq, n, L, d)
+    kc = k.reshape(B, H, n, L, d)
+    vc = v.reshape(B, H, n, L, dv)
+    pqc = phi_q.reshape(B, H, Gq, n, L, m)
+    pkc = phi_k.reshape(B, H, n, L, m)
+    gnc = g_num.reshape(B, H, Gq, n, L, dv)
+    gdc = g_den.reshape(B, H, Gq, n, L)
+    dq, dk, dvv = torch.zeros_like(qc), torch.zeros_like(kc), torch.zeros_like(vc)
+    dpq, dpk = torch.zeros_like(pqc), torch.zeros_like(pkc)
+    if use_local:
+        scale = 1.0 / math.sqrt(d)
+        causal = torch.tril(torch.ones((L, L), dtype=q.dtype, device=q.device))
+        s = torch.exp(torch.einsum("bhgcid,bhcjd->bhgcij", qc, kc) * scale) * causal
+        dp = torch.einsum("bhgcie,bhcje->bhgcij", gnc, vc) + gdc[..., None]
+        ds = s * dp * scale
+        dq = dq + torch.einsum("bhgcij,bhcjd->bhgcid", ds, kc)
+        dk = dk + torch.einsum("bhgcij,bhgcid->bhcjd", ds, qc)
+        dvv = dvv + torch.einsum("bhgcij,bhgcie->bhcje", s, gnc)
+        del s, dp, ds
+    if use_stream and n > 1:
+        S = _exclusive_prefix(torch.einsum("bhcjm,bhcje->bhcme", pkc, vc), 2)
+        Z = _exclusive_prefix(torch.sum(pkc, dim=3), 2)
+        dpq = torch.einsum("bhgcie,bhcme->bhgcim", gnc, S) + gdc[..., None] * Z[:, :, None, :, None]
+        R = _exclusive_prefix(torch.einsum("bhgcim,bhgcie->bhcme", pqc, gnc), 2, reverse=True)
+        Rz = _exclusive_prefix(torch.einsum("bhgcim,bhgci->bhcm", pqc, gdc), 2, reverse=True)
+        dpk = torch.einsum("bhcje,bhcme->bhcjm", vc, R) + Rz[:, :, :, None]
+        dvv = dvv + torch.einsum("bhcjm,bhcme->bhcje", pkc, R)
+    return (dq.reshape(q.shape), dk.reshape(k.shape), dvv.reshape(v.shape),
+            dpq.reshape(phi_q.shape), dpk.reshape(phi_k.shape))
+
+
+def bwd_kernel_launches(T: int, L: int, use_stream: bool = True) -> int:
+    """Kernel launches of one backward call (csrc/chimera_attention_bwd.cu):
+    the dK/dV and dQ kernels, and where the stream tier carries state (use_stream,
+    more than one chunk) the per-chunk fold, and the prefix over the chunks
+    where there are more than two."""
+    n = T // L
+    return 2 + int(use_stream and n > 1) + int(use_stream and n > 2)
+
+
 def _check(q, k, v, phi_q, phi_k, L):
     BH, Gq, T, d = q.shape
     dv, m = v.shape[-1], phi_q.shape[-1]
@@ -214,7 +302,66 @@ def chimera_attention_bh(
     return num.to(dtype), den.to(dtype)
 
 
+def chimera_attention_bwd_bh(
+    q: torch.Tensor,  # (BH, Gq, T, d) normalized queries, BH = B * Hkv
+    k: torch.Tensor,  # (BH, T, d)
+    v: torch.Tensor,  # (BH, T, dv)
+    phi_q: torch.Tensor,  # (BH, Gq, T, m)
+    phi_k: torch.Tensor,  # (BH, T, m)
+    g_num: torch.Tensor,  # (BH, Gq, T, dv)
+    g_den: torch.Tensor,  # (BH, Gq, T)
+    *,
+    chunk_size: int,
+    use_local: bool = True,
+    use_stream: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv, dphi_q, dphi_k)`` in float32 on the flattened layout:
+    csrc/chimera_attention_bwd.cu for CUDA tensors, the plain version for
+    CPU tensors; any other device raises.  bfloat16 inputs are cast to
+    float32 first, as :func:`chimera_attention_bh` casts them."""
+    global bwd_launches
+    L = chunk_size
+    BH, Gq, T, d, dv, m = _check(q, k, v, phi_q, phi_k, L)
+    for name, t, shape in (("g_num", g_num, (BH, Gq, T, dv)), ("g_den", g_den, (BH, Gq, T))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"chimera_attention backward: {name} has shape {tuple(t.shape)}, "
+                             f"want {shape}")
+        if t.dtype not in TYPES or t.device != q.device:
+            raise ValueError(f"chimera_attention backward: {name} must be one of {TYPES} on "
+                             f"{q.device}, got {t.dtype} on {t.device}")
+    xs = [t.float() for t in (q, k, v, phi_q, phi_k, g_num, g_den)]
+    if q.device.type == "cpu":
+        got = chimera_attention_bwd_plain(
+            *(x[:, None] for x in xs), L, use_local, use_stream)
+        return tuple(x[:, 0] for x in got)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"chimera_attention backward: no kernel for device {q.device}")
+    refused = contract(d=d, dv=dv, m=m, L=L)
+    if refused:
+        raise ValueError(f"chimera_attention backward: outside the kernel's contract: {refused}")
+    # contiguous, 16-byte aligned rows (the kernels read their inputs by 16-byte copies)
+    xs = [x.contiguous() for x in xs]
+    xs = [x if x.data_ptr() % 16 == 0 else x.clone() for x in xs]
+    lib = _build.load_library()
+    grads = [torch.empty_like(x) for x in xs[:5]]
+    state = rstate = None
+    if use_stream and T > L:  # the state before each chunk, and R after it (scratch)
+        state = torch.empty((BH, T // L, m, dv + 8), dtype=torch.float32, device=q.device)
+        rstate = torch.empty_like(state)
+    err = lib.chimera_attention_bwd_launch(
+        *map(_build.ptr, (*xs, *grads, state, rstate)), BH, Gq, T, d, dv, m, L,
+        1.0 / math.sqrt(d), int(bool(use_local)), int(bool(use_stream)),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "chimera_attention backward")
+    bwd_launches += bwd_kernel_launches(T, L, use_stream)
+    return tuple(grads)
+
+
 class _Partials(torch.autograd.Function):
+    """The forward through :func:`chimera_attention_bh`, the backward through
+    :func:`chimera_attention_bwd_bh` (the kernels on CUDA tensors)."""
+
     @staticmethod
     def forward(ctx, q, k, v, phi_q, phi_k, chunk_size, use_local, use_stream):
         B, Hkv, Gq, T, d = q.shape
@@ -232,22 +379,23 @@ class _Partials(torch.autograd.Function):
         return num.reshape(B, Hkv, Gq, T, -1), den.reshape(B, Hkv, Gq, T)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g_num, g_den):
         saved = ctx.saved_tensors
-        need = [i for i in range(5) if ctx.needs_input_grad[i]]
-        grads = [None] * 8
-        if not need:
-            return tuple(grads)
-        with torch.enable_grad():
-            # in float32, as the forward (autograd casts the grads back)
-            xs = [x.detach().float().requires_grad_(i in need) for i, x in enumerate(saved)]
-            num, den = chimera_attention_partials_plain(*xs, *ctx.cfg)
-            got = torch.autograd.grad(
-                (num, den), [xs[i] for i in need], (g_num, g_den), allow_unused=True
-            )
-        for i, g in zip(need, got):
-            grads[i] = g
-        return tuple(grads)
+        if not any(ctx.needs_input_grad[:5]):
+            return (None,) * 8
+        q = saved[0]
+        B, Hkv, Gq, T, _ = q.shape
+        BH = B * Hkv
+        L, use_local, use_stream = ctx.cfg
+        flat = [x.reshape((BH,) + tuple(x.shape[2:])) for x in saved]
+        got = chimera_attention_bwd_bh(
+            *flat, g_num.reshape(BH, Gq, T, -1), g_den.reshape(BH, Gq, T),
+            chunk_size=L, use_local=use_local, use_stream=use_stream,
+        )
+        grads = [g.reshape(x.shape).to(x.dtype) if ctx.needs_input_grad[i] else None
+                 for i, (g, x) in enumerate(zip(got, saved))]
+        return (*grads, None, None, None)
 
 
 def chimera_attention_partials(
@@ -260,6 +408,7 @@ def chimera_attention_partials(
     use_local: bool = True,
     use_stream: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(num (B,Hkv,Gq,T,dv), den (B,Hkv,Gq,T))`` partials;
-    differentiable through the plain formulation."""
+    """Returns ``(num (B,Hkv,Gq,T,dv), den (B,Hkv,Gq,T))`` partials,
+    differentiable: the backward runs csrc/chimera_attention_bwd.cu on CUDA
+    tensors and :func:`chimera_attention_bwd_plain` on CPU tensors."""
     return _Partials.apply(q, k, v, phi_q, phi_k, chunk_size, use_local, use_stream)
