@@ -140,19 +140,24 @@ Phases, each printing its own lines:
 
 15. train-chimera — run after the train-softmax phase, before the trainer
                phase: Chimera attention trained on the card.  (a) the
-               backward kernels (csrc/chimera_attention_bwd.cu: fold, prefix,
-               dK/dV, dQ) against chimera_attention_bwd_plain in float64 at
-               Mixtral-8x7B's Chimera training shape (B 1 x Hkv 8, Gq 4, T
-               8192, d = dv = m 128, L 256) and MiniCPM3-4B's MLA Chimera
-               shape (H = Hkv 40, d 96, dv 64), from fp32 and bf16-rounded
-               inputs, and at every chunk of the contract x T in {L, 3L} x
-               three flag pairs x eight (d, dv, m); two launches bit for bit
-               equal; timed beside the forward, with the kernels' split from
-               a profiler trace; (b) Mixtral-8x7B's Chimera variant and (c)
-               MiniCPM3-4B's Chimera MLA variant through the Trainer at full
-               width, 2 layers, B 1 x 8192, remat "full": 1 + 5 AdamW steps,
-               one profiled step, the whole step against the plain route on
-               the card (fp32, seq 2048); (d) both smoke configs' Chimera
+               backward kernels (csrc/chimera_attention_bwd.cu: the bf16
+               route's split, fold, prefix, stream, dK/dV and dQ on wgmma;
+               the fp32 route's fold, prefix, dK/dV and dQ) against
+               chimera_attention_bwd_plain in float64 at Mixtral-8x7B's
+               Chimera training shape (B 1 x Hkv 8, Gq 4, T 8192, d = dv = m
+               128, L 256) and MiniCPM3-4B's MLA Chimera shape (H = Hkv 40, d
+               96, dv 64), in the training step's types (all seven bf16: the
+               bf16 route) and from fp32 inputs (the fp32 route), each
+               timed, and at every chunk of the contract x T in {L, 3L} x
+               three flag pairs x eight (d, dv, m) in each of the two;
+               two launches bit for bit equal; timed beside the forward,
+               with the kernels' split from a profiler trace; (b)
+               Mixtral-8x7B's Chimera variant and (c) MiniCPM3-4B's Chimera
+               MLA variant through the Trainer at full width, 2 layers, B 1
+               x 8192, remat "full": 1 + 5 AdamW steps on the bf16 route
+               (the types reaching the backward logged), one profiled step,
+               the whole step against the plain route on the card (fp32,
+               seq 2048, the fp32 route); (d) both smoke configs' Chimera
                variants, 10 Trainer steps, card against CPU.  The train and
                trainer phases' Chimera training runs the backward kernels
                too.
@@ -939,7 +944,7 @@ def build_other_library(csrc_dir):
     for name, argtypes in _build.SIGNATURES.items():
         if hasattr(lib, name):  # an older tree may lack a measurement aid
             getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).restype = _build.RESTYPES.get(name, ctypes.c_int)
     return lib
 
 
@@ -3435,12 +3440,18 @@ def phase_train_softmax(recs):
 
 # the backward kernels (csrc/chimera_attention_bwd.cu) against
 # chimera_attention_bwd_plain evaluated in float64 on the same inputs (the
-# fp32 ones, or the bf16-rounded ones that a bf16 model's wrapper casts to
-# fp32), so that the tolerance measures the kernels' rounding alone: fp32
-# sums in another order, of up to Gq x T terms in the stream tier (dphi_k
-# and dv sum over every later chunk's queries), so each gradient is held
-# within CHIMERA_BWD_ATOL x its largest entry + CHIMERA_BWD_RTOL x |ref|
+# fp32 ones, or the bf16-rounded ones that a bf16 model passes), so that
+# the tolerance measures the kernels' rounding alone: fp32 sums in another
+# order, of up to Gq x T terms in the stream tier (dphi_k and dv sum over
+# every later chunk's queries), and on the bf16 route the values formed in
+# fp32 (P, dS, the state) taken as two bf16 terms each, so each gradient is
+# held within
+# CHIMERA_BWD_ATOL x its largest entry + CHIMERA_BWD_RTOL x |ref|
 CHIMERA_BWD_ATOL, CHIMERA_BWD_RTOL = 1e-5, 1e-4
+# the backward's input types: "bfloat16" (all seven: what a bf16 model's
+# training step passes, as (b) and (c) log; the bf16 route) and "float32"
+# (the fp32 route)
+CHIMERA_BWD_DTYPES = ("bfloat16", "float32")
 # (b) and (c): the configs' default Chimera variants (m 128, L 256, n_global
 # 32) at full width, 2 layers, B 1 x seq 8192, 1 warm-up + 5 timed steps
 CHIMERA_TRAIN = ("mixtral-8x7b", "minicpm3-4b")
@@ -3452,69 +3463,84 @@ CHIMERA_SMOKE_STEPS = 10  # (d): the smoke configs, card against CPU
 CHIMERA_BWD_WIDTHS = ((16, 16, 16), (32, 32, 32), (64, 64, 64), (128, 128, 128), (96, 64, 128),
                       (24, 16, 16), (64, 128, 48), (40, 64, 144))
 CHIMERA_BWD_MODES = CHIMERA_MODES[:3]  # (use_local, use_stream): both, local only, stream only
-# the backward's four kernels, as a profiler names them
-CHIMERA_BWD_KERNELS = ("chimera_bwd_fold", "chimera_bwd_prefix", "chimera_bwd_dkdv",
-                       "chimera_bwd_dq")
+# each route's kernels, as a profiler names them
+CHIMERA_BWD_KERNELS = {
+    "fp32": ("chimera_bwd_fold", "chimera_bwd_prefix", "chimera_bwd_dkdv", "chimera_bwd_dq"),
+    "bf16": ("chimera_bwd_wgmma_fold", "chimera_bwd_wgmma_prefix", "chimera_bwd_wgmma_stream",
+             "chimera_bwd_wgmma_dkdv", "chimera_bwd_wgmma_dq"),
+}
 
 
-def chimera_bwd_cost(BH, Gq, T, d, dv, m, L, use_local=True, use_stream=True):
+def chimera_bwd_cost(BH, Gq, T, d, dv, m, L, use_local=True, use_stream=True, esize=(4,) * 7):
     """Bytes and flops of the backward: q, k, v, phi_q, phi_k, g_num and
-    g_den read once and the five gradients written once (fp32); in the
-    local tier five products over each chunk's causal pairs (S, dq, dk: 2 d
-    flop a pair; dP, dv: 2 dv); in the stream tier the state's fold over the
-    keys of chunks ..n-2 and G's over the queries of chunks 1.. (2 m (dv +
-    1) flop a row), dphi_q over those queries and dphi_k over those keys
-    (the same), dv's term (2 m dv).  Returns (bytes, flops, local flops)."""
+    g_den read once (``esize`` bytes an element each, in that order) and the
+    five gradients written once (fp32); in the local tier five products
+    over each chunk's causal pairs (S, dq, dk: 2 d flop a pair; dP, dv: 2
+    dv); in the stream tier the state's fold over the keys of chunks ..n-2
+    and G's over the queries of chunks 1.. (2 m (dv + 1) flop a row),
+    dphi_q over those queries and dphi_k over those keys (the same), dv's
+    term (2 m dv).  Returns (bytes, flops, local flops)."""
     n = T // L
     rows, keys = BH * Gq * T, BH * T
-    reads = rows * (d + dv + m + 1) + keys * (d + dv + m)
-    writes = rows * (d + m) + keys * (d + dv + m)
+    eq, ek, ev, epq, epk, egn, egd = esize
+    reads = (rows * (d * eq + dv * egn + m * epq + egd)
+             + keys * (d * ek + dv * ev + m * epk))
+    writes = 4 * (rows * (d + m) + keys * (d + dv + m))
     local = BH * Gq * n * (L * (L + 1) // 2) * (6 * d + 4 * dv) if use_local else 0
     stream = 0
     if use_stream and n > 1:
         q_rows, k_rows = BH * Gq * (n - 1) * L, BH * (n - 1) * L
         stream = (2 * q_rows + 2 * k_rows) * 2 * m * (dv + 1) + k_rows * 2 * m * dv
-    return 4 * (reads + writes), local + stream, local
+    return reads + writes, local + stream, local
 
 
-def chimera_bwd_inputs(B, Hkv, Gq, T, d, dv, m, seed):
-    """chimera_inputs and random gradients of the partials, on the card."""
+def chimera_bwd_inputs(B, Hkv, Gq, T, d, dv, m, seed, dtype="float32"):
+    """chimera_inputs and random gradients of the partials, on the card, in
+    one of CHIMERA_BWD_DTYPES."""
     import torch
 
     xs = chimera_inputs(B, Hkv, Gq, T, m, seed, d=d, dv=dv)
     g = torch.Generator().manual_seed(seed + 1000)
-    return xs + [torch.randn((B, Hkv, Gq, T, dv), generator=g).to("cuda"),
-                 torch.randn((B, Hkv, Gq, T), generator=g).to("cuda")]
+    xs = xs + [torch.randn((B, Hkv, Gq, T, dv), generator=g).to("cuda"),
+               torch.randn((B, Hkv, Gq, T), generator=g).to("cuda")]
+    return [x.to(getattr(torch, dtype)) for x in xs]
 
 
 def check_chimera_bwd(shape, L, seed, dtype="float32", modes=((True, True),), timed=False,
                       quiet=False):
     """The backward kernels at ``shape`` = (B, Hkv, Gq, T, d, dv, m) and
     chunk L against chimera_attention_bwd_plain in float64 on the same
-    inputs (``dtype`` "bfloat16": the inputs rounded to bf16 first) at each
-    (use_local, use_stream) of ``modes``, and a second launch bit for bit
-    equal to the first.  ``timed``: the backward, the forward, forward +
-    backward, the plain version (float32), the four kernels' split from a
-    profiler trace, against the bound.  Returns the record."""
+    inputs (``dtype`` one of CHIMERA_BWD_DTYPES; "float32" takes the fp32
+    route, "bfloat16" the bf16 route, which the route's launch count must
+    show) at each (use_local, use_stream) of ``modes``, and a second launch
+    bit for bit equal to the first.  ``timed``: the backward, the forward,
+    forward + backward, the plain version (float32), the route's kernels'
+    split from a profiler trace, against the bound in these types.
+    Returns the record."""
     import torch
     from repro_torch.kernels.chimera_attention import ops
 
     B, Hkv, Gq, T, d, dv, m = shape
     BH = B * Hkv
-    xs = chimera_bwd_inputs(B, Hkv, Gq, T, d, dv, m, seed)
-    if dtype == "bfloat16":
-        xs = [x.bfloat16() for x in xs]
+    xs = chimera_bwd_inputs(B, Hkv, Gq, T, d, dv, m, seed, dtype)
     flat = [x.flatten(0, 1).contiguous() for x in xs]
+    route = "fp32" if dtype == "float32" else "bf16"
+    counter = f"bwd_launches_{route}"
     label = (f"chimera_attention backward BH {BH} Gq {Gq} T {T} d {d} dv {dv} m {m} L {L} "
-             f"{dtype}")
+             f"{dtype} ({route} route)")
     worst = 0.0
     for use_local, use_stream in modes:
         kw = dict(chunk_size=L, use_local=use_local, use_stream=use_stream)
+        before = getattr(ops, counter)
         with torch.no_grad():
             got = ops.chimera_attention_bwd_bh(*flat, **kw)
             again = ops.chimera_attention_bwd_bh(*flat, **kw)
             want = ops.chimera_attention_bwd_plain(*(x.double() for x in xs), L, use_local,
                                                    use_stream)
+        per_call = ops.bwd_kernel_launches(T, L, use_stream, use_local, route)
+        if getattr(ops, counter) - before != 2 * per_call:
+            fail(f"{label} local={use_local} stream={use_stream}: {counter} moved by "
+                 f"{getattr(ops, counter) - before}, want 2 x {per_call}")
         for name, a, b, w in zip(("dq", "dk", "dv", "dphi_q", "dphi_k"), got, again, want):
             if a.dtype != torch.float32 or not torch.equal(a, b):
                 fail(f"{label} local={use_local} stream={use_stream}: {name} of two launches on "
@@ -3530,7 +3556,7 @@ def check_chimera_bwd(shape, L, seed, dtype="float32", modes=((True, True),), ti
                              f"version in float64 (tolerance {CHIMERA_BWD_ATOL:g} x max|ref| + "
                              f"{CHIMERA_BWD_RTOL:g} x |ref|); two launches bit for bit equal")
     rec = {"max_abs_err": worst, "shape": f"B {B} x Hkv {Hkv}, Gq {Gq}, T {T}, d {d}, dv {dv}, "
-                                          f"m {m}, L {L}, {dtype}",
+                                          f"m {m}, L {L}, {dtype} ({route} route)",
            "max_abs_err_of": "relative to each gradient's largest entry"}
     if timed:
         with torch.no_grad():
@@ -3541,23 +3567,26 @@ def check_chimera_bwd(shape, L, seed, dtype="float32", modes=((True, True),), ti
             fb_ms = event_ms(lambda: (fwd(), run()), iters=3)
             plain_ms = event_ms(lambda: ops.chimera_attention_bwd_plain(
                 *(x.float() for x in xs), L), iters=1)
-        split = profiled_kernel_ms(run, CHIMERA_BWD_KERNELS, iters=5)
-        nbytes, flops, local = chimera_bwd_cost(BH, Gq, T, d, dv, m, L)
-        bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+        split = profiled_kernel_ms(run, CHIMERA_BWD_KERNELS[route], iters=5)
+        esize = tuple(x.element_size() for x in xs)
+        nbytes, flops, local = chimera_bwd_cost(BH, Gq, T, d, dv, m, L, esize=esize)
+        passes, rate = (1, BF16_FLOPS) if route == "bf16" else (TF32_PASSES, TF32_FLOPS)
+        bound_ms, bound_by = bound(nbytes, passes * flops, rate)
         fp32_ms = flops / FP32_FLOPS * 1e3
-        per_call = ops.bwd_kernel_launches(T, L)
+        per_call = ops.bwd_kernel_launches(T, L, route=route)
         rec.update(ms=ms, fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, fp32_cores_ms=fp32_ms, library_ms=None,
                    library_of="none: no PyTorch call computes the partials' gradients",
                    bytes=nbytes, flops=flops, local_flops=local,
                    split={x: t and t[0] for x, t in split.items()})
+        kind = ("one bf16 pass on the tensor cores" if route == "bf16"
+                else f"x{TF32_PASSES} in TF32 on the tensor cores")
         log("train-chimera", f"{label} device time: backward {ms:.4f} ms ({per_call} launches), "
                              f"forward {fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms; plain "
                              f"backward (float32) {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
                              f"{bound_by} ({nbytes} B; {flops} flop, {local} of them the local "
-                             f"tier, x{TF32_PASSES} in TF32 on the tensor cores; on the fp32 CUDA "
-                             f"cores {fp32_ms:.4f} ms); library call: none; in a "
-                             f"profiler trace (ms a launch, launches) "
+                             f"tier, {kind}; on the fp32 CUDA cores {fp32_ms:.4f} ms); library "
+                             f"call: none; in a profiler trace (ms a launch, launches) "
                              + ", ".join(f"{x} {fmt_ms(t and t[0])} ({t and t[1]})"
                                          for x, t in split.items()))
     del xs, flat
@@ -3576,39 +3605,46 @@ def chimera_bwd_shapes():
     return out
 
 
+SHAPE_KEYS = ("shape", "max_abs_err", "ms", "fwd_ms", "fwd_bwd_ms", "plain_ms", "bound_ms",
+              "bound_by", "fp32_cores_ms", "library_ms", "split")
+
+
 def check_chimera_bwd_kernels(recs):
-    """(a) The backward at both training shapes from fp32 inputs (timed)
-    and bf16-rounded ones, and at every chunk L of the contract x T in {L,
-    3L} x the three flag pairs x CHIMERA_BWD_WIDTHS (B 2 x Hkv 2, Gq 2).
-    Returns the kernels line's record (Mixtral's shape) with MiniCPM3-4B's
-    as another shape."""
+    """(a) The backward at both training shapes in each of
+    CHIMERA_BWD_DTYPES, timed ("bfloat16" the training step's types, the
+    bf16 route; "float32" the fp32 route), then at every chunk L of the contract x T in {L, 3L} x
+    the three flag pairs x CHIMERA_BWD_WIDTHS (B 2 x Hkv 2, Gq 2) in each
+    of them.  Returns the kernels line's record (Mixtral's shape, bf16) with
+    the other timings as other shapes."""
     from repro_torch.kernels.chimera_attention import ops
 
-    mix, mla = chimera_bwd_shapes()
-    rec = check_chimera_bwd(mix, ZOO_L, SEED + 110, timed=True)
-    check_chimera_bwd(mix, ZOO_L, SEED + 110, dtype="bfloat16")
-    other = check_chimera_bwd(mla, ZOO_L, SEED + 111, timed=True)
-    check_chimera_bwd(mla, ZOO_L, SEED + 111, dtype="bfloat16")
-    other["shape"] = f"{MLA_LM} Chimera MLA: " + other["shape"]
-    rec["other_shapes"] = [{k: other.get(k) for k in (
-        "shape", "max_abs_err", "ms", "fwd_ms", "fwd_bwd_ms", "plain_ms", "bound_ms", "bound_by",
-        "fp32_cores_ms", "library_ms", "split")}]
-    worst, n, refused = 0.0, 0, []
-    for i, (d, dv, m) in enumerate(CHIMERA_BWD_WIDTHS):
-        for L in ops.L_TAKEN:
-            if ops.contract(d=d, dv=dv, m=m, L=L):  # the forward refuses it: no Function call
-                refused.append((d, dv, m, L))
-                continue
-            for T in (L, 3 * L):
-                r = check_chimera_bwd((2, 2, 2, T, d, dv, m), L, SEED + 120 + i + L + T,
-                                      modes=CHIMERA_BWD_MODES, quiet=True)
-                worst, n = max(worst, r["max_abs_err"]), n + 1
-    log("train-chimera", f"chimera_attention backward at {n} edge shapes (L in {ops.L_TAKEN}, T = "
-                         f"L and 3L, (d, dv, m) in {list(CHIMERA_BWD_WIDTHS)}, B 2 x Hkv 2, Gq 2; "
-                         f"outside the forward's contract and skipped, (d, dv, m, L) {refused}) "
-                         f"x every (use_local, use_stream) of {list(CHIMERA_BWD_MODES)}: max abs "
-                         f"err {worst:.3e} of each gradient's largest entry, all within "
-                         f"tolerance, every pair of launches bit for bit equal")
+    shapes = list(zip(chimera_bwd_shapes(), (SEED + 110, SEED + 111), (None, MLA_LM)))
+    runs = []
+    for dtype in CHIMERA_BWD_DTYPES:
+        for shape, seed, name in shapes:
+            runs.append(check_chimera_bwd(shape, ZOO_L, seed, dtype=dtype, timed=True))
+            if name:
+                runs[-1]["shape"] = f"{name} Chimera MLA: " + runs[-1]["shape"]
+    rec = runs[0]
+    rec["other_shapes"] = [{k: o.get(k) for k in SHAPE_KEYS} for o in runs[1:]]
+    for dtype in CHIMERA_BWD_DTYPES:
+        worst, n, refused = 0.0, 0, []
+        for i, (d, dv, m) in enumerate(CHIMERA_BWD_WIDTHS):
+            for L in ops.L_TAKEN:
+                if ops.contract(d=d, dv=dv, m=m, L=L):  # the forward refuses it: no Function call
+                    refused.append((d, dv, m, L))
+                    continue
+                for T in (L, 3 * L):
+                    r = check_chimera_bwd((2, 2, 2, T, d, dv, m), L, SEED + 120 + i + L + T,
+                                          dtype=dtype, modes=CHIMERA_BWD_MODES, quiet=True)
+                    worst, n = max(worst, r["max_abs_err"]), n + 1
+        log("train-chimera", f"chimera_attention backward, {dtype} inputs, at {n} edge shapes (L "
+                             f"in {ops.L_TAKEN}, T = L and 3L, (d, dv, m) in "
+                             f"{list(CHIMERA_BWD_WIDTHS)}, B 2 x Hkv 2, Gq 2; outside the "
+                             f"forward's contract and skipped, (d, dv, m, L) {refused}) x every "
+                             f"(use_local, use_stream) of {list(CHIMERA_BWD_MODES)}: max abs "
+                             f"err {worst:.3e} of each gradient's largest entry, all within "
+                             f"tolerance, every pair of launches bit for bit equal")
     recs["chimera_attention_bwd"] = rec
     return rec
 
@@ -3616,13 +3652,43 @@ def check_chimera_bwd_kernels(recs):
 def chimera_step_vs_plain(name):
     """The Chimera variant's whole step against the plain route
     (plain_chimera_kernels: the forward and backward plain a row at a
-    time)."""
+    time); fp32, so the backward's kernels are the fp32 route's."""
     from repro_torch.kernels.chimera_attention import ops as cops
 
     return step_vs_plain("train-chimera", f"{name} Chimera",
                          zoo_chimera(name, CHIMERA_TRAIN_LAYERS, dtype="float32"),
-                         plain_chimera_kernels, ((cops, "launches"), (cops, "bwd_launches")),
+                         plain_chimera_kernels, ((cops, "launches"), (cops, "bwd_launches_fp32")),
                          SEED + 92)
+
+
+class BwdTypes:
+    """Within it, the types of the seven tensors that reach
+    ops.chimera_attention_bwd_bh, each distinct tuple once."""
+
+    NAMES = ("q", "k", "v", "phi_q", "phi_k", "g_num", "g_den")
+
+    def __enter__(self):
+        from repro_torch.kernels.chimera_attention import ops as cops
+
+        self.seen, self.fn = [], cops.chimera_attention_bwd_bh
+
+        def logged(*args, **kw):
+            kinds = tuple(str(t.dtype).replace("torch.", "") for t in args[:7])
+            if kinds not in self.seen:
+                self.seen.append(kinds)
+            return self.fn(*args, **kw)
+
+        cops.chimera_attention_bwd_bh = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.chimera_attention import ops as cops
+
+        cops.chimera_attention_bwd_bh = self.fn
+
+    def text(self):
+        return "; ".join(", ".join(f"{n} {k}" for n, k in zip(self.NAMES, kinds))
+                         for kinds in self.seen)
 
 
 def train_chimera_full_width(name):
@@ -3630,8 +3696,8 @@ def train_chimera_full_width(name):
     through the Trainer (full_width_steps: 1 warm-up + CHIMERA_TRAIN_STEPS
     timed AdamW steps at B 1 x CHIMERA_TRAIN_T, one profiled step); the
     forward kernel launches twice a layer and step (remat), the backward's
-    kernels bwd_kernel_launches times; then the whole step against the
-    plain route."""
+    bf16 route bwd_kernel_launches times (the types that reach its wrapper
+    are logged); then the whole step against the plain route."""
     from repro_torch.kernels.chimera_attention import ops as cops
 
     cfg = zoo_chimera(name, CHIMERA_TRAIN_LAYERS)
@@ -3643,19 +3709,27 @@ def train_chimera_full_width(name):
              f"{ch.chunk_size}, n_global {ch.n_global}), {cfg.n_layers} layers at full width (d "
              f"{cfg.d_model}, {cfg.n_heads} heads / {kv} kv-heads, d {d}, dv {dv}, vocab "
              f"{cfg.vocab_size}, dtype {cfg.dtype}, remat {cfg.remat})")
-    r = full_width_steps("train-chimera", label, cfg,
-                         {"fwd": (cops, "launches"), "bwd": (cops, "bwd_launches")}, "chimera",
-                         CHIMERA_TRAIN_STEPS, CHIMERA_TRAIN_T)
+    with BwdTypes() as types:
+        r = full_width_steps("train-chimera", label, cfg,
+                             {"fwd": (cops, "launches"), "bwd": (cops, "bwd_launches"),
+                              "bwd_bf16": (cops, "bwd_launches_bf16"),
+                              "bwd_fp32": (cops, "bwd_launches_fp32")}, "chimera",
+                             CHIMERA_TRAIN_STEPS, CHIMERA_TRAIN_T)
+    log("train-chimera", f"{name} Chimera: the types that reach chimera_attention_bwd_bh: "
+                         f"{types.text()}")
     fwd, bwd = r["launches"]["fwd"], r["launches"]["bwd"]
-    per_call = cops.bwd_kernel_launches(CHIMERA_TRAIN_T, ch.chunk_size)
+    per_call = cops.bwd_kernel_launches(CHIMERA_TRAIN_T, ch.chunk_size, route="bf16")
     want_fwd = 2 * cfg.n_layers * CHIMERA_TRAIN_STEPS
     want_bwd = per_call * cfg.n_layers * CHIMERA_TRAIN_STEPS
-    if (fwd, bwd) != (want_fwd, want_bwd):
-        fail(f"train-chimera {name}: chimera_attention launches forward {fwd}, backward {bwd}; "
-             f"want {want_fwd} and {want_bwd} (layers x steps x (2 forward, {per_call} backward))")
+    if (fwd, bwd, r["launches"]["bwd_bf16"], r["launches"]["bwd_fp32"]) != (
+            want_fwd, want_bwd, want_bwd, 0):
+        fail(f"train-chimera {name}: chimera_attention launches {r['launches']}; want forward "
+             f"{want_fwd} and backward {want_bwd}, all on the bf16 route (layers x steps x (2 "
+             f"forward, {per_call} backward))")
     cmp = chimera_step_vs_plain(name)
     return {"fwd": fwd, "bwd": bwd, "ms": r["ms"], "tokens_per_s": r["tokens_per_s"],
-            "peak": r["peak"], "busy": r["busy"], "chimera_share": r["share"], "cmp": cmp}
+            "peak": r["peak"], "busy": r["busy"], "chimera_share": r["share"], "cmp": cmp,
+            "types": types.text()}
 
 
 def train_chimera_smoke(name):

@@ -41,10 +41,15 @@ SIGNATURES = {
     "chimera_attention_launch": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
     "chimera_attention_long_launch": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
     "chimera_attention_bwd_launch": [_P] * 14 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
+    "chimera_attention_bwd_bf16_launch": [_P] * 13 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
+    "chimera_attention_bwd_bf16_scratch": [_I] * 6,
     "window_attention_launch": [_P] * 5 + [_I] * 7 + [_F] + [_I] + [_P],
     "window_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_F] + [_I] + [_P],
     "empty_launch": [_I, _P],
 }
+
+# return types other than int
+RESTYPES = {"chimera_attention_bwd_bf16_scratch": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build, if it built
@@ -129,7 +134,7 @@ def load_library(verbose: bool = False) -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _lib = lib
     return _lib
 

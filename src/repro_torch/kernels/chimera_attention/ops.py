@@ -30,7 +30,13 @@ static-global term before dividing.
   replaces ``repro/kernels/chimera_attention/ops.py::_bwd``, ``jax.vjp`` of
   the dense reference) for CUDA tensors and runs the plain version for CPU
   tensors; any other device raises, and a failed build or launch raises.
-  ``bwd_launches`` counts its launches (:func:`bwd_kernel_launches` a call).
+  Two routes by the inputs' types (:func:`bwd_route`): q, k, v, the
+  features and g_num all bfloat16, as a bfloat16 model's training step
+  passes them, take the bf16 route (wgmma and TMA; those six read as they
+  are, g_den widened to float32); any other mix is widened to float32 for
+  the fp32 route.  ``bwd_launches`` counts the launches of both,
+  ``bwd_launches_fp32`` and ``bwd_launches_bf16`` those of each
+  (:func:`bwd_kernel_launches` a call).
 * :func:`chimera_attention_partials` — the port of the JAX ``custom_vjp``
   (``repro/kernels/chimera_attention/ops.py``): the forward takes
   :func:`chimera_attention_bh`'s route, the backward
@@ -50,6 +56,8 @@ from repro_torch.kernels import _build
 
 launches = 0  # forward kernel launches
 bwd_launches = 0  # the backward's kernel launches (bwd_kernel_launches per call)
+bwd_launches_fp32 = 0  # the same, of the fp32 route
+bwd_launches_bf16 = 0  # and of the bf16 route (bwd_route)
 
 # the launchers' contract (csrc/chimera_attention.cu for L up to 128,
 # csrc/chimera_attention_long.cu for L 256)
@@ -214,13 +222,27 @@ def chimera_attention_bwd_plain(
             dpq.reshape(phi_q.shape), dpk.reshape(phi_k.shape))
 
 
-def bwd_kernel_launches(T: int, L: int, use_stream: bool = True) -> int:
-    """Kernel launches of one backward call (csrc/chimera_attention_bwd.cu):
-    the dK/dV and dQ kernels, and where the stream tier carries state (use_stream,
-    more than one chunk) the per-chunk fold, and the prefix over the chunks
-    where there are more than two."""
+def bwd_kernel_launches(T: int, L: int, use_stream: bool = True, use_local: bool = True,
+                        route: str = "fp32") -> int:
+    """Kernel launches of one backward call (csrc/chimera_attention_bwd.cu).
+    fp32: the dK/dV and dQ kernels, and where the stream tier carries state
+    (use_stream, more than one chunk) the per-chunk fold, and the prefix
+    over the chunks where there are more than two.  bf16: where a state is
+    carried the fold and the prefix, the stream tier's kernel, and with the
+    local tier the dK/dV and dQ kernels."""
     n = T // L
-    return 2 + int(use_stream and n > 1) + int(use_stream and n > 2)
+    carried = use_stream and n > 1
+    if route == "fp32":
+        return 2 + int(carried) + int(use_stream and n > 2)
+    if route != "bf16":
+        raise ValueError(f"chimera_attention backward: no route {route!r}")
+    return 2 * int(carried) + 1 + 2 * int(use_local)
+
+
+def bwd_route(*xs: torch.Tensor) -> str:
+    """The backward's route for q, k, v, phi_q, phi_k and g_num: "bf16"
+    where all six are bfloat16, else "fp32"."""
+    return "bf16" if all(t.dtype == torch.bfloat16 for t in xs) else "fp32"
 
 
 def _check(q, k, v, phi_q, phi_k, L):
@@ -316,10 +338,11 @@ def chimera_attention_bwd_bh(
     use_stream: bool = True,
 ) -> Tuple[torch.Tensor, ...]:
     """``(dq, dk, dv, dphi_q, dphi_k)`` in float32 on the flattened layout:
-    csrc/chimera_attention_bwd.cu for CUDA tensors, the plain version for
-    CPU tensors; any other device raises.  bfloat16 inputs are cast to
-    float32 first, as :func:`chimera_attention_bh` casts them."""
-    global bwd_launches
+    csrc/chimera_attention_bwd.cu for CUDA tensors, by :func:`bwd_route`
+    (the first six inputs in bf16 as they are, or every input widened to
+    float32), the plain version for CPU tensors (bfloat16 inputs widened to
+    float32); any other device raises."""
+    global bwd_launches, bwd_launches_fp32, bwd_launches_bf16
     L = chunk_size
     BH, Gq, T, d, dv, m = _check(q, k, v, phi_q, phi_k, L)
     for name, t, shape in (("g_num", g_num, (BH, Gq, T, dv)), ("g_den", g_den, (BH, Gq, T))):
@@ -329,8 +352,9 @@ def chimera_attention_bwd_bh(
         if t.dtype not in TYPES or t.device != q.device:
             raise ValueError(f"chimera_attention backward: {name} must be one of {TYPES} on "
                              f"{q.device}, got {t.dtype} on {t.device}")
-    xs = [t.float() for t in (q, k, v, phi_q, phi_k, g_num, g_den)]
+    route = bwd_route(q, k, v, phi_q, phi_k, g_num)
     if q.device.type == "cpu":
+        xs = [t.float() for t in (q, k, v, phi_q, phi_k, g_num, g_den)]
         got = chimera_attention_bwd_plain(
             *(x[:, None] for x in xs), L, use_local, use_stream)
         return tuple(x[:, 0] for x in got)
@@ -339,22 +363,41 @@ def chimera_attention_bwd_bh(
     refused = contract(d=d, dv=dv, m=m, L=L)
     if refused:
         raise ValueError(f"chimera_attention backward: outside the kernel's contract: {refused}")
-    # contiguous, 16-byte aligned rows (the kernels read their inputs by 16-byte copies)
+    # on the bf16 route q, k, v, phi_q, phi_k and g_num in bf16 as they are,
+    # g_den in float32; on the fp32 route all in float32; contiguous, 16-byte
+    # aligned rows (the kernels read their inputs by 16-byte copies)
+    xs = [t if route == "bf16" and i < 6 else t.float()
+          for i, t in enumerate((q, k, v, phi_q, phi_k, g_num, g_den))]
     xs = [x.contiguous() for x in xs]
     xs = [x if x.data_ptr() % 16 == 0 else x.clone() for x in xs]
     lib = _build.load_library()
-    grads = [torch.empty_like(x) for x in xs[:5]]
-    state = rstate = None
-    if use_stream and T > L:  # the state before each chunk, and R after it (scratch)
-        state = torch.empty((BH, T // L, m, dv + 8), dtype=torch.float32, device=q.device)
-        rstate = torch.empty_like(state)
-    err = lib.chimera_attention_bwd_launch(
-        *map(_build.ptr, (*xs, *grads, state, rstate)), BH, Gq, T, d, dv, m, L,
-        1.0 / math.sqrt(d), int(bool(use_local)), int(bool(use_stream)),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "chimera_attention backward")
-    bwd_launches += bwd_kernel_launches(T, L, use_stream)
+    scale, tiers = 1.0 / math.sqrt(d), (int(bool(use_local)), int(bool(use_stream)))
+    cuda_stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "bf16":
+        # without the local tier the kernels leave dq and dk alone
+        grads = [torch.zeros_like(x, dtype=torch.float32) if i < 2 and not use_local
+                 else torch.empty_like(x, dtype=torch.float32) for i, x in enumerate(xs[:5])]
+        nbytes = lib.chimera_attention_bwd_bf16_scratch(BH, T, dv, m, L, int(bool(use_stream)))
+        scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=q.device)
+        err = lib.chimera_attention_bwd_bf16_launch(
+            *map(_build.ptr, (*xs, *grads, scratch)), BH, Gq, T, d, dv, m, L, scale, *tiers,
+            cuda_stream)
+    else:
+        grads = [torch.empty_like(x) for x in xs[:5]]
+        state = rstate = None
+        if use_stream and T > L:  # the state before each chunk, and R after it (scratch)
+            state = torch.empty((BH, T // L, m, dv + 8), dtype=torch.float32, device=q.device)
+            rstate = torch.empty_like(state)
+        err = lib.chimera_attention_bwd_launch(
+            *map(_build.ptr, (*xs, *grads, state, rstate)), BH, Gq, T, d, dv, m, L, scale, *tiers,
+            cuda_stream)
+    _build.check(err, f"chimera_attention backward ({route} route)")
+    count = bwd_kernel_launches(T, L, use_stream, use_local, route)
+    bwd_launches += count
+    if route == "bf16":
+        bwd_launches_bf16 += count
+    else:
+        bwd_launches_fp32 += count
     return tuple(grads)
 
 

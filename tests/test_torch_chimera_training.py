@@ -194,6 +194,176 @@ def test_bwd_wrapper_checks_shapes_devices_and_counts_launches():
 
 
 # --------------------------------------------------------------------------
+# the backward in the training step's types (all seven inputs bf16)
+# --------------------------------------------------------------------------
+
+def _mixed(xs):
+    """q, k and v rounded to bfloat16, the features and gradients float32."""
+    return [torch.from_numpy(x).to(torch.bfloat16) if i < 3 else torch.from_numpy(x)
+            for i, x in enumerate(xs)]
+
+
+def _bf16(xs):
+    """All seven inputs rounded to bfloat16, as a bfloat16 model's training
+    step passes them."""
+    return [torch.from_numpy(x).to(torch.bfloat16) for x in xs]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("L,n_chunks,Gq,d,dv,m", [(16, 4, 2, 24, 16, 32), (32, 3, 1, 16, 32, 16)])
+def test_bwd_wrapper_in_the_training_mix_matches_jax_vjp(L, n_chunks, Gq, d, dv, m, mode):
+    """``chimera_attention_bwd_bh`` on CPU tensors with all seven inputs in
+    bf16, as the training step passes them, against ``jax.vjp`` of the JAX
+    reference on the same bf16-rounded values."""
+    T = L * n_chunks
+    xs = _bf16(_inputs(seed=L + T + m, Gq=Gq, T=T, d=d, dv=dv, m=m))
+    _, vjp = jax.vjp(lambda *a: jops.chimera_attention_partials(*a, L, *mode, "reference"),
+                     *(jnp.asarray(x.float().numpy()) for x in xs[:5]))
+    want = vjp((jnp.asarray(xs[5].float().numpy()), jnp.asarray(xs[6].float().numpy())))
+    assert cops.bwd_route(*xs[:6]) == "bf16"
+    got = cops.chimera_attention_bwd_bh(*(x.flatten(0, 1) for x in xs), chunk_size=L,
+                                        use_local=mode[0], use_stream=mode[1])
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == torch.float32
+        _close_grad(g, np.asarray(w).reshape(g.shape), msg=name)
+    assert cops.bwd_launches == cops.bwd_launches_bf16 == 0  # CPU tensors launch nothing
+
+
+def test_function_backward_in_the_training_mix_returns_each_input_type():
+    """``_Partials.backward`` with bf16 q, k, v and fp32 features (the
+    features' type of a bf16 model whose feature map keeps fp32 weights;
+    the fp32 route on the card): bf16 gradients for q, k and v, fp32 ones
+    for the features, each the wrapper's float32 gradient in its input's
+    type."""
+    xs = _mixed(_inputs(seed=4, Gq=2, T=48))
+    leaves = [x.clone().requires_grad_(True) for x in xs[:5]]
+    num, den = cops.chimera_attention_partials(*leaves, 16)
+    assert num.dtype == den.dtype == torch.float32  # the features' type wins, as in jnp
+    got = torch.autograd.grad((num, den), leaves, (xs[5], xs[6]))
+    want = cops.chimera_attention_bwd_bh(*(x.flatten(0, 1) for x in xs), chunk_size=16)
+    for name, g, w, x in zip(NAMES, got, want, leaves):
+        assert g.dtype == x.dtype == (torch.bfloat16 if name in ("q", "k", "v") else torch.float32)
+        assert torch.equal(g, w.reshape(g.shape).to(g.dtype)), name
+
+
+def test_bwd_route_by_input_type_and_what_it_refuses():
+    ts = [torch.from_numpy(x).flatten(0, 1) for x in _inputs(seed=6, Gq=2, T=32)]
+    bf = [t.bfloat16() for t in ts]
+    assert cops.bwd_route(*bf[:6]) == "bf16"  # g_den's type does not choose
+    assert cops.bwd_route(*ts[:6]) == "fp32"
+    # the first six all bf16, or every input widened to fp32
+    for i in range(6):
+        assert cops.bwd_route(*bf[:i], ts[i], *bf[i + 1:6]) == "fp32", i
+    # a mix is widened, which is exact
+    got = cops.chimera_attention_bwd_bh(*bf[:3], bf[3], ts[4], bf[5], bf[6], chunk_size=16)
+    wide = cops.chimera_attention_bwd_bh(*(t.float() for t in (*bf[:3], bf[3], ts[4], bf[5],
+                                                               bf[6])), chunk_size=16)
+    assert all(torch.equal(a, b) for a, b in zip(got, wide))
+    # other types raise
+    with pytest.raises(TypeError, match="must be one of"):
+        cops.chimera_attention_bwd_bh(ts[0].half(), *ts[1:], chunk_size=16)
+    with pytest.raises(TypeError, match="must be one of"):
+        cops.chimera_attention_bwd_bh(*bf[:3], ts[3].double(), *ts[4:], chunk_size=16)
+    with pytest.raises(ValueError, match="g_num must be one of"):
+        cops.chimera_attention_bwd_bh(*bf[:5], ts[5].double(), ts[6], chunk_size=16)
+    # launches of one call on the bf16 route: the fold and the prefix with a
+    # carried state, the stream tier's kernel, dK/dV and dQ
+    assert [cops.bwd_kernel_launches(T, 256, route="bf16") for T in (256, 512, 8192)] == [3, 5, 5]
+    assert cops.bwd_kernel_launches(8192, 256, use_local=False, route="bf16") == 3
+    assert cops.bwd_kernel_launches(8192, 256, use_stream=False, route="bf16") == 3
+    assert cops.bwd_kernel_launches(8192, 256, False, False, route="bf16") == 1
+    with pytest.raises(ValueError, match="no route"):
+        cops.bwd_kernel_launches(8192, 256, route="tf32")
+    assert cops.bwd_launches_fp32 == cops.bwd_launches_bf16 == 0
+
+
+# the card's tolerance for the backward kernels (chip_smoke.py's
+# CHIMERA_BWD_ATOL, CHIMERA_BWD_RTOL) against float64 on the same inputs
+CARD_ATOL_REL, CARD_RTOL = 1e-5, 1e-4
+
+
+def _terms(x, n):
+    """x (float32 values) as n bf16 terms, in float64: hi = bf16(x), lo =
+    bf16(x - hi)."""
+    out, r = [], x.double()
+    for _ in range(n):
+        t = r.float().bfloat16().double()
+        out.append(t)
+        r = r - t
+    return out
+
+
+def _prod(eq, a, b):
+    """sum of the term products a_i b_j with i + j < max(len(a), len(b)):
+    one term by one, or hi hi + hi lo + lo hi of two split operands."""
+    keep = max(len(a), len(b))
+    return sum(torch.einsum(eq, x, y) for i, x in enumerate(a) for j, y in enumerate(b)
+               if i + j < keep)
+
+
+def _split_model(xs, L, use_local, use_stream, n):
+    """The bf16 route's arithmetic in float64: the bf16 inputs one term
+    each (_terms of a bf16 value is that value and zeros), every value
+    formed in fp32 (the state S, R and P, dS) as ``n`` bf16 terms, the
+    products as _prod (the folds' too, phi against v or g_num), the
+    intermediates rounded to fp32 where the kernels round them; Z and R_z
+    summed exactly."""
+    q, k, v, pq, pk, gn, gd = (x.double() for x in xs)
+    B, H, Gq, T, d = q.shape
+    dv, m, c = v.shape[-1], pq.shape[-1], T // L
+    f32 = lambda t: t.float().double()  # noqa: E731
+    qc, kc, vc = q.reshape(B, H, Gq, c, L, d), k.reshape(B, H, c, L, d), v.reshape(B, H, c, L, dv)
+    pqc, pkc = pq.reshape(B, H, Gq, c, L, m), pk.reshape(B, H, c, L, m)
+    gnc, gdc = gn.reshape(B, H, Gq, c, L, dv), gd.reshape(B, H, Gq, c, L)
+    G = _terms(gnc, n)
+    dq, dk, dvv = torch.zeros_like(qc), torch.zeros_like(kc), torch.zeros_like(vc)
+    dpq, dpk = torch.zeros_like(pqc), torch.zeros_like(pkc)
+    if use_local:
+        scale = 1 / np.sqrt(d)
+        causal = torch.tril(torch.ones((L, L), dtype=torch.float64))
+        p = f32(torch.exp(f32(torch.einsum("bhgcid,bhcjd->bhgcij", qc, kc)) * scale)) * causal
+        dp = f32(_prod("bhgcie,bhcje->bhgcij", G, [vc]))
+        ds = f32(p * (dp + gdc[..., None]) * scale)
+        P, DS = _terms(p, n), _terms(ds, n)
+        dq = _prod("bhgcij,bhcjd->bhgcid", DS, [kc])
+        dk = _prod("bhgcij,bhgcid->bhcjd", DS, [qc])
+        dvv = _prod("bhgcij,bhgcie->bhcje", P, G)
+    if use_stream and c > 1:
+        PK = _terms(pkc, n)
+        S = f32(cops._exclusive_prefix(_prod("bhcjm,bhcje->bhcme", PK, [vc]), 2))
+        Z = cops._exclusive_prefix(torch.sum(pkc, dim=3), 2)
+        R = f32(cops._exclusive_prefix(_prod("bhgcim,bhgcie->bhcme", _terms(pqc, n), G), 2,
+                                       reverse=True))
+        Rz = cops._exclusive_prefix(torch.einsum("bhgcim,bhgci->bhcm", pqc, gdc), 2, reverse=True)
+        SS, RR = _terms(S, n), _terms(R, n)
+        dpq = _prod("bhgcie,bhcme->bhgcim", G, SS) + gdc[..., None] * Z[:, :, None, :, None]
+        dpk = _prod("bhcje,bhcme->bhcjm", [vc], RR) + Rz[:, :, :, None]
+        dvv = dvv + _prod("bhcjm,bhcme->bhcje", PK, RR)
+    return [g.reshape(x.shape) for g, x in zip((dq, dk, dvv, dpq, dpk), xs[:5])]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("L,T,Gq,d,dv,m", [(16, 64, 2, 16, 16, 32), (32, 128, 1, 24, 32, 48),
+                                           (64, 256, 2, 40, 64, 16)])
+def test_bf16_split_model_holds_the_card_tolerance(L, T, Gq, d, dv, m, mode):
+    """Why the bf16 route takes each value it forms in fp32 (P, dS, the
+    state and R) as two bf16 terms: the model of its arithmetic, from all
+    seven inputs in bf16 as the training step passes them, holds
+    chip_smoke.py's tolerance for the backward kernels (CARD_ATOL_REL x
+    max|ref| + CARD_RTOL x |ref| against float64) with two terms, and one
+    term alone does not."""
+    xs = [x.double() for x in _bf16(_inputs(seed=T + m, Gq=Gq, T=T, d=d, dv=dv, m=m))]
+    want = cops.chimera_attention_bwd_plain(*xs, L, *mode)
+    worst = {}
+    for n in (1, 2):
+        got = _split_model(xs, L, *mode, n)
+        worst[n] = max(float(((g - w).abs() / (CARD_ATOL_REL * w.abs().max() + CARD_RTOL * w.abs()
+                                                + 1e-300)).max()) for g, w in zip(got, want))
+    assert worst[2] <= 0.5, worst  # half the tolerance left for the kernels' fp32 sums
+    assert worst[1] > 1, worst
+
+
+# --------------------------------------------------------------------------
 # core.chimera_attention.chimera_attention against the JAX scan path
 # --------------------------------------------------------------------------
 

@@ -1,7 +1,8 @@
 """Chimera training's kernels on the card: ``chip_smoke.py``'s checks of the
 chimera_attention backward (``csrc/chimera_attention_bwd.cu`` against
 ``chimera_attention_bwd_plain`` in float64, two launches bit for bit equal)
-and of the smoke configs' Chimera training, card against CPU.  Marked
+and of the smoke configs' Chimera training, card against CPU.  "bfloat16" is
+the training step's types (all seven inputs bf16): the bf16 route.  Marked
 ``cuda``: they skip without a GPU.  The file imports no JAX, so it runs on
 the machine with the card; the CPU tests against the JAX package are in
 ``tests/test_torch_chimera_training.py``.
