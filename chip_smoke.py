@@ -16,9 +16,10 @@ Phases, each printing its own lines:
                contract, and times both; checks the gradients of the
                chimera_attention Function (its forward and backward kernels).
 4. engine    — the serving path: a ``FlowEngine`` at the paper's full width
-               (chimera-dataplane: 4 layers, d 256, m 256, L 64, n_global
-               64; capacity 4096, lanes 256) with random weights from a
-               seed ingests protocol-mix and rule-violating batches.
+               (chimera-dataplane: d 256, m 256, L 64, n_global 64; FLOW_LAYERS
+               1 of its 4 layers; capacity 4096, lanes 256) with random
+               weights from a seed ingests protocol-mix and rule-violating
+               batches.
 5. train     — the classifier objective at the same width
                (``train_classifier``, batch 256 x 256 tokens), then one
                profiled classifier step (forward against backward).
@@ -36,7 +37,8 @@ Phases, each printing its own lines:
                against its plain version bit for bit at the engine's shapes
                (M 1 and 300, timed) and at its edge shapes on adversarial
                inputs (and flow_score at 24 signature words), then the compiled
-               DataplaneProgram: the paper's classifier compiled, saved,
+               DataplaneProgram: the paper's classifier (FLOW_LAYERS 1 of its
+               4 layers) compiled, saved,
                loaded and deployed per-round and fused, with two table
                swaps between batches, fused held to per-round after each;
                then int-emulation engines at the smoke width on the card
@@ -59,7 +61,7 @@ Phases, each printing its own lines:
                all shards on the one card.  decode_step at the stacked width
                (4 shards x 256 lanes) against its plain version, timed;
                (a) a ShardedFlowEngine of 4 shards x 1024 slots beside a
-               FlowEngine of 4096 at the paper's width (SHARD_LAYERS 2 of its 4 layers)
+               FlowEngine of 4096 at the paper's width (SHARD_LAYERS 1 of its 4 layers)
                on the same batches: decisions identical, packets/s of both,
                busy share, launches
                per round; (b) the elastic service through the launcher
@@ -96,11 +98,13 @@ Phases, each printing its own lines:
                centroids) with the two-timescale controller (installs every
                10 steps) against the same run without it (its k-means on
                the card timed apart), the same controller run on the card
-               (deterministic mode) against the CPU (losses, installs,
-               centroids, every code recomputed on the CPU from the card's
-               inputs), and an 8-bit codebook program compiled by the
-               port, saved, loaded and
-               deployed on the card and on the CPU; (d) examples/train_lm.py's
+               (deterministic mode, recorded) held to the CPU by two checks:
+               every code, signature bit and k-means recomputed on the CPU
+               from the card's inputs, and the losses, installs and
+               centroids of a CPU run fed the card's codes, signature bits
+               and farthest-point picks; an 8-bit codebook program compiled
+               by the port, saved, loaded and deployed on the card and on
+               the CPU; (d) examples/train_lm.py's
                lm_100m through the Trainer (1 + 20 steps) and one profiled step.
 
 13. lm-mla   — run after the lm-chimera phase: MiniCPM3-4B's multi-head
@@ -111,7 +115,7 @@ Phases, each printing its own lines:
                8192 for MiniCPM3-4B's and Yi-9B's softmax variants, against
                their plain versions, timed; (b) MiniCPM3-4B through the LM
                launcher at full width, 2 of 62 layers with phase 11's (c)
-               checks, then all 62 layers, timed (prefill tokens/s, ms per
+               checks, then 4 layers (MLA_DEPTH), timed (prefill tokens/s, ms per
                tick, busy share, peak memory); (c) the softmax variants of
                MiniCPM3-4B (MLA latent cache) and Yi-9B (GQA, Gq 8) at full
                width, 2 layers, T 8192: against the plain version on the card
@@ -162,10 +166,26 @@ Phases, each printing its own lines:
                trainer phases' Chimera training runs the backward kernels
                too.
 
-Phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14 and 15 are the main paths: the
+16. lm-ssm   — run after the train-chimera phase, before the trainer
+               phase: Mamba and xLSTM served on the card.  (a) decode_step
+               and chimera_attention_long.cu at Jamba's attention widths (2
+               slots x 8 kv-heads, Gq 8, d = dv = m 128, L 256; T 8192)
+               against their plain versions, timed;
+               (b) Jamba-1.5-Large at full width, 2 of its 72 layers (a
+               Mamba block with the MoE of 16 experts and a Chimera
+               attention block with the dense MLP), through the LM
+               launcher: 2 x 8,193-token prompts and 16 new tokens each,
+               prefill tokens/s, ms per tick, peak memory, a profiled
+               prefill's device time by kernel and by scan; its generations
+               held to the plain route on the card, and a ragged 257-token
+               prefill against token-by-token decode; (c) xLSTM-125M at
+               full depth and width the same way (4 x 2,050-token prompts);
+               (d) both smoke configs card against CPU.
+
+Phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16 are the main paths: the
 kernels' launch counters are zeroed just before each (each part of phases
-10, 12, 13, 14 and 15) and read just after, and each fails if one of its
-kernels never launched.  Then
+10, 12, 13, 14, 15 and 16) and read just after, and each fails if one of
+its kernels never launched.  Then
 a JSON line with every kernel's numbers, a JSON line ``{"phases": {...}}``
 with every phase's seconds (and the run's total), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -1279,6 +1299,11 @@ def paper_classifier(n_global=None, n_layers=None):
 
 
 ENGINE_BATCHES = 3  # timed protocol-mix batches per engine
+# the engine and program phases serve FLOW_LAYERS of the paper model's 4
+# layers: their per-round engines are host-bound and their time grows with
+# the layers (PERF.md section 4 lists the depth cuts and what each saved);
+# adapt (a) serves all 4 through the launcher
+FLOW_LAYERS = 1
 
 
 class OpCount:
@@ -1332,7 +1357,7 @@ def phase_engine(recs):
     from repro_torch.serve.ingest_pipeline import AsyncIngestPipeline
     from repro_torch.train import classifier as C
 
-    ccfg, params = paper_classifier()
+    ccfg, params = paper_classifier(n_layers=FLOW_LAYERS)
     packets = 256
     mix = FlowScenario(kind="protocol-mix", pkt_len=PKT_LEN, packets_per_batch=packets, seed=SEED)
     bad = FlowScenario(kind="rule-violating", pkt_len=PKT_LEN, packets_per_batch=packets,
@@ -1572,6 +1597,8 @@ def report_profile(p, wall, what):
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0)
         if getattr(ev, "device_type", None) is not None and "CUDA" not in str(ev.device_type):
+            continue
+        if ev.key in SSM_SCOPES:  # a scope's span on the device, not a kernel
             continue
         if dev_us:
             rows.append((dev_us, ev.key, ev.count))
@@ -2028,11 +2055,14 @@ def lm_replay_shared_routes(cfg, params, prompts, pre, gens, max_len, margin=ROU
     ``margin``, in either run); a choice that differs beyond the margin
     fails.  So the two runs are compared on the same discrete routing, and
     every routing decision is held to the margin.  Returns (fast, seq, the
-    forced ties as (layer, slot, position, gap))."""
+    forced ties as (MoE layer, slot, position, gap)); the MoE layers are
+    the layers with a MoE MLP (all of them but in Jamba)."""
     import torch
     from repro_torch.models import moe
 
-    real, n_layers, B = moe._top_k, cfg.n_layers, prompts.shape[0]
+    n_layers = cfg.n_groups * sum("_moe" in params["blocks"][f"b{j}"]
+                                  for j in range(len(cfg.pattern)))
+    real, B = moe._top_k, prompts.shape[0]
     calls = []
 
     def record(probs, k):
@@ -2516,11 +2546,13 @@ def check_linear_attention():
                       f"{RTOL:g}*|ref|)")
 
 
-def lm_smoke_card_vs_cpu(name, use_chimera=True):
-    """``smoke_config(name)`` (fp32, L 16), or its softmax variant, through
-    the launcher's engine on the card and on the CPU: prefill_batch of
-    ragged prompts, 6 greedy tokens each; generations identical and the
-    prefill's next-token logits within REF_LOGIT_TOL."""
+def lm_smoke_card_vs_cpu(name, use_chimera=True, phase="lm-chimera"):
+    """``smoke_config(name)`` (fp32, L 16), or its softmax variant
+    (``use_chimera`` False; None keeps the config's), through the launcher's
+    engine on the card and on the CPU: prefill_batch of ragged prompts, 6
+    greedy tokens each; generations identical and the prefill's next-token
+    logits within REF_LOGIT_TOL.  A stack with attention launches its
+    kernels on the card; one without (xLSTM) launches none."""
     import dataclasses
 
     import torch
@@ -2532,7 +2564,9 @@ def lm_smoke_card_vs_cpu(name, use_chimera=True):
     from repro_torch.optim.optimizer import tree_map
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = dataclasses.replace(smoke_config(name), use_chimera=use_chimera)
+    cfg = smoke_config(name)
+    if use_chimera is not None:
+        cfg = dataclasses.replace(cfg, use_chimera=use_chimera)
     params = M.init_model(cfg, torch.Generator().manual_seed(SEED + 61), device="cpu")
     rng = np.random.default_rng(SEED + 62)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 37, 45)]
@@ -2547,19 +2581,22 @@ def lm_smoke_card_vs_cpu(name, use_chimera=True):
         with torch.no_grad():
             logits, _ = M.prefill_with_caches(
                 cfg, p, torch.tensor([pr[:36] for pr in prompts], device=dev), max_len=64)
-        if (cops.launches + dops.launches + wops.launches > before) != (dev == "cuda"):
-            fail(f"lm-chimera smoke {name}: kernel launches on {dev}")
+        if (cops.launches + dops.launches + wops.launches > before) != (
+                dev == "cuda" and "attn" in cfg.pattern):
+            fail(f"{phase} smoke {name}: kernel launches on {dev}")
         runs[dev] = ([r.generated for r in reqs], logits.cpu())
     (gen_g, lg), (gen_c, lc) = runs["cuda"], runs["cpu"]
     if gen_g != gen_c:
-        fail(f"lm-chimera smoke {name}: greedy generations differ: card {gen_g} vs CPU {gen_c}")
-    err = compare(f"lm-chimera smoke {name} logits", lg, lc, atol=REF_LOGIT_TOL,
+        fail(f"{phase} smoke {name}: greedy generations differ: card {gen_g} vs CPU {gen_c}")
+    err = compare(f"{phase} smoke {name} logits", lg, lc, atol=REF_LOGIT_TOL,
                   rtol=REF_LOGIT_TOL)
-    mode = "Chimera (m 16, L 16)" if use_chimera else "full-causal softmax"
-    log("lm-chimera", f"{name} smoke ({mode}, d_head {cfg.head_dim}): prefill_batch of "
-                      f"{[len(p) for p in prompts]} tokens + 6 greedy tokens, card and CPU "
-                      f"generations identical; next-token logits after 36 tokens max abs diff "
-                      f"{err:.3e} (tolerance {REF_LOGIT_TOL:g} + {REF_LOGIT_TOL:g}*|ref|)")
+    mode = ("no attention" if "attn" not in cfg.pattern else "Chimera (m 16, L 16)"
+            if cfg.use_chimera else "full-causal softmax")
+    mode += "".join(f", {kind}" for kind in dict.fromkeys(cfg.pattern) if kind != "attn")
+    log(phase, f"{name} smoke ({mode}, d_head {cfg.head_dim}): prefill_batch of "
+               f"{[len(p) for p in prompts]} tokens + 6 greedy tokens, card and CPU "
+               f"generations identical; next-token logits after 36 tokens max abs diff "
+               f"{err:.3e} (tolerance {REF_LOGIT_TOL:g} + {REF_LOGIT_TOL:g}*|ref|)")
 
 
 # --------------------------------------------------------------------------
@@ -2567,6 +2604,9 @@ def lm_smoke_card_vs_cpu(name, use_chimera=True):
 # --------------------------------------------------------------------------
 
 MLA_LM = "minicpm3-4b"
+# lm-mla (b)'s deeper run: 4 of MiniCPM3-4B's 62 layers, a depth cut
+# (PERF.md section 4); lm_serve_deeper(MLA_LM) runs all 62
+MLA_DEPTH = 4
 
 
 def other_shape(recs, name, r):
@@ -2647,11 +2687,12 @@ class plain_softmax_attention:
         A.blockwise_softmax_attention = self.saved
 
 
-def launcher(cfg, prompt_len=SERVE_T + 1):
+def launcher(cfg, prompt_len=SERVE_T + 1, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN):
     """The LM launcher's build for ``cfg`` (served as ``cfg.name``) at full
-    width: seed-0 weights drawn on the card, 4 slots x ``prompt_len``-token
-    prompts, 16 new tokens, ``--prefill``, the resource ledger waived.
-    Returns (deployment, parameter bytes, seconds to draw them)."""
+    width: seed-0 weights drawn on the card, ``slots`` slots x
+    ``prompt_len``-token prompts (one request a slot), 16 new tokens,
+    ``--prefill``, the resource ledger waived.  Returns (deployment,
+    parameter bytes, seconds to draw them)."""
     import torch
     from repro_torch.launch import serve as LS
     from repro_torch.optim.optimizer import tree_flatten
@@ -2665,10 +2706,10 @@ def launcher(cfg, prompt_len=SERVE_T + 1):
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     nbytes = sum(t.numel() * t.element_size() for t in tree_flatten(params)[0])
-    args = LS.parse_args(["--arch", cfg.name, "--requests", str(SERVE_SLOTS), "--slots",
-                          str(SERVE_SLOTS), "--prompt-len", str(prompt_len), "--max-new",
-                          str(SERVE_NEW), "--max-len", str(SERVE_MAX_LEN), "--prefill",
-                          "--waive", "resource-ledger"])
+    args = LS.parse_args(["--arch", cfg.name, "--requests", str(slots), "--slots", str(slots),
+                          "--prompt-len", str(prompt_len), "--max-new", str(SERVE_NEW),
+                          "--max-len", str(max_len), "--prefill", "--waive",
+                          "resource-ledger"])
     return LS.build(args, params=params, arch=cfg), nbytes, draw_s
 
 
@@ -2696,32 +2737,37 @@ def serve_counted(dep, want, phase="lm-mla"):
             fail(f"{phase} {name}: {k} launched {launches[k]} times, want {n}: {launches}")
     vocab = dep.program.ccfg.arch.vocab_size
     gens = np.array([r.generated for r in res.requests])
-    if gens.shape != (SERVE_SLOTS, SERVE_NEW) or gens.min() < 0 or gens.max() >= vocab:
+    if gens.shape != (dep.args.requests, SERVE_NEW) or gens.min() < 0 or gens.max() >= vocab:
         fail(f"{phase} {name}: generations of shape {gens.shape}, ids {gens.min()}..{gens.max()}")
     return res, launches, peak
 
 
-def timing_line(res):
-    n = SERVE_SLOTS * SERVE_T
+def timing_line(res, slots=SERVE_SLOTS, T=SERVE_T):
+    n = slots * T
     decode_s = res.seconds - res.prefill_seconds
-    return (f"prefill_batch {SERVE_SLOTS} x {SERVE_T} tokens: {res.prefill_seconds * 1e3:.1f} ms, "
-            f"{n / res.prefill_seconds:.0f} tokens/s; decode: {res.ticks} ticks ({SERVE_SLOTS} "
+    return (f"prefill_batch {slots} x {T} tokens: {res.prefill_seconds * 1e3:.1f} ms, "
+            f"{n / res.prefill_seconds:.0f} tokens/s; decode: {res.ticks} ticks ({slots} "
             f"slots) in {decode_s * 1e3:.1f} ms: {decode_s / res.ticks * 1e3:.2f} ms per tick")
 
 
-def lm_serve_full_depth(name):
-    """(b) ``name`` at full width and all its layers through the launcher
-    (4 slots x 8193-token prompts, 16 new tokens each), timed, after the
-    2-layer run of the same widths (cuBLAS has picked its kernels); its
-    launches counted; then one profiled prefill (logits finite, of the
-    padded vocabulary) and decode step for the device's busy share."""
+def lm_serve_deeper(name, n_layers=None):
+    """(b) ``name`` at full width and ``n_layers`` of its layers (all of
+    them if None) through the launcher (4 slots x 8193-token prompts, 16
+    new tokens each), timed, after the 2-layer run of the same widths
+    (cuBLAS has picked its kernels); its launches counted; then one
+    profiled prefill (logits finite, of the padded vocabulary) and decode
+    step for the device's busy share."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
     cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
     dep, nbytes, draw_s = launcher(cfg)
-    log("lm-mla", f"{name} (Chimera) at full depth and width: {cfg.n_layers} layers, d "
+    log("lm-mla", f"{name} (Chimera) at full width, {cfg.n_layers} of "
+                  f"{get_config(name).n_layers} layers: d "
                   f"{cfg.d_model}, {cfg.n_heads} heads, {attn_label(cfg)}, dense d_ff "
                   f"{cfg.d_ff}, vocab {cfg.vocab_size}, dtype {cfg.dtype}: {nbytes // 4} fp32 "
                   f"parameters ({nbytes} B) drawn on the card in {draw_s:.2f} s")
@@ -2876,24 +2922,297 @@ def phase_lm_mla(recs):
     card.  (a) check_lm_mla_kernels; (b) MiniCPM3-4B (Chimera) through the
     launcher at full width, 2 of 62 layers with lm_serve_full_width's checks
     (c) (the plain versions, a ragged prompt against token-by-token
-    decode), then at all 62 layers, timed; (c) the softmax variants of
+    decode), then at MLA_DEPTH layers, timed; (c) the softmax variants of
     SOFTMAX_LM at full width, 2 layers.  The smoke configs of both modes run
     card against CPU in phase lm-chimera (d)."""
     import torch
 
     entries = check_lm_mla_kernels(recs)
     runs = {"2 layers": lm_serve_full_width(MLA_LM),
-            "62 layers": lm_serve_full_depth(MLA_LM)}
+            f"{MLA_DEPTH} layers": lm_serve_deeper(MLA_LM, MLA_DEPTH)}
     runs.update({f"{name} softmax": lm_softmax_full_width(name) for name in SOFTMAX_LM})
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in runs["2 layers"]["launches"]}
     # each new shape's launches on this phase's main paths, in the kernels line
     for kernel in ("decode_step", "chimera_attention"):
         entries[kernel]["launches"] = sum(runs[n]["launches"][kernel]
-                                          for n in ("2 layers", "62 layers"))
+                                          for n in ("2 layers", f"{MLA_DEPTH} layers"))
     for name in SOFTMAX_LM:
         entries[name]["launches"] = runs[f"{name} softmax"]["launches"]["window_attention"]
     torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs}
+
+
+# --------------------------------------------------------------------------
+# 16. lm-ssm (Mamba and xLSTM served on the card)
+# --------------------------------------------------------------------------
+
+SSM_JAMBA, SSM_XLSTM = "jamba-1.5-large-398b", "xlstm-125m"
+# (slots, prompt tokens) of the served main path.  prefill_batch prefills
+# each prompt to its length less one and steps the last token: Jamba's
+# 8,193-token prompts give an 8,192-token prefill (32 Chimera chunks of 256,
+# 128 Mamba chunks of 64; the MoE's groups of 512 tokens need B x T to be a
+# multiple of 512, so no longer prompt at 2 slots), xLSTM's 2,050 a
+# 2,049-token one (8 mLSTM chunks of 256 and the ragged tail of 1)
+SSM_SERVE = {SSM_JAMBA: (2, SERVE_T + 1), SSM_XLSTM: (4, 2050)}
+# prefill against token-by-token decode at full width, 2 slots: a prefill
+# of 257 tokens runs the ragged paths (Mamba's 4 chunks of 64 and a 1-token
+# tail, which splices the conv carry; mLSTM's chunk of 256 and a 1-token
+# tail; Chimera's chunk of 256 and 1 token in the ring)
+SSM_RAGGED_T = 258
+# the models' profiler scopes around their scans (JAX's named scopes)
+SSM_SCOPES = ("mamba", "mlstm", "slstm")
+
+
+def jamba_cut():
+    """Jamba-1.5-Large at full width, 2 of its 72 layers: its pattern's
+    position 0 (a Mamba block with the MoE MLP of 16 experts top-2) and an
+    attention block (Chimera, 64 heads over 8, d_head 128) with the dense
+    MLP of its position 3: 11.91 G parameters, 47.65 GB in float32 (one
+    period of 8 layers holds 4 MoE layers, 155 GB)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SSM_JAMBA), n_layers=2, block_pattern=("mamba", "attn"))
+
+
+def scope_ms(prof, names=SSM_SCOPES):
+    """{scope: (kernel ms, span ms, ranges)} for each profiler scope of
+    ``names`` (the models' ``record_function`` ranges) in a trace: the
+    device time of the kernels launched inside it (its host range's
+    children's kernels), and its span on the device's timeline (the trace's
+    device-side annotation: from its first kernel's start to its last one's
+    end, idle gaps included)."""
+    out = {}
+    for ev in prof.events():
+        if ev.name in names:
+            k, span, n = out.get(ev.name, (0.0, 0.0, 0))
+            if "CUDA" in str(ev.device_type):
+                span += ev.time_range.elapsed_us() / 1e3
+            else:
+                k, n = k + ev.device_time_total / 1e3, n + 1
+            out[ev.name] = (k, span, n)
+    return out
+
+
+def check_lm_ssm_kernels(recs):
+    """decode_step (every fill pattern, with and without the globals) and
+    the long-chunk kernel at Jamba's attention widths (2 slots x 8 kv-heads,
+    Gq 8, d = dv = m 128, L 256; T 8192), against their plain versions,
+    timed against their bounds; returns their entries of the kernels line."""
+    cfg = jamba_cut()
+    slots = SSM_SERVE[SSM_JAMBA][0]
+    kv, Gq, d, dv = attn_widths(cfg)
+    m, L = cfg.chimera.feature_map.m, cfg.chimera.chunk_size
+    entries = {}
+    for fill in ZOO_FILLS:
+        for with_global in (False, True):
+            timed = with_global and fill == "spread"
+            r = check_decode(with_global, timed, fill=fill, B=slots, Gq=Gq, d=d, dv=dv, m=m,
+                             L=L, heads=kv)
+            if timed:
+                r["shape"] = f"Jamba: BH {slots * kv} Gq {Gq} d {d} dv {dv} m {m} L {L}"
+                entries["decode_step"] = other_shape(recs, "decode_step", r)
+    r = check_chimera_long(True, shape=(slots, kv, Gq, SERVE_T, d, dv))
+    r["shape"] = "Jamba: " + r["shape"]
+    entries["chimera_attention"] = other_shape(recs, "chimera_attention", r)
+    return entries
+
+
+def ssm_serve(cfg, slots, prompt_len, label, warm=True, profile_T=None):
+    """``cfg`` through the LM launcher at full width: ``slots`` x
+    ``prompt_len``-token prompts through prefill_batch and 16 new tokens
+    each, after a warm-up prefill at the same shape (``warm``; cuBLAS picks
+    its kernels on a first call), its launches counted from 0 just before
+    and read just after; then one profiled prefill (device time by kernel
+    and by scan, busy share; logits finite, of the padded vocabulary), of
+    the served prompts' first ``profile_T`` tokens if given.
+    Returns the deployment, the prompts, the generations and the numbers
+    (with the seconds of each stage)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    max_len = prompt_len + 64
+    stages, t0 = {}, time.perf_counter()
+    dep, nbytes, draw_s = launcher(cfg, prompt_len, slots=slots, max_len=max_len)
+    stages["build"] = time.perf_counter() - t0
+    engine, pre = dep.engine, prompt_len - 1
+    widths = [f"{cfg.pattern.count(k) * cfg.n_groups} {k}" for k in dict.fromkeys(cfg.pattern)]
+    if "attn" in cfg.pattern:
+        widths.append(f"attention {cfg.n_heads} heads / {cfg.n_kv_heads} kv-heads of "
+                      f"{cfg.head_dim}, Chimera m {cfg.chimera.feature_map.m} L "
+                      f"{cfg.chimera.chunk_size}")
+    if "mamba" in cfg.pattern:
+        widths.append(f"Mamba d_inner {cfg.mamba_expand * cfg.d_model} d_state "
+                      f"{cfg.mamba_d_state} dt_rank {cfg.mamba_dt_rank or -(-cfg.d_model // 16)} "
+                      f"chunk {cfg.mamba_chunk}")
+    if "mlstm" in cfg.pattern:
+        widths.append(f"{cfg.n_heads} heads, mLSTM dh {2 * cfg.d_model // cfg.n_heads} chunk "
+                      f"{cfg.chimera.chunk_size}, sLSTM dh {cfg.d_model // cfg.n_heads}")
+    if cfg.moe_experts:
+        widths.append(f"{cfg.moe_experts} experts of d_ff {cfg.moe_d_ff} top-{cfg.moe_top_k} at "
+                      f"every {cfg.moe_every}th position, else dense d_ff {cfg.d_ff}")
+    log("lm-ssm", f"{label}, {cfg.n_layers} of {get_config(cfg.name).n_layers} layers at full "
+                  f"width (d {cfg.d_model}, {', '.join(widths)}, vocab {cfg.vocab_size}, dtype "
+                  f"{cfg.dtype}): {nbytes // 4} fp32 parameters ({nbytes} B) drawn on the card "
+                  f"in {draw_s:.2f} s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (slots, prompt_len))
+    if warm:
+        t0 = time.perf_counter()
+        lg = lm_replay(cfg, engine.params, prompts, pre, np.zeros((slots, 1), np.int64), max_len)
+        if not torch.isfinite(lg).all():
+            fail(f"lm-ssm {label}: non-finite logits after the warm-up prefill")
+        del lg
+        stages["warm-up"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_attn = cfg.n_groups * cfg.pattern.count("attn") if cfg.use_chimera else 0
+    res, launches, peak = serve_counted(dep, lambda ticks: {
+        "chimera_attention": n_attn, "decode_step": n_attn * ticks, "window_attention": 0},
+        "lm-ssm")
+    if [r.prompt for r in res.requests] != prompts.tolist():
+        fail(f"lm-ssm {label}: the launcher's prompts are not the replays' prompts")
+    gens = np.array([r.generated for r in res.requests])
+    decode_s = res.seconds - res.prefill_seconds
+    stages["serve"] = time.perf_counter() - t0
+    log("lm-ssm", f"{label}: {timing_line(res, slots, pre)}; launches {launches}; "
+                  f"max_memory_allocated {peak} B")
+    t_prof = time.perf_counter()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    T = profile_T or pre
+    tokens = torch.from_numpy(prompts[:, :T]).to("cuda")
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, _ = M.prefill_with_caches(cfg, engine.params, tokens, max_len=max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms, _ = report_profile(prof, wall, f"one {label} prefill of {slots} x {T} tokens")
+    scans = scope_ms(prof)
+    log("lm-ssm", f"{label}: each scan in that prefill (profiler scope: device time of its "
+                  f"kernels, span on the device, ranges): " + ", ".join(
+                      f"{k} {ms:.1f} ms, {span:.1f} ms, {n}" for k, (ms, span, n) in scans.items())
+                  + (f"; of {busy_ms:.1f} ms of kernels in {wall * 1e3:.1f} ms" if busy_ms
+                     else "; device time not measured"))
+    if tuple(logits.shape) != (slots, cfg.padded_vocab) or not torch.isfinite(logits).all():
+        fail(f"lm-ssm {label}: prefill logits of shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    del logits, tokens
+    torch.cuda.empty_cache()
+    stages["profiled prefill"] = time.perf_counter() - t_prof
+    log("lm-ssm", f"{label}: seconds by stage " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                           stages.items()))
+    return dep, prompts, gens, {
+        "launches": launches, "prefill_s": res.prefill_seconds, "ticks": res.ticks,
+        "tokens_per_s": slots * pre / res.prefill_seconds,
+        "ms_per_tick": decode_s / res.ticks * 1e3, "peak": peak, "busy": busy_ms and busy_ms / (wall * 1e3), "prefill_wall_ms": wall * 1e3,
+        "kernel_ms": busy_ms, "scans": scans, "stages": stages}
+
+
+def ssm_prefill_vs_decode(cfg, params, label):
+    """A 2 x SSM_RAGGED_T-token prompt through prefill_batch (a ragged
+    prefill) and 4 new tokens, drop-free, against token-by-token decode
+    (the MoE's near ties routed alike, lm_replay_shared_routes): greedy
+    tokens equal where the top-2 margin exceeds LM_MARGIN."""
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dcfg, max_len = drop_free(cfg), SSM_RAGGED_T + 64
+    rengine = ServeEngine(dcfg, params, batch_slots=2, max_len=max_len, device="cuda")
+    rprompts = np.random.default_rng(SEED + 70).integers(0, cfg.vocab_size, (2, SSM_RAGGED_T))
+    reqs = [Request(rid=i, prompt=p.tolist(), max_new_tokens=RAGGED_NEW)
+            for i, p in enumerate(rprompts)]
+    rengine.prefill_batch(reqs)
+    rengine.run_until_done()
+    rgens = np.array([r.generated for r in reqs])
+    pre = SSM_RAGGED_T - 1
+    t0 = time.perf_counter()
+    fast, seq, ties = lm_replay_shared_routes(dcfg, params, rprompts, pre, rgens, max_len)
+    seq_s = time.perf_counter() - t0
+    held, total, gap = hold_generations(f"lm-ssm {label} ragged prefill_batch vs token-by-token",
+                                        rgens, seq, LM_MARGIN)
+    routing = (f"capacity factor {dcfg.capacity_factor:g} (drop-free); the MoE's near ties (top-k "
+               f"gap <= {ROUTE_MARGIN:g}) routed as in the prefill: {len(ties)}, (MoE layer, "
+               f"slot, position, gap) {ties}" if cfg.moe_experts else "no MoE")
+    log("lm-ssm", f"{label}: a {SSM_RAGGED_T}-token prompt x 2, prefill_batch ({pre} tokens) then "
+                  f"{RAGGED_NEW} tokens against token-by-token decode ({pre} steps, {seq_s:.1f} s; "
+                  f"{routing}): logits max abs diff {float((fast - seq).abs().max()):.3e}; greedy "
+                  f"tokens equal at {held} of {total} positions whose top-2 margin exceeds "
+                  f"{LM_MARGIN:g} (smallest margin {gap:.3e})")
+    del rengine, fast, seq
+    torch.cuda.empty_cache()
+
+
+def phase_lm_ssm(recs):
+    """Mamba and xLSTM served on the card.  (a) decode_step and the
+    long-chunk kernel at Jamba's attention widths against their plain
+    versions, timed; (b) Jamba-1.5-Large at full width, 2 layers
+    (``jamba_cut``), through the LM launcher: 2 x 8,193-token prompts, 16
+    new tokens each (the main path: chimera_attention in the prefill,
+    decode_step every tick, counted), its greedy generations held to the
+    plain route on the card (the plain versions of both kernels) where the
+    top-2 margin exceeds LM_MARGIN, and a ragged prefill against
+    token-by-token decode; (c) xLSTM-125M at full depth and width through
+    the launcher: 4 x 2,050-token prompts, 16 new tokens, and the same
+    prefill-vs-decode check; (d) both smoke configs card against CPU."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+
+    t0 = time.perf_counter()
+    entries = check_lm_ssm_kernels(recs)
+    seconds = {"kernels": time.perf_counter() - t0}
+    runs = {}
+    slots, prompt_len = SSM_SERVE[SSM_JAMBA]
+    cfg = jamba_cut()
+    dep, prompts, gens, runs[SSM_JAMBA] = ssm_serve(cfg, slots, prompt_len, "Jamba-1.5-Large")
+    params = dep.engine.params
+    t0 = time.perf_counter()
+    before = cops.launches + dops.launches
+    with plain_chimera_kernels():
+        ref = lm_replay(cfg, params, prompts, prompt_len - 1, gens, prompt_len + 64)
+    if cops.launches + dops.launches != before:
+        fail("lm-ssm Jamba: a kernel launched on the plain route")
+    held, total, gap = hold_generations("lm-ssm Jamba kernels vs plain", gens, ref, LM_MARGIN)
+    log("lm-ssm", f"Jamba-1.5-Large: the served generations against the plain route on the card "
+                  f"(the plain versions of chimera_attention and decode_step, the same prompts "
+                  f"and teacher-forced tokens): equal at {held} of {total} positions whose top-2 "
+                  f"margin exceeds {LM_MARGIN:g} (smallest margin {gap:.3e})")
+    del ref
+    seconds["Jamba plain route"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssm_prefill_vs_decode(cfg, params, "Jamba-1.5-Large")
+    seconds["Jamba prefill vs decode"] = time.perf_counter() - t0
+    del dep, params
+    torch.cuda.empty_cache()
+
+    slots, prompt_len = SSM_SERVE[SSM_XLSTM]
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SSM_XLSTM)
+    # host-bound (the sLSTM's token loop), so no warm-up prefill; the
+    # profile is of 65 tokens a slot: the sLSTM launches ~13 kernels a token
+    # and layer, and the 1.1 M profiler events of a 2,049-token prefill take
+    # longer to process than the prefill takes to run
+    dep, _, _, runs[SSM_XLSTM] = ssm_serve(cfg, slots, prompt_len, "xLSTM-125M", warm=False,
+                                           profile_T=65)
+    t0 = time.perf_counter()
+    ssm_prefill_vs_decode(cfg, dep.engine.params, "xLSTM-125M")
+    seconds["xLSTM prefill vs decode"] = time.perf_counter() - t0
+    del dep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name in (SSM_JAMBA, SSM_XLSTM):
+        lm_smoke_card_vs_cpu(name, use_chimera=None, phase="lm-ssm")
+    seconds["smoke configs"] = time.perf_counter() - t0
+    log("lm-ssm", "seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs[SSM_JAMBA]["launches"]}
+    for kernel in ("chimera_attention", "decode_step"):
+        if not launches[kernel]:
+            fail(f"lm-ssm: {kernel} never launched on the phase's main path: {launches}")
+        entries[kernel]["launches"] = launches[kernel]
     return {"launches": launches, "runs": runs}
 
 
@@ -4444,7 +4763,7 @@ def phase_program():
     from repro_torch.serve.flow_engine import FlowEngineConfig
 
     recs = {}
-    ccfg, params = paper_classifier()
+    ccfg, params = paper_classifier(n_layers=FLOW_LAYERS)
     ccfg24 = dataclasses.replace(ccfg, sig_words=24)  # the layout the compile gives
     recs["int_flow_score"] = check_int_score(1, True, params, ccfg24)
     r300 = check_int_score(300, True, params, ccfg24)
@@ -5056,7 +5375,7 @@ N_TIMED = 4  # protocol-mix batches timed in (a), the two engines taking turns f
 # stays within ~925 s (on an H100 it took 925.3 s with 4, once two more LM
 # configs were served; PERF.md section 6): sharded and single engines are
 # compared layer for layer alike, at half the host-bound per-round time
-SHARD_LAYERS = 2
+SHARD_LAYERS = 1  # a depth cut (PERF.md section 4)
 ELASTIC_ARGS = ["--elastic", "--num-shards", "2", "--reshard", "4:4,8:2", "--batches", "12",
                 "--scenario", "rule-violating", "--packets", "64", "--pkt-len", str(PKT_LEN),
                 "--capacity", "1024", "--lanes", str(LANES)]
@@ -5491,16 +5810,12 @@ LM100M_STEPS = 20  # (d): timed steps after 1 warm-up
 # is held as the losses are; the installed centroids (means of those
 # features) are held as the kernels' outputs are
 CODEBOOK_DM_RTOL = REF_LOSS_RTOL
-# top-2 gap of the assignment scores ||c||^2 - 2 x.c (|scores| ~ 64 at d
-# 64): a code that differs between the card and the CPU on the same inputs
-# where the CPU's gap exceeds this is a fault
-CODE_MARGIN = 1e-4
 SMOKE_STEPS = 5  # the launcher's smoke config, card against CPU
 # (c) the card's k-means against the CPU's on the same reservoir: a
 # farthest-point pick may differ only where the CPU's largest distance
 # exceeds the next smaller one by at most this (relative; the card sums
-# each squared distance in another order), and the centroids are held
-# within KMEANS_ATOL where the picks agree
+# each squared distance in another order), and the centroids of Lloyd's
+# steps from the card's picks are held within KMEANS_ATOL
 KMEANS_TIE_RTOL = 1e-6
 KMEANS_ATOL = 1e-5
 
@@ -5690,49 +6005,138 @@ def trainer_resume(cops):
     return {"launches": launches, "bwd": bwd, "diff": diff}
 
 
-class CodeRecorder:
-    """Wraps ``assign_codes`` where the feature map and the Trainer's tick
-    call it, keeping every call's inputs and codes (cloned on their device:
-    an install swaps the centroids in place)."""
+def _decision_sites():
+    """(kind, module, name) of each place a Trainer run of the codebook map
+    takes a discrete decision from its own inputs: the codes of
+    ``assign_codes`` (called by the feature map and by the Trainer's tick)
+    and the global tier's sign-LSH signature bits of ``make_signature``."""
+    from repro_torch.core import feature_maps as F
+    from repro_torch.core import key_selection as KS
+    from repro_torch.train import trainer as T
+
+    # the unwrapped functions, for decide() inside a recorder or a feeder
+    _DECIDE.setdefault("codes", F.assign_codes)
+    _DECIDE.setdefault("signatures", KS.make_signature)
+    return (("codes", F, "assign_codes"), ("codes", T, "assign_codes"),
+            ("signatures", KS, "make_signature"))
+
+
+_DECIDE = {}
+
+
+def decide(kind, a, b):
+    """The decision of ``kind`` on its two inputs (centroids and rows; rows
+    and the signature projection), and each output's margin: the codes'
+    top-2 gap of ||c||^2 - 2 x.c (``assign_codes``' argmin), the
+    signature bits' |x . proj| (``make_signature``'s sign)."""
+    import torch
+    from repro_torch.core import feature_maps as F
+
+    _decision_sites()
+    with torch.no_grad():
+        if kind == "codes":
+            s = torch.sum(a * a, dim=-1) - 2.0 * F._matmul(b, a.T)
+            top = torch.topk(s, 2, dim=-1, largest=False).values
+            return _DECIDE[kind](a, b), top[..., 1] - top[..., 0]
+        return _DECIDE[kind](a, b), torch.abs(F._matmul(a, b))
+
+
+# a decision that differs between the card and the CPU on the same inputs
+# where the CPU's margin exceeds this is a fault: codes, the top-2 gap of
+# the assignment scores (|scores| ~ 64 at d 64); signature bits, |x . proj|
+# (~10 at d 64): both sides' fp32 sums of 64 products differ by ~1e-6
+DECISION_MARGIN = {"codes": 1e-4, "signatures": 1e-4}
+
+
+class DecisionRecorder:
+    """Wraps each decision site (``_decision_sites``), keeping every call's
+    inputs and outputs in ``calls[kind]`` (cloned on their device: an
+    install swaps the centroids in place)."""
 
     def __enter__(self):
-        from repro_torch.core import feature_maps as F
-        from repro_torch.train import trainer as T
+        self.calls = {"codes": [], "signatures": []}
+        self.saved = [(mod, name, getattr(mod, name)) for _, mod, name in _decision_sites()]
+        for (kind, mod, name), (_, _, real) in zip(_decision_sites(), self.saved):
+            def record(a, b, kind=kind, real=real):
+                out = real(a, b)
+                self.calls[kind].append(tuple(t.detach().clone() for t in (a, b, out)))
+                return out
 
-        self.calls, self.modules, real = [], (F, T), F.assign_codes
-
-        def record(centroids, x):
-            codes = real(centroids, x)
-            self.calls.append(tuple(t.detach().clone() for t in (centroids, x, codes)))
-            return codes
-
-        for mod in self.modules:
-            mod.assign_codes = record
-        self.real = real
+            setattr(mod, name, record)
         return self
 
     def __exit__(self, *exc):
-        for mod in self.modules:
-            mod.assign_codes = self.real
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
 
 
-def count_code_flips(calls):
-    """Recompute each recorded call's codes on the CPU from the same inputs;
-    returns (codes, flips, flips where the CPU's top-2 gap exceeds
-    CODE_MARGIN)."""
-    import torch
-    from repro_torch.core.feature_maps import _matmul, assign_codes
+def count_flips(calls):
+    """Recompute each recorded decision on the CPU from the same inputs;
+    returns {kind: (outputs, flips, flips where the CPU's margin exceeds
+    DECISION_MARGIN)}."""
+    out = {}
+    for kind, rec in calls.items():
+        n = flips = sure = 0
+        for a, b, got in rec:
+            want, margin = decide(kind, a.cpu(), b.cpu())
+            f = got.cpu() != want
+            n, flips = n + f.numel(), flips + int(f.sum())
+            sure += int((f & (margin > DECISION_MARGIN[kind])).sum())
+        out[kind] = (n, flips, sure)
+    return out
 
-    n = flips = sure = 0
-    for centroids, x, codes in calls:
-        c, xc = centroids.cpu(), x.cpu()
-        want = assign_codes(c, xc)
-        s = torch.sum(c * c, dim=-1) - 2.0 * _matmul(xc, c.T)
-        top = torch.topk(s, 2, dim=-1, largest=False).values
-        f = codes.cpu() != want
-        n, flips = n + f.numel(), flips + int(f.sum())
-        sure += int((f & ((top[..., 1] - top[..., 0]) > CODE_MARGIN)).sum())
-    return n, flips, sure
+
+class DecisionFeeder:
+    """Within the block, the i-th call of each kind of decision site
+    returns the output of the i-th call of that kind that ``calls`` (a
+    DecisionRecorder's) holds, on the call's device: the run takes the
+    recorded run's discrete decisions as an input.  A call whose inputs
+    differ in shape from the record's, or a call past the record's end,
+    fails.  The run's own decisions are still computed: ``differ[kind]``
+    counts the outputs where they differ from the fed ones and
+    ``margin[kind]`` is the largest margin among them (information, not a
+    limit)."""
+
+    def __init__(self, calls):
+        self.calls = calls
+        self.done = dict.fromkeys(calls, 0)
+        self.differ, self.n, self.margin = (dict.fromkeys(calls, 0), dict.fromkeys(calls, 0),
+                                            dict.fromkeys(calls, 0.0))
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name)) for _, mod, name in _decision_sites()]
+        for kind, mod, name in _decision_sites():
+            def feed(a, b, kind=kind):
+                i = self.done[kind]
+                if i >= len(self.calls[kind]):
+                    fail(f"trainer (c): the fed run makes {kind} call {i}, the record holds "
+                         f"{len(self.calls[kind])}")
+                a_rec, b_rec, out = self.calls[kind][i]
+                if a.shape != a_rec.shape or b.shape != b_rec.shape:
+                    fail(f"trainer (c): {kind} call {i} takes inputs {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}, the record's {tuple(a_rec.shape)} and "
+                         f"{tuple(b_rec.shape)}")
+                out = out.to(a.device)
+                own, margin = decide(kind, a, b)
+                differ = own != out
+                self.done[kind], self.n[kind] = i + 1, self.n[kind] + differ.numel()
+                if differ.any():
+                    self.differ[kind] += int(differ.sum())
+                    self.margin[kind] = max(self.margin[kind], float(margin[differ].max()))
+                return out
+
+            setattr(mod, name, feed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+    def own(self):
+        """The fed run's own decisions against the fed ones, as a phrase."""
+        return ", ".join(f"{kind} {self.differ[k]} of {self.n[k]} (largest margin "
+                         f"{self.margin[k]:.3e})" for k, kind in (("codes", "codes"),
+                                                                 ("signatures", "signature bits")))
 
 
 def farthest_gaps(x, picks):
@@ -5752,73 +6156,58 @@ def farthest_gaps(x, picks):
     return gaps
 
 
-def follow_card_walk(what, x, card, key):
-    """The CPU's farthest-point walk over ``x`` (CPU, the arithmetic of
-    ``two_timescale.farthest_points``) beside the card's picks ``card`` on
-    the same samples: where its own pick is another row, it follows the
-    card's if the CPU's distance to it is within KMEANS_TIE_RTOL (relative)
-    of its largest, and fails beyond that.  Returns (the picks (k,) int64,
-    the CPU's top-2 gap at each pick (relative; inf at the first), the
-    followed ties as (pick, CPU row, card row, gap))."""
-    import torch
-    from repro_torch.core import two_timescale as TT
-
-    first = TT.randint(key, 0, x.shape[0])
-    if first != card[0]:
-        fail(f"{what}: the first farthest-point pick is row {card[0]} on the card and {first} on "
-             f"the CPU (both drawn from the same key)")
-    picks, gaps, ties = [first], [float("inf")], []
-    d2 = torch.sum((x - x.index_select(0, torch.tensor([first]))) ** 2, dim=-1)
-    for i in range(1, len(card)):
-        own = int(torch.argmax(d2))
-        top = float(d2[own])
-        below = d2[d2 < d2[own]]
-        gaps.append((top - float(below.max())) / top if below.numel() else float("inf"))
-        pick = own
-        if own != card[i]:
-            gap = (top - float(d2[card[i]])) / top
-            if gap > KMEANS_TIE_RTOL:
-                fail(f"{what}: farthest-point pick {i} is row {card[i]} on the card and {own} on "
-                     f"the CPU, whose distances to them differ by {gap:.3e} (relative) > "
-                     f"{KMEANS_TIE_RTOL:g}")
-            ties.append((i, own, card[i], gap))
-            pick = card[i]
-        picks.append(pick)
-        d2 = torch.minimum(d2, torch.sum((x - x.index_select(0, torch.tensor([pick]))) ** 2,
-                                         dim=-1))
-    return torch.tensor(picks, dtype=torch.long), gaps, ties
-
-
 class KmeansProbe:
     """Within the block, each k-means of the two-timescale controller
     records, under the recluster's step (``step``, set by the caller before
-    each recluster), its farthest-point picks and its centroids in ``rec``.
-    Given ``card`` (the card run's record), the walk is the CPU's own,
-    following the card's picks at near ties (``follow_card_walk``), and
-    ``rec`` also holds its gaps and ties."""
+    each recluster), its farthest-point picks and centroids in ``rec``.
+    Given ``card`` (the card run's record, on the same reservoirs), the run
+    takes the card's picks as an input instead, and holds them first: its
+    own walk on the same samples may differ from the card's only at a near
+    tie, its first differing pick's top-2 gap at most KMEANS_TIE_RTOL
+    (relative), else the run fails; its centroids, Lloyd's steps from the
+    card's picks, are held to the card's within KMEANS_ATOL.  ``rec`` then
+    holds, per recluster, the picks differing, the first one's gap and the
+    centroid error."""
 
     def __init__(self, rec, card=None):
         self.rec, self.card, self.step = rec, card, None
 
     def __enter__(self):
+        import torch
         from repro_torch.core import two_timescale as TT
 
         self.saved = real_walk, real_kmeans = TT.farthest_points, TT.kmeans
 
         def walk(x, k, key):
+            own = real_walk(x, k, key)
             if self.card is None:
-                picks = real_walk(x, k, key)
-                self.rec[self.step] = {"picks": picks.cpu().tolist()}
-                return picks
-            picks, gaps, ties = follow_card_walk(
-                f"trainer (c) recluster at step {self.step}", x.cpu(),
-                self.card[self.step]["picks"], key)
-            self.rec[self.step] = {"picks": picks.tolist(), "gaps": gaps, "ties": ties}
-            return picks.to(x.device)
+                self.rec[self.step] = {"picks": own.cpu().tolist()}
+                return own
+            what = f"trainer (c) recluster at step {self.step}"
+            card = self.card[self.step]["picks"]
+            own = own.cpu().tolist()
+            if len(own) != len(card):
+                fail(f"{what}: {len(own)} farthest-point picks, the card made {len(card)}")
+            first = next((i for i, (a, b) in enumerate(zip(own, card)) if a != b), None)
+            gap = None if first is None else farthest_gaps(x.cpu(), own)[first]
+            if gap is not None and gap > KMEANS_TIE_RTOL:
+                fail(f"{what}: farthest-point pick {first} is row {card[first]} on the card and "
+                     f"{own[first]} on the CPU, whose top two distances differ by {gap:.3e} "
+                     f"(relative) > {KMEANS_TIE_RTOL:g}")
+            self.rec[self.step] = {"differ": sum(a != b for a, b in zip(own, card)),
+                                   "first": first, "gap": gap}
+            return torch.tensor(card, dtype=torch.long, device=x.device)
 
         def kmeans(*a, **kw):
             out = real_kmeans(*a, **kw)
-            self.rec[self.step]["centroids"] = out[0].detach().cpu()
+            cent = out[0].detach().cpu()
+            if self.card is None:
+                self.rec[self.step]["centroids"] = cent
+            else:
+                self.rec[self.step]["err"] = compare(
+                    f"trainer (c) recluster at step {self.step}: k-means centroids from the "
+                    "card's picks, CPU vs card", cent, self.card[self.step]["centroids"],
+                    atol=KMEANS_ATOL, rtol=0.0)
             return out
 
         TT.farthest_points, TT.kmeans = walk, kmeans
@@ -5830,58 +6219,30 @@ class KmeansProbe:
         TT.farthest_points, TT.kmeans = self.saved
 
 
-def hold_kmeans(what, samples, k, iters, key):
-    """The card's k-means against the CPU's on the same samples: the
-    farthest-point picks equal but at a near tie (KMEANS_TIE_RTOL, counted),
-    the Lloyd steps from the same picks within KMEANS_ATOL, and the whole
-    k-means within it where every pick agrees.  Returns (the first pick
-    that differs or None, its CPU gap, the largest centroid error)."""
-    import torch
-    from repro_torch.core import two_timescale as TT
-
-    x_cpu = torch.from_numpy(samples)
-    x_dev = x_cpu.to("cuda")
-    p_cpu = TT.farthest_points(x_cpu, k, key).tolist()
-    p_dev = TT.farthest_points(x_dev, k, key).cpu().tolist()
-    gaps = farthest_gaps(x_cpu, p_cpu)
-    first = next((i for i, (a, b) in enumerate(zip(p_dev, p_cpu)) if a != b), None)
-    if first is not None and gaps[first] > KMEANS_TIE_RTOL:
-        fail(f"{what}: farthest-point pick {first} is row {p_dev[first]} on the card and "
-             f"{p_cpu[first]} on the CPU, whose top two distances differ by {gaps[first]:.3e} "
-             f"(relative) > {KMEANS_TIE_RTOL:g}")
-    init = x_cpu[p_dev]
-    c_dev, _ = TT.lloyd(x_dev, init.to("cuda"), iters)
-    c_cpu, _ = TT.lloyd(x_cpu, init, iters)
-    err = compare(f"{what}: Lloyd centroids from the card's picks, card vs CPU", c_dev, c_cpu,
-                  atol=KMEANS_ATOL, rtol=0.0)
-    if first is None:
-        err = max(err, compare(f"{what}: k-means card vs CPU", TT.kmeans(x_dev, k, iters, key)[0],
-                               TT.kmeans(x_cpu, k, iters, key)[0], atol=KMEANS_ATOL, rtol=0.0))
-    return first, None if first is None else gaps[first], err
-
-
 def trainer_codebook(cops):
     """(c) the codebook map with the two-timescale controller, timed against
     the same run without it (the controller's reclusters, k-means on the
-    card, timed apart; the card's k-means then held to the CPU's on the
-    same reservoirs);
-    then the controller run again on the card, every assign_codes call
-    recorded, and on the CPU from the same seed: losses, install history
-    and installed centroids held to the CPU's, and every recorded code
-    recomputed on the CPU from the same inputs.  That card run is in
-    deterministic mode, so it is the same run every time (the embedding's
-    backward otherwise adds with atomics in any order), and the CPU run
-    clusters the card run's reservoir at each epoch: the two runs' features
-    differ by roundings, and the farthest-point walk of k-means turns such
-    a difference at a near tie into another centroid (on an H100 the
-    losses then differed by 1.3e-4 and, from the step after the second
-    install, 5.9e-4, with no code differing on the same inputs).  The CPU's
-    own k-means arithmetic can still resolve a near tie of the walk the
-    other way on the same reservoir, so its walk follows the card's pick
-    where the two differ within KMEANS_TIE_RTOL and fails beyond it
-    (KmeansProbe); every recluster's gaps, followed ties and centroid
-    difference are logged, and a loss beyond REF_LOSS_RTOL names the first
-    recluster whose picks or centroids differ."""
+    card, timed apart); then the controller run again on the card, in
+    deterministic mode (the embedding's backward otherwise adds with atomics
+    in any order) with every discrete decision (the codebook's codes, the
+    global tier's signature bits), every reservoir and every k-means
+    recorded, held to the CPU by two checks that do not depend on the
+    host's arithmetic.  (1) The decisions on the same inputs: every
+    recorded code and signature bit recomputed on the CPU from the card's
+    inputs (a flip where the CPU's margin exceeds DECISION_MARGIN fails),
+    and every recluster's farthest-point picks and centroids against the
+    CPU's on the card's reservoir (KmeansProbe).  (2) The losses, install
+    history, delta_map and installed centroids given those decisions: a CPU
+    run from the same seed that clusters the card's reservoirs and takes,
+    at every decision and every recluster, the card's codes, signature bits
+    and picks as inputs (DecisionFeeder, KmeansProbe), within
+    REF_LOSS_RTOL.  Its inputs differ from the card's by roundings, so a
+    decision of its own flips at a near tie and moves the loss (up to
+    1.353e-4 on some hosts with no decision fed, ~1e-5 on others; two CPU
+    runs fed only the codes, 8.6e-5 apart): feeding every decision, not
+    one copied at chosen ties, leaves that out, and (1) holds the
+    decisions on their own.  How many of its own decisions differ from the
+    fed ones is logged."""
     import tempfile
 
     import torch
@@ -5890,19 +6251,18 @@ def trainer_codebook(cops):
 
     arch = codebook_arch()
     tt = TwoTimescaleConfig(t_cp_steps=CODEBOOK_T_CP)
-    runs, recluster_s, reservoirs, where = {}, [], [], set()
+    runs, recluster_s, where = {}, [], set()
     for label, cfg in (("controller", tt), ("no controller", None)):
         with tempfile.TemporaryDirectory(prefix="chimera-codebook-") as tmp:
             tr = trainer_for(arch, tmp, CODEBOOK_STEPS, two_timescale=cfg)
             if cfg is not None:  # seconds of each recluster (k-means on the card, delta_map)
                 real = tr.controller.maybe_recluster
 
-                def recluster(*a, real=real, ctl=tr.controller, **k):
+                def recluster(*a, real=real, **k):
                     t0 = time.perf_counter()
                     out = real(*a, **k)
                     if out[1] is not None:
                         recluster_s.append(time.perf_counter() - t0)
-                        reservoirs.append((np.concatenate(ctl._reservoir), a[3]))
                         where.add(out[0].device.type)
                     return out
 
@@ -5944,8 +6304,7 @@ def trainer_codebook(cops):
             probe = KmeansProbe(walks[dev], card=walks["cuda"] if dev == "cpu" else None)
 
             def recluster(step, *a, real=real, ctl=tr.controller, dev=dev, probe=probe, **k):
-                # the card's reservoir at each epoch, clustered by both runs;
-                # the CPU's farthest-point walk follows the card's at near ties
+                # the card's reservoir at each epoch, clustered by both runs
                 if dev == "cuda":
                     shared[step] = list(ctl._reservoir)
                 elif step in shared:
@@ -5957,41 +6316,50 @@ def trainer_codebook(cops):
             if dev == "cuda":
                 torch.use_deterministic_algorithms(True, warn_only=True)
                 try:
-                    with CodeRecorder() as codes, probe:
+                    with DecisionRecorder() as rec, probe:
                         out = tr.run()
                 finally:
                     torch.use_deterministic_algorithms(False)
             else:
-                with probe:
+                with DecisionFeeder(rec.calls) as fed, probe:
                     out = tr.run()
+                made = {k: len(v) for k, v in rec.calls.items()}
+                if fed.done != made:
+                    fail(f"trainer (c): the fed run made {fed.done} decision calls, the card's "
+                         f"{made}")
             t_dev[dev] = time.perf_counter() - t0
         got[dev] = (logged_losses(f"trainer (c) {dev}", out), tr.controller.history,
                     tr.params["blocks"]["b0"]["attn"]["chimera"]["fm"]["centroids"])
     (lc, hc, cc), (lp, hp, cp) = got["cuda"], got["cpu"]
-    calls = codes.calls
-    n, flips, sure = count_code_flips(calls)
-    # each recluster: the CPU walk's smallest top-2 gap, the card's picks it
-    # followed, and the k-means centroids' largest difference, card vs CPU
-    epochs = []
-    for step in sorted(walks["cpu"]):
-        c_rec, p_rec = walks["cuda"][step], walks["cpu"][step]
-        epochs.append((step, min(p_rec["gaps"]), p_rec["ties"],
-                       float((c_rec["centroids"] - p_rec["centroids"]).abs().max())))
-    log("trainer", "(c) the CPU run's farthest-point walks on the card's reservoirs: " + "; ".join(
-        f"recluster at step {step}: smallest top-2 gap {gap:.3e}, {len(ties)} near ties followed "
-        f"{[(i, a, b, f'{g:.2e}') for i, a, b, g in ties]}, k-means centroids card vs CPU within "
-        f"{err:.3e}" for step, gap, ties, err in epochs))
-    lerr = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    t0 = time.perf_counter()
+    flips = count_flips(rec.calls)
+    flips_s = time.perf_counter() - t0
+    for kind, (n, f, sure) in flips.items():
+        if sure:
+            fail(f"trainer (c): {sure} of {n} {kind} differ between the card and the CPU on the "
+                 f"same inputs where the CPU's margin exceeds {DECISION_MARGIN[kind]:g}")
+    epochs = sorted(walks["cpu"].items())
+    if [step for step, _ in epochs] != sorted(walks["cuda"]):
+        fail(f"trainer (c): reclusters at steps {sorted(walks['cuda'])} on the card and "
+             f"{[step for step, _ in epochs]} on the CPU")
+    log("trainer", "(c) (1) the discrete decisions on the same inputs, recomputed on the CPU "
+                   f"from the card's ({flips_s:.1f} s): " + "; ".join(
+                       f"{kind}: {len(rec.calls[kind])} calls, {n} outputs, {f} differ, {sure} "
+                       f"with a margin above {DECISION_MARGIN[kind]:g}"
+                       for kind, (n, f, sure) in flips.items()) + "; "
+                   + "; ".join(f"recluster at step {step}: farthest-point picks of the CPU's own "
+                               f"walk on the card's reservoir differing {e['differ']} (first "
+                               f"{e['first']}, top-2 gap {e['gap']}, tolerance "
+                               f"{KMEANS_TIE_RTOL:g}), centroids from the card's picks within "
+                               f"{e['err']:.3e} (tolerance {KMEANS_ATOL:g})"
+                               for step, e in epochs))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(lc, lp)]
+    lerr = max(gaps)
     if lerr > REF_LOSS_RTOL:
-        at = next(i for i, (a, b) in enumerate(zip(lc, lp)) if abs(a - b) / abs(b) > REF_LOSS_RTOL)
-        moved = next((e for e in epochs if e[2] or e[3] > KMEANS_ATOL), None)
+        at = next(i for i, g in enumerate(gaps) if g > REF_LOSS_RTOL)
         fail(f"trainer (c): card and CPU losses differ by {lerr:.3e} > {REF_LOSS_RTOL:g}, first "
-             f"at logged step {at}; on the card's own inputs {flips} of {n} codes differ from "
-             f"the CPU's, {sure} with a top-2 gap above {CODE_MARGIN:g}; the first recluster "
-             f"whose picks or centroids differ: " + (
-                 "none" if moved is None else
-                 f"step {moved[0]} ({len(moved[2])} near ties followed, centroids within "
-                 f"{moved[3]:.3e}, KMEANS_ATOL {KMEANS_ATOL:g})"))
+             f"at logged step {at}, with the card's decisions and picks fed to the CPU run (its "
+             f"own differ from them at: {fed.own()})")
     key = [(r.step, r.installed, r.churn_ok) for r in hc]
     if key != [(r.step, r.installed, r.churn_ok) for r in hp]:
         fail(f"trainer (c): card install history {hc} differs from the CPU's {hp}")
@@ -6000,31 +6368,17 @@ def trainer_codebook(cops):
         fail(f"trainer (c): delta_map card vs CPU differs by {dm:.3e} (relative) > "
              f"{CODEBOOK_DM_RTOL:g}: {[r.delta_map for r in hc]} vs {[r.delta_map for r in hp]}")
     cerr = compare("trainer (c) installed centroids card vs CPU", cc, cp, atol=ATTN_ATOL)
-    if sure:
-        fail(f"trainer (c): {sure} of {n} codes differ between the card and the CPU on the "
-             f"same inputs where the CPU's top-2 gap exceeds {CODE_MARGIN:g}")
-    log("trainer", f"(c) the controller run on the card against the CPU from the same seed "
-                   f"({t_dev['cuda']:.1f} s, deterministic and recorded, and {t_dev['cpu']:.1f} "
-                   f"s, clustering the card's reservoirs): losses within "
-                   f"{lerr:.3e} (tolerance {REF_LOSS_RTOL:g}); installs {key} equal; delta_map "
+    log("trainer", f"(c) (2) the card run ({t_dev['cuda']:.1f} s, deterministic and recorded) "
+                   f"against the CPU run fed the card's decisions and picks ({t_dev['cpu']:.1f} "
+                   f"s, {fed.done} calls in the card's order and shapes): losses within "
+                   f"{lerr:.3e} (tolerance {REF_LOSS_RTOL:g}; by logged step "
+                   + " ".join(f"{g:.1e}" for g in gaps) + f"); installs {key} equal; delta_map "
                    f"within {dm:.3e} (relative, tolerance {CODEBOOK_DM_RTOL:g}); installed "
-                   f"centroids within {cerr:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|); "
-                   f"{len(calls)} assign_codes calls on the card, {n} codes recomputed on the CPU "
-                   f"from the same inputs: {flips} differ, {sure} of them with a top-2 gap above "
-                   f"{CODE_MARGIN:g}")
-    n_cent, iters = tr.controller.n_centroids, tt.kmeans_iters
-    held = [hold_kmeans(f"trainer (c) recluster {i + 1}", x, n_cent, iters, key)
-            for i, (x, key) in enumerate(reservoirs)]
-    ties = [(i + 1, first, gap) for i, (first, gap, _) in enumerate(held) if first is not None]
-    log("trainer", f"(c) k-means on the card against the CPU on the controller's "
-                   f"{len(reservoirs)} reservoirs ({', '.join(str(len(x)) for x, _ in reservoirs)} "
-                   f"samples x {reservoirs[0][0].shape[1]}, {n_cent} centroids, {iters} Lloyd "
-                   f"steps): farthest-point picks equal in {len(held) - len(ties)} of "
-                   f"{len(held)}; near ties (top-2 gap <= {KMEANS_TIE_RTOL:g}, the card's pick "
-                   f"followed from there) {ties}; centroids within "
-                   f"{max(h[2] for h in held):.3e} (tolerance {KMEANS_ATOL:g})")
+                   f"centroids within {cerr:.3e} (tolerance {ATTN_ATOL:g} + {RTOL:g}*|ref|); the "
+                   f"CPU run's own decisions differ from the fed ones at: {fed.own()}")
     return {"launches": launches + runs["no controller"][2], "bwd": bwd, "ms": ms,
-            "ms_plain": ms_plain, "installs": sum(r.installed for r in hist)}
+            "ms_plain": ms_plain, "installs": sum(r.installed for r in hist),
+            "loss_gap": lerr, "own_differ": fed.differ}
 
 
 def codebook_program():
@@ -6194,6 +6548,12 @@ def main():
     # trainer phase's resume check may run cuBLAS in deterministic mode:
     # PyTorch reads this once, at its first cuBLAS call
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    # segments that grow and shrink in place: the training phases' steps peak
+    # at 69 GiB of the card's 79, and with fixed segments the free space left
+    # split between them once held no 3.5 GiB block for Mixtral's Chimera
+    # step's AdamW update (out of memory at 65.4 GiB allocated, 9.6 GiB
+    # reserved but unallocated)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     t_start = time.perf_counter()
     phases = {}  # seconds of every phase, in the order run
 
@@ -6231,6 +6591,8 @@ def main():
     for name, n in timed("train-softmax", phase_train_softmax, recs)["launches"].items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed("train-chimera", phase_train_chimera, recs)["launches"].items():
+        launches[name] += n
+    for name, n in timed("lm-ssm", phase_lm_ssm, recs)["launches"].items():
         launches[name] += n
     for name, n in timed("trainer", phase_trainer, recs)["launches"].items():
         launches[name] += n

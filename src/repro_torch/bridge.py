@@ -24,8 +24,8 @@ from repro_torch.train.classifier import ClassifierConfig
 
 def arch_from_reference(ref) -> ArchConfig:
     """The port's ArchConfig from the JAX package's (read by attribute, so
-    no import of the JAX package is needed), MLA widths, ``remat`` and
-    ``softmax_blk`` included.  ``swa_backend`` is dropped: the device of the tensors
+    no import of the JAX package is needed), MLA widths, the Mamba fields,
+    ``remat`` and ``softmax_blk`` included.  ``swa_backend`` is dropped: the device of the tensors
     chooses the kernel or its plain version."""
     ch, fm = ref.chimera, ref.chimera.feature_map
     if ref.use_chimera and (not (ch.use_local and ch.use_stream) or ch.expand_kv):
@@ -46,7 +46,10 @@ def arch_from_reference(ref) -> ArchConfig:
         moe_every=ref.moe_every, moe_shared_experts=ref.moe_shared_experts,
         moe_d_ff=ref.moe_d_ff, moe_first_dense=ref.moe_first_dense,
         capacity_factor=ref.capacity_factor,
-        block_pattern=tuple(ref.block_pattern), use_chimera=ref.use_chimera,
+        block_pattern=tuple(ref.block_pattern), mamba_d_state=ref.mamba_d_state,
+        mamba_d_conv=ref.mamba_d_conv, mamba_expand=ref.mamba_expand,
+        mamba_dt_rank=ref.mamba_dt_rank, mamba_chunk=ref.mamba_chunk,
+        use_chimera=ref.use_chimera,
         chimera=ChimeraAttentionConfig(
             feature_map=FeatureMapConfig(
                 kind=fm.kind, m=fm.m, input_scale=fm.input_scale,
@@ -74,9 +77,11 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     without a GPU it raises): float leaves as float32, signed integer leaves
     (a fixed-point codebook table, an optimizer's step) in their own dtype.
     Every leaf is converted, the MoE tree's stacked expert tensors and its
-    0-d ``_moe`` marker included, and an MLA block's ``q_down``,
-    ``q_norm``, ``q_up``, ``kv_down``, ``kv_norm``, ``k_up``, ``v_up``,
-    ``wo`` and ``chimera`` under their own names; a leaf that is not an
+    0-d ``_moe`` marker included, an MLA block's ``q_down``, ``q_norm``,
+    ``q_up``, ``kv_down``, ``kv_norm``, ``k_up``, ``v_up``, ``wo`` and
+    ``chimera``, a Mamba block's ``A_log``, ``D``, ``conv_w``, ``conv_b``
+    and ``dt_proj`` (with its bias) and an sLSTM block's ``r``, under their
+    own names; a leaf that is not an
     array, or of another dtype, raises, so nothing is silently dropped."""
     device = resolve_device(device, "params_from_jax")
 

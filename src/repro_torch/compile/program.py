@@ -336,11 +336,9 @@ _OFF = {
     "chimera": {"use_local": True, "use_stream": True, "expand_kv": False},
     "feature_map": {},
 }
-# and the knobs of such a feature are inert while it is off (Mamba blocks,
-# the encoder; the port refuses each below):
+# and the knobs of such a feature are inert while it is off (the encoder):
 _INERT = {
-    "arch": ("mamba_d_state", "mamba_d_conv", "mamba_expand", "mamba_dt_rank", "mamba_chunk",
-             "encoder_seq_fraction"),
+    "arch": ("encoder_seq_fraction",),
     "chimera": (),
     "feature_map": (),
 }
@@ -378,7 +376,7 @@ def _ccfg_from_dict(d: Dict) -> ClassifierConfig:
                                      **_take("chimera", chim, ChimeraAttentionConfig))
     arch = _take("arch", arch, ArchConfig)
     arch["block_pattern"] = tuple(arch["block_pattern"])
-    if set(arch["block_pattern"]) - {"attn"}:
+    if set(arch["block_pattern"]) - {"attn", "mamba", "mlstm", "slstm"}:
         raise ValueError(f"program config: block pattern {arch['block_pattern']} has blocks "
-                         f"the port does not have (attention only)")
+                         f"the port does not have")
     return ClassifierConfig(arch=ArchConfig(chimera=chimera, **arch), **d)

@@ -1,14 +1,15 @@
 """Architecture configuration: the fields of ``repro.configs.base.ArchConfig``
 that the ported paths read, with the same names and defaults: stacks of
 attention blocks (GQA, SWA or MLA attention, Chimera or softmax, dense or
-MoE MLP), for decode, prefill and training.
+MoE MLP), Mamba blocks and xLSTM's mLSTM and sLSTM blocks, for decode,
+prefill and training.
 
-Mamba, xLSTM and the encoder-decoder path are not ported yet (ROADMAP
-Queue 1 item 3), so their fields are absent here, and so are
-``swa_backend`` and ``scan_layers``: the device of the tensors chooses
-between a kernel and its plain version, and the port loops over the layer
-groups.  ``remat`` is JAX's: ``"full"`` (the default) recomputes each layer
-group's forward in the backward pass (``torch.utils.checkpoint``, as
+The encoder-decoder path (whisper-tiny) is not ported yet (ROADMAP Queue 1
+item 3), so its fields are absent here, and so are ``swa_backend`` and
+``scan_layers``: the device of the tensors chooses between a kernel and its
+plain version, and the port loops over the layer groups.  ``remat`` is
+JAX's: ``"full"`` (the default) recomputes each layer group's forward in
+the backward pass (``torch.utils.checkpoint``, as
 ``jax.checkpoint`` around the scan body), ``"none"`` saves every layer's
 activations.
 """
@@ -25,7 +26,7 @@ from repro_torch.core.feature_maps import FeatureMapConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # "dense", "moe" and "vlm" (a stack of attention blocks) are ported
+    family: str  # dense | moe | ssm | hybrid | vlm are ported; audio (enc-dec) is not
     n_layers: int
     d_model: int
     n_heads: int
@@ -58,7 +59,16 @@ class ArchConfig:
     moe_first_dense: int = 0  # first N layers use dense MLP
     capacity_factor: float = 1.25
 
+    # hybrid / SSM block pattern, repeated to n_layers.  entries:
+    #   "attn" | "mamba" | "mlstm" | "slstm"
     block_pattern: Tuple[str, ...] = ("attn",)
+
+    # mamba
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_dt_rank: int = 0  # 0 → ceil(d_model / 16)
+    mamba_chunk: int = 64
 
     # chimera integration (the paper's technique)
     use_chimera: bool = True
@@ -110,35 +120,43 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks + head), the JAX
-        package's formula for stacks of attention blocks (GQA, SWA or MLA);
-        the Mamba and xLSTM terms come with those blocks."""
+        package's formula."""
         d, dff, V = self.d_model, self.d_ff, self.padded_vocab
         n_attn_params = 0
         n_mlp = 0
         for i in range(self.n_layers):
             kind = self.layer_kind(i)
-            if kind != "attn":
-                raise NotImplementedError(f"{self.name}: param_count of {kind!r} blocks is not "
-                                          "ported (ROADMAP Queue 1 item 3)")
-            if self.attention_kind == "mla":
-                dn, dr = self.qk_nope_dim, self.qk_rope_dim
-                dv = self.v_head_dim or self.head_dim
-                r = self.kv_lora_rank
-                qin = self.q_lora_rank or d
-                n_attn_params += d * (self.q_lora_rank or 0)
-                n_attn_params += qin * self.n_heads * (dn + dr)
-                n_attn_params += d * (r + dr) + r * self.n_heads * (dn + dv)
-                n_attn_params += self.n_heads * dv * d
-            else:
-                hd = self.head_dim
-                n_attn_params += d * hd * (self.n_heads + 2 * self.n_kv_heads)
-                n_attn_params += self.n_heads * hd * d
-            if self.layer_is_moe(i):
-                e_ff = self.moe_d_ff or dff
-                n_mlp += self.moe_experts * 3 * d * e_ff
-                n_mlp += self.moe_shared_experts * 3 * d * e_ff
-                n_mlp += d * self.moe_experts
-            elif dff:
-                n_mlp += 3 * d * dff
+            if kind == "attn":
+                if self.attention_kind == "mla":
+                    dn, dr = self.qk_nope_dim, self.qk_rope_dim
+                    dv = self.v_head_dim or self.head_dim
+                    r = self.kv_lora_rank
+                    qin = self.q_lora_rank or d
+                    n_attn_params += d * (self.q_lora_rank or 0)
+                    n_attn_params += qin * self.n_heads * (dn + dr)
+                    n_attn_params += d * (r + dr) + r * self.n_heads * (dn + dv)
+                    n_attn_params += self.n_heads * dv * d
+                else:
+                    hd = self.head_dim
+                    n_attn_params += d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                    n_attn_params += self.n_heads * hd * d
+            elif kind == "mamba":
+                di = self.mamba_expand * d
+                n_attn_params += d * 2 * di + di * self.mamba_d_conv
+                dtr = self.mamba_dt_rank or -(-d // 16)
+                n_attn_params += di * (2 * self.mamba_d_state + dtr) + dtr * di
+                n_attn_params += di * self.mamba_d_state + di  # A, D
+                n_attn_params += di * d
+            elif kind in ("mlstm", "slstm"):
+                di = 2 * d
+                n_attn_params += d * 2 * di + 4 * di * (di // 4) + di * d
+            if kind in ("attn", "mamba"):
+                if self.layer_is_moe(i):
+                    e_ff = self.moe_d_ff or dff
+                    n_mlp += self.moe_experts * 3 * d * e_ff
+                    n_mlp += self.moe_shared_experts * 3 * d * e_ff
+                    n_mlp += d * self.moe_experts
+                elif dff:
+                    n_mlp += 3 * d * dff
         n_embed = V * d * (1 if self.tie_embeddings else 2)
         return n_embed + n_attn_params + n_mlp

@@ -1,8 +1,9 @@
 """Registry of the configurations the port has (port of
 ``repro.configs.registry``: ``get_config`` and ``smoke_config`` :49-89).
 
-``smoke_config``'s reductions are the JAX package's; its enc-dec and Mamba
-branches wait for whisper-tiny and jamba-1.5-large (ROADMAP Queue 1 item 3).
+``smoke_config``'s reductions are the JAX package's, its Mamba branch
+included; its enc-dec branch waits for whisper-tiny (ROADMAP Queue 1 item
+3).
 """
 
 from __future__ import annotations
@@ -13,10 +14,12 @@ from repro_torch.configs import (
     chameleon_34b,
     chimera_dataplane,
     codeqwen15_7b,
+    jamba_15_large,
     minicpm3_4b,
     mixtral_8x7b,
     moonshot_v1_16b_a3b,
     qwen3_32b,
+    xlstm_125m,
     yi_9b,
 )
 from repro_torch.configs.base import ArchConfig
@@ -29,6 +32,8 @@ ARCHS = {
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
     "chameleon-34b": chameleon_34b.CONFIG,
+    "xlstm-125m": xlstm_125m.CONFIG,
+    "jamba-1.5-large-398b": jamba_15_large.CONFIG,
     "chimera-dataplane": chimera_dataplane.CONFIG,
 }
 
@@ -76,4 +81,6 @@ def smoke_config(name: str) -> ArchConfig:
     if cfg.attention_kind == "mla":
         replace.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
                        v_head_dim=16)
+    if "mamba" in pattern:
+        replace.update(mamba_d_state=8, mamba_chunk=8, mamba_expand=2)
     return dataclasses.replace(cfg, **replace)

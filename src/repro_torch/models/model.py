@@ -3,18 +3,20 @@
 ``_scan_groups`` :205, ``forward`` :221, ``_head`` :241, ``loss_fn`` :264,
 ``init_caches`` :300, ``_block_decode`` :309, ``decode_hidden_step`` :335,
 ``decode_step`` :363, ``_block_prefill`` :500 and ``prefill_with_caches``
-:526; the MLA dispatch of ``_init_block`` :66, ``_block_forward`` :100,
-``_init_block_cache`` :288, ``_block_decode`` :312 and ``_block_prefill``
-:503).
+:526, with the dispatch of ``_init_block``, ``_block_forward``,
+``_init_block_cache`` :286, ``_block_decode`` and ``_block_prefill`` on the
+block kind and on MLA).
 
 The parameter layout is the JAX package's: per-group block parameters are
 stacked on a leading "layers" axis under ``params["blocks"]["b<j>"]``, and
 the caches likewise.  The JAX ``scan`` over groups becomes a Python loop
 over that axis, each group checkpointed when ``cfg.remat`` is "full" (as
-JAX's scan body); the caches are updated in place.  Stacks of attention
-blocks are ported: GQA, SWA or MLA attention, Chimera or softmax (banded
-or full-causal), with dense or MoE MLPs.  The
-residual stream is in ``cfg.dtype``: the embedding is cast to it, and every
+JAX's scan body); the caches are updated in place.  The block kinds are
+JAX's: ``attn`` (GQA, SWA or MLA attention, Chimera or softmax, banded or
+full-causal), ``mamba`` (``models/mamba.py``), ``mlstm`` and ``slstm``
+(``models/xlstm.py``); ``attn`` and ``mamba`` blocks carry a dense or MoE
+MLP (MoE keyed on the block's position in the pattern), the xLSTM blocks
+none.  The residual stream is in ``cfg.dtype``: the embedding is cast to it, and every
 block's output is cast back to it before the residual add, as in JAX.
 """
 
@@ -29,7 +31,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.chimera_attention import ChimeraState
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     apply_norm,
     dense,
@@ -44,20 +48,37 @@ from repro_torch.models.layers import (
 Params = Dict[str, Any]
 
 
+# the recurrent token mixers, by block kind: init, the full-sequence layer
+# (with ``return_cache``), the zero decode cache, the one-token decode step
+_MIXER_INIT = {"mamba": mamba_mod.init_mamba, "mlstm": xlstm_mod.init_mlstm,
+               "slstm": xlstm_mod.init_slstm}
+_MIXER_LAYER = {"mamba": mamba_mod.mamba_layer, "mlstm": xlstm_mod.mlstm_layer,
+                "slstm": xlstm_mod.slstm_layer}
+_MIXER_CACHE = {"mamba": mamba_mod.init_mamba_cache, "mlstm": xlstm_mod.init_mlstm_cache,
+                "slstm": xlstm_mod.init_slstm_cache}
+_MIXER_DECODE = {"mamba": mamba_mod.mamba_decode, "mlstm": xlstm_mod.mlstm_decode,
+                 "slstm": xlstm_mod.slstm_decode}
+BLOCK_KINDS = ("attn",) + tuple(_MIXER_INIT)
+
+
 def _require_ported(cfg: ArchConfig) -> None:
-    """The stacks the port has: attention blocks (GQA, SWA or MLA; Chimera
-    or softmax) with dense or MoE MLPs.  Mamba (jamba-1.5-large), xLSTM
-    (xlstm-125m) and the encoder-decoder stack (whisper-tiny, family
-    "audio") are refused: they wait for ROADMAP Queue 1 item 3.
+    """The stacks the port has: any pattern of attention (GQA, SWA or MLA;
+    Chimera or softmax), Mamba, mLSTM and sLSTM blocks, families dense,
+    moe, vlm, hybrid and ssm.  The encoder-decoder stack (whisper-tiny,
+    family "audio") is refused: it waits for ROADMAP Queue 1 item 3.
     ``family`` is a label (the JAX package's dryrun prints it): a "vlm"
     such as Chameleon, whose image tokens are vocabulary ids, is a stack of
     attention blocks."""
-    if any(kind != "attn" for kind in cfg.pattern) or cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: Mamba, xLSTM and encoder-decoder stacks are not ported (ROADMAP "
-            "Queue 1 item 3); the port has stacks of attention blocks (family dense, moe or "
-            "vlm)")
-    attn.require_ported(cfg)
+            f"{cfg.name}: the encoder-decoder stack (family audio, whisper-tiny) is not ported "
+            "(ROADMAP Queue 1 item 3); the port has stacks of attention, Mamba, mLSTM and "
+            "sLSTM blocks")
+    unknown = [kind for kind in cfg.pattern if kind not in BLOCK_KINDS]
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {unknown}")
+    if "attn" in cfg.pattern:
+        attn.require_ported(cfg)
 
 
 def _is_mla(cfg: ArchConfig) -> bool:
@@ -68,10 +89,14 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-def _init_block(cfg: ArchConfig, pos_in_pattern: int, g: torch.Generator, device) -> Params:
-    init = attn.init_mla if _is_mla(cfg) else attn.init_attention
+def _init_block(cfg: ArchConfig, kind: str, pos_in_pattern: int, g: torch.Generator,
+                device) -> Params:
+    if kind == "attn":
+        init = attn.init_mla if _is_mla(cfg) else attn.init_attention
+    else:
+        init = _MIXER_INIT[kind]
     p = {"ln1": init_norm(cfg.d_model, device), "attn": init(cfg, g, device)}
-    if cfg.d_ff or cfg.moe_experts:
+    if kind in ("attn", "mamba") and (cfg.d_ff or cfg.moe_experts):
         p["ln2"] = init_norm(cfg.d_model, device)
         if cfg.layer_is_moe(pos_in_pattern):
             p["mlp"] = moe_mod.init_moe(cfg, g, device)
@@ -83,13 +108,16 @@ def _init_block(cfg: ArchConfig, pos_in_pattern: int, g: torch.Generator, device
 
 def stack_params(trees: list) -> Params:
     """Stack identical dict trees (Chimera states among their leaves) along
-    a new leading 'layers' axis."""
+    a new leading 'layers' axis.  One tree is viewed with that axis added,
+    not copied: a single layer group of Jamba's cut holds 38.6 GB of
+    experts, which a copy would double on an 80 GB card."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: stack_params([t[k] for t in trees]) for k in first}
     if isinstance(first, ChimeraState):
-        return ChimeraState(*(torch.stack(ls, dim=0)
-                              for ls in zip(*(t.leaves() for t in trees))))
+        return ChimeraState(*(stack_params(list(ls)) for ls in zip(*(t.leaves() for t in trees))))
+    if len(trees) == 1:
+        return first.unsqueeze(0)
     return torch.stack(trees, dim=0)
 
 
@@ -108,7 +136,7 @@ def init_model(cfg: ArchConfig, g: torch.Generator, device=None) -> Params:
     device = resolve_device(device, "init_model")
     p: Params = {"embed": init_embedding(g, cfg.padded_vocab, cfg.d_model, device)}
     groups = [
-        {f"b{j}": _init_block(cfg, j, g, device) for j in range(len(cfg.pattern))}
+        {f"b{j}": _init_block(cfg, kind, j, g, device) for j, kind in enumerate(cfg.pattern)}
         for _ in range(cfg.n_groups)
     ]
     p["blocks"] = stack_params(groups)
@@ -125,14 +153,17 @@ def _mlp_out(cfg: ArchConfig, bp: Params, h):
     return mlp(bp["mlp"], h), None
 
 
-def _block_forward(cfg: ArchConfig, bp: Params, x, positions, causal: bool = True):
+def _block_forward(cfg: ArchConfig, kind: str, bp: Params, x, positions, causal: bool = True):
     """Returns ``(x, aux)``: aux is the MoE balance loss (0 without MoE)."""
     aux = torch.zeros((), device=x.device)
     h = apply_norm(bp["ln1"], x, cfg.norm_type)
-    if _is_mla(cfg):
-        y = attn.mla_attention_layer(cfg, bp["attn"], h, positions)
+    if kind == "attn":
+        if _is_mla(cfg):
+            y = attn.mla_attention_layer(cfg, bp["attn"], h, positions)
+        else:
+            y = attn.attention_layer(cfg, bp["attn"], h, positions, causal=causal)
     else:
-        y = attn.attention_layer(cfg, bp["attn"], h, positions, causal=causal)
+        y = _MIXER_LAYER[kind](cfg, bp["attn"], h)
     x = x + y.to(x.dtype)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
@@ -145,8 +176,8 @@ def _block_forward(cfg: ArchConfig, bp: Params, x, positions, causal: bool = Tru
 
 def _group_forward(cfg: ArchConfig, gp: Params, x, positions, causal: bool = True):
     aux = torch.zeros((), device=x.device)
-    for j in range(len(cfg.pattern)):
-        x, a = _block_forward(cfg, gp[f"b{j}"], x, positions, causal)
+    for j, kind in enumerate(cfg.pattern):
+        x, a = _block_forward(cfg, kind, gp[f"b{j}"], x, positions, causal)
         aux = aux + a
     return x, aux
 
@@ -209,19 +240,27 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
     return total, {"nll": loss, "aux": aux, "zloss": zloss}
 
 
+def _init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int, dtype, device,
+                      lead):
+    if kind == "attn":
+        init = attn.init_mla_cache if _is_mla(cfg) else attn.init_attention_cache
+        return init(cfg, batch, max_len, dtype, device, lead=lead)
+    return _MIXER_CACHE[kind](cfg, batch, dtype, device, lead=lead)
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_len: int = 0, dtype=None, device=None):
     """Zero decode caches, stacked on the layer axis: Chimera states, or
     softmax KV caches of ``max_len`` tokens (a ring of ``min(max_len,
-    window)`` for SWA; MLA's latent cache).  ``dtype`` defaults to
+    window)`` for SWA; MLA's latent cache), Mamba's conv tail and SSM state,
+    mLSTM's (C, n) and sLSTM's (c, n, h, m).  ``dtype`` defaults to
     ``cfg.dtype``.  ``device=None`` means ``"cuda"``; without a GPU it
     raises."""
     _require_ported(cfg)
     device = resolve_device(device, "init_caches")
     dtype = dtype or _dtype(cfg)
-    init = attn.init_mla_cache if _is_mla(cfg) else attn.init_attention_cache
     return {
-        f"b{j}": init(cfg, batch, max_len, dtype, device, lead=(cfg.n_groups,))
-        for j in range(len(cfg.pattern))
+        f"b{j}": _init_block_cache(cfg, kind, batch, max_len, dtype, device, (cfg.n_groups,))
+        for j, kind in enumerate(cfg.pattern)
     }
 
 
@@ -233,10 +272,13 @@ def _layer_cache(c, gi: int):
     return {k: t[gi] for k, t in c.items()}
 
 
-def _block_decode(cfg: ArchConfig, bp: Params, x_t, position, cache):
+def _block_decode(cfg: ArchConfig, kind: str, bp: Params, x_t, position, cache):
     h = apply_norm(bp["ln1"], x_t, cfg.norm_type)
-    decode = attn.mla_decode if _is_mla(cfg) else attn.attention_decode
-    y = decode(cfg, bp["attn"], h, position, cache)
+    if kind == "attn":
+        decode = attn.mla_decode if _is_mla(cfg) else attn.attention_decode
+        y = decode(cfg, bp["attn"], h, position, cache)
+    else:
+        y = _MIXER_DECODE[kind](cfg, bp["attn"], h, cache)
     x_t = x_t + y.to(x_t.dtype)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x_t, cfg.norm_type)
@@ -255,11 +297,11 @@ def decode_hidden_step(
     """One streaming step to the final-norm hidden state: (B,) -> (B, d)."""
     x = embed(params["embed"], token[:, None]).to(_dtype(cfg))
     for gi in range(cfg.n_groups):
-        for j in range(len(cfg.pattern)):
+        for j, kind in enumerate(cfg.pattern):
             c = caches[f"b{j}"]
             layer = _layer_cache(c, gi)
             bp = index_params(params["blocks"][f"b{j}"], gi)
-            x = _block_decode(cfg, bp, x, position, layer)
+            x = _block_decode(cfg, kind, bp, x, position, layer)
             if isinstance(c, ChimeraState):
                 c.count[gi] = layer.count
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
@@ -273,10 +315,13 @@ def decode_step(cfg: ArchConfig, params: Params, token, position, caches) -> tor
     return _head(cfg, params, x[:, None])[:, 0]
 
 
-def _block_prefill(cfg: ArchConfig, bp: Params, x, positions, max_len: int):
+def _block_prefill(cfg: ArchConfig, kind: str, bp: Params, x, positions, max_len: int):
     h = apply_norm(bp["ln1"], x, cfg.norm_type)
-    prefill = attn.mla_prefill if _is_mla(cfg) else attn.attention_prefill
-    y, cache = prefill(cfg, bp["attn"], h, positions, max_len)
+    if kind == "attn":
+        prefill = attn.mla_prefill if _is_mla(cfg) else attn.attention_prefill
+        y, cache = prefill(cfg, bp["attn"], h, positions, max_len)
+    else:
+        y, cache = _MIXER_LAYER[kind](cfg, bp["attn"], h, return_cache=True)
     x = x + y.to(x.dtype)
     if "ln2" in bp:
         h = apply_norm(bp["ln2"], x, cfg.norm_type)
@@ -300,8 +345,8 @@ def prefill_with_caches(cfg: ArchConfig, params: Params, tokens: torch.Tensor, m
     for gi in range(cfg.n_groups):
         gp = index_params(params["blocks"], gi)
         caches = {}
-        for j in range(len(cfg.pattern)):
-            x, caches[f"b{j}"] = _block_prefill(cfg, gp[f"b{j}"], x, positions, max_len)
+        for j, kind in enumerate(cfg.pattern):
+            x, caches[f"b{j}"] = _block_prefill(cfg, kind, gp[f"b{j}"], x, positions, max_len)
         per_group.append(caches)
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = _head(cfg, params, x[:, -1:])[:, 0]

@@ -64,7 +64,8 @@ def test_guard_walks_every_port_package():
     for mod in ("launch/flow_serve.py", "data/traces.py", "data/campaigns.py",
                 "serve/adaptive_loop.py", "serve/redteam.py", "core/two_timescale.py",
                 "runtime/fault_tolerance.py", "serve/sharded_flow_engine.py",
-                "serve/elastic.py"):
+                "serve/elastic.py", "models/mamba.py", "models/xlstm.py",
+                "configs/jamba_15_large.py", "configs/xlstm_125m.py"):
         assert (pkg_root / mod) in walked, mod
 
 

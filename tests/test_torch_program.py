@@ -363,7 +363,7 @@ def test_config_reader_refuses_what_the_port_cannot_honor(models):
     for path, value, match in ((("arch", "encoder_layers"), 2, "not supported"),
                                (("arch", "chimera", "use_local"), False, "not supported"),
                                (("arch", "chimera", "feature_map", "kind"), "codebook", None),
-                               (("arch", "block_pattern"), ["attn", "mamba"], "attention only"),
+                               (("arch", "block_pattern"), ["attn", "conv"], "does not have"),
                                (("arch", "novel_field"), 1, "unknown field")):
         bad = json.loads(json.dumps(base))
         node = bad
@@ -377,6 +377,13 @@ def test_config_reader_refuses_what_the_port_cannot_honor(models):
             continue
         with pytest.raises(ValueError, match=match):
             _ccfg_from_dict(bad)
+    # Mamba and xLSTM blocks cross, with the Mamba widths
+    hybrid = json.loads(json.dumps(base))
+    hybrid["arch"].update(block_pattern=["mamba", "attn"], mamba_d_state=8, mamba_chunk=8)
+    arch = _ccfg_from_dict(hybrid).arch
+    assert (arch.block_pattern, arch.mamba_d_state, arch.mamba_chunk) == (("mamba", "attn"), 8, 8)
+    hybrid["arch"]["block_pattern"] = ["mlstm", "slstm"]
+    assert _ccfg_from_dict(hybrid).arch.block_pattern == ("mlstm", "slstm")
 
 
 # --------------------------------------------------------------------------

@@ -512,12 +512,13 @@ def test_bridge_carries_every_leaf_of_a_mixtral_tree(mixtral):
         p: tuple(t.shape) for p, t in got.items()}
 
 
-@pytest.mark.parametrize("replace", [dict(block_pattern=("attn", "mamba")),
-                                     dict(block_pattern=("mlstm",)),
+@pytest.mark.parametrize("replace", [dict(family="audio", block_pattern=("attn", "mamba")),
+                                     dict(family="audio", block_pattern=("mlstm",)),
                                      dict(family="audio")])
 def test_unported_attention_paths_raise(replace):
-    """Full-causal softmax and MLA are ported (tests/test_torch_mla.py); the
-    token mixers still refused are Mamba, xLSTM and the enc-dec stack."""
+    """Full-causal softmax and MLA are ported (tests/test_torch_mla.py), and
+    so are Mamba and xLSTM (tests/test_torch_ssm.py); the stack still
+    refused is the enc-dec one (family audio), whatever its blocks."""
     cfg = dataclasses.replace(smoke_config("mixtral-8x7b"), use_chimera=False, **replace)
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         TM.init_model(cfg, torch.Generator(), device="cpu")
