@@ -14,7 +14,11 @@ Phases, each printing its own lines:
                patterns: no flow folding, the spread the kernels line
                reports, every flow folding) and at the edge shapes of its
                contract, and times both; checks the gradients of the
-               chimera_attention Function (its forward and backward kernels).
+               chimera_attention Function (its forward and backward kernels);
+               window_attention's non-causal mode at whisper-tiny's encoder
+               shape (B 8 x H 6, T 1,536, d 64; fp32 and bf16, timed beside
+               scaled_dot_product_attention) and at its edges (Tq != Tk, Tk
+               off the key tile, Tq = 1), and its gradient refusal.
 4. engine    — the serving path: a ``FlowEngine`` at the paper's full width
                (chimera-dataplane: d 256, m 256, L 64, n_global 64; FLOW_LAYERS
                1 of its 4 layers; capacity 4096, lanes 256) with random
@@ -46,7 +50,7 @@ Phases, each printing its own lines:
 
 9. adapt     — run after the program phase: (a) the port's launcher
                (``repro_torch.launch.flow_serve``'s build and serve) at the
-               paper's width, fused, on the default drift schedule with no
+               paper's width (FLOW_LAYERS 1 of its 4 layers), fused, on the default drift schedule with no
                loop, under the sync and the async adaptation loop and with
                no loop again: packets/s, drift-path ms per tick, epoch ms,
                install µs, triggers, veto rate by phase; S pinned, no flip,
@@ -182,10 +186,25 @@ Phases, each printing its own lines:
                full depth and width the same way (4 x 2,050-token prompts);
                (d) both smoke configs card against CPU.
 
-Phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15 and 16 are the main paths: the
-kernels' launch counters are zeroed just before each (each part of phases
-10, 12, 13, 14, 15 and 16) and read just after, and each fails if one of
-its kernels never launched.  Then
+17. lm-encdec — run after the lm-ssm phase, before the trainer phase:
+               whisper-tiny's encoder-decoder served on the card at full
+               width and depth (4 + 4 layers, d 384, bf16, random weights):
+               decode_step and chimera_attention_long.cu at its decoder's
+               widths against their plain versions, timed; B 8 segments x
+               Te 1,536 frames through encode (the non-causal mode of
+               window_attention in every encoder layer), the teacher-forced
+               forward at T 256 and 448 decode_step ticks (256 forced, 192
+               greedy); (a) the kernel route against the plain route on the
+               card (encoder output, logits, greedy tokens), (b) decode
+               against the teacher-forced forward, (c) both again for the
+               softmax cross-attention variant at 1 decoder layer, (d) encode,
+               forward and per-tick ms, peak memory, launches.  The smoke
+               phase adds smoke whisper-tiny, card against CPU.
+
+Phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 are the main paths:
+the kernels' launch counters are zeroed just before each (each part of
+phases 10, 12, 13, 14, 15, 16 and 17) and read just after, and each fails
+if one of its kernels never launched.  Then
 a JSON line with every kernel's numbers, a JSON line ``{"phases": {...}}``
 with every phase's seconds (and the run's total), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -1247,6 +1266,130 @@ def check_window(timed, shape=None):
     return rec
 
 
+# window_attention's non-causal mode (the encoder of whisper-tiny and its
+# softmax cross-attention): (Tq, Tk, dtype, H, Hkv) of the edge shapes,
+# each at every (d, dv) of WINDOW_EDGE_DIMS (B 2): Tq != Tk both ways, Tk
+# not a multiple of the 64-key tile, Tq = 1 (a decode tick's query against
+# the encoder's 1,536 frames, and against a ragged Tk), one key, Tq not a
+# multiple of the 128-row block, 2 and 3 query heads a kv-head, fp32 and bf16
+NONCAUSAL_EDGES = (
+    (256, 1536, "float32", 4, 4), (1, 1536, "float32", 6, 6), (1, 1536, "bfloat16", 6, 6),
+    (200, 77, "float32", 4, 2), (77, 200, "bfloat16", 4, 1), (1, 77, "float32", 4, 4),
+    (129, 1, "float32", 2, 2), (100, 100, "bfloat16", 6, 2), (300, 130, "float32", 6, 3),
+)
+# the encoder's shape at whisper-tiny's full width: B 8 segments x H 6, Tq =
+# Tk = Te 1,536 frames (30 s of audio, padded), d = dv = 64
+WHISPER_ENC_SHAPE = (8, 6, 6, 1536, 1536, 64, 64)
+
+
+def noncausal_cost(B, H, Hkv, Tq, Tk, d, dv, esize=4):
+    """Bytes (q, k, v per kv-head read once, o written once) and flops (QK^T
+    and PV over every pair) of the non-causal mode."""
+    nbytes = esize * (B * H * Tq * (d + dv) + B * Hkv * Tk * (d + dv))
+    return nbytes, B * H * Tq * Tk * (2 * d + 2 * dv)
+
+
+def check_noncausal_edge(Tq, Tk, dtype, H, Hkv, d, dv, seed):
+    """The non-causal mode against its plain version at one edge shape (B 2);
+    tolerances as check_window_edge's.  Returns the max abs error."""
+    import torch
+    from repro_torch.kernels.window_attention import ops
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to("cuda", dt)
+               for shape in ((2, H, Tq, d), (2, Hkv, Tk, d), (2, Hkv, Tk, dv)))
+    with torch.no_grad():
+        got = ops.noncausal_attention(q, k, v)
+        want = ops.noncausal_attention_plain(q.float(), k.float(), v.float())
+    name = f"window_attention non-causal Tq {Tq} Tk {Tk} d {d} dv {dv} {dt}"
+    if dt == torch.bfloat16:
+        if got.dtype != torch.bfloat16:
+            fail(f"{name}: output dtype {got.dtype}")
+        return compare(name, got.float(), want.to(dt).float(), atol=WIN_BF16_TOL,
+                       rtol=WIN_BF16_TOL)
+    return compare(name, got, want)
+
+
+def check_noncausal(timed=True):
+    """The non-causal mode at the encoder's shape (WHISPER_ENC_SHAPE) in
+    float32 (the main path's type: the encoder's q, k and v come out of
+    float32 weights) and bfloat16, against its plain version (dense (BH, T,
+    T) scores), then at every edge shape x (d, dv); timed at the encoder's
+    shape against its bound and scaled_dot_product_attention(is_causal=False)
+    (the library call, PyTorch's choice of backend).  The gradient refusal
+    on the card is checked too.  Returns the two shapes' records."""
+    import torch
+    from repro_torch.kernels.window_attention import ops
+
+    B, H, Hkv, Tq, Tk, d, dv = WHISPER_ENC_SHAPE
+    recs = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        g = torch.Generator().manual_seed(SEED + 80)
+        q, k, v = (torch.randn(shape, generator=g).to("cuda", dt)
+                   for shape in ((B, H, Tq, d), (B, Hkv, Tk, d), (B, Hkv, Tk, dv)))
+        with torch.no_grad():
+            out = ops.noncausal_attention(q, k, v)
+            want = ops.noncausal_attention_plain(q.float(), k.float(), v.float())
+        if dt == torch.bfloat16:
+            err = compare(f"window_attention non-causal {dtype}", out.float(),
+                          want.to(dt).float(), atol=WIN_BF16_TOL, rtol=WIN_BF16_TOL)
+            tol = f"{WIN_BF16_TOL:g} + {WIN_BF16_TOL:g}*|ref|"
+        else:
+            err = compare(f"window_attention non-causal {dtype}", out, want)
+            tol = f"{ATOL:g} + {RTOL:g}*|ref|"
+        del want
+        shape = f"whisper-tiny encoder, B {B} x H {H} Tq = Tk {Tq} d {d} dv {dv} {dtype}"
+        rec = {"max_abs_err": err, "shape": shape}
+        log("kernels", f"window_attention non-causal at {shape}: max abs err {err:.3e} "
+                       f"(tolerance {tol}) against the plain version")
+        if timed:
+            with torch.no_grad():
+                ms, call_ms = cuda_ms(lambda: ops.noncausal_attention(q, k, v), iters=20)
+                plain_ms, _ = cuda_ms(lambda: ops.noncausal_attention_plain(q, k, v), iters=3)
+                sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=False)
+                lib_err = float((sdpa().float() - out.float()).abs().max())
+                library_ms, _ = cuda_ms(sdpa, iters=20)
+            nbytes, flops = noncausal_cost(B, H, Hkv, Tq, Tk, d, dv, esize=q.element_size())
+            if dt == torch.bfloat16:
+                bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+                rate = "bf16 at 989 TFLOP/s"
+            else:
+                bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+                rate = f"x{TF32_PASSES} in TF32 at 495 TFLOP/s (split fp32)"
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=library_ms, call_ms=call_ms)
+            log("kernels", f"window_attention non-causal device time at {shape}: kernel "
+                           f"{ms:.4f} ms (per call from Python {call_ms:.4f} ms), bound "
+                           f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B; {flops} flop, {rate}); "
+                           f"scaled_dot_product_attention(is_causal=False) {library_ms:.4f} ms "
+                           f"(max abs diff to the kernel {lib_err:.3e}); plain version "
+                           f"{plain_ms:.4f} ms (dense (BH, T, T) scores)")
+        recs[dtype] = rec
+        if dt == torch.float32:
+            qg = q[:1].clone().requires_grad_(True)
+            try:
+                ops.noncausal_attention(qg, k[:1], v[:1])
+            except NotImplementedError as e:
+                log("kernels", f"window_attention non-causal with a gradient on the card "
+                               f"raises, as it must: {e}")
+            else:
+                fail("window_attention non-causal: a call that needs a gradient did not raise")
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for i, (Tq_, Tk_, dtype, H_, Hkv_) in enumerate(NONCAUSAL_EDGES):
+        for dk, dvk in WINDOW_EDGE_DIMS:
+            worst = max(worst, check_noncausal_edge(Tq_, Tk_, dtype, H_, Hkv_, dk, dvk,
+                                                    SEED + 81 + i))
+    log("kernels", f"window_attention non-causal at {len(NONCAUSAL_EDGES)} edge shapes x "
+                   f"{len(WINDOW_EDGE_DIMS)} (d, dv): every one within its tolerance, max abs err "
+                   f"{worst:.3e}")
+    return recs
+
+
 def check_decode_fills():
     """decode_step at the engine's shape under each fill pattern, without
     and with the static globals; the globals' run is timed."""
@@ -1272,6 +1415,8 @@ def phase_kernels():
     check_chimera_edges()
     check_chimera_grads()
     recs["window_attention"] = check_window(timed=True)
+    for r in check_noncausal().values():
+        other_shape(recs, "window_attention", r)
     return recs
 
 
@@ -1299,10 +1444,10 @@ def paper_classifier(n_global=None, n_layers=None):
 
 
 ENGINE_BATCHES = 3  # timed protocol-mix batches per engine
-# the engine and program phases serve FLOW_LAYERS of the paper model's 4
-# layers: their per-round engines are host-bound and their time grows with
-# the layers (PERF.md section 4 lists the depth cuts and what each saved);
-# adapt (a) serves all 4 through the launcher
+# the engine and program phases, adapt (a) and shard (b) (through the
+# launcher's ``arch``) serve FLOW_LAYERS of the paper model's 4 layers:
+# their engines are host-bound and their time grows with the layers
+# (PERF.md section 4 lists the depth cuts and what each saved)
 FLOW_LAYERS = 1
 
 
@@ -3217,6 +3362,449 @@ def phase_lm_ssm(recs):
 
 
 # --------------------------------------------------------------------------
+# 17. lm-encdec (whisper-tiny's encoder-decoder served on the card)
+# --------------------------------------------------------------------------
+
+ENCDEC = "whisper-tiny"
+# B 8 segments of 30 s of audio (Te 1,536 frames, padded, as the JAX
+# package's launcher sizes whisper's decode); the 448-token text context
+ENCDEC_B, ENCDEC_TE, ENCDEC_CTX = 8, 1536, 448
+# (c): the softmax cross-attention variant's decoder depth (the encoder keeps
+# its 4 layers)
+ENCDEC_SOFTMAX_LAYERS = 1
+# the float32-activation routes' decode: the forced ticks and 16 greedy ones
+# past the Chimera ring's fold at tick 256 (the main path's run decodes all
+# 448)
+ENCDEC_FP32_TICKS = 272
+# the bf16 floor of (a)'s logits: a planted relative error in the frames, and
+# the factor on the logits' move under it.  On an H100 80GB HBM3 at 700 W a
+# planted 1e-6 moved the 4-layer decoder's bf16 logits by 0.252 (max |logit|
+# 5.9), the routes differed by 0.221-0.263, and with float32 activations by
+# 5.7e-6 to 7.2e-6 (the planted error there 6.0e-6): at 1 decoder layer
+# 6.9e-3, 4.0e-3 to 1.5e-2 (chip_smoke.encdec_route_gaps)
+ENCDEC_PLANTED, ENCDEC_FLOOR_FACTOR = 1e-6, 2.0
+
+
+def encdec_forced_len(cfg):
+    """The teacher-forced forward's length: the largest multiple of the
+    Chimera chunk (the JAX package needs T % L == 0) within the context."""
+    L = cfg.chimera.chunk_size
+    return ENCDEC_CTX // L * L
+
+
+def encdec_decode(cfg, params, emb, feed, n_forced, n_ticks=ENCDEC_CTX):
+    """``init_encdec_caches(max_len=ENCDEC_CTX)`` with float32 self caches
+    (as the LM engine keeps them), then one ``decode_step`` a token for
+    ``n_ticks`` ticks: tick t's input is ``feed[:, t]`` for t < n_forced,
+    else the previous tick's argmax (greedy; nothing leaves the card until
+    the last tick).  Returns (logits (B, ticks, vocab) float32 on the host,
+    inputs (B, ticks), caches' seconds, decode seconds)."""
+    import torch
+    from repro_torch.models import model as M
+
+    B = emb.shape[0]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches = M.init_encdec_caches(cfg, params, emb, B, ENCDEC_CTX, dtype=torch.float32)
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        feed = torch.from_numpy(np.asarray(feed)).to("cuda")
+        tok, inputs, out = feed[:, 0], [], []
+        t0 = time.perf_counter()
+        for t in range(n_ticks):
+            if t < n_forced:
+                tok = feed[:, t]
+            inputs.append(tok)
+            lg = M.decode_step(cfg, params, tok, torch.full((B,), t, dtype=torch.int32,
+                                                             device="cuda"), caches)
+            lg = lg[:, :cfg.vocab_size]
+            tok = torch.argmax(lg, dim=-1)
+            out.append(lg.float())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return (torch.stack(out, 1).cpu(), torch.stack(inputs, 1).cpu().numpy(), cache_s,
+            decode_s)
+
+
+def encdec_run(label, cfg, params, emb, toks, n_encode=3):
+    """The main path on the card, with every kernel's count zeroed just
+    before and read just after: ``encode`` (``n_encode`` times, timed each;
+    the first call pays cuBLAS's choices),
+    the teacher-forced ``forward`` at encdec_forced_len (twice, timed each),
+    then encdec_decode (T forced tokens, then greedy to the context's end).
+    Returns the outputs, the counts and the timings."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.models import model as M
+
+    T = encdec_forced_len(cfg)
+    emb_d = torch.from_numpy(emb).to("cuda")
+    batch = {"tokens": torch.from_numpy(toks[:, :T]).to("cuda"), "enc_embeds": emb_d}
+    torch.cuda.reset_peak_memory_stats()
+    wops.launches = wops.noncausal_launches = cops.launches = dops.launches = 0
+    enc_ms, fwd_ms = [], []
+    with torch.no_grad():
+        for _ in range(n_encode):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = M.encode(cfg, params, emb_d)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = M.forward(cfg, params, batch)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    logits = logits[..., :cfg.vocab_size].float().cpu()
+    dec, inputs, cache_s, decode_s = encdec_decode(cfg, params, emb_d, toks, T)
+    launches = {"window_attention": wops.launches, "noncausal": wops.noncausal_launches,
+                "chimera_attention": cops.launches, "decode_step": dops.launches}
+    peak = torch.cuda.max_memory_allocated()
+    # every encode (n_encode, one in each forward, one in init_encdec_caches)
+    # runs the non-causal mode in each encoder layer; the decoder's
+    # self-attention is Chimera (chimera_attention per forward, decode_step
+    # per tick) or full-causal softmax (window_attention at W = T per
+    # forward), its softmax cross-attention the non-causal mode (per forward
+    # and per tick)
+    n_enc = (n_encode + 2 + 1) * cfg.encoder_layers
+    n_dec = cfg.n_layers
+    want = ({"noncausal": n_enc, "chimera_attention": 2 * n_dec,
+             "decode_step": ENCDEC_CTX * n_dec} if cfg.use_chimera else
+            {"noncausal": n_enc + (2 + ENCDEC_CTX) * n_dec, "chimera_attention": 0,
+             "decode_step": 0})
+    want["window_attention"] = want["noncausal"] + (0 if cfg.use_chimera else 2 * n_dec)
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"lm-encdec {label}: {k} launched {launches[k]} times on the main path, "
+                 f"want {n}: {launches}")
+    if not (torch.isfinite(enc).all() and torch.isfinite(logits).all()
+            and torch.isfinite(dec).all()):
+        fail(f"lm-encdec {label}: non-finite encoder output or logits")
+    if tuple(enc.shape) != (ENCDEC_B, ENCDEC_TE, cfg.d_model) or tuple(logits.shape) != (
+            ENCDEC_B, T, cfg.vocab_size):
+        fail(f"lm-encdec {label}: encoder output {tuple(enc.shape)}, logits "
+             f"{tuple(logits.shape)}")
+    log("lm-encdec", f"{label}: encode ms {', '.join(f'{x:.2f}' for x in enc_ms)} (B "
+                     f"{ENCDEC_B} x Te {ENCDEC_TE}); forward ms "
+                     f"{', '.join(f'{x:.2f}' for x in fwd_ms)} (encode + decoder at T {T}); "
+                     f"init_encdec_caches {cache_s * 1e3:.2f} ms; decode "
+                     f"{decode_s / ENCDEC_CTX * 1e3:.3f} ms per tick over {ENCDEC_CTX} ticks "
+                     f"({T} teacher-forced, {ENCDEC_CTX - T} greedy; {ENCDEC_B} tokens a tick); "
+                     f"max_memory_allocated {peak} B; launches {launches}")
+    return {"enc": enc.float().cpu(), "logits": logits, "dec": dec, "inputs": inputs,
+            "launches": launches, "encode_ms": enc_ms, "forward_ms": fwd_ms,
+            "tick_ms": decode_s / ENCDEC_CTX * 1e3, "peak": peak}
+
+
+def encdec_profile(label, cfg, params, emb, toks, ticks=16):
+    """``ticks`` teacher-forced decode ticks after one warm tick, under the
+    profiler: device time by kernel and the device's busy share of a tick
+    (outside the main path's counted run)."""
+    import torch
+    from repro_torch.models import model as M
+
+    B = emb.shape[0]
+    emb_d = torch.from_numpy(emb).to("cuda")
+    tk = torch.from_numpy(toks).to("cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        caches = M.init_encdec_caches(cfg, params, emb_d, B, ENCDEC_CTX, dtype=torch.float32)
+
+        def tick(t):
+            M.decode_step(cfg, params, tk[:, t], torch.full((B,), t, dtype=torch.int32,
+                                                            device="cuda"), caches)
+
+        tick(0)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for t in range(1, ticks + 1):
+                tick(t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    report_profile(prof, wall, f"lm-encdec {label}: {ticks} decode ticks of B {B}")
+
+
+def encdec_forward(cfg, params, emb_d, tokens, route):
+    """(encoder output, forward logits) on the card, float32 on the host, on
+    the kernel route or the plain one (no kernel launch allowed there)."""
+    import torch
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.decode_step import ops as dops
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.models import model as M
+
+    before = wops.launches + cops.launches + dops.launches
+    with contextlib.ExitStack() as st, torch.no_grad():
+        if route == "plain":
+            st.enter_context(plain_chimera_kernels())
+            st.enter_context(plain_window_attention())
+        enc = M.encode(cfg, params, emb_d).float().cpu()
+        logits, _ = M.forward(cfg, params, {"tokens": tokens, "enc_embeds": emb_d})
+    if (wops.launches + cops.launches + dops.launches > before) != (route == "kernel"):
+        fail(f"lm-encdec {cfg.name}: kernel launches on the {route} route")
+    return enc, logits[..., :cfg.vocab_size].float().cpu()
+
+
+def encdec_bf16_floor(label, cfg, params, emb, run):
+    """(a) in the main path's types: the encoder output on the plain route
+    within LM_LOGIT_FP32_TOL (the encoder is float32: its adapter's float32
+    weights promote the frames), and the forward logits within the bf16
+    floor of this network: ENCDEC_FLOOR_FACTOR x how far the kernel route's
+    own logits move under a planted relative error of ENCDEC_PLANTED in the
+    frames (any change flips bf16 roundings of the decoder's residual
+    stream, which its random-weight layers carry on; the kernels' own
+    difference is held in float32, encdec_fp32_routes), and at least
+    LM_LOGIT_TOL."""
+    import torch
+
+    T = encdec_forced_len(cfg)
+    emb_d = torch.from_numpy(emb).to("cuda")
+    tokens = torch.from_numpy(run["inputs"][:, :T]).to("cuda")
+    enc, logits = encdec_forward(cfg, params, emb_d, tokens, "plain")
+    noise = torch.from_numpy(np.random.default_rng(SEED + 91).standard_normal(emb.shape)
+                             .astype(np.float32)).to("cuda")
+    _, planted = encdec_forward(cfg, params, emb_d * (1 + ENCDEC_PLANTED * noise), tokens,
+                                "kernel")
+    floor = float((planted - run["logits"]).abs().max())
+    tol = max(LM_LOGIT_TOL, ENCDEC_FLOOR_FACTOR * floor)
+    e_enc = compare(f"lm-encdec {label} encoder output kernel vs plain", run["enc"], enc,
+                    atol=LM_LOGIT_FP32_TOL, rtol=LM_LOGIT_FP32_TOL)
+    e_fwd = compare(f"lm-encdec {label} bf16 forward logits kernel vs plain", run["logits"],
+                    logits, atol=tol, rtol=0.0)
+    log("lm-encdec", f"{label} (a) in the main path's types (bf16 decoder), kernel route against "
+                     f"the plain route on the card: encoder output max abs diff {e_enc:.3e} "
+                     f"(tolerance {LM_LOGIT_FP32_TOL:g} + {LM_LOGIT_FP32_TOL:g}*|ref|); forward "
+                     f"logits {e_fwd:.3e}, max |logit| {float(logits.abs().max()):.3e}, against "
+                     f"the kernel route's own move under a planted {ENCDEC_PLANTED:g} relative "
+                     f"error in the frames, {floor:.3e} (tolerance {tol:.3e})")
+
+
+def encdec_fp32_routes(label, cfg, params, emb, toks, n_ticks):
+    """(a) and (b) with float32 activations (``cfg`` at dtype float32; the
+    same weights and the same kernel calls, whose inputs are float32 in
+    either dtype), where no bf16 rounding stands between the routes: the
+    kernel route (encode, forward at T, decode for ``n_ticks`` ticks, T
+    forced then greedy) against the plain route fed the same tokens:
+    encoder output and forward and decode logits within LM_LOGIT_FP32_TOL,
+    greedy tokens equal where the plain route's top-2 margin exceeds
+    LM_MARGIN; and the kernel route's decode against its forward over the T
+    forced ticks within LM_LOGIT_FP32_TOL, argmax equal where the margin
+    exceeds LM_MARGIN."""
+    import dataclasses
+
+    import torch
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    T = encdec_forced_len(cfg)
+    emb_d = torch.from_numpy(emb).to("cuda")
+    tokens = torch.from_numpy(toks[:, :T]).to("cuda")
+    out = {}
+    for route in ("kernel", "plain"):
+        enc, logits = encdec_forward(cfg32, params, emb_d, tokens, route)
+        with contextlib.ExitStack() as st:
+            if route == "plain":
+                st.enter_context(plain_chimera_kernels())
+                st.enter_context(plain_window_attention())
+            feed = toks if route == "kernel" else out["kernel"][3]
+            dec, inputs, _, _ = encdec_decode(cfg32, params, emb_d, feed,
+                                              T if route == "kernel" else n_ticks, n_ticks)
+        out[route] = (enc, logits, dec, inputs)
+        torch.cuda.empty_cache()
+    (ek, lk, dk, _), (ep, lp, dp, _) = out["kernel"], out["plain"]
+    tol = LM_LOGIT_FP32_TOL
+    errs = [compare(f"lm-encdec {label} fp32 {what} kernel vs plain", a, b, atol=tol, rtol=tol)
+            for what, a, b in (("encoder output", ek, ep), ("forward logits", lk, lp),
+                               ("decode logits", dk, dp))]
+    held, total, gap = hold_generations(f"lm-encdec {label} fp32 kernels vs plain",
+                                        torch.argmax(dk, dim=-1).numpy(), dp, LM_MARGIN)
+    worst = compare(f"lm-encdec {label} fp32 decode vs forward", dk[:, :T], lk, atol=tol,
+                    rtol=tol)
+    held_b, total_b, gap_b = hold_generations(f"lm-encdec {label} fp32 decode vs forward",
+                                              torch.argmax(dk[:, :T], dim=-1).numpy(), lk,
+                                              LM_MARGIN)
+    log("lm-encdec", f"{label} (a) float32 activations, kernel route against the plain route on "
+                     f"the card ({n_ticks} decode ticks, {T} forced): encoder output, forward "
+                     f"and decode logits max abs diff {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e} "
+                     f"(tolerance {tol:g} + {tol:g}*|ref|); greedy tokens equal at {held} of "
+                     f"{total} positions whose top-2 margin exceeds {LM_MARGIN:g} (smallest "
+                     f"margin {gap:.3e})")
+    log("lm-encdec", f"{label} (b) float32 activations, decode_step against the teacher-forced "
+                     f"forward over {T} ticks (kernel route): worst logit gap {worst:.3e} "
+                     f"(tolerance {tol:g} + {tol:g}*|ref|); argmax equal at {held_b} of "
+                     f"{total_b} positions whose top-2 margin exceeds {LM_MARGIN:g} (smallest "
+                     f"margin {gap_b:.3e})")
+
+
+def encdec_decode_vs_forward(label, cfg, run):
+    """(b) in the main path's types: the kernel route's decode at the T
+    teacher-forced ticks against its own teacher-forced forward (two
+    summation orders through a bf16 residual stream): the worst logit gap
+    printed; argmax equal where the forward's top-2 margin exceeds
+    LM_MARGIN."""
+    import torch
+
+    T = encdec_forced_len(cfg)
+    held, total, gap = hold_generations(f"lm-encdec {label} bf16 decode vs forward",
+                                        torch.argmax(run["dec"][:, :T], dim=-1).numpy(),
+                                        run["logits"], LM_MARGIN)
+    worst = float((run["dec"][:, :T] - run["logits"]).abs().max())
+    log("lm-encdec", f"{label} (b) in the main path's types, decode_step against the "
+                     f"teacher-forced forward over {T} ticks (kernel route): worst logit gap "
+                     f"{worst:.3e}; argmax equal at {held} of {total} positions whose top-2 "
+                     f"margin exceeds {LM_MARGIN:g} (smallest margin {gap:.3e})")
+    return worst
+
+
+def encdec_route_gaps(n_layers=None, planted=1e-6):
+    """Diagnosis of the kernel-vs-plain gap of whisper-tiny's forward logits
+    (T 256, B 8, full width; ``n_layers`` decoder layers, all by default):
+    each route combination (the encoder's non-causal softmax and the
+    decoder's chimera_attention, kernel or plain) against the kernel route,
+    in the config's bf16 and with float32 activations; and the kernel
+    route's own response to a planted relative error ``planted`` in the
+    frame embeddings (how far the random-weight network carries a perturbation)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(ENCDEC)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    rng = np.random.default_rng(SEED + 90)
+    emb = rng.standard_normal((ENCDEC_B, ENCDEC_TE, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (ENCDEC_B, ENCDEC_CTX))
+    T = encdec_forced_len(cfg)
+    tk = torch.from_numpy(toks[:, :T]).to("cuda")
+    e = torch.from_numpy(emb).to("cuda")
+    noise = torch.from_numpy(rng.standard_normal(emb.shape).astype(np.float32)).to("cuda")
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        out = {}
+        for enc_route in ("kernel", "plain"):
+            for dec_route in ("kernel", "plain"):
+                with contextlib.ExitStack() as st, torch.no_grad():
+                    if enc_route == "plain":
+                        st.enter_context(plain_window_attention())
+                    if dec_route == "plain":
+                        st.enter_context(plain_chimera_kernels())
+                    out[enc_route, dec_route] = M.forward(
+                        c, params, {"tokens": tk, "enc_embeds": e})[0][..., :c.vocab_size].float()
+        with torch.no_grad():
+            planted_lg = M.forward(c, params, {"tokens": tk, "enc_embeds": e * (1 + planted * noise)}
+                                   )[0][..., :c.vocab_size].float()
+        ref = out["kernel", "kernel"]
+        log("lm-encdec", f"route gaps, {dtype} activations, {cfg.n_layers} decoder layers: max "
+                         f"|logit| {float(ref.abs().max()):.3e}; against the kernel route, "
+                         + ", ".join(f"encoder {a} + decoder {b} {float((v - ref).abs().max()):.3e}"
+                                     for (a, b), v in out.items())
+                         + f"; a planted relative error of {planted:g} in the frames "
+                           f"{float((planted_lg - ref).abs().max()):.3e}")
+        del out, planted_lg, ref
+        torch.cuda.empty_cache()
+
+
+def check_lm_encdec_kernels(recs):
+    """decode_step and chimera_attention (the long-chunk kernel) at
+    whisper-tiny's decoder widths (B 8 x 6 heads, Gq 1, d = dv = 64, m 128,
+    L 256; T 256) against their plain versions, timed; returns their entries
+    of the kernels line."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC)
+    kv, Gq, d, dv = attn_widths(cfg)
+    m, L = cfg.chimera.feature_map.m, cfg.chimera.chunk_size
+    entries = {}
+    for fill in ("spread", "all"):  # the timed spread, and every row folding
+        timed = fill == "spread"
+        r = check_decode(True, timed, fill=fill, B=ENCDEC_B, Gq=Gq, d=d, dv=dv, m=m, L=L,
+                         heads=kv)
+        if timed:
+            r["shape"] = f"whisper-tiny: BH {ENCDEC_B * kv} Gq {Gq} d {d} dv {dv} m {m} L {L}"
+            entries["decode_step"] = other_shape(recs, "decode_step", r)
+    r = check_chimera_long(True, shape=(ENCDEC_B, kv, Gq, encdec_forced_len(cfg), d, dv))
+    r["shape"] = "whisper-tiny: " + r["shape"]
+    entries["chimera_attention"] = other_shape(recs, "chimera_attention", r)
+    return entries
+
+
+def phase_lm_encdec(recs):
+    """whisper-tiny's encoder-decoder served on the card at full width and
+    depth (4 + 4 layers, d 384, 6 heads of 64, vocabulary 51,865), bf16,
+    random weights from SEED, stub frame embeddings from a numpy seed: B 8
+    x Te 1,536 frames, the teacher-forced forward at T 256 (the chunk L 256
+    fits the 448-token context once), then 448 decode ticks (256 forced,
+    192 greedy; the Chimera ring folds at 256).  (a) the kernel route
+    against the plain route on the card, in the main path's types against
+    the network's bf16 floor (encdec_bf16_floor) and with float32
+    activations within LM_LOGIT_FP32_TOL, greedy tokens at LM_MARGIN
+    (encdec_fp32_routes); (b) decode against the teacher-forced forward,
+    the same two ways; (c) all of it for the softmax cross-attention
+    variant at ENCDEC_SOFTMAX_LAYERS decoder layer; (d) the timings, peak
+    memory and launches of the main path (encdec_run).  Decode_step and
+    chimera_attention at the decoder's widths against their plain versions
+    first."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_flatten
+
+    t0 = time.perf_counter()
+    entries = check_lm_encdec_kernels(recs)
+    seconds = {"kernels": time.perf_counter() - t0}
+    cfg = get_config(ENCDEC)
+    rng = np.random.default_rng(SEED + 90)
+    emb = rng.standard_normal((ENCDEC_B, ENCDEC_TE, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (ENCDEC_B, ENCDEC_CTX))
+    launches = {"window_attention": 0, "chimera_attention": 0, "decode_step": 0}
+    runs = {}
+    for label, c in (("whisper-tiny", cfg),
+                     (f"whisper-tiny softmax cross-attention, {ENCDEC_SOFTMAX_LAYERS} decoder "
+                      f"layer", dataclasses.replace(cfg, use_chimera=False,
+                                                    n_layers=ENCDEC_SOFTMAX_LAYERS))):
+        t0 = time.perf_counter()
+        params = M.init_model(c, torch.Generator(device="cuda").manual_seed(SEED + len(runs)),
+                              device="cuda")
+        n = sum(t.numel() for t in tree_flatten(params)[0])
+        log("lm-encdec", f"{label}: {c.encoder_layers} encoder + {c.n_layers} decoder layers, d "
+                         f"{c.d_model}, {c.n_heads} heads of {c.head_dim}, d_ff {c.d_ff}, vocab "
+                         f"{c.vocab_size}, {c.norm_type}, dtype {c.dtype}, "
+                         + (f"Chimera m {c.chimera.feature_map.m} L {c.chimera.chunk_size} "
+                            f"n_global {c.chimera.n_global}" if c.use_chimera else "softmax")
+                         + f": {n} fp32 parameters drawn on the card")
+        run = encdec_run(label, c, params, emb, toks)
+        encdec_profile(label, c, params, emb, toks)
+        encdec_bf16_floor(label, c, params, emb, run)
+        run["worst_gap"] = encdec_decode_vs_forward(label, c, run)
+        encdec_fp32_routes(label, c, params, emb, toks, ENCDEC_FP32_TICKS)
+        for k in launches:
+            launches[k] += run["launches"][k]
+        runs[label] = {k: run[k] for k in ("launches", "encode_ms", "forward_ms", "tick_ms",
+                                           "peak", "worst_gap")}
+        seconds[label] = time.perf_counter() - t0
+        del params, run
+        torch.cuda.empty_cache()
+    log("lm-encdec", "seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                     seconds.items()))
+    for kernel in launches:
+        if not launches[kernel]:
+            fail(f"lm-encdec: {kernel} never launched on the phase's main path: {launches}")
+    for kernel in ("chimera_attention", "decode_step"):
+        entries[kernel]["launches"] = launches[kernel]
+    return {"launches": launches, "runs": runs}
+
+
+
+# --------------------------------------------------------------------------
 # 14. train-softmax (softmax attention trained on the card)
 # --------------------------------------------------------------------------
 
@@ -3484,20 +4072,22 @@ class plain_window_attention:
     (``sliding_window_attention_plain``, dense (T, T) scores,
     differentiated by autograd) on the card: the SWA route and the
     full-causal one (``blockwise_softmax_attention`` on the card calls the
-    window wrapper at W = T)."""
+    window wrapper at W = T); and the non-causal one
+    (``noncausal_attention_plain``, dense (Tq, Tk) scores)."""
 
     def __enter__(self):
         from repro_torch.kernels.window_attention import ops
         from repro_torch.models import attention as A
 
-        self.saved = A.sliding_window_attention
+        self.saved = A.sliding_window_attention, A.noncausal_attention
         A.sliding_window_attention = ops.sliding_window_attention_plain
+        A.noncausal_attention = ops.noncausal_attention_plain
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import attention as A
 
-        A.sliding_window_attention = self.saved
+        A.sliding_window_attention, A.noncausal_attention = self.saved
 
 
 def softmax_train_cfg(name, n_layers=SOFTMAX_TRAIN_LAYERS, **replace):
@@ -4334,7 +4924,8 @@ def phase_smoke_configs():
     (per-round and fused) and ``loss_fn`` with its backward; the softmax
     variant of ``smoke_config("mixtral-8x7b")`` through
     ``ServeEngine.prefill_batch`` and 4 greedy decode ticks, and ``loss_fn``
-    forward (the window_attention kernel is forward only).  The Chimera
+    forward (the window_attention kernel is forward only); smoke
+    whisper-tiny (``smoke_encdec``).  The Chimera
     smoke's vocabulary is widened to 512 so that FlowScenario's marker
     tokens (256..511) embed, as the test suite's tiny model does; no kernel
     width changes with it."""
@@ -4434,11 +5025,58 @@ def phase_smoke_configs():
                  f"{[len(p) for p in prompts]} tokens + 4 greedy tokens, card and CPU "
                  f"generations identical {got['cuda'][0]}; loss_fn (batch 2 x 64) {got['cuda'][1]:.6f} "
                  f"vs {got['cpu'][1]:.6f} (relative {lerr:.3e}, tolerance {REF_LOSS_RTOL:g})")
+    smoke_encdec()
     launched = {name: fmod.COUNTED[name].launches - before[name] for name in kernels}
     if min(launched.values()) <= 0:
         fail(f"smoke: a kernel did not launch at the smoke widths: {launched}")
     log("smoke", f"kernel launches at the smoke widths: {launched}")
 
+
+def smoke_encdec():
+    """``smoke_config("whisper-tiny")`` (fp32, 2 + 2 layers, d_head 16, L 16)
+    and its softmax cross-attention variant, card against CPU on the same
+    weights and inputs (B 2, 96 frames, 48 tokens): ``forward`` and 40
+    ``decode_step`` ticks (the Chimera ring folds at 16 and 32) within
+    REF_LOGIT_TOL; the card's run launches window_attention's non-causal
+    mode (and the Chimera kernels)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels.window_attention import ops as wops
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_map
+
+    rng = np.random.default_rng(SEED + 54)
+    for use_chimera in (True, False):
+        cfg = dataclasses.replace(smoke_config(ENCDEC), use_chimera=use_chimera)
+        params = M.init_model(cfg, torch.Generator().manual_seed(SEED + 55), device="cpu")
+        emb = rng.standard_normal((2, 96, cfg.d_model)).astype(np.float32)
+        toks = rng.integers(0, cfg.vocab_size, (2, 48))
+        got = {}
+        for dev in ("cuda", "cpu"):
+            before = wops.noncausal_launches
+            p = tree_map(lambda t: t.to(dev), params)
+            e = torch.from_numpy(emb).to(dev)
+            tk = torch.from_numpy(toks).to(dev)
+            with torch.no_grad():
+                logits, _ = M.forward(cfg, p, {"tokens": tk, "enc_embeds": e})
+                caches = M.init_encdec_caches(cfg, p, e, 2, 48)
+                dec = [M.decode_step(cfg, p, tk[:, t], torch.full((2,), t, dtype=torch.int32,
+                                                                  device=dev), caches)
+                       for t in range(40)]
+            if (wops.noncausal_launches > before) != (dev == "cuda"):
+                fail(f"smoke whisper-tiny on {dev}: non-causal launches "
+                     f"{wops.noncausal_launches - before}")
+            got[dev] = (logits.cpu(), torch.stack(dec, 1).cpu())
+        e_fwd = compare("smoke whisper-tiny forward logits card vs CPU", got["cuda"][0],
+                        got["cpu"][0], atol=REF_LOGIT_TOL, rtol=REF_LOGIT_TOL)
+        e_dec = compare("smoke whisper-tiny decode logits card vs CPU", got["cuda"][1],
+                        got["cpu"][1], atol=REF_LOGIT_TOL, rtol=REF_LOGIT_TOL)
+        log("smoke", f"whisper-tiny smoke ({'Chimera' if use_chimera else 'softmax'} "
+                     f"cross-attention, d_head 16, L 16): forward (2 x 48 tokens, 96 frames) and "
+                     f"40 decode ticks, card vs CPU: logits max abs diff {e_fwd:.3e} and "
+                     f"{e_dec:.3e} (tolerance {REF_LOGIT_TOL:g} + {REF_LOGIT_TOL:g}*|ref|)")
 
 # --------------------------------------------------------------------------
 # 8. program (the compiled DataplaneProgram on the card)
@@ -5004,8 +5642,8 @@ def hold_loop(what, loop):
 
 
 def adapt_full_width():
-    """(a) The launcher's build-and-serve code at the paper's width on the
-    default drift schedule's batches: with no loop (the staging ring),
+    """(a) The launcher's build-and-serve code at the paper's width
+    (FLOW_LAYERS of its layers) on the default drift schedule's batches: with no loop (the staging ring),
     under the sync loop and under the async loop, each twice, in turns
     (no, sync, async, async, sync, no) so that an effect of the order on
     the timing cancels in the pairs."""
@@ -5013,7 +5651,7 @@ def adapt_full_width():
     from repro_torch.data.pipeline import DriftScenario, parse_phases
     from repro_torch.launch import flow_serve as F
 
-    ccfg, params = paper_classifier()
+    ccfg, params = paper_classifier(n_layers=FLOW_LAYERS)
     budget = torch.cuda.mem_get_info()[0] // 3
     phases = DriftScenario(phases=parse_phases(F.DEFAULT_DRIFT))
     runs, first_outs = {}, {}
@@ -5024,7 +5662,7 @@ def adapt_full_width():
         args = F.parse_args(ADAPT_ARGS + extra + ["--batches", str(phases.batches_per_cycle),
                                                   "--state-budget-bytes", str(budget)])
         t0 = time.perf_counter()
-        dep = F.build(args, params=params)
+        dep = F.build(args, params=params, arch=ccfg.arch)
         build_s = time.perf_counter() - t0
         if dep.program.ccfg.arch != ccfg.arch:
             fail("adapt: the launcher's arch is not the paper classifier's")
@@ -5516,7 +6154,7 @@ def shard_paper_width():
 
 def shard_elastic():
     """(b) The elastic service through the port's launcher (build and serve)
-    at the paper's width: 2 shards, reshard 2 -> 4 -> 2 over 12 rule-violating
+    at the paper's width, FLOW_LAYERS of its layers: 2 shards, reshard 2 -> 4 -> 2 over 12 rule-violating
     batches, checkpoints every 6 ticks into a temporary directory; beside it a
     service with no checkpoint directory on the same batches, never killed.
     Then 2 more batches, the first service loses shard 1 and recovers (from
@@ -5532,7 +6170,7 @@ def shard_elastic():
     from repro_torch.serve.deploy import ElasticConfig
     from repro_torch.serve.elastic import ElasticFlowService, snapshot_flow_state
 
-    ccfg, params = paper_classifier()
+    ccfg, params = paper_classifier(n_layers=FLOW_LAYERS)
     budget = torch.cuda.mem_get_info()[0] // 4
     tmp = tempfile.mkdtemp(prefix="chimera-elastic-")
     try:
@@ -5541,7 +6179,7 @@ def shard_elastic():
                              ("never killed", [])):
             args = F.parse_args(ELASTIC_ARGS + extra + ["--state-budget-bytes", str(budget)])
             t0 = time.perf_counter()
-            dep = deps[label] = F.build(args, params=params)
+            dep = deps[label] = F.build(args, params=params, arch=ccfg.arch)
             if dep.program.ccfg.arch != ccfg.arch:
                 fail("shard (b): the launcher's arch is not the paper classifier's")
             build_s = time.perf_counter() - t0
@@ -6593,6 +7231,8 @@ def main():
     for name, n in timed("train-chimera", phase_train_chimera, recs)["launches"].items():
         launches[name] += n
     for name, n in timed("lm-ssm", phase_lm_ssm, recs)["launches"].items():
+        launches[name] += n
+    for name, n in timed("lm-encdec", phase_lm_encdec, recs)["launches"].items():
         launches[name] += n
     for name, n in timed("trainer", phase_trainer, recs)["launches"].items():
         launches[name] += n

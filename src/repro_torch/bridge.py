@@ -25,14 +25,12 @@ from repro_torch.train.classifier import ClassifierConfig
 def arch_from_reference(ref) -> ArchConfig:
     """The port's ArchConfig from the JAX package's (read by attribute, so
     no import of the JAX package is needed), MLA widths, the Mamba fields,
-    ``remat`` and ``softmax_blk`` included.  ``swa_backend`` is dropped: the device of the tensors
-    chooses the kernel or its plain version."""
+    the enc-dec fields (``encoder_layers``, ``encoder_seq_fraction``),
+    ``remat`` and ``softmax_blk`` included.  ``swa_backend`` is dropped: the
+    device of the tensors chooses the kernel or its plain version."""
     ch, fm = ref.chimera, ref.chimera.feature_map
     if ref.use_chimera and (not (ch.use_local and ch.use_stream) or ch.expand_kv):
         raise NotImplementedError("the port runs Chimera with local + stream, no expand_kv")
-    if ref.encoder_layers:
-        raise NotImplementedError("the encoder-decoder path is not ported (ROADMAP Queue 1 "
-                                  "item 3: whisper-tiny)")
     return ArchConfig(
         name=ref.name, family=ref.family, n_layers=ref.n_layers, d_model=ref.d_model,
         n_heads=ref.n_heads, n_kv_heads=ref.n_kv_heads, d_ff=ref.d_ff,
@@ -49,6 +47,7 @@ def arch_from_reference(ref) -> ArchConfig:
         block_pattern=tuple(ref.block_pattern), mamba_d_state=ref.mamba_d_state,
         mamba_d_conv=ref.mamba_d_conv, mamba_expand=ref.mamba_expand,
         mamba_dt_rank=ref.mamba_dt_rank, mamba_chunk=ref.mamba_chunk,
+        encoder_layers=ref.encoder_layers, encoder_seq_fraction=ref.encoder_seq_fraction,
         use_chimera=ref.use_chimera,
         chimera=ChimeraAttentionConfig(
             feature_map=FeatureMapConfig(
@@ -80,8 +79,10 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     0-d ``_moe`` marker included, an MLA block's ``q_down``, ``q_norm``,
     ``q_up``, ``kv_down``, ``kv_norm``, ``k_up``, ``v_up``, ``wo`` and
     ``chimera``, a Mamba block's ``A_log``, ``D``, ``conv_w``, ``conv_b``
-    and ``dt_proj`` (with its bias) and an sLSTM block's ``r``, under their
-    own names; a leaf that is not an
+    and ``dt_proj`` (with its bias), an sLSTM block's ``r``, and the
+    enc-dec tree's ``enc_in``, ``enc_blocks``, ``enc_norm`` and each decoder
+    block's ``cross`` and ``ln_x`` (a LayerNorm's ``bias`` among them), under
+    their own names; a leaf that is not an
     array, or of another dtype, raises, so nothing is silently dropped."""
     device = resolve_device(device, "params_from_jax")
 

@@ -321,22 +321,26 @@ def compile_delta(
 # config (de)serialization — plain dicts, JSON-safe
 # --------------------------------------------------------------------------
 
-# Fields of the JAX package's configs that the port's lack.  An execution
-# choice is honoured whatever its value (the device of the tensors picks a
-# kernel or its plain version; the port has no scan or remat switch):
+# Fields of the JAX package's configs that the port's lack, or that a
+# program cannot use.  An execution choice is honoured whatever its value
+# (the device of the tensors picks a kernel or its plain version; the port
+# has no scan or remat switch):
 _EXECUTION = {
     "arch": ("swa_backend", "scan_layers", "remat"),
     "chimera": ("use_pallas", "backend"),
     "feature_map": (),
 }
-# a feature the port does not have is honoured only at the value that
-# leaves it off:
+# a feature that a program cannot use is honoured only at the value that
+# leaves it off: an encoder (the flow step's decode_hidden_step is
+# decoder-only in both packages), and Chimera ablations the port does not
+# have:
 _OFF = {
     "arch": {"encoder_layers": 0},
     "chimera": {"use_local": True, "use_stream": True, "expand_kv": False},
     "feature_map": {},
 }
-# and the knobs of such a feature are inert while it is off (the encoder):
+# and the knobs of such a feature are inert while it is off (the encoder's
+# sequence split):
 _INERT = {
     "arch": ("encoder_seq_fraction",),
     "chimera": (),
@@ -350,13 +354,14 @@ def _take(level: str, d: Dict, cls) -> Dict:
     names = {f.name for f in dataclasses.fields(cls)}
     out = {}
     for k, v in d.items():
+        if k in _OFF[level] and v != _OFF[level][k]:
+            why = (": the flow step's decode_hidden_step is decoder-only in both packages"
+                   if k == "encoder_layers" else "")
+            raise ValueError(f"program config: {level}.{k} = {v!r} is not supported by "
+                             f"the port (it takes {_OFF[level][k]!r}){why}")
         if k in names:
             out[k] = v
-        elif k in _OFF[level]:
-            if v != _OFF[level][k]:
-                raise ValueError(f"program config: {level}.{k} = {v!r} is not supported by "
-                                 f"the port (it takes {_OFF[level][k]!r})")
-        elif k not in _EXECUTION[level] and k not in _INERT[level]:
+        elif k not in _OFF[level] and k not in _EXECUTION[level] and k not in _INERT[level]:
             raise ValueError(f"program config: unknown field {level}.{k} = {v!r}")
     return out
 

@@ -2,12 +2,12 @@
 that the ported paths read, with the same names and defaults: stacks of
 attention blocks (GQA, SWA or MLA attention, Chimera or softmax, dense or
 MoE MLP), Mamba blocks and xLSTM's mLSTM and sLSTM blocks, for decode,
-prefill and training.
+prefill and training, and the encoder-decoder stack (whisper-tiny:
+``encoder_layers`` > 0) for its forward and decode.
 
-The encoder-decoder path (whisper-tiny) is not ported yet (ROADMAP Queue 1
-item 3), so its fields are absent here, and so are ``swa_backend`` and
-``scan_layers``: the device of the tensors chooses between a kernel and its
-plain version, and the port loops over the layer groups.  ``remat`` is
+``swa_backend`` and ``scan_layers`` are absent: the device of the tensors
+chooses between a kernel and its plain version, and the port loops over the
+layer groups.  ``remat`` is
 JAX's: ``"full"`` (the default) recomputes each layer group's forward in
 the backward pass (``torch.utils.checkpoint``, as
 ``jax.checkpoint`` around the scan body), ``"none"`` saves every layer's
@@ -26,7 +26,7 @@ from repro_torch.core.feature_maps import FeatureMapConfig
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | vlm are ported; audio (enc-dec) is not
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -69,6 +69,11 @@ class ArchConfig:
     mamba_expand: int = 2
     mamba_dt_rank: int = 0  # 0 → ceil(d_model / 16)
     mamba_chunk: int = 64
+
+    # enc-dec (whisper): encoder layers with non-causal self-attention;
+    # decoder layers get cross-attention to the encoder output
+    encoder_layers: int = 0
+    encoder_seq_fraction: float = 0.5  # split of seq_len for train/prefill
 
     # chimera integration (the paper's technique)
     use_chimera: bool = True

@@ -1,9 +1,8 @@
 """Registry of the configurations the port has (port of
 ``repro.configs.registry``: ``get_config`` and ``smoke_config`` :49-89).
 
-``smoke_config``'s reductions are the JAX package's, its Mamba branch
-included; its enc-dec branch waits for whisper-tiny (ROADMAP Queue 1 item
-3).
+``smoke_config``'s reductions are the JAX package's, its Mamba and
+enc-dec (``encoder_layers=2``) branches included.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from repro_torch.configs import (
     mixtral_8x7b,
     moonshot_v1_16b_a3b,
     qwen3_32b,
+    whisper_tiny,
     xlstm_125m,
     yi_9b,
 )
@@ -29,6 +29,7 @@ ARCHS = {
     "yi-9b": yi_9b.CONFIG,
     "minicpm3-4b": minicpm3_4b.CONFIG,
     "qwen3-32b": qwen3_32b.CONFIG,
+    "whisper-tiny": whisper_tiny.CONFIG,
     "mixtral-8x7b": mixtral_8x7b.CONFIG,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
     "chameleon-34b": chameleon_34b.CONFIG,
@@ -81,6 +82,8 @@ def smoke_config(name: str) -> ArchConfig:
     if cfg.attention_kind == "mla":
         replace.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
                        v_head_dim=16)
+    if cfg.encoder_layers:
+        replace.update(encoder_layers=2)
     if "mamba" in pattern:
         replace.update(mamba_d_state=8, mamba_chunk=8, mamba_expand=2)
     return dataclasses.replace(cfg, **replace)

@@ -73,10 +73,27 @@
 // W = T: with W >= T the band start max(0, i0 - W + 1) is 0, no tile is
 // skipped for the window and every tile below the diagonal is "full".
 //
+// Non-causal mode (causal = 0; window_attention_noncausal_launch): the same
+// kernel with n_q query rows against n_k keys of their own, every row
+// seeing every key, for blockwise_softmax_attention(causal=False) (the
+// encoder of whisper-tiny and its softmax cross-attention, Tq = 1 in
+// decode; JAX computes them in jnp, models/attention.py:42, :89, no
+// pallas_call).  A block walks every key tile of [0, n_k); the only masks
+// are the ragged tail of keys (j >= n_k, zero-filled rows of the last tile)
+// and rows >= n_q, which are computed on zeros and never stored.  A runtime
+// argument, not a template axis, so the build instantiates no more
+// kernels.  Bound at the encoder's shape (B 8 x H 6, T 1,536, d = dv = 64):
+// 29 GFLOP of QK^T and PV against 38 MB (bf16) or 75 MB (fp32) of q, k, v
+// and o, so operations bound it (0.03 ms at bf16's 989 TFLOP/s, 0.18 ms as
+// three TF32 passes); this first version runs the causal mode's split-fp32
+// products as they are, so bf16 inputs pay the three passes too.
+//
 // Contract (q, k, v, o and a non-null lse contiguous and 16-byte aligned;
 // q, k, v, o all float32 or all bfloat16, lse float32):
 //   q (B*H, T, d), k (B*Hkv, T, d), v (B*Hkv, T, dv) -> o (B*H, T, dv)
-//   and, if lse is not null, lse (B*H, T)
+//   and, if lse is not null, lse (B*H, T); in the non-causal mode
+//   q (B*H, Tq, d), k (B*Hkv, Tk, d), v (B*Hkv, Tk, dv) -> o (B*H, Tq, dv),
+//   any Tq, Tk >= 1, no lse
 // Takes H % Hkv == 0, W >= 1 (W > T included), any T, and (d, dv) with d
 // and dv in {64, 128}, d = dv in {16, 32} (the smoke configs' head widths:
 // QK^T runs two or four k-steps, and PV one fresh accumulator of 2 or 4
@@ -136,8 +153,8 @@ struct Layout {
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int BH, int H, int Hkv, int n, int window,
-    float sc) {
+    T* __restrict__ o, float* __restrict__ lse, int BH, int H, int Hkv, int n_q, int n_k,
+    int window, int causal, float sc) {
   using Lay = Layout<T, D, DV>;
   constexpr int SQ = Lay::SQ, SV = Lay::SV;
   constexpr int NT = DV / 8;                 // n-tiles of O
@@ -148,18 +165,18 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int nrb = (n + kBq - 1) / kBq;
+  const int nrb = (n_q + kBq - 1) / kBq;
   const int rb = nrb - 1 - (int)(blockIdx.x / BH);  // the longest row blocks first
   const int bh = (int)(blockIdx.x % BH);             // kv-head sharers side by side
   const int i0 = rb * kBq;
   const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const T* qb = q + (size_t)bh * n * D;
-  const T* kb = k + (size_t)kvh * n * D;
-  const T* vb = v + (size_t)kvh * n * DV;
+  const T* qb = q + (size_t)bh * n_q * D;
+  const T* kb = k + (size_t)kvh * n_k * D;
+  const T* vb = v + (size_t)kvh * n_k * DV;
 
   // rows row0 .. row0 + ROWS - 1 of src (COLS elements each) into dst,
   // 16 bytes per cp.async, zeros beyond row n - 1
-  auto load_rows = [&](T* dst, int sstride, const T* src, int cols, int row0, int rows) {
+  auto load_rows = [&](T* dst, int sstride, const T* src, int cols, int row0, int rows, int n) {
     constexpr int E = 16 / sizeof(T);
     const int c16 = cols / E;
     for (int x = tid; x < rows * c16; x += kThreads) {
@@ -169,16 +186,17 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
       cp_async16(dst + r * sstride + e, src + (size_t)(ok ? row : 0) * cols + e, ok ? 16 : 0);
     }
   };
-  const int j_first = max(0, i0 - window + 1);  // first key any row of the block sees
-  const int j_end = min(i0 + kBq, n);           // one past the last
+  // the first key any row of the block sees, and one past the last
+  const int j_first = causal ? max(0, i0 - window + 1) : 0;
+  const int j_end = causal ? min(i0 + kBq, n_k) : n_k;
   const int jt0 = j_first / kBk, jt1 = (j_end + kBk - 1) / kBk;
   auto issue = [&](int jt) {
     const int st = jt % kStages;
-    load_rows(smem + Lay::K + st * kBk * SQ, SQ, kb, D, jt * kBk, kBk);
-    load_rows(smem + Lay::V + st * kBk * SV, SV, vb, DV, jt * kBk, kBk);
+    load_rows(smem + Lay::K + st * kBk * SQ, SQ, kb, D, jt * kBk, kBk, n_k);
+    load_rows(smem + Lay::V + st * kBk * SV, SV, vb, DV, jt * kBk, kBk, n_k);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  load_rows(smem, SQ, qb, D, i0, kBq);  // Q joins the first tile's group
+  load_rows(smem, SQ, qb, D, i0, kBq, n_q);  // Q joins the first tile's group
   issue(jt0);
 
   const int r0 = i0 + 16 * warp;  // this warp's first row
@@ -193,9 +211,10 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
     __syncthreads();  // tile jt has landed for every thread; tile jt - 1 is retired
     if (jt + 1 < jt1) issue(jt + 1);
     const int j0 = jt * kBk;
-    // warp-uniform: this warp's rows exist and meet the tile inside the band
-    if (r0 >= n || j0 > r0 + 15 || r0 - (j0 + kBk - 1) >= window) continue;
-    const bool full = j0 + kBk - 1 <= r0 && r0 + 15 - j0 < window;
+    // warp-uniform: this warp's rows exist and (causal) meet the tile inside
+    // the band; "full": no entry of the tile is masked for any of its rows
+    if (r0 >= n_q || (causal && (j0 > r0 + 15 || r0 - (j0 + kBk - 1) >= window))) continue;
+    const bool full = causal ? j0 + kBk - 1 <= r0 && r0 + 15 - j0 < window : j0 + kBk <= n_k;
     const T* Ks = smem + Lay::K + (jt % kStages) * kBk * SQ;
     const T* Vs = smem + Lay::V + (jt % kStages) * kBk * SV;
 
@@ -243,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e < 2 ? ra : rbw, jj = j0 + 8 * j + 2 * t4 + (e & 1);
-          if (!(jj <= i && i - jj < window)) s[j][e] = kNeg;
+          if (causal ? !(jj <= i && i - jj < window) : jj >= n_k) s[j][e] = kNeg;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
         }
     }
@@ -318,40 +337,42 @@ __global__ void __launch_bounds__(kThreads, 1) window_attention_kernel(
   // the row's log-sum-exp: m is its max in the log2 domain, l its sum of
   // exp2(s sc - m); every lane of a quad holds both
   if (lse != nullptr && t4 == 0) {
-    float* lb = lse + (size_t)bh * n;
-    if (ra < n) lb[ra] = (m[0] + log2f(l[0])) * kLn2;
-    if (rbw < n) lb[rbw] = (m[1] + log2f(l[1])) * kLn2;
+    float* lb = lse + (size_t)bh * n_q;
+    if (ra < n_q) lb[ra] = (m[0] + log2f(l[0])) * kLn2;
+    if (rbw < n_q) lb[rbw] = (m[1] + log2f(l[1])) * kLn2;
   }
   const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
-  T* ob = o + (size_t)bh * n * DV + 2 * t4;
+  T* ob = o + (size_t)bh * n_q * DV + 2 * t4;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    if (ra < n) store2(ob + (size_t)ra * DV + 8 * j, acc[j][0] * inv0, acc[j][1] * inv0);
-    if (rbw < n) store2(ob + (size_t)rbw * DV + 8 * j, acc[j][2] * inv1, acc[j][3] * inv1);
+    if (ra < n_q) store2(ob + (size_t)ra * DV + 8 * j, acc[j][0] * inv0, acc[j][1] * inv0);
+    if (rbw < n_q) store2(ob + (size_t)rbw * DV + 8 * j, acc[j][2] * inv1, acc[j][3] * inv1);
   }
 }
 
 template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int H,
-           int Hkv, int n, int window, float scale, cudaStream_t stream) {
+           int Hkv, int n_q, int n_k, int window, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<T, D, DV>::bytes;
   static_assert(smem <= 227 * 1024, "shared memory beyond what a block may use");
   cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<T, D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)((n + kBq - 1) / kBq) * BH;
+  const long long blocks = (long long)((n_q + kBq - 1) / kBq) * BH;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   window_attention_kernel<T, D, DV><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, BH, H, Hkv, n, window, scale * kLog2e);
+      static_cast<T*>(o), lse, BH, H, Hkv, n_q, n_k, window, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dims(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int H,
-                int Hkv, int n, int d, int dv, int window, float scale, cudaStream_t s) {
-#define WA_DIMS(D, DV) \
-  if (d == D && dv == DV) return launch<T, D, DV>(q, k, v, o, lse, BH, H, Hkv, n, window, scale, s);
+                int Hkv, int n_q, int n_k, int d, int dv, int window, int causal, float scale,
+                cudaStream_t s) {
+#define WA_DIMS(D, DV)                                                                      \
+  if (d == D && dv == DV)                                                                   \
+    return launch<T, D, DV>(q, k, v, o, lse, BH, H, Hkv, n_q, n_k, window, causal, scale, s);
   WA_DIMS(64, 64)
   WA_DIMS(64, 128)
   WA_DIMS(128, 64)
@@ -378,6 +399,24 @@ extern "C" int window_attention_launch(const void* q, const void* k, const void*
   cudaStream_t s = (cudaStream_t)stream;
   float* l = static_cast<float*>(lse);
   if (bf16)
-    return launch_dims<__nv_bfloat16>(q, k, v, o, l, BH, H, Hkv, n, d, dv, window, scale, s);
-  return launch_dims<float>(q, k, v, o, l, BH, H, Hkv, n, d, dv, window, scale, s);
+    return launch_dims<__nv_bfloat16>(q, k, v, o, l, BH, H, Hkv, n, n, d, dv, window, 1, scale, s);
+  return launch_dims<float>(q, k, v, o, l, BH, H, Hkv, n, n, d, dv, window, 1, scale, s);
+}
+
+// The non-causal mode: q (BH, n_q, d) against k (BH/G, n_k, d) and v
+// (BH/G, n_k, dv), every key seen by every row; no lse (forward only).
+extern "C" int window_attention_noncausal_launch(const void* q, const void* k, const void* v,
+                                                 void* o, int BH, int H, int Hkv, int n_q,
+                                                 int n_k, int d, int dv, float scale, int bf16,
+                                                 void* stream) {
+  if (BH <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || n_q <= 0 || n_k <= 0)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (!p || ((uintptr_t)p & 15)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch_dims<__nv_bfloat16>(q, k, v, o, nullptr, BH, H, Hkv, n_q, n_k, d, dv, 1, 0,
+                                      scale, s);
+  return launch_dims<float>(q, k, v, o, nullptr, BH, H, Hkv, n_q, n_k, d, dv, 1, 0, scale, s);
 }

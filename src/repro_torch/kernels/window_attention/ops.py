@@ -1,5 +1,6 @@
-"""Causal sliding-window softmax attention: the CUDA kernels' wrappers, the
-autograd Function around them, and their plain versions.
+"""Causal sliding-window softmax attention and its non-causal mode: the CUDA
+kernels' wrappers, the autograd Function around them, and their plain
+versions.
 
 Replaces ``repro/kernels/window_attention/kernel.py::window_attention_pallas``
 with ``csrc/window_attention.cu`` (the SWA prefill of Mixtral's softmax
@@ -36,9 +37,20 @@ of the JAX op's ``custom_vjp`` (``repro/kernels/window_attention/ops.py``
   checks for the forward and the backward alike, and the wrappers raise
   ``ValueError`` before any launch on a shape outside them.  No wrapper
   falls back to the plain version when a build or a launch fails.
-* ``launches`` counts every kernel launch of the module, forward and
-  backward (never plain calls); ``bwd_launches`` the backward's alone
-  (three per backward).
+* :func:`noncausal_attention` — the forward kernel's non-causal mode on
+  the same layout, for ``blockwise_softmax_attention(causal=False)`` (the
+  encoder of whisper-tiny, which JAX computes in jnp, and its softmax
+  cross-attention): queries (B, H, Tq, d) against keys and values of their
+  own length Tk, every key seen by every row.  Forward only: on CUDA
+  tensors that need a gradient it raises ``NotImplementedError`` (the
+  non-causal backward is not written), and it never falls back to the
+  plain version.  :func:`window_attention_noncausal_plain` is its plain
+  version on the flattened layout, :func:`noncausal_attention_plain` on the
+  wrapper's.
+* ``launches`` counts every kernel launch of the module, forward (both
+  modes) and backward (never plain calls); ``bwd_launches`` the backward's
+  alone (three per backward); ``noncausal_launches`` the non-causal mode's
+  alone.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from repro_torch.kernels import _build
 
 launches = 0  # forward and backward kernel launches
 bwd_launches = 0  # the backward's kernel launches alone (three per backward)
+noncausal_launches = 0  # the forward's non-causal mode alone
 
 # the launcher's contract (csrc/window_attention.cu): the (d, dv) pairs it
 # is built for; (96, 64) and (24, 16) are MLA's heads at full and smoke width
@@ -60,17 +73,21 @@ DIMS_TAKEN = ((64, 64), (64, 128), (128, 64), (128, 128), (16, 16), (32, 32), (9
               (24, 16))
 
 
-def contract(*, d: int, dv: int, H: int, Hkv: int, window: int) -> Optional[str]:
+def contract(*, d: int, dv: int, H: int, Hkv: int, window: int = 0, causal: bool = True,
+             n_k: int = 1) -> Optional[str]:
     """``None`` if the kernels take these widths, else what they refuse: the
     forward and backward launchers' checks (the same for both), mirrored so
     that a shape outside them raises here rather than as a CUDA error
-    code."""
+    code.  ``causal`` (the banded mode) needs ``window`` >= 1; the
+    non-causal mode (forward only) needs ``n_k`` >= 1 keys."""
     if (d, dv) not in DIMS_TAKEN:
         return f"(d, dv) = ({d}, {dv}) not in {DIMS_TAKEN}"
     if Hkv <= 0 or H % Hkv:
         return f"{H} query heads over {Hkv} kv-heads"
-    if window < 1:
+    if causal and window < 1:
         return f"window {window} < 1"
+    if not causal and n_k < 1:
+        return f"{n_k} keys < 1"
     return None
 
 
@@ -102,6 +119,30 @@ def sliding_window_attention_plain(q, k, v, window: int) -> torch.Tensor:
     k = k.repeat_interleave(G, dim=1).reshape(B * H, T, d)
     v = v.repeat_interleave(G, dim=1).reshape(B * H, T, v.shape[-1])
     return window_attention_plain(q.reshape(B * H, T, d), k, v, window).reshape(B, H, T, -1)
+
+
+def window_attention_noncausal_plain(
+    q: torch.Tensor,  # (BH, Tq, d)
+    k: torch.Tensor,  # (BH, Tk, d)
+    v: torch.Tensor,  # (BH, Tk, dv)
+) -> torch.Tensor:
+    """The non-causal mode's function: every query row against all Tk keys,
+    scale 1/sqrt(d), dense (Tq, Tk) scores."""
+    d = q.shape[-1]
+    scores = torch.einsum("bid,bjd->bij", q, k) / math.sqrt(d)
+    w = torch.exp(scores - torch.amax(scores, dim=-1, keepdim=True))
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    return torch.einsum("bij,bjd->bid", w, v)
+
+
+def noncausal_attention_plain(q, k, v) -> torch.Tensor:
+    """The non-causal plain version on the wrapper's layout: K and V repeated
+    to the query heads, then flattened."""
+    B, H, Tq, d = q.shape
+    G, Tk = H // k.shape[1], k.shape[2]
+    k = k.repeat_interleave(G, dim=1).reshape(B * H, Tk, d)
+    v = v.repeat_interleave(G, dim=1).reshape(B * H, Tk, v.shape[-1])
+    return window_attention_noncausal_plain(q.reshape(B * H, Tq, d), k, v).reshape(B, H, Tq, -1)
 
 
 def window_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, window: int) -> torch.Tensor:
@@ -154,18 +195,24 @@ def window_attention_bwd_plain(
     return dq.reshape(BH, T, d).to(out), dk.to(out), dvv.to(out)
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, causal=True):
+    """Shapes, types and devices of a call; causal calls take Tk == T and a
+    window >= 1, non-causal ones any Tk >= 1 (``window`` unused)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("window_attention: q, k, v must be (B, heads, T, dim)")
     B, H, T, d = q.shape
-    Hkv, dv = k.shape[1], v.shape[-1]
-    if tuple(k.shape) != (B, Hkv, T, d) or tuple(v.shape) != (B, Hkv, T, dv):
+    Hkv, Tk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (causal and Tk != T) or tuple(k.shape) != (B, Hkv, Tk, d) \
+            or tuple(v.shape) != (B, Hkv, Tk, dv):
+        keys = "T" if causal else "Tk"
         raise ValueError(f"window_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and "
-                         f"v {tuple(v.shape)} do not fit (B, H, T, d) / (B, Hkv, T, d | dv)")
+                         f"v {tuple(v.shape)} do not fit (B, H, T, d) / (B, Hkv, {keys}, d | dv)")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"window_attention: {H} query heads over {Hkv} kv-heads")
-    if window < 1:
+    if causal and window < 1:
         raise ValueError(f"window_attention: window must be >= 1, got {window}")
+    if not causal and Tk < 1:
+        raise ValueError("window_attention: the non-causal mode needs at least one key")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"window_attention: {name} is {t.dtype}, q is {q.dtype}")
@@ -174,10 +221,10 @@ def _check(q, k, v, window):
     return B, H, Hkv, T, d, dv
 
 
-def _kernel_shapes(q, k, v, window):
+def _kernel_shapes(q, k, v, window, causal=True):
     """The checks every launch makes before it launches: device, dtype,
     contiguity and the launchers' contract."""
-    B, H, Hkv, T, d, dv = _check(q, k, v, window)
+    B, H, Hkv, T, d, dv = _check(q, k, v, window, causal)
     if q.device.type != "cuda":
         raise RuntimeError(f"window_attention: no kernel for device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -185,7 +232,8 @@ def _kernel_shapes(q, k, v, window):
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError("window_attention: the kernel takes contiguous tensors only")
-    refused = contract(d=d, dv=dv, H=H, Hkv=Hkv, window=window)
+    refused = contract(d=d, dv=dv, H=H, Hkv=Hkv, window=window, causal=causal,
+                       n_k=k.shape[2])
     if refused:
         raise ValueError(f"window_attention: outside the kernel's contract: {refused}")
     return B, H, Hkv, T, d, dv
@@ -208,6 +256,23 @@ def _launch_forward(q, k, v, window: int, with_lse: bool):
     _build.check(err, "window_attention")
     launches += 1
     return o, lse
+
+
+def _launch_noncausal(q, k, v):
+    """The forward kernel's non-causal mode: o (B, H, Tq, dv)."""
+    global launches, noncausal_launches
+    B, H, Hkv, T, d, dv = _kernel_shapes(q, k, v, 0, causal=False)
+    lib = _build.load_library()
+    o = torch.empty((B, H, T, dv), dtype=q.dtype, device=q.device)
+    err = lib.window_attention_noncausal_launch(
+        *map(_build.ptr, (q, k, v, o)), B * H, H, Hkv, T, k.shape[2], d, dv,
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "window_attention (non-causal)")
+    launches += 1
+    noncausal_launches += 1
+    return o
 
 
 def window_attention_fwd(q, k, v, window: int):
@@ -283,3 +348,22 @@ def sliding_window_attention(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _WindowAttention.apply(q, k, v, window)
     return _launch_forward(q, k, v, window, with_lse=False)[0]
+
+
+def noncausal_attention(
+    q: torch.Tensor,  # (B, H, Tq, d)
+    k: torch.Tensor,  # (B, Hkv, Tk, d)
+    v: torch.Tensor,  # (B, Hkv, Tk, dv)
+) -> torch.Tensor:
+    """Returns (B, H, Tq, dv) in q's dtype: softmax attention of every query
+    row over all Tk keys.  CPU tensors run the plain version (which
+    autograd differentiates); CUDA tensors the kernel's non-causal mode,
+    forward only."""
+    _check(q, k, v, 0, causal=False)
+    if q.device.type == "cpu":
+        return noncausal_attention_plain(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "window_attention: the non-causal mode is forward only; its backward (whisper-tiny "
+            "training) is not written")
+    return _launch_noncausal(q, k, v)

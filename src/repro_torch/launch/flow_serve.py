@@ -184,9 +184,10 @@ class ServeResult:
         return self.packets / self.seconds
 
 
-def build(args: argparse.Namespace, params=None) -> Deployment:
-    """Compile and deploy as the CLI does.  ``params`` replaces the seed-0
-    random weights (same config); they must be on ``args.device``."""
+def build(args: argparse.Namespace, params=None, arch=None) -> Deployment:
+    """Compile and deploy as the CLI does.  ``arch`` replaces the registry's
+    config (for example one cut in depth); ``params`` the seed-0 random
+    weights of that config, on ``args.device``."""
     import torch
 
     from repro_torch import resolve_device
@@ -198,7 +199,8 @@ def build(args: argparse.Namespace, params=None) -> Deployment:
     from repro_torch.train import classifier as C
 
     device = resolve_device(args.device, "flow_serve")
-    arch = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if arch is None:
+        arch = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     vocab = max(arch.vocab_size, 512)  # byte + marker alphabet
     arch = dataclasses.replace(arch, vocab_size=vocab)
     ccfg = C.ClassifierConfig(arch=arch, n_classes=8, marker_base=256)

@@ -86,12 +86,14 @@ def build(args: argparse.Namespace, params=None, arch=None) -> Deployment:
     from repro_torch import resolve_device
     from repro_torch.compile import compile_program
     from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models import model as M
     from repro_torch.serve.deploy import DeploySpec
     from repro_torch.train import classifier as C
 
     device = resolve_device(args.device, "serve")
     if arch is None:
         arch = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    M.refuse_encdec(arch, "the LM launcher")
     # LM serving has no field-marker alphabet: marker_base = vocab keeps the
     # signature tier to its minimal one-word layout, and the full-size arch's
     # per-flow state is amortized over shared SRAM (waived, audited)

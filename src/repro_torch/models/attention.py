@@ -6,7 +6,7 @@ of ``repro.models.attention``: ``_grouped`` :37, ``blockwise_softmax_attention``
 ``mla_attention_layer`` :340, ``init_mla_cache`` :355, ``mla_decode`` :367,
 ``attention_prefill`` :466, ``_fill_kv_cache`` :495 and ``mla_prefill`` :513).
 
-Every causal mode is ported.  The Chimera transform (``use_chimera``, the
+Every mode is ported.  The Chimera transform (``use_chimera``, the
 default of every config), on GQA/SWA heads or on MLA's materialized heads
 (q/k width ``qk_nope_dim + qk_rope_dim``, v width ``v_head_dim``, Gq 1):
 its prefill is ``chimera_prefill`` (the full chunks through the
@@ -18,10 +18,14 @@ softmax through the ``window_attention`` kernel, and a ring KV cache of
 ``use_chimera=False``): ``blockwise_softmax_attention``, which on the card
 runs the same ``window_attention`` kernel with the window at the sequence
 length, and a ``max_len`` KV cache, or MLA's latent cache ``{"c_kv",
-"k_r"}`` with the absorbed-matmul decode.  Non-causal attention (the
-encoder and cross-attention of whisper-tiny) raises
-``NotImplementedError``: it waits for the enc-dec slice, ROADMAP Queue 1
-item 3.
+"k_r"}`` with the absorbed-matmul decode.  Non-causal softmax (the encoder
+of whisper-tiny, and its cross-attention with ``use_chimera=False``):
+``blockwise_softmax_attention(causal=False)``, queries and keys of their
+own lengths, through the ``window_attention`` kernel's non-causal mode on
+the card (forward only).  Cross-attention (``init_cross_attention`` :408,
+``cross_attention_layer`` :425 and ``encode_cross_kv`` :453): the encoder's
+keys and values are computed once per request; the Chimera branch
+linearises it over them in plain tensor code, as JAX does in jnp.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import chimera_attention as chimera
-from repro_torch.kernels.window_attention.ops import sliding_window_attention
+from repro_torch.core.feature_maps import _normalize, apply_feature_map, init_feature_map
+from repro_torch.kernels.window_attention.ops import noncausal_attention, sliding_window_attention
 from repro_torch.models.layers import (
     apply_norm,
     apply_rope,
@@ -59,14 +64,8 @@ def require_ported(cfg: ArchConfig) -> None:
                                   "port has gqa, swa and mla")
 
 
-def _refuse_non_causal() -> None:
-    raise NotImplementedError("non-causal attention (the encoder and cross-attention of the "
-                              "enc-dec path) is not ported (ROADMAP Queue 1 item 3: "
-                              "whisper-tiny)")
-
-
 # --------------------------------------------------------------------------
-# Full-causal softmax attention
+# Full-causal and non-causal softmax attention
 # --------------------------------------------------------------------------
 
 def _grouped(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -74,16 +73,17 @@ def _grouped(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(B, n_kv, H // n_kv, T, d)
 
 
-def _masked_softmax_attention(q, k, v) -> torch.Tensor:
-    """Causal, with dense (T, Tk) scores, rows aligned to the keys' end (the
-    JAX function's causal case)."""
+def _masked_softmax_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Dense (T, Tk) scores; causal with the rows aligned to the keys' end,
+    else unmasked (the JAX function without a window)."""
     B, H, T, dh = q.shape
     n_kv, Tk = k.shape[1], k.shape[2]
     qg = _grouped(q, n_kv)
     s = torch.einsum("bhgid,bhjd->bhgij", qg, k) / math.sqrt(dh)
-    ii = torch.arange(T, device=q.device)[:, None] + (Tk - T)  # align ends (prefill offsets)
-    jj = torch.arange(Tk, device=q.device)[None, :]
-    s = torch.where((ii >= jj)[None, None, None], s, NEG_INF)
+    if causal:
+        ii = torch.arange(T, device=q.device)[:, None] + (Tk - T)  # align ends (prefill offsets)
+        jj = torch.arange(Tk, device=q.device)[None, :]
+        s = torch.where((ii >= jj)[None, None, None], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgij,bhjd->bhgid", w, v)
     return out.reshape(B, H, T, v.shape[-1])
@@ -94,11 +94,12 @@ def blockwise_softmax_attention_plain(
     k: torch.Tensor,  # (B, Hkv, Tk, dh)
     v: torch.Tensor,  # (B, Hkv, Tk, dv)
     blk: int = 1024,
+    causal: bool = True,
 ) -> torch.Tensor:
     """The plain version of :func:`blockwise_softmax_attention`, the JAX
     function block for block: kv blocks of ``blk`` keys with the online
-    max, sum and accumulator, ``NEG_INF`` on masked scores, and the dense
-    masked form where ``Tk % blk != 0 or Tk <= blk``.  The running max, sum
+    max, sum and accumulator, ``NEG_INF`` on masked scores (causal only),
+    and the dense form where ``Tk % blk != 0 or Tk <= blk``.  The running max, sum
     and accumulator are float32 (float64 for float64 inputs), where JAX
     keeps them in q's dtype: the kernel this stands beside keeps them in
     float32 whatever its inputs, and every config gives float32 queries
@@ -108,7 +109,7 @@ def blockwise_softmax_attention_plain(
     out_dtype = q.dtype
     q, k, v = (x.to(torch.promote_types(x.dtype, torch.float32)) for x in (q, k, v))
     if Tk % blk != 0 or Tk <= blk:
-        return _masked_softmax_attention(q, k, v).to(out_dtype)
+        return _masked_softmax_attention(q, k, v, causal).to(out_dtype)
     qg = _grouped(q, n_kv)
     scale = 1.0 / math.sqrt(dh)
     rows = torch.arange(T, device=q.device)
@@ -118,8 +119,9 @@ def blockwise_softmax_attention_plain(
     for j in range(Tk // blk):
         k_j, v_j = k[:, :, j * blk:(j + 1) * blk], v[:, :, j * blk:(j + 1) * blk]
         s = torch.einsum("bhgid,bhjd->bhgij", qg, k_j) * scale
-        cols = j * blk + torch.arange(blk, device=q.device)
-        s = torch.where((rows[:, None] >= cols[None, :])[None, None, None], s, NEG_INF)
+        if causal:
+            cols = j * blk + torch.arange(blk, device=q.device)
+            s = torch.where((rows[:, None] >= cols[None, :])[None, None, None], s, NEG_INF)
         m_cur = torch.maximum(m, torch.amax(s, dim=-1))
         alpha = torch.exp(m - m_cur)
         p = torch.exp(s - m_cur[..., None])
@@ -137,18 +139,19 @@ def blockwise_softmax_attention(
     blk: int = 1024,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Full-causal softmax attention, query head h on kv-head h // (H / Hkv),
-    scale 1/sqrt(dh): (B, H, T, dv) in q's dtype.  On the card it runs
-    ``csrc/window_attention.cu`` with the window Tk (T == Tk): a band of
-    width W >= T is causal attention, as the JAX package's
-    ``tests/test_kernels.py:115`` holds of its window kernel.  On the CPU it
-    runs :func:`blockwise_softmax_attention_plain`.  Non-causal attention
-    raises on both."""
-    if not causal:
-        _refuse_non_causal()
+    """Softmax attention, query head h on kv-head h // (H / Hkv), scale
+    1/sqrt(dh): (B, H, T, dv) in q's dtype.  Causal (T == Tk): on the card
+    ``csrc/window_attention.cu`` with the window Tk (a band of width W >= T
+    is causal attention, as the JAX package's ``tests/test_kernels.py:115``
+    holds of its window kernel).  Non-causal (any T and Tk): on the card
+    the same kernel's non-causal mode, forward only.  On the CPU both run
+    :func:`blockwise_softmax_attention_plain`."""
     if q.device.type == "cpu":
-        return blockwise_softmax_attention_plain(q, k, v, blk)
-    return sliding_window_attention(q.contiguous(), k.contiguous(), v.contiguous(), k.shape[2])
+        return blockwise_softmax_attention_plain(q, k, v, blk, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if not causal:
+        return noncausal_attention(q, k, v)
+    return sliding_window_attention(q, k, v, k.shape[2])
 
 
 # --------------------------------------------------------------------------
@@ -200,17 +203,18 @@ def attention_layer(
     positions: torch.Tensor,  # (B, T)
     causal: bool = True,
 ) -> torch.Tensor:
+    """Chimera or the banded softmax only when causal, as JAX routes them;
+    every other case, the encoder's non-causal self-attention among them,
+    takes the blockwise softmax."""
     require_ported(cfg)
-    if not causal:
-        _refuse_non_causal()
     B, T, _ = x.shape
     q, k, v = _project_qkv(cfg, params, x, positions)
-    if cfg.use_chimera:
+    if cfg.use_chimera and causal:
         o = chimera.chimera_attention(cfg.chimera, params["chimera"], q, k, v)
-    elif _is_swa(cfg):
+    elif _is_swa(cfg) and causal:
         o = _swa(cfg, q, k, v)
     else:
-        o = blockwise_softmax_attention(q, k, v, cfg.softmax_blk)
+        o = blockwise_softmax_attention(q, k, v, cfg.softmax_blk, causal=causal)
     o = o.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.head_dim)
     return dense(params["wo"], o)
 
@@ -323,6 +327,63 @@ def _fill_kv_cache(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, max_len: i
         ck[:, :, :keep] = k[:, :, :keep]
         cv[:, :, :keep] = v[:, :, :keep]
     return {"k": ck, "v": cv}
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (enc-dec): the encoder's keys are the static global set
+# --------------------------------------------------------------------------
+
+def init_cross_attention(cfg: ArchConfig, g: torch.Generator, device="cpu") -> Params:
+    d, H, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    p = {
+        "wq": init_dense(g, d, H * dh, device=device),
+        "wk": init_dense(g, d, H * dh, device=device),
+        "wv": init_dense(g, d, H * dh, device=device),
+        "wo": init_dense(g, H * dh, d, device=device),
+    }
+    if cfg.use_chimera:
+        p["fm"] = init_feature_map(cfg.chimera.feature_map, dh, g, device)
+    return p
+
+
+def cross_attention_layer(
+    cfg: ArchConfig,
+    params: Params,
+    x: torch.Tensor,  # (B, Tq, d) decoder states
+    enc_kv: Tuple[torch.Tensor, torch.Tensor],  # precomputed (k, v): (B, H, Te, dh)
+) -> torch.Tensor:
+    """Chimera: attention linearised over the encoder's keys, which are a
+    static set per request (the paper's TCAM-resident G, Eq. 14 right
+    term): s = phi(q) phi(k)^T (B, H, Tq, Te), then s v over s's row sums
+    plus gamma, in JAX's order.  Softmax: the non-causal blockwise softmax
+    (Tq against Te keys; Tq = 1 in decode)."""
+    B, Tq, _ = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    q = dense(params["wq"], x).reshape(B, Tq, H, dh).transpose(1, 2)
+    k, v = enc_kv
+    if cfg.use_chimera:
+        fmc = cfg.chimera.feature_map
+        pq = apply_feature_map(fmc, params["fm"], _normalize(q, fmc.input_scale))
+        pk = apply_feature_map(fmc, params["fm"], _normalize(k, fmc.input_scale))
+        pq, pk, vp = promote(pq, pk, v)
+        s = torch.einsum("bhim,bhjm->bhij", pq, pk)
+        num = torch.einsum("bhij,bhjd->bhid", s, vp)
+        den = torch.sum(s, dim=-1)
+        o = num / (den[..., None] + cfg.chimera.gamma)
+    else:
+        o = blockwise_softmax_attention(q, k, v, cfg.softmax_blk, causal=False)
+    o = o.transpose(1, 2).reshape(B, Tq, H * dh)
+    return dense(params["wo"], o)
+
+
+def encode_cross_kv(cfg: ArchConfig, params: Params, enc_out: torch.Tensor):
+    """The encoder output's cross-attention keys and values, (B, H, Te, dh)
+    each."""
+    B, Te, _ = enc_out.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    k = dense(params["wk"], enc_out).reshape(B, Te, H, dh).transpose(1, 2)
+    v = dense(params["wv"], enc_out).reshape(B, Te, H, dh).transpose(1, 2)
+    return k, v
 
 
 # --------------------------------------------------------------------------

@@ -53,16 +53,28 @@ def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def init_norm(d: int, device="cpu") -> Params:
-    return {"scale": torch.ones((d,), device=device)}
+def init_norm(d: int, device="cpu", kind: str = "rmsnorm") -> Params:
+    p = {"scale": torch.ones((d,), device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), device=device)
+    return p
 
 
 def apply_norm(params: Params, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-6):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported")
-    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps).to(x.dtype)
-    return y * params["scale"].to(x.dtype)
+    """RMSNorm, or LayerNorm (``kind="layernorm"``): the statistics in
+    float32, the normalised value in x's dtype, then scale (and bias) in
+    x's dtype, as the JAX package's ``apply_norm``."""
+    if kind == "rmsnorm":
+        var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+        y = x * torch.rsqrt(var + eps).to(x.dtype)
+        return y * params["scale"].to(x.dtype)
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm {kind!r}")
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = ((x - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
 
 
 def init_embedding(g: torch.Generator, vocab: int, d: int, device="cpu") -> Params:

@@ -2,10 +2,13 @@
 ``_block_forward`` :89, ``_group_forward`` :176, ``init_model`` :188,
 ``_scan_groups`` :205, ``forward`` :221, ``_head`` :241, ``loss_fn`` :264,
 ``init_caches`` :300, ``_block_decode`` :309, ``decode_hidden_step`` :335,
-``decode_step`` :363, ``_block_prefill`` :500 and ``prefill_with_caches``
-:526, with the dispatch of ``_init_block``, ``_block_forward``,
-``_init_block_cache`` :286, ``_block_decode`` and ``_block_prefill`` on the
-block kind and on MLA).
+``decode_step`` :363, ``_init_encdec`` :382, ``encode`` :413,
+``_encdec_forward`` :433, ``init_encdec_caches`` :459,
+``_encdec_decode_step`` :476, ``_block_prefill`` :500 and
+``prefill_with_caches`` :526, with the dispatch of ``_init_block``,
+``_block_forward``, ``_init_block_cache`` :286, ``_block_decode`` and
+``_block_prefill`` on the block kind and on MLA, and of ``init_model``,
+``forward`` and ``decode_step`` on ``encoder_layers``).
 
 The parameter layout is the JAX package's: per-group block parameters are
 stacked on a leading "layers" axis under ``params["blocks"]["b<j>"]``, and
@@ -18,10 +21,22 @@ full-causal), ``mamba`` (``models/mamba.py``), ``mlstm`` and ``slstm``
 MLP (MoE keyed on the block's position in the pattern), the xLSTM blocks
 none.  The residual stream is in ``cfg.dtype``: the embedding is cast to it, and every
 block's output is cast back to it before the residual add, as in JAX.
+
+The encoder-decoder stack (whisper-tiny, ``encoder_layers`` > 0) serves:
+``init_model``, ``encode`` (a stub frontend's frame embeddings through
+``enc_in`` and ``encoder_layers`` attention blocks with non-causal
+softmax, RoPE on q and k), the teacher-forced ``forward`` and ``loss_fn``
+(each decoder block: causal self-attention, then cross-attention to the
+encoder's output behind ``ln_x``, then the MLP), ``init_encdec_caches``
+(each decoder block's self-attention cache beside its precomputed
+cross-attention keys and values) and ``decode_step``.  As in the JAX
+package there is no enc-dec ``prefill_with_caches``, ``decode_hidden_step``
+or LM engine: those raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
@@ -63,22 +78,26 @@ BLOCK_KINDS = ("attn",) + tuple(_MIXER_INIT)
 
 def _require_ported(cfg: ArchConfig) -> None:
     """The stacks the port has: any pattern of attention (GQA, SWA or MLA;
-    Chimera or softmax), Mamba, mLSTM and sLSTM blocks, families dense,
-    moe, vlm, hybrid and ssm.  The encoder-decoder stack (whisper-tiny,
-    family "audio") is refused: it waits for ROADMAP Queue 1 item 3.
-    ``family`` is a label (the JAX package's dryrun prints it): a "vlm"
-    such as Chameleon, whose image tokens are vocabulary ids, is a stack of
-    attention blocks."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder stack (family audio, whisper-tiny) is not ported "
-            "(ROADMAP Queue 1 item 3); the port has stacks of attention, Mamba, mLSTM and "
-            "sLSTM blocks")
+    Chimera or softmax), Mamba, mLSTM and sLSTM blocks, with or without an
+    encoder (``encoder_layers``).  ``family`` is a label (the JAX package's
+    dryrun prints it): a "vlm" such as Chameleon, whose image tokens are
+    vocabulary ids, is a stack of attention blocks."""
     unknown = [kind for kind in cfg.pattern if kind not in BLOCK_KINDS]
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {unknown}")
     if "attn" in cfg.pattern:
         attn.require_ported(cfg)
+
+
+def refuse_encdec(cfg: ArchConfig, what: str) -> None:
+    """Raise for an encoder-decoder config where the JAX package has no
+    enc-dec counterpart either (prefill, the hidden-state decode, the LM
+    engine and its launcher build decoder-only caches)."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is decoder-only; the JAX package has no encoder-decoder "
+            "prefill, hidden-state decode or LM engine either (serve an enc-dec model with "
+            "init_encdec_caches and decode_step)")
 
 
 def _is_mla(cfg: ArchConfig) -> bool:
@@ -95,9 +114,9 @@ def _init_block(cfg: ArchConfig, kind: str, pos_in_pattern: int, g: torch.Genera
         init = attn.init_mla if _is_mla(cfg) else attn.init_attention
     else:
         init = _MIXER_INIT[kind]
-    p = {"ln1": init_norm(cfg.d_model, device), "attn": init(cfg, g, device)}
+    p = {"ln1": init_norm(cfg.d_model, device, cfg.norm_type), "attn": init(cfg, g, device)}
     if kind in ("attn", "mamba") and (cfg.d_ff or cfg.moe_experts):
-        p["ln2"] = init_norm(cfg.d_model, device)
+        p["ln2"] = init_norm(cfg.d_model, device, cfg.norm_type)
         if cfg.layer_is_moe(pos_in_pattern):
             p["mlp"] = moe_mod.init_moe(cfg, g, device)
             p["_moe"] = torch.zeros((), device=device)  # structural marker
@@ -134,13 +153,15 @@ def init_model(cfg: ArchConfig, g: torch.Generator, device=None) -> Params:
     ``"cuda"``; without a GPU it raises."""
     _require_ported(cfg)
     device = resolve_device(device, "init_model")
+    if cfg.encoder_layers:
+        return _init_encdec(cfg, g, device)
     p: Params = {"embed": init_embedding(g, cfg.padded_vocab, cfg.d_model, device)}
     groups = [
         {f"b{j}": _init_block(cfg, kind, j, g, device) for j, kind in enumerate(cfg.pattern)}
         for _ in range(cfg.n_groups)
     ]
     p["blocks"] = stack_params(groups)
-    p["final_norm"] = init_norm(cfg.d_model, device)
+    p["final_norm"] = init_norm(cfg.d_model, device, cfg.norm_type)
     if not cfg.tie_embeddings:
         p["head"] = init_dense(g, cfg.d_model, cfg.padded_vocab, device=device)
     return p
@@ -202,9 +223,11 @@ def _scan_groups(cfg: ArchConfig, stacked: Params, x, positions, causal: bool = 
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    """batch: {"tokens": (B,T) int[, "positions"]}.  Returns
-    (logits (B,T,V_padded), aux_loss)."""
+    """batch: {"tokens": (B,T) int[, "positions"][, "enc_embeds" (B, Te, d)
+    for an enc-dec config]}.  Returns (logits (B,T,V_padded), aux_loss)."""
     _require_ported(cfg)
+    if cfg.encoder_layers:
+        return _encdec_forward(cfg, params, batch)
     tokens = batch["tokens"]
     B, T = tokens.shape
     positions = batch.get("positions")
@@ -294,7 +317,9 @@ def decode_hidden_step(
     position: torch.Tensor,  # (B,) int
     caches,  # from init_caches, updated in place
 ) -> torch.Tensor:
-    """One streaming step to the final-norm hidden state: (B,) -> (B, d)."""
+    """One streaming step to the final-norm hidden state: (B,) -> (B, d).
+    Decoder-only, as in JAX."""
+    refuse_encdec(cfg, "decode_hidden_step")
     x = embed(params["embed"], token[:, None]).to(_dtype(cfg))
     for gi in range(cfg.n_groups):
         for j, kind in enumerate(cfg.pattern):
@@ -310,7 +335,10 @@ def decode_hidden_step(
 
 def decode_step(cfg: ArchConfig, params: Params, token, position, caches) -> torch.Tensor:
     """One non-iterative serve step: (B,) token -> (B, V_padded) logits; the
-    caches are updated in place."""
+    caches (``init_caches``, or ``init_encdec_caches`` for an enc-dec
+    config) are updated in place."""
+    if cfg.encoder_layers:
+        return _encdec_decode_step(cfg, params, token, position, caches)
     x = decode_hidden_step(cfg, params, token, position, caches)
     return _head(cfg, params, x[:, None])[:, 0]
 
@@ -336,8 +364,9 @@ def prefill_with_caches(cfg: ArchConfig, params: Params, tokens: torch.Tensor, m
     One forward over the prompt builds every layer's decode cache, with the
     continuation semantics of feeding the prompt through ``decode_step``
     token by token (up to MoE capacity drops, which prefill can have and
-    one-token decode cannot)."""
+    one-token decode cannot).  Decoder-only, as in JAX."""
     _require_ported(cfg)
+    refuse_encdec(cfg, "prefill_with_caches")
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     x = embed(params["embed"], tokens).to(_dtype(cfg))
@@ -351,3 +380,113 @@ def prefill_with_caches(cfg: ArchConfig, params: Params, tokens: torch.Tensor, m
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     logits = _head(cfg, params, x[:, -1:])[:, 0]
     return logits, stack_params(per_group)
+
+
+# --------------------------------------------------------------------------
+# Encoder-decoder (whisper)
+# --------------------------------------------------------------------------
+
+def _enc_cfg(cfg: ArchConfig) -> ArchConfig:
+    return dataclasses.replace(cfg, block_pattern=("attn",))
+
+
+def _init_encdec(cfg: ArchConfig, g: torch.Generator, device) -> Params:
+    """The enc-dec tree with JAX's names: ``enc_in`` (the stub frontend's
+    adapter), ``enc_blocks`` (``encoder_layers`` attention blocks stacked),
+    ``enc_norm``, ``embed``, ``blocks`` (the decoder's groups, each block
+    with ``cross`` and ``ln_x``), ``final_norm`` and ``head``."""
+    enc_cfg = _enc_cfg(cfg)
+    p: Params = {"enc_in": init_dense(g, cfg.d_model, cfg.d_model, device=device)}
+    p["enc_blocks"] = stack_params([{"b0": _init_block(enc_cfg, "attn", 0, g, device)}
+                                    for _ in range(cfg.encoder_layers)])
+    p["enc_norm"] = init_norm(cfg.d_model, device, cfg.norm_type)
+    p["embed"] = init_embedding(g, cfg.padded_vocab, cfg.d_model, device)
+    groups = []
+    for _ in range(cfg.n_groups):
+        gp = {}
+        for j, kind in enumerate(cfg.pattern):
+            gp[f"b{j}"] = _init_block(cfg, kind, j, g, device)
+            gp[f"b{j}"]["cross"] = attn.init_cross_attention(cfg, g, device)
+            gp[f"b{j}"]["ln_x"] = init_norm(cfg.d_model, device, cfg.norm_type)
+        groups.append(gp)
+    p["blocks"] = stack_params(groups)
+    p["final_norm"] = init_norm(cfg.d_model, device, cfg.norm_type)
+    p["head"] = init_dense(g, cfg.d_model, cfg.padded_vocab, device=device)
+    return p
+
+
+def encode(cfg: ArchConfig, params: Params, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """enc_embeds: (B, Te, d) precomputed frontend embeddings (stub) ->
+    (B, Te, d) encoder output in ``cfg.dtype``: non-causal softmax
+    self-attention in every layer (on the card, window_attention's
+    non-causal mode)."""
+    _require_ported(cfg)
+    x = dense(params["enc_in"], enc_embeds.to(_dtype(cfg)))
+    B, Te, _ = x.shape
+    positions = torch.arange(Te, device=x.device).expand(B, Te)
+    enc_cfg = _enc_cfg(cfg)
+    for gi in range(cfg.encoder_layers):
+        x, _ = _block_forward(enc_cfg, "attn", index_params(params["enc_blocks"]["b0"], gi), x,
+                              positions, causal=False)
+    return apply_norm(params["enc_norm"], x, cfg.norm_type)
+
+
+def _cross(cfg: ArchConfig, bp: Params, x, kv):
+    """The decoder block's cross-attention sublayer with its residual add."""
+    h = apply_norm(bp["ln_x"], x, cfg.norm_type)
+    return x + attn.cross_attention_layer(cfg, bp["cross"], h, kv).to(x.dtype)
+
+
+def _encdec_forward(cfg: ArchConfig, params: Params, batch):
+    enc_out = encode(cfg, params, batch["enc_embeds"])
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    x = embed(params["embed"], tokens).to(_dtype(cfg))
+    aux = torch.zeros((), device=x.device)
+    for gi in range(cfg.n_groups):
+        gp = index_params(params["blocks"], gi)
+        for j, kind in enumerate(cfg.pattern):
+            bp = gp[f"b{j}"]
+            x, a = _block_forward(cfg, kind, bp, x, positions, causal=True)
+            x = _cross(cfg, bp, x, attn.encode_cross_kv(cfg, bp["cross"], enc_out))
+            aux = aux + a
+    x = apply_norm(params["final_norm"], x, cfg.norm_type)
+    return _head(cfg, params, x), aux
+
+
+def init_encdec_caches(cfg: ArchConfig, params: Params, enc_embeds: torch.Tensor, batch: int,
+                       max_len: int, dtype=None):
+    """Decode caches for enc-dec, on ``enc_embeds``' device: ``{"b<j>":
+    {"self": the block's zero self-attention cache, "cross_kv": (k, v) of
+    the encoder's output, (n_groups, B, H, Te, dh) each}}``, every leaf
+    stacked on the layer axis.  ``dtype`` (the self cache's) defaults to
+    ``cfg.dtype``."""
+    _require_ported(cfg)
+    dtype = dtype or _dtype(cfg)
+    enc_out = encode(cfg, params, enc_embeds)
+    out = {}
+    for j, kind in enumerate(cfg.pattern):
+        kvs = [attn.encode_cross_kv(cfg, index_params(params["blocks"][f"b{j}"], gi)["cross"],
+                                    enc_out) for gi in range(cfg.n_groups)]
+        out[f"b{j}"] = {
+            "self": _init_block_cache(cfg, kind, batch, max_len, dtype, enc_out.device,
+                                      (cfg.n_groups,)),
+            "cross_kv": tuple(torch.stack(t) for t in zip(*kvs)),
+        }
+    return out
+
+
+def _encdec_decode_step(cfg: ArchConfig, params: Params, token, position, caches):
+    x = embed(params["embed"], token[:, None]).to(_dtype(cfg))
+    for gi in range(cfg.n_groups):
+        for j, kind in enumerate(cfg.pattern):
+            c = caches[f"b{j}"]
+            layer = _layer_cache(c["self"], gi)
+            bp = index_params(params["blocks"][f"b{j}"], gi)
+            x = _block_decode(cfg, kind, bp, x, position, layer)
+            if isinstance(c["self"], ChimeraState):
+                c["self"].count[gi] = layer.count
+            x = _cross(cfg, bp, x, tuple(t[gi] for t in c["cross_kv"]))
+    x = apply_norm(params["final_norm"], x, cfg.norm_type)
+    return _head(cfg, params, x)[:, 0]

@@ -72,6 +72,7 @@ class ServeEngine:
         seed: int = 0,
         device=None,
     ):
+        M.refuse_encdec(cfg, "ServeEngine")
         self.device = resolve_device(device, "ServeEngine")
         for leaf in tree_flatten(params)[0]:
             if leaf.device.type != self.device.type:

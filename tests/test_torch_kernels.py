@@ -210,6 +210,8 @@ def _port_configs():
 # the full-causal softmax prefill runs window_attention with the window at
 # the prompt's length: any length the launcher serves
 FULL_CAUSAL_T = 8192
+# the enc-dec encoder's frames: 30 s of audio, padded (whisper-tiny)
+ENCODER_T = 1536
 
 
 def _kernel_calls(cfg):
@@ -219,24 +221,28 @@ def _kernel_calls(cfg):
     chimera_attention (training); the softmax stack's window_attention (LM
     prefill, banded or at W = T).  MLA's heads are its materialized ones:
     H heads of q/k width qk_nope + qk_rope and v width v_head_dim.  A stack
-    without attention blocks (xLSTM) launches none of them."""
+    without attention blocks (xLSTM) launches none of them.  An enc-dec
+    stack (whisper-tiny) also runs window_attention's non-causal mode: its
+    encoder (Te keys) and, with use_chimera False, its cross-attention."""
     if "attn" not in cfg.pattern:
         return []
     H, Hkv, d, dv = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim
     if cfg.attention_kind == "mla":
         Hkv, d, dv = H, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim or cfg.head_dim
+    encoder = ([("window_attention", wops.contract(d=d, dv=dv, H=H, Hkv=Hkv, causal=False,
+                                                   n_k=ENCODER_T))] if cfg.encoder_layers else [])
     if cfg.use_chimera:
         ch = cfg.chimera
         m, L = ch.feature_map.feature_dim(d), ch.chunk_size
-        return [
+        return encoder + [
             ("decode_step", dops.contract(Gq=H // Hkv, d=d, dv=dv, m=m, L=L)),
             ("flow_score", sops.contract(d=cfg.d_model, K=8, W=8, M=1)),
             ("chimera_attention", cops.contract(d=d, dv=dv, m=m, L=L)),
         ]
     swa = cfg.attention_kind == "swa" and cfg.sliding_window
-    return [("window_attention", wops.contract(d=d, dv=dv, H=H, Hkv=Hkv,
-                                               window=cfg.sliding_window if swa
-                                               else FULL_CAUSAL_T))]
+    return encoder + [("window_attention", wops.contract(d=d, dv=dv, H=H, Hkv=Hkv,
+                                                         window=cfg.sliding_window if swa
+                                                         else FULL_CAUSAL_T))]
 
 
 @pytest.mark.parametrize("label,cfg", _port_configs(), ids=[c[0] for c in _port_configs()])

@@ -516,12 +516,18 @@ def test_bridge_carries_every_leaf_of_a_mixtral_tree(mixtral):
                                      dict(family="audio", block_pattern=("mlstm",)),
                                      dict(family="audio")])
 def test_unported_attention_paths_raise(replace):
-    """Full-causal softmax and MLA are ported (tests/test_torch_mla.py), and
-    so are Mamba and xLSTM (tests/test_torch_ssm.py); the stack still
-    refused is the enc-dec one (family audio), whatever its blocks."""
-    cfg = dataclasses.replace(smoke_config("mixtral-8x7b"), use_chimera=False, **replace)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TM.init_model(cfg, torch.Generator(), device="cpu")
+    """Full-causal softmax and MLA are ported (tests/test_torch_mla.py), so
+    are Mamba and xLSTM (tests/test_torch_ssm.py) and the enc-dec stack
+    (tests/test_torch_encdec.py); what the serving path still refuses is an
+    enc-dec config's prefill and LM engine, whatever its blocks, which the
+    JAX package lacks too."""
+    cfg = dataclasses.replace(smoke_config("mixtral-8x7b"), use_chimera=False, encoder_layers=2,
+                              **replace)
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="no encoder-decoder"):
+        TM.prefill_with_caches(cfg, {}, toks, 8)
+    with pytest.raises(NotImplementedError, match="no encoder-decoder"):
+        TE.ServeEngine(cfg, {}, batch_slots=1, max_len=8, device="cpu")
 
 
 # --------------------------------------------------------------------------

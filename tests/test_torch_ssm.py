@@ -5,8 +5,8 @@ sLSTM layers and decode steps, then the smoke configs of Jamba-1.5-Large
 (Mamba, Chimera attention, MoE) and xLSTM-125M through ``forward``,
 ``prefill_with_caches``, ``decode_step``, ``ServeEngine`` (submit/step with
 a refilled slot, and ``prefill_batch``) and the LM launcher; the bridge's
-new leaves; the refusals that remain (the enc-dec stack); the Jamba cut that
-the card serves.
+new leaves; the bridge crossing the enc-dec stack; the Jamba cut that the
+card serves.
 
 The same inputs, made with numpy from a seed or drawn by the JAX package and
 carried through ``bridge.py``, go through both packages.  The JAX package
@@ -503,13 +503,24 @@ def test_one_layer_group_is_stacked_without_a_copy():
     assert bool(torch.isfinite(TM.forward(cut, params, {"tokens": toks})[0]).all())
 
 
-def test_the_enc_dec_stack_is_still_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        bridge.arch_from_reference(j_smoke("whisper-tiny"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        bridge.arch_from_reference(dataclasses.replace(j_smoke(JAMBA), encoder_layers=2))
-    with pytest.raises(KeyError):
-        get_config("whisper-tiny")
-    cfg = dataclasses.replace(smoke_config(XLSTM), family="audio")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TM.init_model(cfg, torch.Generator(), device="cpu")
+def test_the_enc_dec_stack_crosses_the_bridge():
+    """The enc-dec stack is ported (tests/test_torch_encdec.py): the bridge
+    crosses whisper-tiny and an enc-dec variant of Jamba's smoke config (a
+    decoder of Mamba and attention blocks, each with cross-attention), and
+    the registry resolves whisper-tiny."""
+    assert bridge.arch_from_reference(j_smoke("whisper-tiny")) == smoke_config("whisper-tiny")
+    jcfg = dataclasses.replace(j_smoke(JAMBA), encoder_layers=2)
+    cfg = bridge.arch_from_reference(jcfg)
+    assert cfg == dataclasses.replace(smoke_config(JAMBA), encoder_layers=2)
+    assert get_config("whisper-tiny").encoder_layers == 4
+    params = TM.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert "cross" in params["blocks"]["b0"] and params["enc_blocks"]["b0"]["attn"]["wq"]["w"] \
+        .shape[0] == 2
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))),
+             "enc_embeds": torch.from_numpy(rng.standard_normal((2, 24, cfg.d_model))
+                                            .astype(np.float32))}
+    with torch.no_grad():
+        logits, _ = TM.forward(cfg, params, batch)
+    assert tuple(logits.shape) == (2, 16, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
