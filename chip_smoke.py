@@ -18,7 +18,9 @@ Phases, each printing its own lines:
                window_attention's non-causal mode at whisper-tiny's encoder
                shape (B 8 x H 6, T 1,536, d 64; fp32 and bf16, timed beside
                scaled_dot_product_attention) and at its edges (Tq != Tk, Tk
-               off the key tile, Tq = 1), and its gradient refusal.
+               off the key tile, Tq = 1), and a call with a gradient at one
+               segment of that shape (the non-causal backward, fp32 and
+               bf16).
 4. engine    — the serving path: a ``FlowEngine`` at the paper's full width
                (chimera-dataplane: d 256, m 256, L 64, n_global 64; FLOW_LAYERS
                1 of its 4 layers; capacity 4096, lanes 256) with random
@@ -170,7 +172,7 @@ Phases, each printing its own lines:
                trainer phases' Chimera training runs the backward kernels
                too.
 
-16. lm-ssm   — run after the train-chimera phase, before the trainer
+16. lm-ssm   — run after the train-ssm phase, before the trainer
                phase: Mamba and xLSTM served on the card.  (a) decode_step
                and chimera_attention_long.cu at Jamba's attention widths (2
                slots x 8 kv-heads, Gq 8, d = dv = m 128, L 256; T 8192)
@@ -201,10 +203,37 @@ Phases, each printing its own lines:
                forward and per-tick ms, peak memory, launches.  The smoke
                phase adds smoke whisper-tiny, card against CPU.
 
-Phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 are the main paths:
-the kernels' launch counters are zeroed just before each (each part of
-phases 10, 12, 13, 14, 15, 16 and 17) and read just after, and each fails
-if one of its kernels never launched.  Then
+18. train-encdec — run after the train-chimera phase: whisper-tiny trained
+               on the card.  (a) window_attention_bwd.cu's non-causal mode
+               against window_attention_noncausal_bwd_plain in float64 at the
+               encoder's training shape (B 8 x H 6, Tq = Tk 2,048, d = dv =
+               64), bf16 and fp32, each timed beside its bound and
+               scaled_dot_product_attention's backward, and at the forward's
+               edge shapes x six (d, dv) x fp32 and bf16; the Chimera
+               backward timed at the decoder's training shape (BH 48, T
+               2,048, the bf16 route); (b) whisper-tiny at
+               full width and depth through the Trainer on its train cell (B
+               8 x (Te 2,048 frames + T_dec 2,048 tokens), bf16, remat
+               "full"): 1 + 5 AdamW steps, ms/step, positions/s, peak memory,
+               busy share, launches, the types reaching the non-causal
+               backward; (c) the whole step against the plain route on the
+               card in fp32; (d) (b) and (c) for the softmax cross-attention
+               variant at 1 decoder layer; (e) smoke whisper-tiny (both
+               branches) through the Trainer, card against CPU.
+
+19. train-ssm — run after the train-encdec phase: Jamba-1.5-Large's
+               training cut (full width, a Mamba and a Chimera attention
+               block with dense MLPs) at B 1 x 4,096 (1 + 2 steps) and
+               xLSTM-125M at full depth at B 4 x 512 (1 + 1) through the
+               Trainer (ms/step, tokens/s, peak memory; busy share and the
+               "mamba", "mlstm" and "slstm" scopes of a step profiled at T
+               512 and 16), Jamba's whole step against the plain route in
+               fp32 at 2,048, both smoke configs card against CPU.
+
+Phases 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19 are the
+main paths: the kernels' launch counters are zeroed just before each (each
+part of phases 10, 12, 13, 14, 15, 16, 17, 18 and 19) and read just after,
+and each fails if one of its kernels never launched.  Then
 a JSON line with every kernel's numbers, a JSON line ``{"phases": {...}}``
 with every phase's seconds (and the run's total), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -1317,8 +1346,9 @@ def check_noncausal(timed=True):
     float32 weights) and bfloat16, against its plain version (dense (BH, T,
     T) scores), then at every edge shape x (d, dv); timed at the encoder's
     shape against its bound and scaled_dot_product_attention(is_causal=False)
-    (the library call, PyTorch's choice of backend).  The gradient refusal
-    on the card is checked too.  Returns the two shapes' records."""
+    (the library call, PyTorch's choice of backend).  A call that needs a
+    gradient is checked at one segment of that shape in both types
+    (check_noncausal_bwd).  Returns the two shapes' records."""
     import torch
     from repro_torch.kernels.window_attention import ops
 
@@ -1368,17 +1398,11 @@ def check_noncausal(timed=True):
                            f"(max abs diff to the kernel {lib_err:.3e}); plain version "
                            f"{plain_ms:.4f} ms (dense (BH, T, T) scores)")
         recs[dtype] = rec
-        if dt == torch.float32:
-            qg = q[:1].clone().requires_grad_(True)
-            try:
-                ops.noncausal_attention(qg, k[:1], v[:1])
-            except NotImplementedError as e:
-                log("kernels", f"window_attention non-causal with a gradient on the card "
-                               f"raises, as it must: {e}")
-            else:
-                fail("window_attention non-causal: a call that needs a gradient did not raise")
         del q, k, v, out
         torch.cuda.empty_cache()
+        # a call that needs a gradient: the Function's forward with lse and the
+        # backward kernels' non-causal mode, at one segment of the encoder's shape
+        check_noncausal_bwd((1, H, Hkv, Tq, Tk, d, dv), dtype, SEED + 79, phase="kernels")
     worst = 0.0
     for i, (Tq_, Tk_, dtype, H_, Hkv_) in enumerate(NONCAUSAL_EDGES):
         for dk, dvk in WINDOW_EDGE_DIMS:
@@ -3852,14 +3876,18 @@ def event_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
-def window_bwd_cost(B, H, Hkv, T, W, d, dv, esize):
+def window_bwd_cost(B, H, Hkv, T, W, d, dv, esize, Tk=None):
     """Bytes and flops of the backward: q, o, do and lse (fp32) read once,
     k and v per kv-head, dq, dk and dv written once; five products over the
-    in-band pairs (S = q k^T and dq, dk: 2 d flop a pair each; dP = do v^T
-    and dv: 2 dv each)."""
-    n1 = min(T, W)
-    pairs = n1 * (n1 + 1) // 2 + (T - n1) * W
-    rows, kv_rows = B * H * T, B * Hkv * T
+    pairs (S = q k^T and dq, dk: 2 d flop a pair each; dP = do v^T and dv:
+    2 dv each): the in-band pairs of the causal mode, or with ``W`` None
+    (the non-causal mode) all T x Tk pairs of T query rows and Tk keys."""
+    if W is None:
+        pairs = T * Tk
+    else:
+        n1, Tk = min(T, W), T
+        pairs = n1 * (n1 + 1) // 2 + (T - n1) * W
+    rows, kv_rows = B * H * T, B * Hkv * Tk
     nbytes = esize * (2 * rows * (d + 2 * dv) + 2 * kv_rows * (d + dv)) + 4 * rows
     return nbytes, B * H * pairs * (6 * d + 4 * dv)
 
@@ -3989,30 +4017,37 @@ WIN_BWD_KERNELS = ("window_bwd_rowdot", "window_bwd_dkdv", "window_bwd_dq")
 
 def sdpa_bwd_ms(q, k, v, do, W):
     """``(backward alone, forward + backward)`` of
-    ``scaled_dot_product_attention`` (the memory-efficient backend; K and V
-    repeated to the query heads, the band as a boolean mask, causal where W
-    >= T).  The backward alone is the library column: its forward runs once
-    outside the timed window, and ``torch.autograd.grad(...,
-    retain_graph=True)`` is timed."""
+    ``scaled_dot_product_attention`` (K and V repeated to the query heads;
+    the band as a boolean mask, or causal where W >= T, on the
+    memory-efficient backend, since the math one forms (BH, T, T); no mask
+    and PyTorch's choice of backend where ``W`` is None: the non-causal
+    mode, as check_noncausal times its forward).  The backward alone is the
+    library column: its forward runs once outside the timed window, and
+    ``torch.autograd.grad(..., retain_graph=True)`` is timed."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     T, G = q.shape[2], q.shape[1] // k.shape[1]
     idx = torch.arange(T, device="cuda")
-    band = ((idx[:, None] - idx[None, :]) >= 0) & ((idx[:, None] - idx[None, :]) < W)
+    band = None if W is None else (
+        ((idx[:, None] - idx[None, :]) >= 0) & ((idx[:, None] - idx[None, :]) < W))
     xs = [q.detach().requires_grad_(True)] + [
         x.repeat_interleave(G, dim=1).detach().requires_grad_(True) for x in (k, v)]
 
     def fwd():
+        if W is None:
+            return torch.nn.functional.scaled_dot_product_attention(*xs, is_causal=False)
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             if W >= T:
                 return torch.nn.functional.scaled_dot_product_attention(*xs, is_causal=True)
             return torch.nn.functional.scaled_dot_product_attention(*xs, attn_mask=band)
 
+    iters = 20 if W is None else 2  # the non-causal calls take a fraction of a millisecond
     try:
-        fb_ms = event_ms(lambda: torch.autograd.grad(fwd(), xs, do), iters=2)
+        fb_ms = event_ms(lambda: torch.autograd.grad(fwd(), xs, do), iters=iters)
         out = fwd()
-        bwd_ms = event_ms(lambda: torch.autograd.grad(out, xs, do, retain_graph=True), iters=2)
+        bwd_ms = event_ms(lambda: torch.autograd.grad(out, xs, do, retain_graph=True),
+                          iters=iters)
         return bwd_ms, fb_ms
     except RuntimeError as e:  # the library column is part of the kernels line
         fail(f"scaled_dot_product_attention forward + backward refused the main path's "
@@ -4117,13 +4152,14 @@ def run_steps(tr, steps):
         del tr.save
 
 
-def step_vs_plain(phase, label, cfg, plain_route, counted, seed):
+def step_vs_plain(phase, label, cfg, plain_route, counted, seed, batch=None):
     """The whole step's loss and gradients, kernel route against plain route
     on the card: ``cfg`` (fp32, full width, 2 layers) at B 1 x STEP_CMP_T,
-    the same weights and batch on both.  ``plain_route()`` is the context in
-    which the attention runs its plain version; ``counted`` the kernels'
-    launch counters as (module, attribute) pairs, which must all move on the
-    kernel route and none on the plain one."""
+    or on ``batch`` (numpy arrays) where given, the same weights and batch
+    on both.  ``plain_route()`` is the context in which the attention runs
+    its plain version; ``counted`` the kernels' launch counters as (module,
+    attribute) pairs, which must all move on the kernel route and none on
+    the plain one."""
     import torch
     from repro_torch.checkpoint.checkpointer import flatten_with_names
     from repro_torch.data.pipeline import TokenStream
@@ -4132,10 +4168,13 @@ def step_vs_plain(phase, label, cfg, plain_route, counted, seed):
     from repro_torch.train import classifier as C
     from repro_torch.train.train_step import value_and_grad
 
+    t0 = time.perf_counter()
     params = M.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    batch = C.batch_to_device(TokenStream(vocab_size=cfg.vocab_size, batch_size=1,
-                                          seq_len=STEP_CMP_T + 1, seed=seed + 1).next_batch(),
-                              "cuda")
+    if batch is None:
+        batch = TokenStream(vocab_size=cfg.vocab_size, batch_size=1, seq_len=STEP_CMP_T + 1,
+                            seed=seed + 1).next_batch()
+    shape = " + ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items() if k != "labels")
+    batch = C.batch_to_device(batch, "cuda")
     runs = {}
     for route in ("kernel", "plain"):
         before = [getattr(mod, attr) for mod, attr in counted]
@@ -4162,13 +4201,13 @@ def step_vs_plain(phase, label, cfg, plain_route, counted, seed):
     if max(rel.values()) > REF_LOSS_RTOL or leaf[worst] > STEP_GRAD_RTOL:
         fail(f"{phase} {label}: kernel route against plain route: {rel}, worst leaf "
              f"{names[worst]} relative error {leaf[worst]:.3e}")
-    log(phase, f"{label}, whole step at B 1 x {STEP_CMP_T}, fp32, {cfg.n_layers} layers at full "
+    log(phase, f"{label}, whole step on {shape}, fp32, {cfg.n_layers} layers at full "
                f"width, kernel route against the plain route on the card: loss {float(lk):.6f} / "
                f"{float(lp):.6f} (relative {rel['loss']:.3e}), nll {rel['nll']:.3e}, gradient "
                f"norm {float(nk):.6f} / {float(np_):.6f} ({rel['grad_norm']:.3e}; tolerance "
                f"{REF_LOSS_RTOL:g}); {len(leaf)} leaves, worst relative gradient error "
                f"{leaf[worst]:.3e} at {names[worst]} (tolerance {STEP_GRAD_RTOL:g}), median "
-               f"{sorted(leaf)[len(leaf) // 2]:.3e}")
+               f"{sorted(leaf)[len(leaf) // 2]:.3e}; {time.perf_counter() - t0:.1f} s")
     del params, runs, gk, gp
     torch.cuda.empty_cache()
     return {"rel": rel, "leaf_worst": leaf[worst]}
@@ -4188,14 +4227,20 @@ def softmax_step_vs_plain(name):
                          ((wops, "launches"),), SEED + 90)
 
 
-def full_width_steps(phase, label, cfg, counted, kernel_key, steps, seq):
-    """``cfg`` through the Trainer at B 1 x ``seq`` (launch/train.py's build
-    via trainer_for, weights drawn on the card, checkpoints off): 1 warm-up
-    step, ``steps`` timed AdamW steps with the launch counters ``counted``
-    ({name: (module, attribute)}) zeroed just before and read just after,
-    then one profiled step.  Returns the record: the launches, ms/step,
-    tokens/s, peak memory, the busy share and the share of kernel time of
-    the kernels whose names hold ``kernel_key``."""
+def full_width_steps(phase, label, cfg, counted, kernel_key, steps, seq, batch=1, stream=None,
+                     profile_seq=None):
+    """``cfg`` through the Trainer at B ``batch`` x ``seq`` (launch/train.py's
+    build via trainer_for, or over ``stream`` whose batches hold ``batch`` x
+    ``seq`` positions; weights drawn on the card, checkpoints off): 1
+    warm-up step, ``steps`` timed AdamW steps with the launch counters
+    ``counted`` ({name: (module, attribute)}) zeroed just before and read
+    just after, then one profiled step (at B ``batch`` x ``profile_seq`` of
+    launch/train.py's stream where given: a step of a token loop holds
+    hundreds of thousands of host ops, whose trace takes ~13 s to read for
+    each second of the step).  Returns the record: the launches,
+    ms/step, tokens/s, peak memory, the busy share, the share of kernel time
+    of the kernels whose names hold ``kernel_key`` (if given), every step's
+    loss and the models' scan scopes (scope_ms) in the profiled step."""
     import tempfile
 
     import torch
@@ -4213,7 +4258,8 @@ def full_width_steps(phase, label, cfg, counted, kernel_key, steps, seq):
     n_params = sum(t.numel() for t in tree_flatten(params)[0])
     total = 1 + steps
     with tempfile.TemporaryDirectory(prefix="chimera-full-width-") as tmp:
-        tr = trainer_for(cfg, tmp, total + 1, warmup=2, batch=1, seq=seq, params=params)
+        tr = trainer_for(cfg, tmp, total + 1, warmup=2, batch=batch, seq=seq, params=params,
+                         stream=stream)
         del params
         _, warm_s = run_steps(tr, 1)
         torch.cuda.reset_peak_memory_stats()
@@ -4223,27 +4269,40 @@ def full_width_steps(phase, label, cfg, counted, kernel_key, steps, seq):
         launches = {name: getattr(mod, attr) for name, (mod, attr) in counted.items()}
         peak = torch.cuda.max_memory_allocated()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        if profile_seq:
+            from repro_torch.data.pipeline import TokenStream
+
+            tr.stream = TokenStream(vocab_size=cfg.vocab_size, batch_size=batch,
+                                    seq_len=profile_seq + 1, seed=SEED)
+        t_prof = time.perf_counter()
         with torch.profiler.profile(activities=acts) as prof:
             _, prof_s = run_steps(tr, total + 1)
         busy_ms, rows = report_profile(prof, prof_s, f"one {label} training step")
+        scopes = scope_ms(prof)
+        trace_s = time.perf_counter() - t_prof - prof_s  # the trace's collection and reading
         losses = logged_losses(f"{phase} {label}", out)  # the log holds every step
         del tr, prof
     torch.cuda.empty_cache()
     ms = loop_s / steps * 1e3
-    kernel_ms = sum(t for key, (t, _) in rows.items() if kernel_key in key)
-    share = f"{kernel_ms / busy_ms:.3f}" if busy_ms else "not measured"
+    tokens = batch * seq
+    kernel_ms = sum(t for key, (t, _) in rows.items() if kernel_key and kernel_key in key)
+    share = f"{kernel_ms / busy_ms:.3f}" if busy_ms and kernel_key else "not measured"
     busy = f"{busy_ms / (prof_s * 1e3):.3f}" if busy_ms else "not measured"
-    log(phase, f"{label}: {n_params} fp32 parameters drawn on the card in {draw_s:.2f} s; B 1 x "
-               f"{seq}, AdamW (fp32 moments): step 1 {warm_s * 1e3:.1f} ms; steps 2-{total} "
-               f"{ms:.2f} ms/step, {seq / (ms / 1e3):.0f} tokens/s; losses "
+    log(phase, f"{label}: {n_params} fp32 parameters drawn on the card in {draw_s:.2f} s; B "
+               f"{batch} x {seq}, AdamW (fp32 moments): step 1 {warm_s * 1e3:.1f} ms; steps "
+               f"2-{total} {ms:.2f} ms/step, {tokens / (ms / 1e3):.0f} tokens/s; losses "
                f"{[round(x, 5) for x in losses]}; max_memory_allocated {peak} B ({peak - base} "
                f"above the {base} B held before); launches {launches}; profiled step "
-               f"{prof_s * 1e3:.1f} ms, busy share {busy}, {kernel_key} kernels "
-               f"{kernel_ms:.1f} ms of it (share of kernel time {share})")
+               + (f"at B {batch} x {profile_seq} " if profile_seq else "")
+               + f"{prof_s * 1e3:.1f} ms (its trace read in {trace_s:.1f} s), busy share {busy}"
+               + (f", {kernel_key} kernels {kernel_ms:.1f} ms of it (share of kernel time "
+                  f"{share})" if kernel_key else "")
+               + "".join(f"; scope {n}: kernels {k:.1f} ms over a span of {sp:.1f} ms ({c} "
+                         f"ranges)" for n, (k, sp, c) in scopes.items()))
     if peak >= PEAK_LIMIT:
         fail(f"{phase} {label}: peak memory {peak} B >= {PEAK_LIMIT:.0f}")
-    return {"launches": launches, "ms": ms, "tokens_per_s": seq / (ms / 1e3), "peak": peak,
-            "busy": busy, "share": share}
+    return {"launches": launches, "ms": ms, "tokens_per_s": tokens / (ms / 1e3), "peak": peak,
+            "busy": busy, "share": share, "losses": losses, "scopes": scopes}
 
 
 def train_softmax_full_width(name):
@@ -4276,21 +4335,24 @@ def train_softmax_full_width(name):
             "peak": r["peak"], "busy": r["busy"], "window_share": r["share"], "cmp": cmp}
 
 
-def smoke_card_vs_cpu(phase, label, cfg, counter, steps):
+def smoke_card_vs_cpu(phase, label, cfg, counter, steps, stream=None, what="batch 8 x 128"):
     """``cfg`` (a smoke config) through the Trainer, ``steps`` steps on the
-    card and on the CPU from the same seeded weights: losses within
+    card and on the CPU from the same seeded weights (over ``stream()``'s
+    batches where given, else launch/train.py's): losses within
     REF_LOSS_RTOL; the backward counter ``counter`` ((module, attribute))
-    must move on the card and not on the CPU."""
+    must move on the card and not on the CPU (None: a path with no kernel
+    of the port)."""
     import tempfile
 
-    mod, attr = counter
+    mod, attr = counter or (None, None)
     losses = {}
     for dev in ("cuda", "cpu"):
-        before = getattr(mod, attr)
+        before = getattr(mod, attr) if mod else 0
         with tempfile.TemporaryDirectory(prefix="chimera-smoke-train-") as tmp:
-            tr = trainer_for(cfg, tmp, steps, lr=1e-3, warmup=2, device=dev)
+            tr = trainer_for(cfg, tmp, steps, lr=1e-3, warmup=2, device=dev,
+                             stream=stream and stream())
             losses[dev] = logged_losses(f"{phase} smoke {label} {dev}", tr.run())
-        if (getattr(mod, attr) > before) != (dev == "cuda"):
+        if mod and (getattr(mod, attr) > before) != (dev == "cuda"):
             fail(f"{phase} smoke {label}: backward kernel launches on {dev}: "
                  f"{getattr(mod, attr) - before}")
     err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
@@ -4298,7 +4360,7 @@ def smoke_card_vs_cpu(phase, label, cfg, counter, steps):
         fail(f"{phase} smoke {label}: card and CPU losses differ by {err:.3e} > "
              f"{REF_LOSS_RTOL:g}")
     log(phase, f"{label} smoke ({cfg.attention_kind}, d_head {cfg.head_dim}, remat "
-               f"{cfg.remat}), {steps} Trainer steps at batch 8 x 128, card (kernels) vs CPU "
+               f"{cfg.remat}), {steps} Trainer steps at {what}, card (kernels) vs CPU "
                f"(plain): losses max relative diff {err:.3e} (tolerance {REF_LOSS_RTOL:g}); card "
                f"losses {[round(x, 5) for x in losses['cuda']]}")
     return err
@@ -4416,7 +4478,7 @@ def chimera_bwd_inputs(B, Hkv, Gq, T, d, dv, m, seed, dtype="float32"):
 
 
 def check_chimera_bwd(shape, L, seed, dtype="float32", modes=((True, True),), timed=False,
-                      quiet=False):
+                      quiet=False, phase="train-chimera"):
     """The backward kernels at ``shape`` = (B, Hkv, Gq, T, d, dv, m) and
     chunk L against chimera_attention_bwd_plain in float64 on the same
     inputs (``dtype`` one of CHIMERA_BWD_DTYPES; "float32" takes the fp32
@@ -4460,10 +4522,10 @@ def check_chimera_bwd(shape, L, seed, dtype="float32", modes=((True, True),), ti
                                        rtol=CHIMERA_BWD_RTOL) / max(scale, 1e-30))
         del got, again, want
     if not quiet:
-        log("train-chimera", f"{label}, (use_local, use_stream) in {list(modes)}: max abs err "
-                             f"{worst:.3e} of each gradient's largest entry against the plain "
-                             f"version in float64 (tolerance {CHIMERA_BWD_ATOL:g} x max|ref| + "
-                             f"{CHIMERA_BWD_RTOL:g} x |ref|); two launches bit for bit equal")
+        log(phase, f"{label}, (use_local, use_stream) in {list(modes)}: max abs err "
+                   f"{worst:.3e} of each gradient's largest entry against the plain version in "
+                   f"float64 (tolerance {CHIMERA_BWD_ATOL:g} x max|ref| + {CHIMERA_BWD_RTOL:g} x "
+                   f"|ref|); two launches bit for bit equal")
     rec = {"max_abs_err": worst, "shape": f"B {B} x Hkv {Hkv}, Gq {Gq}, T {T}, d {d}, dv {dv}, "
                                           f"m {m}, L {L}, {dtype} ({route} route)",
            "max_abs_err_of": "relative to each gradient's largest entry"}
@@ -4490,14 +4552,13 @@ def check_chimera_bwd(shape, L, seed, dtype="float32", modes=((True, True),), ti
                    split={x: t and t[0] for x, t in split.items()})
         kind = ("one bf16 pass on the tensor cores" if route == "bf16"
                 else f"x{TF32_PASSES} in TF32 on the tensor cores")
-        log("train-chimera", f"{label} device time: backward {ms:.4f} ms ({per_call} launches), "
-                             f"forward {fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms; plain "
-                             f"backward (float32) {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-                             f"{bound_by} ({nbytes} B; {flops} flop, {local} of them the local "
-                             f"tier, {kind}; on the fp32 CUDA cores {fp32_ms:.4f} ms); library "
-                             f"call: none; in a profiler trace (ms a launch, launches) "
-                             + ", ".join(f"{x} {fmt_ms(t and t[0])} ({t and t[1]})"
-                                         for x, t in split.items()))
+        log(phase, f"{label} device time: backward {ms:.4f} ms ({per_call} launches), forward "
+                   f"{fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms; plain backward (float32) "
+                   f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({nbytes} B; {flops} "
+                   f"flop, {local} of them the local tier, {kind}; on the fp32 CUDA cores "
+                   f"{fp32_ms:.4f} ms); library call: none; in a profiler trace (ms a launch, "
+                   f"launches) " + ", ".join(f"{x} {fmt_ms(t and t[0])} ({t and t[1]})"
+                                             for x, t in split.items()))
     del xs, flat
     torch.cuda.empty_cache()
     return rec
@@ -4571,29 +4632,33 @@ def chimera_step_vs_plain(name):
 
 
 class BwdTypes:
-    """Within it, the types of the seven tensors that reach
-    ops.chimera_attention_bwd_bh, each distinct tuple once."""
+    """Within it, the types of the tensors ``names`` that reach a backward
+    wrapper (by default the seven of ops.chimera_attention_bwd_bh; or
+    ``module``'s function ``fn``), each distinct tuple once."""
 
     NAMES = ("q", "k", "v", "phi_q", "phi_k", "g_num", "g_den")
 
-    def __enter__(self):
-        from repro_torch.kernels.chimera_attention import ops as cops
+    def __init__(self, module=None, fn="chimera_attention_bwd_bh", names=NAMES):
+        self.module, self.name, self.NAMES = module, fn, names
 
-        self.seen, self.fn = [], cops.chimera_attention_bwd_bh
+    def __enter__(self):
+        if self.module is None:
+            from repro_torch.kernels.chimera_attention import ops as cops
+
+            self.module = cops
+        self.seen, self.fn = [], getattr(self.module, self.name)
 
         def logged(*args, **kw):
-            kinds = tuple(str(t.dtype).replace("torch.", "") for t in args[:7])
+            kinds = tuple(str(t.dtype).replace("torch.", "") for t in args[:len(self.NAMES)])
             if kinds not in self.seen:
                 self.seen.append(kinds)
             return self.fn(*args, **kw)
 
-        cops.chimera_attention_bwd_bh = logged
+        setattr(self.module, self.name, logged)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels.chimera_attention import ops as cops
-
-        cops.chimera_attention_bwd_bh = self.fn
+        setattr(self.module, self.name, self.fn)
 
     def text(self):
         return "; ".join(", ".join(f"{n} {k}" for n, k in zip(self.NAMES, kinds))
@@ -4674,6 +4739,457 @@ def phase_train_chimera(recs):
                          + ", ".join(f"{n}: forward {r['fwd']}, backward {r['bwd']}"
                                      for n, r in runs.items())
                          + f"); the kernel checks of (a) took {checks_s:.1f} s")
+    return {"launches": launches, "runs": runs}
+
+
+# --------------------------------------------------------------------------
+# 18. train-encdec: whisper-tiny trained on the card (the non-causal
+#     backward of window_attention_bwd.cu)
+# --------------------------------------------------------------------------
+
+# whisper-tiny's train cell (the JAX package's train_4k, cut to one card):
+# 4,096 positions split by encoder_seq_fraction 0.5 into Te 2,048 frames and
+# T_dec 2,048 tokens (launch/steps.py _enc_dec_split), B 8 of the cell's
+# global batch of 256, 1 warm-up + ENCDEC_TRAIN_STEPS timed AdamW steps
+ENCDEC_TRAIN_B, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 8, 4096, 5
+# (d): the softmax cross-attention variant's decoder depth
+ENCDEC_TRAIN_SOFTMAX_LAYERS = 1
+# JAX's smoke criterion (tests/test_models_smoke.py): the last step's loss
+# below the first's + LOSS_RISE
+LOSS_RISE = 0.5
+ENCDEC_SMOKE_STEPS = 5  # (e): smoke whisper-tiny, card against CPU
+ENCDEC_SMOKE_SHAPE = (2, 96, 48)  # (e): B, Te, T_dec
+# the non-causal backward's names for the types it is handed
+NONCAUSAL_BWD_NAMES = ("q", "k", "v", "o", "lse", "do")
+
+
+def encdec_split(cfg, seq):
+    """(Te, T_dec) of ``seq`` positions: the JAX package's _enc_dec_split."""
+    te = int(seq * cfg.encoder_seq_fraction)
+    return te, seq - te
+
+
+class EncDecStream:
+    """Batches of whisper's train cell for the Trainer, as the JAX Trainer
+    takes them: ``enc_embeds`` (B, Te, d) stub frame embeddings from a
+    numpy seed and the step, ``tokens`` and ``labels`` (B, T_dec) from
+    launch/train.py's TokenStream; resumable (the token stream's state)."""
+
+    def __init__(self, cfg, batch, te, td, seed):
+        from repro_torch.data.pipeline import TokenStream
+
+        self.tokens = TokenStream(vocab_size=cfg.vocab_size, batch_size=batch, seq_len=td + 1,
+                                  seed=seed)
+        self.shape, self.seed = (batch, te, cfg.d_model), seed
+
+    def state(self):
+        return self.tokens.state()
+
+    def restore(self, state):
+        self.tokens.restore(state)
+
+    def next_batch(self):
+        rng = np.random.default_rng((self.seed, self.tokens.step))
+        out = self.tokens.next_batch()
+        out["enc_embeds"] = rng.standard_normal(self.shape, dtype=np.float32)
+        return out
+
+
+def check_noncausal_bwd(shape, dtype, seed, timed=False, phase="train-encdec", quiet=False):
+    """The non-causal backward at ``shape`` = (B, H, Hkv, Tq, Tk, d, dv) in
+    ``dtype``: a call that needs a gradient through noncausal_attention (the
+    _NonCausalAttention Function: the forward kernel with lse, then the
+    backward kernels' non-causal mode, noncausal_bwd_launches up by 3); the
+    forward's lse against window_attention_noncausal_lse_plain, and dq, dk,
+    dv against window_attention_noncausal_bwd_plain evaluated in float64 on
+    the same (rounded) inputs and the kernel's own o and lse, one batch row
+    at a time, within check_window_bwd's tolerances; a second backward
+    launch bit for bit equal to the first.  ``timed``: the backward alone,
+    the forward with lse, forward + backward, the plain version (float32,
+    over the batch rows) and scaled_dot_product_attention's backward alone
+    (the library column) and forward + backward, against the bound, with
+    the three kernels' split from a profiler trace.  ``quiet``: no line of
+    its own.  Returns the record."""
+    import torch
+    from repro_torch.kernels.window_attention import ops
+
+    B, H, Hkv, Tq, Tk, d, dv = shape
+    G = H // Hkv
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(s, generator=g).to("cuda", dt)
+                   for s in ((B, H, Tq, d), (B, Hkv, Tk, d), (B, Hkv, Tk, dv), (B, H, Tq, dv)))
+    o, lse = ops.window_attention_noncausal_fwd(q, k, v)
+    xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    before = ops.noncausal_bwd_launches
+    out = ops.noncausal_attention(*xs)
+    if not torch.equal(out.detach(), o):
+        fail(f"window_attention non-causal backward {shape} {dtype}: the Function's forward "
+             "differs from the forward kernel's")
+    got = torch.autograd.grad(out, xs, do)
+    if ops.noncausal_bwd_launches - before != 3:
+        fail(f"window_attention non-causal backward {shape} {dtype}: noncausal_bwd_launches "
+             f"moved by {ops.noncausal_bwd_launches - before}, want 3")
+    del out, xs
+    again = ops.window_attention_noncausal_bwd(q, k, v, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if a.dtype != dt or not torch.equal(a, b):
+            fail(f"window_attention non-causal backward {shape} {dtype}: {name} of two launches "
+                 f"on the same inputs differ (or dtype {a.dtype})")
+    del again
+    bf16 = dt == torch.bfloat16
+    atol, rtol = (WIN_BWD_BF16_ATOL, WIN_BF16_TOL) if bf16 else (WIN_BWD_ATOL, WIN_BWD_RTOL)
+    label = (f"window_attention non-causal backward B {B} x H {H} (Hkv {Hkv}) Tq {Tq} Tk {Tk} "
+             f"d {d} dv {dv} {dtype}")
+    errs = {"lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    with torch.no_grad():
+        for b in range(B):
+            f = [x[b].double() for x in (q, k, v, o, do)]
+            want = ops.window_attention_noncausal_lse_plain(f[0], f[1].repeat_interleave(G, 0))
+            errs["lse"] = max(errs["lse"], compare(f"{label} lse b {b}", lse[b].double(), want))
+            wants = ops.window_attention_noncausal_bwd_plain(f[0], f[1], f[2], f[3],
+                                                             lse[b].double(), f[4])
+            # the floor scales with the largest gradient of the row
+            scale = max(float(w.abs().max()) for w in wants)
+            for name, a, w in zip(("dq", "dk", "dv"), (got[0][b], got[1][b], got[2][b]), wants):
+                if bf16:
+                    w = w.to(dt)
+                e = compare(f"{label} {name} b {b}", a.double(), w.double(),
+                            atol=atol * scale, rtol=rtol)
+                errs[name] = max(errs[name], e)
+            del f, wants
+    if not quiet:
+        log(phase, f"{label}: max abs err lse {errs['lse']:.3e}, dq {errs['dq']:.3e}, dk "
+               f"{errs['dk']:.3e}, dv {errs['dv']:.3e} against the plain version in float64 "
+               f"over {B} batch rows (tolerance {atol:g}*max|ref of dq, dk, dv| + "
+               f"{rtol:g}*|ref|; lse {ATOL:g} + {RTOL:g}*|ref|); two launches bit for bit equal")
+    rec = {"max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")), "errs": errs,
+           "shape": f"non-causal, B {B} x H {H} (Hkv {Hkv}) Tq {Tq} Tk {Tk} d {d} dv {dv} "
+                    f"{dtype}"}
+    if timed:
+        with torch.no_grad():
+            ms = event_ms(lambda: ops.window_attention_noncausal_bwd(q, k, v, o, lse, do), iters=5)
+            fwd_ms = event_ms(lambda: ops.window_attention_noncausal_fwd(q, k, v), iters=5)
+            fb_ms = event_ms(lambda: ops.window_attention_noncausal_bwd(
+                q, k, v, *ops.window_attention_noncausal_fwd(q, k, v), do), iters=5)
+            flat = [x.float().reshape(-1, *x.shape[2:]) for x in (q, k, v, o, do)]
+            flse = lse.reshape(-1, Tq)
+            rows = [(slice(b * H, (b + 1) * H), slice(b * Hkv, (b + 1) * Hkv)) for b in range(B)]
+            plain_ms = event_ms(lambda: [ops.window_attention_noncausal_bwd_plain(
+                flat[0][r], flat[1][kr], flat[2][kr], flat[3][r], flse[r], flat[4][r])
+                for r, kr in rows], iters=1)
+            del flat
+        library_ms, lib_fb_ms = sdpa_bwd_ms(q, k, v, do, None)
+        nbytes, flops = window_bwd_cost(B, H, Hkv, Tq, None, d, dv, q.element_size(), Tk=Tk)
+        fwd_bytes, fwd_flops = noncausal_cost(B, H, Hkv, Tq, Tk, d, dv, q.element_size())
+        fwd_bytes += 4 * B * H * Tq  # the lse
+        if bf16:
+            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+            fwd_bound_ms, _ = bound(fwd_bytes, fwd_flops, BF16_FLOPS)
+            rate = "in bf16 on the tensor cores"
+        else:
+            bound_ms, bound_by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+            fwd_bound_ms, _ = bound(fwd_bytes, TF32_PASSES * fwd_flops, TF32_FLOPS)
+            rate = f"x{TF32_PASSES} in TF32 on the tensor cores"
+        split = profiled_kernel_ms(lambda: ops.window_attention_noncausal_bwd(q, k, v, o, lse, do),
+                                   WIN_BWD_KERNELS, iters=5)
+        rec.update(ms=ms, fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms, library_fwd_bwd_ms=lib_fb_ms,
+                   fwd_bound_ms=fwd_bound_ms, bytes=nbytes, flops=flops,
+                   fp32_cores_ms=flops / FP32_FLOPS * 1e3,
+                   split={x: t and t[0] for x, t in split.items()})
+        log(phase, f"{label} device time: backward {ms:.4f} ms (3 launches), forward with lse "
+                   f"{fwd_ms:.4f} ms (bound {fwd_bound_ms:.4f} ms), forward + backward "
+                   f"{fb_ms:.4f} ms; bound of the backward {bound_ms:.4f} ms by {bound_by} "
+                   f"({nbytes} B; {flops} flop, {rate}; on the fp32 CUDA cores "
+                   f"{flops / FP32_FLOPS * 1e3:.4f} ms); scaled_dot_product_attention"
+                   f"(is_causal=False, PyTorch's choice of backend) backward alone {fmt_ms(library_ms)}, forward + backward "
+                   f"{fmt_ms(lib_fb_ms)}; plain backward (float32) {plain_ms:.4f} ms over {B} "
+                   f"rows; in a profiler trace (ms a launch, launches) "
+                   + ", ".join(f"{x} {fmt_ms(t and t[0])} ({t and t[1]})"
+                               for x, t in split.items()))
+    del q, k, v, o, lse, do, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+NONCAUSAL_BWD_KEYS = ("shape", "max_abs_err", "ms", "fwd_ms", "fwd_bound_ms", "fwd_bwd_ms",
+                      "plain_ms", "bound_ms", "bound_by", "library_ms", "library_fwd_bwd_ms",
+                      "fp32_cores_ms", "split")
+
+
+def check_noncausal_bwd_kernels(recs):
+    """(a) The non-causal backward at whisper-tiny's encoder training shape
+    (B 8 x H 6, Tq = Tk 2,048, d = dv = 64) in bf16 (the training step's
+    type) and fp32, each timed, then at every edge shape of the forward
+    (NONCAUSAL_EDGES: the serve shape's Tq 256 and Tq 1 against Tk 1,536,
+    Tk off the key tile, Tq > Tk, 2 to 4 query heads a kv-head) x every
+    (d, dv) of WINDOW_EDGE_DIMS in the edge's own type, and at whisper's
+    (64, 64) in the other type too.  The two timed shapes go into
+    window_attention_bwd's kernels line as other shapes; the Chimera
+    backward at the decoder's training shape (bf16 route, timed) into
+    chimera_attention_bwd's."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC)
+    te, _ = encdec_split(cfg, ENCDEC_TRAIN_SEQ)
+    shape = (ENCDEC_TRAIN_B, cfg.n_heads, cfg.n_kv_heads, te, te, cfg.head_dim, cfg.head_dim)
+    runs = [check_noncausal_bwd(shape, dtype, SEED + 130 + i, timed=True)
+            for i, dtype in enumerate(("bfloat16", "float32"))]
+    for r in runs:
+        r["shape"] = "whisper-tiny encoder training, " + r["shape"]
+        recs["window_attention_bwd"].setdefault("other_shapes", []).append(
+            {k: r.get(k) for k in NONCAUSAL_BWD_KEYS})
+    # the decoder's Chimera self-attention: its backward at whisper's shape (BH 48,
+    # Gq 1, T_dec 2,048 in chunks of L 256), in the step's types (the bf16 route)
+    _, td = encdec_split(cfg, ENCDEC_TRAIN_SEQ)
+    kv, Gq, d, dv = attn_widths(cfg)
+    ch = check_chimera_bwd((ENCDEC_TRAIN_B, kv, Gq, td, d, dv,
+                            cfg.chimera.feature_map.feature_dim(d)), cfg.chimera.chunk_size,
+                           SEED + 135, dtype="bfloat16", timed=True, phase="train-encdec")
+    ch["shape"] = "whisper-tiny decoder training: " + ch["shape"]
+    recs.setdefault("chimera_attention_bwd", {}).setdefault("other_shapes", []).append(
+        {k: ch.get(k) for k in SHAPE_KEYS})
+    worst, n = {"float32": 0.0, "bfloat16": 0.0}, 0
+    for i, (Tq, Tk, own, H, Hkv) in enumerate(NONCAUSAL_EDGES):
+        other = "float32" if own == "bfloat16" else "bfloat16"
+        for (d, dv), dtype in [(dims, own) for dims in WINDOW_EDGE_DIMS] + [((64, 64), other)]:
+            r = check_noncausal_bwd((2, H, Hkv, Tq, Tk, d, dv), dtype, SEED + 140 + i, quiet=True)
+            worst[dtype], n = max(worst[dtype], r["max_abs_err"]), n + 1
+    log("train-encdec", f"window_attention non-causal backward at {len(NONCAUSAL_EDGES)} edge "
+                        f"shapes x {len(WINDOW_EDGE_DIMS)} (d, dv) in the edge's type, and at (64, "
+                        f"64) in the other ({n} checks): max abs err fp32 "
+                        f"{worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}, all within "
+                        f"tolerance, every pair of launches bit for bit equal")
+    return runs
+
+
+@contextlib.contextmanager
+def plain_attention_kernels():
+    """Within the block every attention kernel of the model runs its plain
+    version on the card: the window wrappers (plain_window_attention) and
+    the Chimera ones (plain_chimera_kernels)."""
+    with plain_window_attention(), plain_chimera_kernels():
+        yield
+
+
+def encdec_train_launches(cfg, steps):
+    """The kernels' launches that ``steps`` training steps of ``cfg`` (remat
+    "full": a layer's forward runs twice) make at ENCDEC_TRAIN_SEQ, by
+    counter: the encoder's non-causal self-attention in every layer; the
+    decoder's Chimera self-attention (its bf16 backward route), or its
+    full-causal softmax and non-causal softmax cross-attention."""
+    from repro_torch.kernels.chimera_attention import ops as cops
+
+    _, td = encdec_split(cfg, ENCDEC_TRAIN_SEQ)
+    nc = cfg.encoder_layers + (0 if cfg.use_chimera else cfg.n_layers)  # non-causal layers
+    causal = 0 if cfg.use_chimera else cfg.n_layers
+    chim = cfg.n_layers if cfg.use_chimera else 0
+    want = {"noncausal": 2 * nc, "noncausal_bwd": 3 * nc, "bwd": 3 * (nc + causal),
+            "window": 5 * (nc + causal), "chimera": 2 * chim,
+            "chimera_bwd": chim * cops.bwd_kernel_launches(td, cfg.chimera.chunk_size,
+                                                           route="bf16")}
+    want["chimera_bwd_bf16"] = want["chimera_bwd"]
+    return {k: n * steps for k, n in want.items()}
+
+
+def train_encdec_full(label, cfg):
+    """(b) ``cfg`` at full width through the Trainer on whisper's train cell
+    (full_width_steps over an EncDecStream: B 8 x Te 2,048 frames + T_dec
+    2,048 tokens, bf16, remat "full"), the kernels' launches held to
+    encdec_train_launches, the types reaching the non-causal backward logged,
+    the loss finite and its last step below the first's + LOSS_RISE; (c) the
+    whole step against the plain route on the card in float32 on one batch of
+    the same size."""
+    import dataclasses
+
+    from repro_torch.kernels.chimera_attention import ops as cops
+    from repro_torch.kernels.window_attention import ops as wops
+
+    te, td = encdec_split(cfg, ENCDEC_TRAIN_SEQ)
+    counted = {"window": (wops, "launches"), "bwd": (wops, "bwd_launches"),
+               "noncausal": (wops, "noncausal_launches"),
+               "noncausal_bwd": (wops, "noncausal_bwd_launches"), "chimera": (cops, "launches"),
+               "chimera_bwd": (cops, "bwd_launches"),
+               "chimera_bwd_bf16": (cops, "bwd_launches_bf16")}
+    stream = EncDecStream(cfg, ENCDEC_TRAIN_B, te, td, SEED + 150)
+    with BwdTypes(wops, "window_attention_noncausal_bwd", NONCAUSAL_BWD_NAMES) as types:
+        r = full_width_steps("train-encdec", label, cfg, counted, "window", ENCDEC_TRAIN_STEPS,
+                             ENCDEC_TRAIN_SEQ, batch=ENCDEC_TRAIN_B, stream=stream)
+    log("train-encdec", f"{label}: the types that reach window_attention_noncausal_bwd: "
+                        f"{types.text()}")
+    want = encdec_train_launches(cfg, ENCDEC_TRAIN_STEPS)
+    if r["launches"] != want:
+        fail(f"train-encdec {label}: launches {r['launches']}, want {want}")
+    if not r["losses"][-1] < r["losses"][0] + LOSS_RISE:
+        fail(f"train-encdec {label}: last loss {r['losses'][-1]} not below the first's "
+             f"{r['losses'][0]} + {LOSS_RISE}")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    counters = ((wops, "noncausal_bwd_launches"),
+                (cops, "bwd_launches_fp32") if cfg.use_chimera else (wops, "bwd_launches"))
+    r["cmp"] = step_vs_plain("train-encdec", label, f32, plain_attention_kernels, counters,
+                             SEED + 151, batch=EncDecStream(f32, ENCDEC_TRAIN_B, te, td,
+                                                            SEED + 152).next_batch())
+    return r
+
+
+def encdec_smoke_stream(cfg):
+    B, te, td = ENCDEC_SMOKE_SHAPE
+    return lambda: EncDecStream(cfg, B, te, td, SEED + 153)
+
+
+def phase_train_encdec(recs):
+    """whisper-tiny trained on the card.  (a) check_noncausal_bwd_kernels;
+    (b), (c) train_encdec_full at full width and depth (4 + 4 layers, d
+    384), then (d) both for the softmax cross-attention variant at
+    ENCDEC_TRAIN_SOFTMAX_LAYERS decoder layer; (e) smoke whisper-tiny, both
+    branches, ENCDEC_SMOKE_STEPS Trainer steps card against CPU in fp32.
+    The counters are zeroed just before each main-path run and read just
+    after."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels.window_attention import ops as wops
+
+    t0 = time.perf_counter()
+    check_noncausal_bwd_kernels(recs)
+    seconds = {"kernels": time.perf_counter() - t0}
+    cfg = get_config(ENCDEC)
+    runs = {}
+    for label, c in (("whisper-tiny", cfg),
+                     (f"whisper-tiny softmax cross-attention, {ENCDEC_TRAIN_SOFTMAX_LAYERS} "
+                      f"decoder layer", dataclasses.replace(
+                          cfg, use_chimera=False, n_layers=ENCDEC_TRAIN_SOFTMAX_LAYERS))):
+        t0 = time.perf_counter()
+        runs[label] = train_encdec_full(label, c)
+        seconds[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    B, te, td = ENCDEC_SMOKE_SHAPE
+    for use_chimera in (True, False):
+        c = dataclasses.replace(smoke_config(ENCDEC), use_chimera=use_chimera)
+        smoke_card_vs_cpu("train-encdec", f"{ENCDEC} {'Chimera' if use_chimera else 'softmax'}",
+                          c, (wops, "noncausal_bwd_launches"), ENCDEC_SMOKE_STEPS,
+                          stream=encdec_smoke_stream(c),
+                          what=f"batch {B} x (Te {te} frames + T_dec {td} tokens)")
+    seconds["smoke"] = time.perf_counter() - t0
+    launches = {"window_attention": 0, "window_attention_bwd": 0, "chimera_attention": 0,
+                "chimera_attention_bwd": 0}
+    for r in runs.values():
+        n = r["launches"]
+        launches["window_attention"] += n["window"] - n["bwd"]
+        launches["window_attention_bwd"] += n["bwd"]
+        launches["chimera_attention"] += n["chimera"]
+        launches["chimera_attention_bwd"] += n["chimera_bwd"]
+    log("train-encdec", f"launches on the phase's main paths: {launches}; seconds by part: "
+                        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {"launches": launches, "runs": runs}
+
+
+# --------------------------------------------------------------------------
+# 19. train-ssm: Mamba and xLSTM trained on the card
+# --------------------------------------------------------------------------
+
+# Jamba's training cut (jamba_train_cut) at B 1 x SSM_TRAIN_T, 1 warm-up +
+# SSM_TRAIN_STEPS timed steps, the profiled step at B 1 x SSM_PROFILE_T.
+# xLSTM-125M at full depth at B 4 x XLSTM_TRAIN_T (two mLSTM chunks of 256,
+# so the checkpointed chunk carries its state across a boundary at full
+# width), 1 + XLSTM_TRAIN_STEPS steps, profiled at B 4 x XLSTM_PROFILE_T.
+# Cut for the run's time (PERF.md section 4): on an H100 80GB HBM3 at 700 W
+# a Jamba step at 8,192 took 2.88-3.13 s and its profiled trace 44.1 s to
+# read (9.2 s at 1,024); xLSTM at B 4 x 512 7.34 s a step and its trace
+# 187.7 s (12.7 s at B 4 x 32: token loops of host-bound launches)
+SSM_TRAIN_T, SSM_TRAIN_STEPS, SSM_PROFILE_T = 4096, 2, 512
+XLSTM_TRAIN_B, XLSTM_TRAIN_T, XLSTM_TRAIN_STEPS, XLSTM_PROFILE_T = 4, 512, 1, 16
+SSM_SMOKE_STEPS, SSM_SMOKE_T = 3, 64  # the smoke configs, card against CPU, at B 8 x 64
+
+
+def jamba_train_cut():
+    """Jamba-1.5-Large's training cut: 2 of its 72 layers at full width,
+    pattern (Mamba, attention), both with the dense MLP of Jamba's odd
+    positions (moe_first_dense 2): ~2.85 G parameters, ~46 GB of fp32
+    parameters, gradients and moments (jamba_cut's MoE layer alone, 16
+    experts of 3 x 8192 x 24576, would be 9.66 G parameters, 155 GB of
+    AdamW state)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(SSM_JAMBA), n_layers=2, block_pattern=("mamba", "attn"),
+                               moe_first_dense=2)
+
+
+def phase_train_ssm(recs):
+    """Mamba and xLSTM trained on the card, each config through
+    launch/train.py's build (full_width_steps): (a) Jamba's training cut at B
+    1 x SSM_TRAIN_T, its Chimera attention's backward at Gq 8 on the bf16
+    route (the types logged), then its whole step against the plain route
+    in float32 at STEP_CMP_T; (b) xLSTM-125M at full depth, B 4 x
+    XLSTM_TRAIN_T; each
+    with ms/step, tokens/s, peak memory, busy share and the "mamba",
+    "mlstm" and "slstm" scopes' kernel and span times, the loss finite and
+    its last step below the first's + LOSS_RISE; (c) both smoke configs,
+    SSM_SMOKE_STEPS Trainer steps card against CPU in fp32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.chimera_attention import ops as cops
+
+    seconds, runs = {}, {}
+    t0 = time.perf_counter()
+    cfg = jamba_train_cut()
+    kv, Gq, d, dv = attn_widths(cfg)
+    label = (f"{SSM_JAMBA} training cut (mamba + attn, dense MLPs, Chimera Gq {Gq} d {d}), "
+             f"{cfg.n_layers} layers at full width (d {cfg.d_model}, dtype {cfg.dtype}, remat "
+             f"{cfg.remat})")
+    counted = {"fwd": (cops, "launches"), "bwd": (cops, "bwd_launches"),
+               "bwd_bf16": (cops, "bwd_launches_bf16")}
+    with BwdTypes() as types:
+        r = full_width_steps("train-ssm", label, cfg, counted, "chimera", SSM_TRAIN_STEPS,
+                             SSM_TRAIN_T, profile_seq=SSM_PROFILE_T)
+    log("train-ssm", f"{SSM_JAMBA}: the types that reach chimera_attention_bwd_bh: "
+                     f"{types.text()}")
+    per_call = cops.bwd_kernel_launches(SSM_TRAIN_T, cfg.chimera.chunk_size, route="bf16")
+    n_attn = cfg.pattern.count("attn") * cfg.n_groups
+    want = {"fwd": 2 * n_attn * SSM_TRAIN_STEPS, "bwd": per_call * n_attn * SSM_TRAIN_STEPS}
+    want["bwd_bf16"] = want["bwd"]
+    if r["launches"] != want:
+        fail(f"train-ssm {SSM_JAMBA}: chimera_attention launches {r['launches']}, want {want}")
+    r["cmp"] = step_vs_plain("train-ssm", f"{SSM_JAMBA} training cut",
+                             dataclasses.replace(cfg, dtype="float32"), plain_chimera_kernels,
+                             ((cops, "launches"), (cops, "bwd_launches_fp32")), SEED + 160)
+    runs[SSM_JAMBA] = r
+    seconds[SSM_JAMBA] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x = get_config(SSM_XLSTM)
+    runs[SSM_XLSTM] = full_width_steps(
+        "train-ssm", f"{SSM_XLSTM} at full depth ({x.n_layers} layers, pattern {x.pattern}, d "
+                     f"{x.d_model}, mLSTM chunk {x.chimera.chunk_size}, dtype {x.dtype})", x, {},
+        None, XLSTM_TRAIN_STEPS, XLSTM_TRAIN_T, batch=XLSTM_TRAIN_B, profile_seq=XLSTM_PROFILE_T)
+    seconds[SSM_XLSTM] = time.perf_counter() - t0
+    scopes = {SSM_JAMBA: ("mamba",), SSM_XLSTM: ("mlstm", "slstm")}
+    for name, rr in runs.items():
+        if not rr["losses"][-1] < rr["losses"][0] + LOSS_RISE:
+            fail(f"train-ssm {name}: last loss {rr['losses'][-1]} not below the first's "
+                 f"{rr['losses'][0]} + {LOSS_RISE}")
+        missing = [sc for sc in scopes[name] if sc not in rr["scopes"]]
+        if missing:
+            log("train-ssm", f"{name}: scopes {missing} not measured (not in the profiled "
+                             f"step's trace)")
+    t0 = time.perf_counter()
+    for name, counter in ((SSM_JAMBA, (cops, "bwd_launches")), (SSM_XLSTM, None)):
+        c = smoke_config(name)
+        smoke_card_vs_cpu("train-ssm", name, c, counter, SSM_SMOKE_STEPS,
+                          stream=lambda c=c: TokenStream(vocab_size=c.vocab_size, batch_size=8,
+                                                         seq_len=SSM_SMOKE_T + 1, seed=SEED),
+                          what=f"batch 8 x {SSM_SMOKE_T}")
+    seconds["smoke"] = time.perf_counter() - t0
+    launches = {"chimera_attention": r["launches"]["fwd"],
+                "chimera_attention_bwd": r["launches"]["bwd"]}
+    log("train-ssm", f"launches on the phase's main paths: {launches}; seconds by part: "
+                     + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     return {"launches": launches, "runs": runs}
 
 
@@ -4924,7 +5440,7 @@ def phase_smoke_configs():
     (per-round and fused) and ``loss_fn`` with its backward; the softmax
     variant of ``smoke_config("mixtral-8x7b")`` through
     ``ServeEngine.prefill_batch`` and 4 greedy decode ticks, and ``loss_fn``
-    forward (the window_attention kernel is forward only); smoke
+    forward (train-softmax trains it); smoke
     whisper-tiny (``smoke_encdec``).  The Chimera
     smoke's vocabulary is widened to 512 so that FlowScenario's marker
     tokens (256..511) embed, as the test suite's tiny model does; no kernel
@@ -6487,17 +7003,19 @@ def codebook_arch(bits=0):
 
 
 def trainer_for(arch, directory, steps, seed=SEED, lr=3e-4, warmup=100, device="cuda",
-                batch=8, seq=128, params=None, **tcfg):
-    """A Trainer (on the card unless told) over launch/train.py's stream
-    (batch 8 x 128 unless given), from ``params`` if given."""
+                batch=8, seq=128, params=None, stream=None, **tcfg):
+    """A Trainer (on the card unless told) over ``stream``, else
+    launch/train.py's stream (batch 8 x 128 unless given), from ``params``
+    if given."""
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.optim.optimizer import AdamWConfig
     from repro_torch.train import Trainer, TrainerConfig
 
     tcfg = {"log_every": 1, "ckpt_every": 1000, **tcfg}
-    return Trainer(arch, TrainerConfig(total_steps=steps, ckpt_dir=directory, **tcfg),
-                   TokenStream(vocab_size=arch.vocab_size, batch_size=batch, seq_len=seq + 1,
-                               seed=seed),
+    if stream is None:
+        stream = TokenStream(vocab_size=arch.vocab_size, batch_size=batch, seq_len=seq + 1,
+                             seed=seed)
+    return Trainer(arch, TrainerConfig(total_steps=steps, ckpt_dir=directory, **tcfg), stream,
                    opt_cfg=AdamWConfig(lr=lr, warmup_steps=warmup, total_steps=steps),
                    device=device, params=params)
 
@@ -7229,6 +7747,10 @@ def main():
     for name, n in timed("train-softmax", phase_train_softmax, recs)["launches"].items():
         launches[name] = launches.get(name, 0) + n
     for name, n in timed("train-chimera", phase_train_chimera, recs)["launches"].items():
+        launches[name] += n
+    for name, n in timed("train-encdec", phase_train_encdec, recs)["launches"].items():
+        launches[name] += n
+    for name, n in timed("train-ssm", phase_train_ssm, recs)["launches"].items():
         launches[name] += n
     for name, n in timed("lm-ssm", phase_lm_ssm, recs)["launches"].items():
         launches[name] += n

@@ -92,8 +92,9 @@
 // q, k, v, o all float32 or all bfloat16, lse float32):
 //   q (B*H, T, d), k (B*Hkv, T, d), v (B*Hkv, T, dv) -> o (B*H, T, dv)
 //   and, if lse is not null, lse (B*H, T); in the non-causal mode
-//   q (B*H, Tq, d), k (B*Hkv, Tk, d), v (B*Hkv, Tk, dv) -> o (B*H, Tq, dv),
-//   any Tq, Tk >= 1, no lse
+//   q (B*H, Tq, d), k (B*Hkv, Tk, d), v (B*Hkv, Tk, dv) -> o (B*H, Tq, dv)
+//   and, if lse is not null, lse (B*H, Tq) (training: the non-causal
+//   backward in window_attention_bwd.cu reads it), any Tq, Tk >= 1
 // Takes H % Hkv == 0, W >= 1 (W > T included), any T, and (d, dv) with d
 // and dv in {64, 128}, d = dv in {16, 32} (the smoke configs' head widths:
 // QK^T runs two or four k-steps, and PV one fresh accumulator of 2 or 4
@@ -404,19 +405,21 @@ extern "C" int window_attention_launch(const void* q, const void* k, const void*
 }
 
 // The non-causal mode: q (BH, n_q, d) against k (BH/G, n_k, d) and v
-// (BH/G, n_k, dv), every key seen by every row; no lse (forward only).
+// (BH/G, n_k, dv), every key seen by every row; lse (BH, n_q) as the causal
+// launcher's, optional (training passes it, serving null).
 extern "C" int window_attention_noncausal_launch(const void* q, const void* k, const void* v,
-                                                 void* o, int BH, int H, int Hkv, int n_q,
-                                                 int n_k, int d, int dv, float scale, int bf16,
-                                                 void* stream) {
+                                                 void* o, void* lse, int BH, int H, int Hkv,
+                                                 int n_q, int n_k, int d, int dv, float scale,
+                                                 int bf16, void* stream) {
   if (BH <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || n_q <= 0 || n_k <= 0)
     return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {q, k, v, o};
+  const void* ptrs[] = {q, k, v, o, lse};
   for (const void* p : ptrs)
-    if (!p || ((uintptr_t)p & 15)) return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)p & 15) return (int)cudaErrorInvalidValue;  // null passes: lse is optional
+  if (!q || !k || !v || !o) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   if (bf16)
-    return launch_dims<__nv_bfloat16>(q, k, v, o, nullptr, BH, H, Hkv, n_q, n_k, d, dv, 1, 0,
-                                      scale, s);
-  return launch_dims<float>(q, k, v, o, nullptr, BH, H, Hkv, n_q, n_k, d, dv, 1, 0, scale, s);
+    return launch_dims<__nv_bfloat16>(q, k, v, o, l, BH, H, Hkv, n_q, n_k, d, dv, 1, 0, scale, s);
+  return launch_dims<float>(q, k, v, o, l, BH, H, Hkv, n_q, n_k, d, dv, 1, 0, scale, s);
 }

@@ -1,4 +1,5 @@
-// Backward of causal sliding-window softmax attention for Hopper (sm_90a).
+// Backward of causal sliding-window softmax attention for Hopper (sm_90a),
+// and of its non-causal mode.
 //
 // Replaces the backward of the JAX package's window attention op:
 // repro/kernels/window_attention/ops.py::_bwd (:37-40), which differentiates
@@ -106,10 +107,30 @@
 // V, Q and dO take 4 x 33 KB and P^T and dS^T 2 x 17 KB: 170 KB of the 227
 // KB, one block an SM; 15.4 ms of fp32 FMAs at Mixtral's shape.
 //
+// Non-causal mode (causal = 0; window_attention_noncausal_bwd_launch): the
+// backward of window_attention.cu's non-causal mode, for the encoder of
+// whisper-tiny and its softmax cross-attention in training (JAX
+// differentiates blockwise_softmax_attention(causal=False) in jnp,
+// models/attention.py:42, no pallas_call).  The same three kernels with n_q
+// query rows against n_k keys of their own, taken apart, and a runtime
+// argument rather than a template axis, so the build instantiates no more
+// kernels: D runs over the n_q rows; (b) walks every query tile of [0, n_q)
+// of each of its kv-head's G query heads (grid: key tiles of n_k x B*Hkv);
+// (c) every key tile of [0, n_k) (grid: query tiles of n_q x B*H); the only
+// masks are keys >= n_k and rows >= n_q, on the tiles that hold them.  No
+// atomics either.  Bound at whisper-tiny's encoder training shape (B 8 x H
+// 6, Tq = Tk 2,048, d = dv = 64, bf16): 2,048^2 x 48 pairs x (6 d + 4 dv)
+// flop = 128.8 GFLOP, 0.130 ms at 989 TFLOP/s; the bytes (~25 MB) take
+// 0.008 ms.  The encoder's tiles of 64 queries x 64 keys are all full but
+// for the last of a ragged length, so the causal mode's design runs as it
+// is: the first version, not tuned for this shape.
+//
 // Contract (every pointer contiguous and 16-byte aligned; q, k, v, o, do,
 // dq, dk, dv all float32 or all bfloat16; lse and the scratch D float32):
 //   q, o, do (B*H, T, d | dv), k (B*Hkv, T, d), v (B*Hkv, T, dv),
-//   lse (B*H, T) -> dq (B*H, T, d), dk (B*Hkv, T, d), dv (B*Hkv, T, dv)
+//   lse (B*H, T) -> dq (B*H, T, d), dk (B*Hkv, T, d), dv (B*Hkv, T, dv);
+//   in the non-causal mode q, o, do (B*H, Tq, ·), lse (B*H, Tq), k and v
+//   (B*Hkv, Tk, ·), any Tq, Tk >= 1
 // Takes what the forward takes: H % Hkv == 0, W >= 1 (W > T included), any
 // T, and (d, dv) in {(64, 64), (64, 128), (128, 64), (128, 128), (16, 16),
 // (32, 32), (96, 64), (24, 16)}; anything else is cudaErrorInvalidValue.
@@ -281,8 +302,8 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 2) window_bwd_dkdv_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int BHkv, int H, int Hkv, int n, int window,
-    float scale) {
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int BHkv, int H, int Hkv, int n_q, int n_k,
+    int window, int causal, float scale) {
   using Lay = Layout<D, DV>;
   constexpr int DP = Lay::DP, SK = Lay::SK, SV = Lay::SV;
   constexpr int NK = DP / 8, NV = DV / 8;  // n-tiles of dK and dV
@@ -301,20 +322,22 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dkdv_tc_kernel(
   const int j0 = kt * kRows;
   const float sc2 = scale * kLog2e;
 
-  load_rows<kRows, D, DP>(Ks, SK, k + (size_t)bkv * n * D, j0, n);
-  load_rows<kRows, DV, DV>(Vs, SV, v + (size_t)bkv * n * DV, j0, n);
-  // query rows that see a key of the tile: [j0, min(n, j0 + 63 + W))
-  const int i_end = (int)min((long long)n, (long long)j0 + kRows - 1 + window);
-  const int it0 = j0 / kTile, nit = (i_end + kTile - 1) / kTile - it0;
+  load_rows<kRows, D, DP>(Ks, SK, k + (size_t)bkv * n_k * D, j0, n_k);
+  load_rows<kRows, DV, DV>(Vs, SV, v + (size_t)bkv * n_k * DV, j0, n_k);
+  // query rows that see a key of the tile: causal [j0, min(n, j0 + 63 + W)),
+  // non-causal every row [0, n_q)
+  const int i_end =
+      causal ? (int)min((long long)n_q, (long long)j0 + kRows - 1 + window) : n_q;
+  const int it0 = causal ? j0 / kTile : 0, nit = (i_end + kTile - 1) / kTile - it0;
   const int steps = G * nit;
   auto issue = [&](int s) {  // step s: head g = s / nit, query tile it0 + s % nit
     const int st = s & 1, i0 = (it0 + s % nit) * kTile;
     const size_t bh = (size_t)b * H + (size_t)kvh * G + s / nit;
     bf16* Qs = sm + Lay::own + st * Lay::stage;
-    load_rows<kTile, D, DP>(Qs, SK, q + bh * n * D, i0, n);
-    load_rows<kTile, DV, DV>(Qs + kTile * SK, SV, dout + bh * n * DV, i0, n);
-    load_floats(fl + st * 2 * kTile, lse + bh * n, i0, n);
-    load_floats(fl + st * 2 * kTile + kTile, dd + bh * n, i0, n);
+    load_rows<kTile, D, DP>(Qs, SK, q + bh * n_q * D, i0, n_q);
+    load_rows<kTile, DV, DV>(Qs + kTile * SK, SV, dout + bh * n_q * DV, i0, n_q);
+    load_floats(fl + st * 2 * kTile, lse + bh * n_q, i0, n_q);
+    load_floats(fl + st * 2 * kTile + kTile, dd + bh * n_q, i0, n_q);
     cp_async_commit();
   };
   issue(0);  // K and V join the first tile's group
@@ -339,9 +362,13 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dkdv_tc_kernel(
 #pragma unroll 1
     for (int h = 0; h < kTile / SUB; ++h) {
       const int q0 = i0 + h * SUB, ql = h * SUB;  // the sub-tile's first query
-      // warp-uniform: the sub-tile's queries meet this warp's keys inside the band
-      if (kw0 >= n || q0 >= n || q0 + SUB - 1 < kw0 || q0 - (kw0 + 15) >= window) continue;
-      const bool full = q0 >= kw0 + 15 && q0 + SUB - 1 - kw0 < window && q0 + SUB <= n;
+      // warp-uniform: the sub-tile's queries meet this warp's keys (inside the
+      // band when causal); "full": no entry of the sub-tile is masked
+      if (kw0 >= n_k || q0 >= n_q ||
+          (causal && (q0 + SUB - 1 < kw0 || q0 - (kw0 + 15) >= window)))
+        continue;
+      const bool full = causal ? q0 >= kw0 + 15 && q0 + SUB - 1 - kw0 < window && q0 + SUB <= n_q
+                               : q0 + SUB <= n_q && kw0 + 16 <= n_k;
 
       // ---- S^T = K Q^T and dP^T = V dO^T (16 keys x SUB queries) ----
       float s_[NH][4], dp[NH][4];
@@ -384,7 +411,8 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dkdv_tc_kernel(
           const int qi = i0 + c + (e & 1), key = e < 2 ? key0 : key1;
           const float lq = (e & 1) ? l2.y : l2.x, del = (e & 1) ? d2.y : d2.x;
           float p = exp2f(fmaf(s_[j][e], sc2, -lq * kLog2e));
-          if (!full && !(qi < n && key <= qi && qi - key < window)) p = 0.f;
+          if (!full && !(qi < n_q && (causal ? key <= qi && qi - key < window : key < n_k)))
+            p = 0.f;
           s_[j][e] = p;
           dp[j][e] = p * (dp[j][e] - del);
         }
@@ -419,21 +447,21 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dkdv_tc_kernel(
   }
 
   // ---- dK / sqrt(d) and dV, in bf16 (the padding columns of d are dropped) ----
-  bf16* dkb = dk + (size_t)bkv * n * D + 2 * t4;
-  bf16* dvb = dv + (size_t)bkv * n * DV + 2 * t4;
+  bf16* dkb = dk + (size_t)bkv * n_k * D + 2 * t4;
+  bf16* dvb = dv + (size_t)bkv * n_k * DV + 2 * t4;
 #pragma unroll
   for (int j = 0; j < NK; ++j) {
     if (8 * j >= D) continue;
-    if (key0 < n) *reinterpret_cast<uint32_t*>(dkb + (size_t)key0 * D + 8 * j) =
+    if (key0 < n_k) *reinterpret_cast<uint32_t*>(dkb + (size_t)key0 * D + 8 * j) =
         pack(adk[j][0] * scale, adk[j][1] * scale);
-    if (key1 < n) *reinterpret_cast<uint32_t*>(dkb + (size_t)key1 * D + 8 * j) =
+    if (key1 < n_k) *reinterpret_cast<uint32_t*>(dkb + (size_t)key1 * D + 8 * j) =
         pack(adk[j][2] * scale, adk[j][3] * scale);
   }
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    if (key0 < n) *reinterpret_cast<uint32_t*>(dvb + (size_t)key0 * DV + 8 * j) =
+    if (key0 < n_k) *reinterpret_cast<uint32_t*>(dvb + (size_t)key0 * DV + 8 * j) =
         pack(adv[j][0], adv[j][1]);
-    if (key1 < n) *reinterpret_cast<uint32_t*>(dvb + (size_t)key1 * DV + 8 * j) =
+    if (key1 < n_k) *reinterpret_cast<uint32_t*>(dvb + (size_t)key1 * DV + 8 * j) =
         pack(adv[j][2], adv[j][3]);
   }
 }
@@ -443,7 +471,8 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 2) window_bwd_dq_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-    bf16* __restrict__ dq, int BH, int H, int Hkv, int n, int window, float scale) {
+    bf16* __restrict__ dq, int BH, int H, int Hkv, int n_q, int n_k, int window, int causal,
+    float scale) {
   using Lay = Layout<D, DV>;
   constexpr int DP = Lay::DP, SK = Lay::SK, SV = Lay::SV;
   constexpr int NK = DP / 8;    // n-tiles of dQ
@@ -456,26 +485,28 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dq_tc_kernel(
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int nqt = (n + kRows - 1) / kRows;
+  const int nqt = (n_q + kRows - 1) / kRows;
   const int it = nqt - 1 - (int)(blockIdx.x / BH);  // the longest bands first
   const size_t bh = blockIdx.x % BH;
   const size_t kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
   const int i0 = it * kRows;
   const float sc2 = scale * kLog2e;
-  const bf16* kb = k + kvh * n * D;
-  const bf16* vb = v + kvh * n * DV;
+  const bf16* kb = k + kvh * n_k * D;
+  const bf16* vb = v + kvh * n_k * DV;
 
-  load_rows<kRows, D, DP>(Qs, SK, q + bh * n * D, i0, n);
-  load_rows<kRows, DV, DV>(Os, SV, dout + bh * n * DV, i0, n);
-  load_floats(fl, lse + bh * n, i0, n);
-  load_floats(fl + kTile, dd + bh * n, i0, n);
-  // keys that a row of the tile sees: [max(0, i0 - W + 1), min(n, i0 + 64))
-  const int j_first = max(0, i0 - window + 1), j_end = min(n, i0 + kRows);
+  load_rows<kRows, D, DP>(Qs, SK, q + bh * n_q * D, i0, n_q);
+  load_rows<kRows, DV, DV>(Os, SV, dout + bh * n_q * DV, i0, n_q);
+  load_floats(fl, lse + bh * n_q, i0, n_q);
+  load_floats(fl + kTile, dd + bh * n_q, i0, n_q);
+  // keys that a row of the tile sees: causal [max(0, i0 - W + 1), min(n, i0
+  // + 64)), non-causal every key [0, n_k)
+  const int j_first = causal ? max(0, i0 - window + 1) : 0;
+  const int j_end = causal ? min(n_k, i0 + kRows) : n_k;
   const int jt0 = j_first / kTile, jt1 = (j_end + kTile - 1) / kTile;
   auto issue = [&](int jt) {
     bf16* Kt = sm + Lay::own + ((jt - jt0) & 1) * Lay::stage;
-    load_rows<kTile, D, DP>(Kt, SK, kb, jt * kTile, n);
-    load_rows<kTile, DV, DV>(Kt + kTile * SK, SV, vb, jt * kTile, n);
+    load_rows<kTile, D, DP>(Kt, SK, kb, jt * kTile, n_k);
+    load_rows<kTile, DV, DV>(Kt + kTile * SK, SV, vb, jt * kTile, n_k);
     cp_async_commit();
   };
   issue(jt0);  // Q, dO, lse and D join the first tile's group
@@ -498,9 +529,10 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dq_tc_kernel(
       dr[1] = fl[kTile + 16 * warp + g8 + 8];
     }
     const int j0 = jt * kTile;
-    // warp-uniform: this warp's rows exist and meet the tile inside the band
-    if (r0 >= n || j0 > r0 + 15 || r0 - (j0 + kTile - 1) >= window) continue;
-    const bool full = j0 + kTile - 1 <= r0 && r0 + 15 - j0 < window && r0 + 16 <= n;
+    // warp-uniform: this warp's rows exist and (causal) meet the tile inside the band
+    if (r0 >= n_q || (causal && (j0 > r0 + 15 || r0 - (j0 + kTile - 1) >= window))) continue;
+    const bool full = causal ? j0 + kTile - 1 <= r0 && r0 + 15 - j0 < window && r0 + 16 <= n_q
+                             : j0 + kTile <= n_k && r0 + 16 <= n_q;
     const bf16* Kt = sm + Lay::own + ((jt - jt0) & 1) * Lay::stage;
     const bf16* Vt = Kt + kTile * SK;
 
@@ -541,7 +573,8 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dq_tc_kernel(
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, row = r ? rb : ra, key = j0 + 8 * j + 2 * t4 + (e & 1);
         float p = exp2f(fmaf(s_[j][e], sc2, -l2[r]));
-        if (!full && !(row < n && key <= row && row - key < window)) p = 0.f;
+        if (!full && !(row < n_q && (causal ? key <= row && row - key < window : key < n_k)))
+          p = 0.f;
         dp[j][e] = p * (dp[j][e] - dr[r]);
       }
 
@@ -563,13 +596,13 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dq_tc_kernel(
   }
 
   // ---- dQ / sqrt(d), in bf16 ----
-  bf16* dqb = dq + bh * n * D + 2 * t4;
+  bf16* dqb = dq + bh * n_q * D + 2 * t4;
 #pragma unroll
   for (int j = 0; j < NK; ++j) {
     if (8 * j >= D) continue;
-    if (ra < n) *reinterpret_cast<uint32_t*>(dqb + (size_t)ra * D + 8 * j) =
+    if (ra < n_q) *reinterpret_cast<uint32_t*>(dqb + (size_t)ra * D + 8 * j) =
         pack(adq[j][0] * scale, adq[j][1] * scale);
-    if (rb < n) *reinterpret_cast<uint32_t*>(dqb + (size_t)rb * D + 8 * j) =
+    if (rb < n_q) *reinterpret_cast<uint32_t*>(dqb + (size_t)rb * D + 8 * j) =
         pack(adq[j][2] * scale, adq[j][3] * scale);
   }
 }
@@ -577,7 +610,7 @@ __global__ void __launch_bounds__(kThreads, 2) window_bwd_dq_tc_kernel(
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
            const void* dout, void* dq, void* dk, void* dv, float* dd, int BH, int H, int Hkv,
-           int n, int window, float scale, cudaStream_t stream) {
+           int n_q, int n_k, int window, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<D, DV>::bytes;
   static_assert(smem <= 227 * 1024, "shared memory beyond what a block may use");
   const bf16* tq = static_cast<const bf16*>(q);
@@ -585,10 +618,11 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
   const bf16* tv = static_cast<const bf16*>(v);
   const bf16* tdo = static_cast<const bf16*>(dout);
   const int BHkv = BH / (H / Hkv);
-  const long long nt = (n + kRows - 1) / kRows;
-  const long long rows = (long long)BH * n;
+  const long long ntq = (n_q + kRows - 1) / kRows, ntk = (n_k + kRows - 1) / kRows;
+  const long long rows = (long long)BH * n_q;
   const long long blocks_a = (rows + 7) / 8;
-  if (blocks_a > 0x7FFFFFFFLL || nt * BH > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (blocks_a > 0x7FFFFFFFLL || ntq * BH > 0x7FFFFFFFLL || ntk * BHkv > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   const void* kernels[] = {(const void*)window_bwd_dkdv_tc_kernel<D, DV>,
                            (const void*)window_bwd_dq_tc_kernel<D, DV>};
@@ -603,12 +637,13 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
   window_bwd_rowdot_kernel<bf16, DV><<<(unsigned)blocks_a, 256, 0, stream>>>(
       static_cast<const bf16*>(o), tdo, dd, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  window_bwd_dkdv_tc_kernel<D, DV><<<(unsigned)(nt * BHkv), kThreads, smem, stream>>>(
-      tq, tk, tv, tdo, lse, dd, static_cast<bf16*>(dk), static_cast<bf16*>(dv), BHkv, H, Hkv, n,
-      window, scale);
+  window_bwd_dkdv_tc_kernel<D, DV><<<(unsigned)(ntk * BHkv), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, dd, static_cast<bf16*>(dk), static_cast<bf16*>(dv), BHkv, H, Hkv,
+      n_q, n_k, window, causal, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  window_bwd_dq_tc_kernel<D, DV><<<(unsigned)(nt * BH), kThreads, smem, stream>>>(
-      tq, tk, tv, tdo, lse, dd, static_cast<bf16*>(dq), BH, H, Hkv, n, window, scale);
+  window_bwd_dq_tc_kernel<D, DV><<<(unsigned)(ntq * BH), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, dd, static_cast<bf16*>(dq), BH, H, Hkv, n_q, n_k, window, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -732,8 +767,8 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1) window_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-    float* __restrict__ dk, float* __restrict__ dv, int BHkv, int H, int Hkv, int n, int window,
-    float scale) {
+    float* __restrict__ dk, float* __restrict__ dv, int BHkv, int H, int Hkv, int n_q, int n_k,
+    int window, int causal, float scale) {
   using Lay = Layout<D, DV>;
   constexpr int NUK = (D + 15) / 16, NUV = (DV + 15) / 16;
   extern __shared__ __align__(16) float sm[];
@@ -743,8 +778,8 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_dkdv_kernel(
   const int j0 = kt * kTile;
   const float sc2 = scale * kLog2e;
 
-  stage<D>(sm + Lay::K, k + (size_t)bkv * n * D, j0, n);
-  stage<DV>(sm + Lay::V, v + (size_t)bkv * n * DV, j0, n);
+  stage<D>(sm + Lay::K, k + (size_t)bkv * n_k * D, j0, n_k);
+  stage<DV>(sm + Lay::V, v + (size_t)bkv * n_k * DV, j0, n_k);
 
   float adk[4][NUK], adv[4][NUV];
 #pragma unroll
@@ -754,20 +789,22 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_dkdv_kernel(
 #pragma unroll
     for (int u = 0; u < NUV; ++u) adv[i][u] = 0.f;
   }
-  // query rows that see a key of the tile: [j0, min(n, j0 + 63 + W))
-  const int i_end = (int)min((long long)n, (long long)j0 + kTile - 1 + window);
-  const int it0 = j0 / kTile, it1 = (i_end + kTile - 1) / kTile;
+  // query rows that see a key of the tile: causal [j0, min(n, j0 + 63 + W)),
+  // non-causal every row [0, n_q)
+  const int i_end =
+      causal ? (int)min((long long)n_q, (long long)j0 + kTile - 1 + window) : n_q;
+  const int it0 = causal ? j0 / kTile : 0, it1 = (i_end + kTile - 1) / kTile;
   for (int g = 0; g < G; ++g) {
     const size_t bh = (size_t)b * H + (size_t)kvh * G + g;
     for (int it = it0; it < it1; ++it) {
       const int i0 = it * kTile;
       __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are retired
-      stage<D>(sm + Lay::Q, q + bh * n * D, i0, n);
-      stage<DV>(sm + Lay::O, dout + bh * n * DV, i0, n);
+      stage<D>(sm + Lay::Q, q + bh * n_q * D, i0, n_q);
+      stage<DV>(sm + Lay::O, dout + bh * n_q * DV, i0, n_q);
       if (tid < kTile) {
         const int row = i0 + tid;
-        sm[Lay::L + tid] = row < n ? lse[bh * n + row] * kLog2e : 0.f;
-        sm[Lay::DD + tid] = row < n ? dd[bh * n + row] : 0.f;
+        sm[Lay::L + tid] = row < n_q ? lse[bh * n_q + row] * kLog2e : 0.f;
+        sm[Lay::DD + tid] = row < n_q ? dd[bh * n_q + row] : 0.f;
       }
       __syncthreads();
       // S^T and dP^T: keys j0 + ty + 16 i, queries i0 + tx + 16 u
@@ -780,7 +817,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_dkdv_kernel(
         for (int u = 0; u < 4; ++u) {
           const int jl = ty + 16 * i, il = tx + 16 * u;
           const int jj = j0 + jl, ii = i0 + il;
-          const bool in = ii < n && jj <= ii && ii - jj < window;
+          const bool in = ii < n_q && (causal ? jj <= ii && ii - jj < window : jj < n_k);
           const float p = in ? exp2f(fmaf(s[i][u], sc2, -sm[Lay::L + il])) : 0.f;
           sm[Lay::P + jl * kSP + il] = p;
           sm[Lay::S + jl * kSP + il] = p * (dp[i][u] - sm[Lay::DD + il]);
@@ -790,8 +827,8 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_dkdv_kernel(
       tile_mx<D>(adk, sm + Lay::S, sm + Lay::Q, ty, tx);
     }
   }
-  write_tile<D>(dk + (size_t)bkv * n * D, adk, j0, n, scale, ty, tx);
-  write_tile<DV>(dv + (size_t)bkv * n * DV, adv, j0, n, 1.f, ty, tx);
+  write_tile<D>(dk + (size_t)bkv * n_k * D, adk, j0, n_k, scale, ty, tx);
+  write_tile<DV>(dv + (size_t)bkv * n_k * DV, adv, j0, n_k, 1.f, ty, tx);
 }
 
 // (c) dQ of one (batch x head, 64-row query tile)
@@ -799,38 +836,41 @@ template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1) window_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dd,
-    float* __restrict__ dq, int BH, int H, int Hkv, int n, int window, float scale) {
+    float* __restrict__ dq, int BH, int H, int Hkv, int n_q, int n_k, int window, int causal,
+    float scale) {
   using Lay = Layout<D, DV>;
   constexpr int NUK = (D + 15) / 16;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int nqt = (n + kTile - 1) / kTile;
+  const int nqt = (n_q + kTile - 1) / kTile;
   const int it = nqt - 1 - (int)(blockIdx.x / BH);  // the longest bands first
   const size_t bh = blockIdx.x % BH;
   const size_t kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
   const int i0 = it * kTile;
   const float sc2 = scale * kLog2e;
 
-  stage<D>(sm + Lay::Q, q + bh * n * D, i0, n);
-  stage<DV>(sm + Lay::O, dout + bh * n * DV, i0, n);
+  stage<D>(sm + Lay::Q, q + bh * n_q * D, i0, n_q);
+  stage<DV>(sm + Lay::O, dout + bh * n_q * DV, i0, n_q);
   if (tid < kTile) {
     const int row = i0 + tid;
-    sm[Lay::L + tid] = row < n ? lse[bh * n + row] * kLog2e : 0.f;
-    sm[Lay::DD + tid] = row < n ? dd[bh * n + row] : 0.f;
+    sm[Lay::L + tid] = row < n_q ? lse[bh * n_q + row] * kLog2e : 0.f;
+    sm[Lay::DD + tid] = row < n_q ? dd[bh * n_q + row] : 0.f;
   }
   float adq[4][NUK];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int u = 0; u < NUK; ++u) adq[i][u] = 0.f;
-  // keys that a row of the tile sees: [max(0, i0 - W + 1), min(n, i0 + 64))
-  const int j_first = max(0, i0 - window + 1), j_end = min(n, i0 + kTile);
+  // keys that a row of the tile sees: causal [max(0, i0 - W + 1), min(n, i0
+  // + 64)), non-causal every key [0, n_k)
+  const int j_first = causal ? max(0, i0 - window + 1) : 0;
+  const int j_end = causal ? min(n_k, i0 + kTile) : n_k;
   const int jt0 = j_first / kTile, jt1 = (j_end + kTile - 1) / kTile;
   for (int jt = jt0; jt < jt1; ++jt) {
     const int j0 = jt * kTile;
     __syncthreads();  // the previous tile's K, V and dS are retired
-    stage<D>(sm + Lay::K, k + kvh * n * D, j0, n);
-    stage<DV>(sm + Lay::V, v + kvh * n * DV, j0, n);
+    stage<D>(sm + Lay::K, k + kvh * n_k * D, j0, n_k);
+    stage<DV>(sm + Lay::V, v + kvh * n_k * DV, j0, n_k);
     __syncthreads();
     // S and dP: queries i0 + ty + 16 i, keys j0 + tx + 16 u
     float s[4][4] = {}, dp[4][4] = {};
@@ -842,20 +882,20 @@ __global__ void __launch_bounds__(kThreads, 1) window_bwd_dq_kernel(
       for (int u = 0; u < 4; ++u) {
         const int il = ty + 16 * i, jl = tx + 16 * u;
         const int ii = i0 + il, jj = j0 + jl;
-        const bool in = ii < n && jj <= ii && ii - jj < window;
+        const bool in = ii < n_q && (causal ? jj <= ii && ii - jj < window : jj < n_k);
         const float p = in ? exp2f(fmaf(s[i][u], sc2, -sm[Lay::L + il])) : 0.f;
         sm[Lay::S + il * kSP + jl] = p * (dp[i][u] - sm[Lay::DD + il]);
       }
     __syncthreads();
     tile_mx<D>(adq, sm + Lay::S, sm + Lay::K, ty, tx);
   }
-  write_tile<D>(dq + bh * n * D, adq, i0, n, scale, ty, tx);
+  write_tile<D>(dq + bh * n_q * D, adq, i0, n_q, scale, ty, tx);
 }
 
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
            const void* dout, void* dq, void* dk, void* dv, float* dd, int BH, int H, int Hkv,
-           int n, int window, float scale, cudaStream_t stream) {
+           int n_q, int n_k, int window, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<D, DV>::bytes;
   static_assert(smem <= 227 * 1024, "shared memory beyond what a block may use");
   const float* tq = static_cast<const float*>(q);
@@ -863,10 +903,11 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
   const float* tv = static_cast<const float*>(v);
   const float* tdo = static_cast<const float*>(dout);
   const int BHkv = BH / (H / Hkv);
-  const long long nt = (n + kTile - 1) / kTile;
-  const long long rows = (long long)BH * n;
+  const long long ntq = (n_q + kTile - 1) / kTile, ntk = (n_k + kTile - 1) / kTile;
+  const long long rows = (long long)BH * n_q;
   const long long blocks_a = (rows + 7) / 8;
-  if (blocks_a > 0x7FFFFFFFLL || nt * BH > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  if (blocks_a > 0x7FFFFFFFLL || ntq * BH > 0x7FFFFFFFLL || ntk * BHkv > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(window_bwd_dkdv_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
@@ -876,12 +917,13 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
   window_bwd_rowdot_kernel<float, DV><<<(unsigned)blocks_a, 256, 0, stream>>>(
       static_cast<const float*>(o), tdo, dd, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  window_bwd_dkdv_kernel<D, DV><<<(unsigned)(nt * BHkv), kThreads, smem, stream>>>(
+  window_bwd_dkdv_kernel<D, DV><<<(unsigned)(ntk * BHkv), kThreads, smem, stream>>>(
       tq, tk, tv, tdo, lse, dd, static_cast<float*>(dk), static_cast<float*>(dv), BHkv, H, Hkv,
-      n, window, scale);
+      n_q, n_k, window, causal, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  window_bwd_dq_kernel<D, DV><<<(unsigned)(nt * BH), kThreads, smem, stream>>>(
-      tq, tk, tv, tdo, lse, dd, static_cast<float*>(dq), BH, H, Hkv, n, window, scale);
+  window_bwd_dq_kernel<D, DV><<<(unsigned)(ntq * BH), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, dd, static_cast<float*>(dq), BH, H, Hkv, n_q, n_k, window, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -889,14 +931,14 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
 
 int launch_dims(const void* q, const void* k, const void* v, const void* o, const float* lse,
                 const void* dout, void* dq, void* dk, void* dv, float* dd, int BH, int H,
-                int Hkv, int n, int d, int dvw, int window, float scale, bool bf16,
-                cudaStream_t s) {
-#define WB_DIMS(D, DV)                                                                          \
-  if (d == D && dvw == DV)                                                                      \
-    return bf16 ? tc::launch<D, DV>(q, k, v, o, lse, dout, dq, dk, dv, dd, BH, H, Hkv, n, window, \
-                                    scale, s)                                                   \
-                : fp::launch<D, DV>(q, k, v, o, lse, dout, dq, dk, dv, dd, BH, H, Hkv, n, window, \
-                                    scale, s);
+                int Hkv, int n_q, int n_k, int d, int dvw, int window, int causal, float scale,
+                bool bf16, cudaStream_t s) {
+#define WB_DIMS(D, DV)                                                                         \
+  if (d == D && dvw == DV)                                                                     \
+    return bf16 ? tc::launch<D, DV>(q, k, v, o, lse, dout, dq, dk, dv, dd, BH, H, Hkv, n_q, n_k, \
+                                    window, causal, scale, s)                                  \
+                : fp::launch<D, DV>(q, k, v, o, lse, dout, dq, dk, dv, dd, BH, H, Hkv, n_q, n_k, \
+                                    window, causal, scale, s);
   WB_DIMS(64, 64)
   WB_DIMS(64, 128)
   WB_DIMS(128, 64)
@@ -909,6 +951,21 @@ int launch_dims(const void* q, const void* k, const void* v, const void* o, cons
   return (int)cudaErrorInvalidValue;
 }
 
+int checked(const void* q, const void* k, const void* v, const void* o, const void* lse,
+            const void* dout, void* dq, void* dk, void* dv, void* dd, int BH, int H, int Hkv,
+            int n_q, int n_k, int d, int dvw, int window, int causal, float scale, int bf16,
+            void* stream) {
+  if (BH <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || n_q <= 0 || n_k <= 0 ||
+      window <= 0)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {q, k, v, o, lse, dout, dq, dk, dv, dd};
+  for (const void* p : ptrs)
+    if (!p || ((uintptr_t)p & 15)) return (int)cudaErrorInvalidValue;
+  return launch_dims(q, k, v, o, static_cast<const float*>(lse), dout, dq, dk, dv,
+                     static_cast<float*>(dd), BH, H, Hkv, n_q, n_k, d, dvw, window, causal, scale,
+                     bf16 != 0, (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // dd is the caller's fp32 scratch of B*H*T entries (D of kernel (a)).
@@ -917,12 +974,19 @@ extern "C" int window_attention_bwd_launch(const void* q, const void* k, const v
                                            void* dq, void* dk, void* dv, void* dd, int BH, int H,
                                            int Hkv, int n, int d, int dvw, int window,
                                            float scale, int bf16, void* stream) {
-  if (BH <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || BH % H != 0 || n <= 0 || window <= 0)
-    return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {q, k, v, o, lse, dout, dq, dk, dv, dd};
-  for (const void* p : ptrs)
-    if (!p || ((uintptr_t)p & 15)) return (int)cudaErrorInvalidValue;
-  return launch_dims(q, k, v, o, static_cast<const float*>(lse), dout, dq, dk, dv,
-                     static_cast<float*>(dd), BH, H, Hkv, n, d, dvw, window, scale, bf16 != 0,
-                     (cudaStream_t)stream);
+  return checked(q, k, v, o, lse, dout, dq, dk, dv, dd, BH, H, Hkv, n, n, d, dvw, window, 1,
+                 scale, bf16, stream);
+}
+
+// The non-causal mode: q, o, do (BH, n_q, d | dv) and lse (BH, n_q) of the
+// forward's non-causal mode, k (BH/G, n_k, d), v (BH/G, n_k, dv); dd is the
+// caller's fp32 scratch of BH*n_q entries.
+extern "C" int window_attention_noncausal_bwd_launch(const void* q, const void* k, const void* v,
+                                                     const void* o, const void* lse,
+                                                     const void* dout, void* dq, void* dk,
+                                                     void* dv, void* dd, int BH, int H, int Hkv,
+                                                     int n_q, int n_k, int d, int dvw,
+                                                     float scale, int bf16, void* stream) {
+  return checked(q, k, v, o, lse, dout, dq, dk, dv, dd, BH, H, Hkv, n_q, n_k, d, dvw, 1, 0,
+                 scale, bf16, stream);
 }

@@ -44,8 +44,9 @@ SIGNATURES = {
     "chimera_attention_bwd_bf16_launch": [_P] * 13 + [_I] * 7 + [_F] + [_I] * 2 + [_P],
     "chimera_attention_bwd_bf16_scratch": [_I] * 6,
     "window_attention_launch": [_P] * 5 + [_I] * 7 + [_F] + [_I] + [_P],
-    "window_attention_noncausal_launch": [_P] * 4 + [_I] * 7 + [_F] + [_I] + [_P],
+    "window_attention_noncausal_launch": [_P] * 5 + [_I] * 7 + [_F] + [_I] + [_P],
     "window_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_F] + [_I] + [_P],
+    "window_attention_noncausal_bwd_launch": [_P] * 10 + [_I] * 7 + [_F] + [_I] + [_P],
     "empty_launch": [_I, _P],
 }
 

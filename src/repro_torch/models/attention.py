@@ -21,8 +21,8 @@ length, and a ``max_len`` KV cache, or MLA's latent cache ``{"c_kv",
 "k_r"}`` with the absorbed-matmul decode.  Non-causal softmax (the encoder
 of whisper-tiny, and its cross-attention with ``use_chimera=False``):
 ``blockwise_softmax_attention(causal=False)``, queries and keys of their
-own lengths, through the ``window_attention`` kernel's non-causal mode on
-the card (forward only).  Cross-attention (``init_cross_attention`` :408,
+own lengths, through the ``window_attention`` kernels' non-causal mode on
+the card (forward, and backward in training).  Cross-attention (``init_cross_attention`` :408,
 ``cross_attention_layer`` :425 and ``encode_cross_kv`` :453): the encoder's
 keys and values are computed once per request; the Chimera branch
 linearises it over them in plain tensor code, as JAX does in jnp.
@@ -144,7 +144,7 @@ def blockwise_softmax_attention(
     ``csrc/window_attention.cu`` with the window Tk (a band of width W >= T
     is causal attention, as the JAX package's ``tests/test_kernels.py:115``
     holds of its window kernel).  Non-causal (any T and Tk): on the card
-    the same kernel's non-causal mode, forward only.  On the CPU both run
+    the same kernels' non-causal mode, differentiable.  On the CPU both run
     :func:`blockwise_softmax_attention_plain`."""
     if q.device.type == "cpu":
         return blockwise_softmax_attention_plain(q, k, v, blk, causal)

@@ -16,8 +16,18 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 Params = Dict[str, torch.Tensor]
+
+
+def remat_call(on: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``on`` and gradients are enabled: only the inputs are kept, and the
+    backward runs ``fn`` again (``jax.checkpoint`` around a scan body)."""
+    if on and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def normal(g: torch.Generator, shape, scale: float, device="cpu") -> torch.Tensor:

@@ -10,6 +10,10 @@ h_t = dA_t ⊙ h_{t-1} + dBx_t runs token by token over the chunk (one fused
 multiply-add per token on (B, d_inner, d_state)), which sums in another
 order, so the two agree within a float32 tolerance, not bit for bit.  The
 chunk loop runs under the profiler scope "mamba" (JAX's ``named_scope``).
+With gradients on, each chunk's body (dA, dBx and the token loop) runs
+under ``torch.utils.checkpoint``, JAX's nested remat (``jax.checkpoint``
+around ``chunk_body``): the chunk's (B, c, d_inner, d_state) dA and dBx
+are made again in the backward instead of being kept for every chunk.
 
 Dtypes are JAX's: the parameters are float32, so every projection of a
 bfloat16 input is float32; the state starts in x's dtype and the scan
@@ -30,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import dense, init_dense, normal, promote
+from repro_torch.models.layers import dense, init_dense, normal, promote, remat_call
 
 Params = dict
 
@@ -83,13 +87,25 @@ def _ssm_chunk(h0, dA, dBx, C):
     c, di), the last h)."""
     dt = torch.promote_types(torch.promote_types(dA.dtype, dBx.dtype), h0.dtype)
     dA, dBx = dA.to(dt), dBx.to(dt)
-    hs = torch.empty_like(dBx)
     h = h0.to(dt)
-    for t in range(dA.shape[1]):
-        h = torch.addcmul(dBx[:, t], dA[:, t], h, out=hs[:, t])
+    # stacked, as autograd takes no ``out=``.  unbind, not dA[:, t]: each
+    # index's backward would fill and add a whole (B, c, di, n) tensor
+    steps = []
+    for dA_t, dBx_t in zip(dA.unbind(1), dBx.unbind(1)):
+        h = torch.addcmul(dBx_t, dA_t, h)
+        steps.append(h)
+    hs = torch.stack(steps, dim=1)
     hs_, C = promote(hs, C)
     y = torch.einsum("bcdn,bcn->bcd", hs_, C)
     return y, hs[:, -1]
+
+
+def _chunk_body(h, dt_i, x_i, B_i, C_i, A):
+    """One chunk of the selective scan from the carried state ``h``:
+    ``(y (B, c, di), the last h)``."""
+    dA = torch.exp(dt_i[..., None] * A)
+    dBx = (dt_i * x_i)[..., None] * B_i[:, :, None, :]
+    return _ssm_chunk(h, dA, dBx, C_i)
 
 
 def mamba_layer(
@@ -129,10 +145,8 @@ def mamba_layer(
     ys = []
     with torch.profiler.record_function("mamba"):
         for s in range(0, T, c):
-            dt_i, x_i = dt[:, s:s + c], xin[:, s:s + c]
-            dA = torch.exp(dt_i[..., None] * A)
-            dBx = (dt_i * x_i)[..., None] * B_ssm[:, s:s + c, None, :]
-            y_i, h = _ssm_chunk(h, dA, dBx, C_ssm[:, s:s + c])
+            y_i, h = remat_call(True, _chunk_body, h, dt[:, s:s + c], xin[:, s:s + c],
+                                B_ssm[:, s:s + c], C_ssm[:, s:s + c], A)
             ys.append(y_i)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     y = y + params["D"] * xin

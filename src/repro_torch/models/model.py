@@ -22,16 +22,19 @@ MLP (MoE keyed on the block's position in the pattern), the xLSTM blocks
 none.  The residual stream is in ``cfg.dtype``: the embedding is cast to it, and every
 block's output is cast back to it before the residual add, as in JAX.
 
-The encoder-decoder stack (whisper-tiny, ``encoder_layers`` > 0) serves:
-``init_model``, ``encode`` (a stub frontend's frame embeddings through
-``enc_in`` and ``encoder_layers`` attention blocks with non-causal
+The encoder-decoder stack (whisper-tiny, ``encoder_layers`` > 0) serves and
+trains: ``init_model``, ``encode`` (a stub frontend's frame embeddings
+through ``enc_in`` and ``encoder_layers`` attention blocks with non-causal
 softmax, RoPE on q and k), the teacher-forced ``forward`` and ``loss_fn``
 (each decoder block: causal self-attention, then cross-attention to the
-encoder's output behind ``ln_x``, then the MLP), ``init_encdec_caches``
-(each decoder block's self-attention cache beside its precomputed
-cross-attention keys and values) and ``decode_step``.  As in the JAX
-package there is no enc-dec ``prefill_with_caches``, ``decode_hidden_step``
-or LM engine: those raise.
+encoder's output behind ``ln_x``, then the MLP; ``make_train_step`` and the
+``Trainer`` take a batch with ``enc_embeds``), ``init_encdec_caches`` (each
+decoder block's self-attention cache beside its precomputed
+cross-attention keys and values) and ``decode_step``.  With ``cfg.remat``
+"full" and gradients on, each encoder layer and each decoder group
+(its cross keys and values included) is checkpointed, as JAX's scan
+bodies.  As in the JAX package there is no enc-dec ``prefill_with_caches``,
+``decode_hidden_step`` or LM engine: those raise.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -58,6 +60,7 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
     mlp,
+    remat_call,
 )
 
 Params = Dict[str, Any]
@@ -204,20 +207,13 @@ def _group_forward(cfg: ArchConfig, gp: Params, x, positions, causal: bool = Tru
 
 
 def _scan_groups(cfg: ArchConfig, stacked: Params, x, positions, causal: bool = True):
-    """The JAX scan over groups as a loop over the stacked layer axis.
-    With ``cfg.remat != "none"`` and gradients on, each group's forward runs
-    under ``torch.utils.checkpoint`` (``jax.checkpoint`` around the scan
-    body): only its input is kept, and the backward runs the forward again.
-    Returns ``(x, aux)``."""
-    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    """The JAX scan over groups as a loop over the stacked layer axis; each
+    group's forward checkpointed when ``cfg.remat != "none"``
+    (:func:`remat_call`).  Returns ``(x, aux)``."""
     aux = torch.zeros((), device=x.device)
     for gi in range(cfg.n_groups):
-        gp = index_params(stacked, gi)
-        if remat:
-            x, a = torch.utils.checkpoint.checkpoint(_group_forward, cfg, gp, x, positions,
-                                                     causal, use_reentrant=False)
-        else:
-            x, a = _group_forward(cfg, gp, x, positions, causal)
+        x, a = remat_call(cfg.remat != "none", _group_forward, cfg,
+                          index_params(stacked, gi), x, positions, causal)
         aux = aux + a
     return x, aux
 
@@ -387,7 +383,8 @@ def prefill_with_caches(cfg: ArchConfig, params: Params, tokens: torch.Tensor, m
 # --------------------------------------------------------------------------
 
 def _enc_cfg(cfg: ArchConfig) -> ArchConfig:
-    return dataclasses.replace(cfg, block_pattern=("attn",))
+    """The encoder's stack: ``encoder_layers`` attention blocks."""
+    return dataclasses.replace(cfg, block_pattern=("attn",), n_layers=cfg.encoder_layers)
 
 
 def _init_encdec(cfg: ArchConfig, g: torch.Generator, device) -> Params:
@@ -424,10 +421,7 @@ def encode(cfg: ArchConfig, params: Params, enc_embeds: torch.Tensor) -> torch.T
     x = dense(params["enc_in"], enc_embeds.to(_dtype(cfg)))
     B, Te, _ = x.shape
     positions = torch.arange(Te, device=x.device).expand(B, Te)
-    enc_cfg = _enc_cfg(cfg)
-    for gi in range(cfg.encoder_layers):
-        x, _ = _block_forward(enc_cfg, "attn", index_params(params["enc_blocks"]["b0"], gi), x,
-                              positions, causal=False)
+    x, _ = _scan_groups(_enc_cfg(cfg), params["enc_blocks"], x, positions, causal=False)
     return apply_norm(params["enc_norm"], x, cfg.norm_type)
 
 
@@ -435,6 +429,19 @@ def _cross(cfg: ArchConfig, bp: Params, x, kv):
     """The decoder block's cross-attention sublayer with its residual add."""
     h = apply_norm(bp["ln_x"], x, cfg.norm_type)
     return x + attn.cross_attention_layer(cfg, bp["cross"], h, kv).to(x.dtype)
+
+
+def _decoder_group(cfg: ArchConfig, gp: Params, x, positions, enc_out):
+    """One decoder group: each block's self-attention and MLP, then its
+    cross-attention to ``enc_out`` (keys and values computed here, as in
+    JAX's scan body).  Returns ``(x, aux)``."""
+    aux = torch.zeros((), device=x.device)
+    for j, kind in enumerate(cfg.pattern):
+        bp = gp[f"b{j}"]
+        x, a = _block_forward(cfg, kind, bp, x, positions, causal=True)
+        x = _cross(cfg, bp, x, attn.encode_cross_kv(cfg, bp["cross"], enc_out))
+        aux = aux + a
+    return x, aux
 
 
 def _encdec_forward(cfg: ArchConfig, params: Params, batch):
@@ -445,12 +452,9 @@ def _encdec_forward(cfg: ArchConfig, params: Params, batch):
     x = embed(params["embed"], tokens).to(_dtype(cfg))
     aux = torch.zeros((), device=x.device)
     for gi in range(cfg.n_groups):
-        gp = index_params(params["blocks"], gi)
-        for j, kind in enumerate(cfg.pattern):
-            bp = gp[f"b{j}"]
-            x, a = _block_forward(cfg, kind, bp, x, positions, causal=True)
-            x = _cross(cfg, bp, x, attn.encode_cross_kv(cfg, bp["cross"], enc_out))
-            aux = aux + a
+        x, a = remat_call(cfg.remat != "none", _decoder_group, cfg,
+                          index_params(params["blocks"], gi), x, positions, enc_out)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm_type)
     return _head(cfg, params, x), aux
 

@@ -15,7 +15,10 @@ Queue 3); wherever JAX's is finite the two are the same.  The sLSTM has a
 sequential h_{t-1} dependence through its head-block-diagonal recurrent
 weights, so it runs token by token, as JAX's per-token scan.  The chunk
 loop and the token loop run under the profiler scopes "mlstm" and "slstm"
-(JAX's ``named_scope``).
+(JAX's ``named_scope``).  With gradients on, each mLSTM chunk runs under
+``torch.utils.checkpoint``, JAX's nested remat (``jax.checkpoint`` around
+the chunk body); the sLSTM's token loop has none, as in JAX (layer-level
+remat comes from the model's group loop).
 
 Dtypes are JAX's (float32 parameters; a bfloat16 input gives float32
 projections).  The sLSTM state starts in x's dtype and is carried in the
@@ -31,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import dense, init_dense, normal, promote
+from repro_torch.models.layers import dense, init_dense, normal, promote, remat_call
 
 Params = dict
 
@@ -52,6 +55,31 @@ def init_mlstm(cfg: ArchConfig, g: torch.Generator, device="cpu") -> Params:
         "w_if": init_dense(g, di, 2 * H, bias=True, device=device),
         "down": init_dense(g, di, d, device=device),
     }
+
+
+def _mlstm_chunk(C, n, q_i, k_i, v_i, li, lf, causal):
+    """One chunk from the carried (C, n), q_i already scaled: ``(out (B, H,
+    c, dh), C, n)``."""
+    F_ = torch.cumsum(lf, dim=-1)  # (B, H, c): F_t = Σ_{τ≤t} logf
+    # decay(s→t) = exp(F_t − F_s); score = q·k · decay · i_s.  Masked before
+    # the exp: above the diagonal F_t − F_s >= 0 grows with the distance, and
+    # JAX's exp-then-mask makes inf · 0 = NaN there
+    w = torch.exp(torch.where(causal, F_[..., :, None] - F_[..., None, :] + li[..., None, :],
+                              float("-inf")))
+    sc = torch.einsum("bhid,bhjd->bhij", q_i, k_i) * w
+    num = torch.einsum("bhij,bhjd->bhid", sc, v_i)
+    den = torch.einsum("bhij,bhjd->bhid", sc, torch.ones_like(v_i[..., :1]))[..., 0]
+    # carried-state contribution: decay exp(F_t)
+    dq = torch.exp(F_)[..., None] * q_i
+    num = num + torch.einsum("bhid,bhde->bhie", dq, C)
+    den = den + torch.einsum("bhid,bhd->bhi", dq, n)
+    out = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
+    # fold the chunk into the state with tail decays exp(F_last − F_s + logi_s)
+    tail = torch.exp(F_[..., -1:] - F_ + li)  # (B, H, c)
+    C = torch.exp(F_[..., -1])[..., None, None] * C + torch.einsum(
+        "bhj,bhjd,bhje->bhde", tail, k_i, v_i)
+    n = torch.exp(F_[..., -1])[..., None] * n + torch.einsum("bhj,bhjd->bhd", tail, k_i)
+    return out, C, n
 
 
 def _mlstm_chunked(q, k, v, logi, logf, chunk: int, state=None):
@@ -78,28 +106,11 @@ def _mlstm_chunked(q, k, v, logi, logf, chunk: int, state=None):
     outs = []
     with torch.profiler.record_function("mlstm"):
         for s in range(0, T, c):
-            q_i = q[:, :, s:s + c] * inv_sqrt_dh  # scale queries once
-            k_i, v_i = k[:, :, s:s + c], v[:, :, s:s + c]
-            li, lf = logi[:, :, s:s + c], logf[:, :, s:s + c]
-            F_ = torch.cumsum(lf, dim=-1)  # (B, H, c): F_t = Σ_{τ≤t} logf
-            # decay(s→t) = exp(F_t − F_s); score = q·k · decay · i_s.  Masked
-            # before the exp: above the diagonal F_t − F_s >= 0 grows with the
-            # distance, and JAX's exp-then-mask makes inf · 0 = NaN there
-            w = torch.exp(torch.where(causal, F_[..., :, None] - F_[..., None, :]
-                                      + li[..., None, :], float("-inf")))
-            sc = torch.einsum("bhid,bhjd->bhij", q_i, k_i) * w
-            num = torch.einsum("bhij,bhjd->bhid", sc, v_i)
-            den = torch.einsum("bhij,bhjd->bhid", sc, torch.ones_like(v_i[..., :1]))[..., 0]
-            # carried-state contribution: decay exp(F_t)
-            dq = torch.exp(F_)[..., None] * q_i
-            num = num + torch.einsum("bhid,bhde->bhie", dq, C)
-            den = den + torch.einsum("bhid,bhd->bhi", dq, n)
-            outs.append(num / torch.clamp(torch.abs(den), min=1.0)[..., None])
-            # fold the chunk into the state with tail decays exp(F_last − F_s + logi_s)
-            tail = torch.exp(F_[..., -1:] - F_ + li)  # (B, H, c)
-            C = torch.exp(F_[..., -1])[..., None, None] * C + torch.einsum(
-                "bhj,bhjd,bhje->bhde", tail, k_i, v_i)
-            n = torch.exp(F_[..., -1])[..., None] * n + torch.einsum("bhj,bhjd->bhd", tail, k_i)
+            out, C, n = remat_call(True, _mlstm_chunk, C, n,
+                                   q[:, :, s:s + c] * inv_sqrt_dh,  # scale queries once
+                                   k[:, :, s:s + c], v[:, :, s:s + c], logi[:, :, s:s + c],
+                                   logf[:, :, s:s + c], causal)
+            outs.append(out)
     out = torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
     return out, (C, n)
 
@@ -205,8 +216,8 @@ def slstm_layer(cfg: ArchConfig, params: Params, x: torch.Tensor, return_cache: 
     c = n = h = m = x.new_zeros((B, H, dh))
     hs = []
     with torch.profiler.record_function("slstm"):
-        for t in range(T):
-            c, n, h, m = _slstm_step(wx[:, t], params["r"], c, n, h, m)
+        for wx_t in wx.unbind(1):  # not wx[:, t]: each index's backward fills all of wx
+            c, n, h, m = _slstm_step(wx_t, params["r"], c, n, h, m)
             hs.append(h)
     out = dense(params["out"], torch.stack(hs, dim=1).reshape(B, T, d))
     if return_cache:

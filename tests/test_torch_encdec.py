@@ -6,9 +6,10 @@ non-causal ``attention_layer``, ``encode_cross_kv`` and
 ``encode``, ``forward``, ``loss_fn``, ``init_encdec_caches`` and
 ``decode_step`` over three Chimera ring folds, with the Chimera
 cross-attention (the config's) and the softmax one (``use_chimera=False``);
-the bridge and the registry for whisper-tiny; and the refusals that remain
+the bridge and the registry for whisper-tiny; the refusals that remain
 (the enc-dec prefill, hidden-state decode, LM engine and launcher, which the
-JAX package lacks too, and the non-causal mode's gradient off the CPU).
+JAX package lacks too); and the non-causal mode's gradient off the CPU,
+which goes through the kernels' autograd Function.
 
 The same inputs, made with numpy from a seed or drawn by the JAX package and
 carried through ``bridge.py``, go through both packages, in float32.
@@ -171,14 +172,36 @@ def test_noncausal_plain_versions_agree_and_the_contract_names_the_mode():
         wops.sliding_window_attention(_t(q), _t(k), _t(v), 8)
 
 
-def test_non_causal_gradient_off_the_cpu_raises():
-    """The non-causal mode is forward only: a call that needs a gradient on a
-    device with the kernel raises before any launch (a meta tensor stands in
-    for the card here), instead of falling back to the plain version."""
+def test_non_causal_gradient_off_the_cpu_raises(monkeypatch):
+    """A call that needs a gradient on a device with the kernels (a meta
+    tensor stands in for the card here) goes through
+    ``_NonCausalAttention`` (the forward kernel with lse, the backward
+    kernels), never the plain version, and raises where no kernel runs;
+    and ``contract(causal=False)`` refuses what the non-causal launchers
+    refuse."""
     q, k, v = (torch.empty(s, device="meta") for s in ((1, 6, 8, 64), (1, 6, 16, 64),
                                                        (1, 6, 16, 64)))
-    with pytest.raises(NotImplementedError, match="forward only"):
-        wops.noncausal_attention(q.requires_grad_(True), k, v)
+    calls = []
+
+    def plain(*a):
+        raise AssertionError("the plain version ran for a tensor off the CPU")
+
+    monkeypatch.setattr(wops, "noncausal_attention_plain", plain)
+    monkeypatch.setattr(wops._NonCausalAttention, "apply",
+                        lambda *a: calls.append(a) or a[0].new_empty((1, 6, 8, 64)))
+    wops.noncausal_attention(q.requires_grad_(True), k, v)
+    assert len(calls) == 1 and calls[0][0] is q
+    monkeypatch.undo()
+    # the Function itself launches and has no route for the meta device
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        wops.noncausal_attention(q, k, v)
+    # the launchers' checks: (d, dv), heads over kv-heads, Tq >= 1, Tk >= 1
+    base = dict(d=64, dv=64, H=6, Hkv=6, causal=False, n_q=2048, n_k=2048)
+    assert wops.contract(**base) is None
+    assert wops.contract(**dict(base, H=6, Hkv=3)) is None
+    for bad, word in ((dict(n_q=0), "query rows"), (dict(n_k=0), "keys"),
+                      (dict(d=48, dv=48), "not in"), (dict(Hkv=4), "kv-heads")):
+        assert word in wops.contract(**dict(base, **bad)), bad
 
 
 # --------------------------------------------------------------------------

@@ -135,11 +135,13 @@ def test_window_route_at_w_covering_t_equals_blockwise_plain(T, H, Hkv, dh, dv, 
 
 def test_non_causal_softmax_raises():
     """Non-causal softmax runs on the CPU (tests/test_torch_encdec.py); off
-    the CPU it is the window kernel's non-causal mode, forward only, so a
-    call that needs a gradient raises before any launch (meta tensors stand
-    in for the card's) rather than falling back to the plain version."""
+    the CPU it is the window kernels' non-causal mode, which a call that
+    needs a gradient reaches through their autograd Function: where no
+    kernel runs (meta tensors stand in for the card's) it raises before any
+    launch rather than falling back to the plain version, which would
+    return meta tensors."""
     q, k, v = (_t(x).to("meta") for x in _qkv(32, 4, 2, 16, 16, seed=0))
-    with pytest.raises(NotImplementedError, match="forward only"):
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
         TA.blockwise_softmax_attention(q.requires_grad_(True), k, v, 16, causal=False)
 
 
