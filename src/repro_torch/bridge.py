@@ -112,3 +112,25 @@ def rules_from_numpy(values, masks, weights, hard, device=None) -> symbolic.Rule
         weights=torch.from_numpy(np.array(weights, np.float32)),
         hard=torch.from_numpy(np.array(hard, bool)),
     ).to(device)
+
+
+def quant_state_from_numpy(S_q, S_scale, Z_q, Z_scale, k_buf, v_buf, count, device=None):
+    """A JAX ``QuantChimeraState``'s arrays, as numpy in its flatten order ->
+    the port's :class:`~repro_torch.core.state_quant.QuantChimeraState` on
+    ``device`` (``None`` means ``"cuda"``; without a GPU it raises).  The
+    ints and scales keep their dtypes; bfloat16 ring buffers (numpy's
+    ``ml_dtypes`` bfloat16) cross through float32, which holds them exactly."""
+    from repro_torch.core.state_quant import QuantChimeraState
+
+    device = resolve_device(device, "quant_state_from_numpy")
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        if a.dtype.kind not in "fi":
+            raise TypeError(f"quant_state_from_numpy: leaf of dtype {a.dtype}")
+        return torch.from_numpy(np.array(a))
+
+    leaves = (S_q, S_scale, Z_q, Z_scale, k_buf, v_buf, count)
+    return QuantChimeraState(*(conv(a).to(device) for a in leaves))

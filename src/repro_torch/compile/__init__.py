@@ -2,8 +2,7 @@
 
     from repro_torch.compile import compile_program
 
-    program = compile_program(ccfg, params, rules=lambda c: default_rules(c, sig, device=...),
-                              verify=False)
+    program = compile_program(ccfg, params, rules=lambda c: default_rules(c, sig, device=...))
     engine = program.deploy(DeploySpec(flow=FlowEngineConfig(capacity=2048)))
 """
 

@@ -7,8 +7,8 @@ failing (nonzero exit) if any link breaks::
 
     PYTHONPATH=src python -m repro_torch.compile.gate
 
-It runs on the card; on a host without a GPU it raises.  The static
-verification pass is not ported, so the compile passes ``verify=False``.
+It runs on the card; on a host without a GPU it raises.  The compile runs
+the static-verification pass, as the JAX gate's does.
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ def main(device=None) -> int:
     program = compile_program(
         ccfg, params,
         rules=lambda c: C.default_rules(c, scenario.anomaly_signature, device=device),
-        verify=False,
     )
     print(program.ledger.as_table())
     if not program.ledger.fits():

@@ -26,16 +26,20 @@ The plan and tables are bit-identical to the JAX package's: every absmax
 and ``log2`` is taken on Python floats from the same float32 values,
 ``torch.round`` rounds half to even as ``jnp.round`` does, and the pooling
 is floor division.  :func:`int_flow_score` is the plain version of the
-``int_flow_score`` kernel (``kernels/flow_ingest/int_ops.py``).  The jaxpr
-audits (``score_jaxpr``, ``assert_integer_jaxpr``) wait for the analysis
-port.
+``int_flow_score`` kernel (``kernels/flow_ingest/int_ops.py``).
+
+The audits of the JAX package's ``score_jaxpr`` / ``assert_integer_jaxpr``
+(:482-536) are :func:`score_graph` (the plain version traced on fake
+tensors: an aten graph, nothing executes), :func:`float_ops_in_graph` and
+:func:`assert_integer_graph`; the interval proof
+(:mod:`repro_torch.analysis.intervals`) reads the same graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -460,3 +464,58 @@ def requantize_rule_weights(plan: IntScorePlan, weights: torch.Tensor) -> torch.
     """Re-lower a swapped-in HL-MRF weight column at the installed plan's
     LSB — shape- and dtype-stable, so a swap rewrites the installed table."""
     return _q(weights, plan.rule_frac, plan.weight_bits)
+
+
+# --------------------------------------------------------------------------
+# graph audit: no float op may appear in the int score path
+# --------------------------------------------------------------------------
+
+def score_graph_inputs(tables: Dict[str, torch.Tensor], rules: symbolic.RuleSet
+                       ) -> List[torch.Tensor]:
+    """The leading inputs of :func:`score_graph`, in the JAX package's
+    flatten order of ``(tables, rules)``: the tables by sorted key, then
+    ``rules.tensors()``."""
+    return [tables[k] for k in sorted(tables)] + list(rules.tensors())
+
+
+def score_graph(plan: IntScorePlan, tables, rules: symbolic.RuleSet, batch: int,
+                d_model: int) -> torch.fx.GraphModule:
+    """:func:`int_flow_score` traced at the given shapes on fake tensors
+    (nothing executes; the counterpart of ``score_jaxpr``).  Its inputs are
+    flat, in the order ``(tables, rules, hidden_sum, count, sig, sticky)``
+    with ``(tables, rules)`` as :func:`score_graph_inputs` gives them."""
+    from repro_torch.analysis.graph_lint import trace_graph
+
+    keys = sorted(tables)
+    n = len(keys)
+    W = rules.values.shape[1]
+    flat = [t.detach().cpu() for t in score_graph_inputs(tables, rules)] + [
+        torch.zeros((batch, d_model), dtype=torch.int32),
+        torch.zeros((batch,), dtype=torch.int32),
+        torch.zeros((batch, W), dtype=torch.int32),
+        torch.zeros((batch,), dtype=torch.bool),
+    ]
+
+    def score(*xs):
+        t = dict(zip(keys, xs[:n]))
+        r = symbolic.RuleSet(*xs[n : n + 4])
+        return int_flow_score(plan, t, r, *xs[n + 4 :])
+
+    return trace_graph(score, *flat)
+
+
+def float_ops_in_graph(gm) -> List[str]:
+    """Labels of every float operand, result, literal or constant of a
+    traced graph (:func:`repro_torch.analysis.graph_lint.float_ops_in_graph`)."""
+    from repro_torch.analysis.graph_lint import float_ops_in_graph as _impl
+
+    return _impl(gm)
+
+
+def assert_integer_graph(plan: IntScorePlan, tables, rules: symbolic.RuleSet,
+                         batch: int = 4, d_model: Optional[int] = None) -> None:
+    """Raise if the lowered score program contains ANY float op."""
+    d = d_model if d_model is not None else int(tables["cls_w"].shape[0])
+    bad = float_ops_in_graph(score_graph(plan, tables, rules, batch, d))
+    if bad:
+        raise AssertionError(f"int-emulation score path contains float ops: {sorted(set(bad))}")

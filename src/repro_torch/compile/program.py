@@ -15,8 +15,10 @@ per-stage :class:`ResourceLedger` that proves it fits the
 numpy :class:`~repro_torch.checkpoint.Checkpointer` in the JAX package's
 layout, so a program saved by either package loads in the other.
 
-Pass 6 of the JAX package (static verification, ``analysis/verify.py``)
-is not ported: ``compile_program(verify=True)`` raises.
+Pass 6, static verification (:func:`repro_torch.analysis.verify
+.verify_program`: TCAM lint, the hot path's graph lint, and under
+int-emulation the float lint and the interval overflow proof), runs by
+default and lands its findings as ``static-verification`` ledger rows.
 """
 
 from __future__ import annotations
@@ -41,13 +43,6 @@ from repro_torch.core.state_quant import StateQuantConfig
 from repro_torch.train.classifier import ClassifierConfig
 
 RulesLike = Union[symbolic.RuleSet, Callable[[ClassifierConfig], symbolic.RuleSet], None]
-
-VERIFY_NOT_PORTED = (
-    "compile_program(verify=True): the static-verification pass (the JAX package's "
-    "analysis/verify.py: TCAM lint, jaxpr lint, interval proof) is not ported; it waits "
-    "for the analysis tooling item of ROADMAP Queue 1. Pass verify=False."
-)
-
 
 @dataclasses.dataclass
 class DataplaneProgram:
@@ -210,12 +205,11 @@ def compile_program(
 
     Raises :class:`BudgetError` naming the offending stage when any pass
     exceeds ``spec``, unless that stage is listed in ``waivers`` (the
-    violation is then recorded in the ledger instead).  ``verify=True``, the
-    JAX package's default, raises ``NotImplementedError``: its pass is not
-    ported, and it is never skipped silently.
+    violation is then recorded in the ledger instead).  ``verify`` (pass 6)
+    records the static-verification rows; an error among them raises
+    :class:`~repro_torch.analysis.intervals.AnalysisError` unless the
+    ``static-verification`` stage is waived.
     """
-    if verify:
-        raise NotImplementedError(VERIFY_NOT_PORTED)
     device = params["cls"]["w"].device
     ledger = ResourceLedger()
 
@@ -258,9 +252,7 @@ def compile_program(
     ledger.extend(entries)
     ledger.report = report
 
-    ledger.apply_waivers(tuple(waivers))
-    ledger.raise_if_over()
-    return DataplaneProgram(
+    program = DataplaneProgram(
         ccfg=ccfg,
         params=params,
         rules=rules,
@@ -274,6 +266,30 @@ def compile_program(
         ledger=ledger,
         spec=spec,
     )
+
+    # pass 6 — static verification.  Findings are ledger rows either way;
+    # an error fails the compile louder than a budget line (AnalysisError)
+    # unless the stage is waived
+    if verify:
+        from repro_torch.analysis.intervals import AnalysisError
+        from repro_torch.analysis.verify import STAGE as VERIFY_STAGE
+        from repro_torch.analysis.verify import verify_program
+
+        ledger.extend(verify_program(program, int_cfg=int_cfg, strict=False))
+        ledger.apply_waivers(tuple(waivers))
+        bad = [e for e in ledger.violations() if e.stage == VERIFY_STAGE]
+        if bad:
+            lines = "; ".join(f"{e.resource}: {e.detail}" for e in bad)
+            raise AnalysisError(
+                f"static verification failed — {lines}. Pass "
+                f"waivers=('static-verification',) to record-and-accept, "
+                f"or verify=False to skip the pass.",
+                report=ledger,
+            )
+    else:
+        ledger.apply_waivers(tuple(waivers))
+    ledger.raise_if_over()
+    return program
 
 
 def compile_delta(

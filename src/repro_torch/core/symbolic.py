@@ -1,7 +1,8 @@
 """Symbolic execution path: ternary rules over packed signatures (paper §3.5).
 
-Port of ``repro.core.symbolic`` lines 32-80 and 154-184 (the Eq. 19 SRAM
-image of the soft-rule weights).  A hard TCAM hit is
+Port of ``repro.core.symbolic`` lines 32-108 (the match, and the ternary set
+algebra the TCAM lint reads) and 154-184 (the Eq. 19 SRAM image of the
+soft-rule weights).  A hard TCAM hit is
 (sig & mask) == (value & mask) on every word.
 
 Packed signatures are **int32 bit patterns** here, where the JAX package
@@ -78,6 +79,38 @@ def hard_hit(hits: torch.Tensor, rules: RuleSet) -> torch.Tensor:
 def soft_score(hits: torch.Tensor, rules: RuleSet) -> torch.Tensor:
     """s_sym = Σ_q W_q · hit_q — the compiled-table gather at line rate."""
     return torch.sum(hits.to(torch.float32) * rules.weights, dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Ternary set algebra — control-plane helpers for the TCAM lint
+# --------------------------------------------------------------------------
+
+def words_u32(a) -> np.ndarray:
+    """Signature words (int32 bit patterns, a tensor or an array; or uint32
+    words) as numpy uint32: the unsigned reading the set algebra needs, so
+    that a set sign bit is bit 31, not a negative number."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        return a
+    return (a.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+
+
+def rule_covers(value_i, mask_i, value_j, mask_j) -> bool:
+    """Does rule *i*'s match set contain rule *j*'s (match(j) ⊆ match(i))?
+
+    Exactly when every care bit of i is also a care bit of j and the two
+    values agree on i's care bits.  Word-wise, control-plane only."""
+    vi, mi, vj, mj = map(words_u32, (value_i, mask_i, value_j, mask_j))
+    return bool(np.all(mi & ~mj == 0) and np.all((vi ^ vj) & mi == 0))
+
+
+def rules_intersect(value_i, mask_i, value_j, mask_j) -> bool:
+    """Can some signature hit both rules?  Exactly when the values agree on
+    the shared care bits."""
+    vi, mi, vj, mj = map(words_u32, (value_i, mask_i, value_j, mask_j))
+    return bool(np.all((vi ^ vj) & mi & mj == 0))
 
 
 def compile_weights_to_table(

@@ -253,7 +253,6 @@ def build(args: argparse.Namespace, params=None, arch=None) -> Deployment:
         rules=lambda c: C.default_rules(c, scenario.anomaly_signature, device=device),
         backend=args.backend,
         waivers=() if args.smoke else ("state-quantization",),
-        verify=False,
     )
     if args.ledger:
         print(program.ledger.as_table())

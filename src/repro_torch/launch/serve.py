@@ -103,7 +103,6 @@ def build(args: argparse.Namespace, params=None, arch=None) -> Deployment:
     program = compile_program(
         ccfg, params, backend=args.backend,
         waivers=(() if args.smoke else ("state-quantization",)) + tuple(args.waive),
-        verify=False,
     )
     engine = program.deploy(DeploySpec(engine="lm", batch_slots=args.slots,
                                        max_len=args.max_len, device=device))

@@ -40,9 +40,9 @@ main thread at a tick boundary, copies the delta's tables to the card.
 
 Over a :class:`~repro_torch.serve.sharded_flow_engine.ShardedFlowEngine`
 the harvest reads each shard's rows in slot order, shard by shard, as the
-JAX package's does.  Not ported: ``jit_entry_points`` (the retrace
-sentry, item 12): on the card the loop's counterpart of "no retrace" is
-"no graph captured after warm-up", which ``chip_smoke.py`` checks.
+JAX package's does.  :meth:`AdaptiveLoop.capture_entry_points` hands the
+graph-capture sentry the inner engine's entry points, namespaced
+``engine.``; the drift statistics run eagerly and capture nothing.
 """
 
 from __future__ import annotations
@@ -265,6 +265,13 @@ class AdaptiveLoop:
             else ThreadPoolExecutor(max_workers=1, thread_name_prefix="chimera-cp")
         )
         self._pending: Optional[Tuple[Future, Dict[str, float], Tuple[str, ...], int]] = None
+
+    def capture_entry_points(self) -> Dict[str, Any]:
+        """The inner engine's capture entry points, namespaced ``engine.``,
+        for the graph-capture sentry (the JAX loop's jitted drift paths have
+        no counterpart here: they run eagerly)."""
+        return {f"engine.{name}": ep
+                for name, ep in self.engine.capture_entry_points().items()}
 
     # ------------------------------------------------------------------
     # fast path

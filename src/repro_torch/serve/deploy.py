@@ -106,9 +106,10 @@ class Engine(Protocol):
     """The structural contract of every deployed serving runtime.
     ``ingest`` / ``flow_scores`` / ``swap_tables`` may raise
     ``NotImplementedError`` where the modality has no flow table (the LM
-    slot engine).  The JAX package's ``jit_entry_points`` (for its retrace
-    sentry) has no counterpart yet: the port's is the fused engine's
-    captured graphs, which the analysis port will audit."""
+    slot engine).  ``capture_entry_points`` is the counterpart of the JAX
+    package's ``jit_entry_points``: the named entry points the graph-capture
+    sentry (:mod:`repro_torch.analysis.retrace_sentry`) counts; the LM slot
+    engine's is empty (its decode tick captures no graph)."""
 
     stats: Any
 
@@ -117,6 +118,8 @@ class Engine(Protocol):
     def flow_scores(self, fid: int) -> Dict[str, float]: ...
 
     def swap_tables(self, ruleset=None, weights=None, weight_spec=None, delta=None): ...
+
+    def capture_entry_points(self) -> Dict[str, Any]: ...
 
 
 def _site_fcfg(program, fcfg: FlowEngineConfig, backend: Optional[str]) -> FlowEngineConfig:

@@ -41,8 +41,10 @@ numpy trees; their decode-cache rows are :class:`~repro_torch.core
 flattened by position as the JAX package's are.
 
 Topology cache: one engine per shard count is kept (``keep_topologies``),
-so resharding back to a count seen before reuses its engine.  The JAX
-package's ``jit_entry_points`` waits for the retrace sentry's port.
+so resharding back to a count seen before reuses its engine.
+:meth:`ElasticFlowService.capture_entry_points` names every cached
+topology's entry points ``shards<N>.<name>``, so the graph-capture sentry
+sees a reshard that brings a new step key into steady-state ingest.
 """
 
 from __future__ import annotations
@@ -320,6 +322,13 @@ class ElasticFlowService:
     @property
     def stats(self):
         return self.engine.stats
+
+    def capture_entry_points(self) -> Dict[str, Any]:
+        """Every cached topology's capture entry points, namespaced
+        ``shards<N>.<name>``."""
+        return {f"shards{S}.{name}": ep
+                for S in sorted(self._engines)
+                for name, ep in self._engines[S].capture_entry_points().items()}
 
     @property
     def num_shards(self) -> int:

@@ -112,6 +112,11 @@ class ServeEngine:
             "flow-serving engines"
         )
 
+    def capture_entry_points(self) -> Dict:
+        """None: the decode tick runs eagerly and captures no graph, so the
+        graph-capture sentry has nothing to count here."""
+        return {}
+
     # ------------------------------------------------------------------
     # compiled-program deployment (the JAX package's deprecated shim)
     # ------------------------------------------------------------------

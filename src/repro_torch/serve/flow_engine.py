@@ -51,7 +51,7 @@ engine is :mod:`repro_torch.serve.sharded_flow_engine`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Collection, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +113,25 @@ class SwapRecord:
     churn_ok: bool  # Eq. 18: install completed within the control epoch
     t_cp_s: float = 0.0  # the control-plane epoch the install was held to
     source: str = "manual"  # "manual" | "delta" (audited ProgramDelta)
+
+
+class CaptureKeys:
+    """One entry point of an engine for the graph-capture sentry
+    (:class:`repro_torch.analysis.retrace_sentry.RetraceSentry`): the
+    ``(width, pkt_len)`` keys its flow step has been captured or run at.
+
+    On the card the fused engine's keys are its captured CUDA graphs
+    (:meth:`FlowEngine.fused_graphs`): a new key is a capture, the port's
+    counterpart of a retrace.  On the CPU nothing is captured, so the same
+    entry point counts the keys the step has run at, the keys the card's
+    graphs would be captured under.  The per-round step runs eagerly on
+    both; its key is its launch shape, ``(num_shards * lanes, pkt_len)``."""
+
+    def __init__(self, keys: Callable[[], Collection[Tuple[int, int]]]):
+        self._keys = keys
+
+    def capture_count(self) -> int:
+        return len(self._keys())
 
 
 def _state_leaves(caches) -> List[torch.Tensor]:
@@ -513,6 +532,12 @@ class TableEngine:
         self.tables = [FlowTableDirectory(fcfg.capacity) for _ in range(S)]
         self._tick = 0
         self._step = make_flow_step(ccfg, S * self._n_slots, self._int_plan)
+        self._step_keys: Set[Tuple[int, int]] = set()  # (width, pkt_len) run at
+
+    def capture_entry_points(self) -> Dict[str, CaptureKeys]:
+        """Named entry points for the graph-capture sentry (the counterpart
+        of the JAX package's ``jit_entry_points``): the per-round step."""
+        return {"step": CaptureKeys(lambda: self._step_keys)}
 
     def _step_rules(self):
         """The ``rules`` argument of the flow step: the installed RuleSet,
@@ -657,6 +682,8 @@ class TableEngine:
         n_steps = max((len(c) for c in per_shard), default=0)
 
         scratch = np.arange(S, dtype=np.int64)[:, None] * n_slots + self.fcfg.capacity
+        if n_steps:
+            self._step_keys.add((S * lanes, pkt_len))
         res_rows = np.empty((P, _RESULT_FIXED + self.ccfg.sig_words), np.int32)
         dev = self.device
         for k in range(n_steps):
@@ -786,6 +813,7 @@ class FlowEngine(TableEngine):
         self._staging: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
         self._graphs: Optional[fused_mod.FlowStepGraphs] = None
         self._fused_eager = None
+        self._fused_keys: Set[Tuple[int, int]] = set()  # the CPU's: (width, pkt_len) run at
         if fcfg.fused:
             score_fn = (fused_mod.make_score_fn(ccfg) if plan is None
                         else fused_mod.make_int_score_fn(plan))
@@ -833,14 +861,27 @@ class FlowEngine(TableEngine):
         if not self.fcfg.fused:
             return 0
         widths = self.fused_widths()
-        if self._graphs is not None:
-            for w in widths:
+        for w in widths:
+            if self._graphs is not None:
                 self._graphs.capture(w, pkt_len)
+            else:
+                self._fused_keys.add((w, pkt_len))
         return len(widths)
 
     def fused_graphs(self) -> Dict[Tuple[int, int], "fused_mod.StepGraph"]:
         """The captured graphs by ``(width, pkt_len)`` (empty on the CPU)."""
         return dict(self._graphs.graphs) if self._graphs is not None else {}
+
+    def capture_entry_points(self) -> Dict[str, CaptureKeys]:
+        """The per-round step and, with ``fcfg.fused``, the fused step: its
+        captured graphs on the card, the keys it has run at on the CPU."""
+        entries = super().capture_entry_points()
+        if self.fcfg.fused:
+            if self._graphs is not None:
+                entries["fused"] = CaptureKeys(lambda: self._graphs.graphs.keys())
+            else:
+                entries["fused"] = CaptureKeys(lambda: self._fused_keys)
+        return entries
 
     # ------------------------------------------------------------------
     # state accounting
@@ -925,5 +966,6 @@ class FlowEngine(TableEngine):
         if self._graphs is not None:
             self._graphs.run(width, stack, res)
             return
+        self._fused_keys.add((width, stack.shape[-1] - 2))
         outs = self._fused_eager(*self._table_args(), *fused_mod.step_inputs(stack))
         res.copy_(pack_step_outputs(outs).reshape(res.shape))

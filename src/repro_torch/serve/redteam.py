@@ -27,10 +27,8 @@ and each campaign's scorecard holds:
    to table-resident flows.
 
 The engines run on ``RedTeamConfig.device`` (``"cuda"`` unless the caller
-asks for ``"cpu"``).  Programs compile with ``verify=False``: the JAX
-package's static-verification pass is not ported (ROADMAP Queue 1 item
-12), and the port never skips it silently.  The CLI exits 1 if any gate
-check fails::
+asks for ``"cpu"``).  Programs compile with the static-verification pass
+on, as the JAX package's do.  The CLI exits 1 if any gate check fails::
 
     PYTHONPATH=src python -m repro_torch.serve.redteam --fast --out scorecard.json
     PYTHONPATH=src python -m repro_torch.serve.redteam --campaigns all --device cpu
@@ -203,7 +201,7 @@ def _compile_for_signature(ccfg, params, signature, backend, device):
     return compile_program(
         ccfg, params,
         rules=lambda c: C.default_rules(c, signature, device=device),
-        backend=backend, verify=False,
+        backend=backend,
     )
 
 

@@ -34,8 +34,10 @@ shards, all resident on one device:
 * **Per-shard budgets**: the Eq. 11 flow-table byte budget holds per shard
   at construction; aggregate capacity is ``num_shards x capacity``.
 
-The JAX package's ``mesh=`` has no counterpart on one card, and
-``jit_entry_points`` waits for the retrace sentry's port.
+The JAX package's ``mesh=`` has no counterpart on one card.  The
+counterpart of ``jit_entry_points`` is the per-round step's
+``capture_entry_points`` (:class:`~repro_torch.serve.flow_engine
+.TableEngine`), keyed by its launch shape ``(num_shards * lanes, pkt_len)``.
 """
 
 from __future__ import annotations

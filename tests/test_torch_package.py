@@ -59,13 +59,16 @@ def test_guard_walks_every_port_package():
     ``data/`` included, and every one of them is covered."""
     walked = set(_port_files())
     pkg_root = ROOT / "src" / "repro_torch"
-    for pkg in ("launch", "data", "serve", "core", "compile", "kernels", "runtime"):
+    for pkg in ("launch", "data", "serve", "core", "compile", "kernels", "runtime", "analysis"):
         assert (pkg_root / pkg / "__init__.py") in walked, pkg
     for mod in ("launch/flow_serve.py", "data/traces.py", "data/campaigns.py",
                 "serve/adaptive_loop.py", "serve/redteam.py", "core/two_timescale.py",
                 "runtime/fault_tolerance.py", "serve/sharded_flow_engine.py",
                 "serve/elastic.py", "models/mamba.py", "models/xlstm.py",
-                "configs/jamba_15_large.py", "configs/xlstm_125m.py"):
+                "configs/jamba_15_large.py", "configs/xlstm_125m.py",
+                "analysis/graph_lint.py", "analysis/intervals.py", "analysis/tcam_lint.py",
+                "analysis/retrace_sentry.py", "analysis/verify.py", "analysis/gate.py",
+                "core/state_quant.py"):
         assert (pkg_root / mod) in walked, mod
 
 

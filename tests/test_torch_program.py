@@ -15,7 +15,7 @@
 * The deploy surface: ``deploy(DeploySpec())`` builds a ``FlowEngine``; a
   deploy leaves the program's ledger with this deploy's ``int-lowering``
   rows only; sharded and elastic deploys record the ``flow-table-sharding``
-  entry; ``verify=True`` raises.
+  entry; the default compile runs pass 6 (static verification).
 * ``swap_tables`` on the float backend, by weights, by a quantized table
   with its spec, by a ruleset and by a ``ProgramDelta``: the next batches
   match JAX's engine after the same swaps (decisions identical, floats
@@ -520,9 +520,13 @@ def test_deploy_defaults_to_the_card(models):
 
 
 def test_verify_pass_is_not_skipped_silently(models):
+    """The default compile runs pass 6: its rows are in the ledger."""
     _, _, tccfg, tparams = models["tiny"]
-    with pytest.raises(NotImplementedError, match="verify=False"):
-        compile_program(tccfg, tparams)
+    rows = [e for e in compile_program(tccfg, tparams).ledger.entries
+            if e.stage == "static-verification"]
+    assert [e.resource for e in rows] == ["tcam-lint-errors", "tcam-lint-warnings",
+                                          "hot-path-host-callbacks", "hot-path-weak-types"]
+    assert all(e.ok for e in rows)
 
 
 def test_gate_runs_on_the_cpu(capsys):
